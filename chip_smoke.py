@@ -12,19 +12,28 @@ in order; any failure exits non-zero and prints no result line:
      / spills;
   3. hold each kernel against its plain torch version on the card: at full
      width (2048 genes x 102,400 cells, Nh=5, int16 counts), at ragged
-     shapes, with delta_nu (Nb=2), with disp_grad True and False;
+     shapes, with delta_nu (Nb=2), with disp_grad True and False, and for
+     the velocity pair a gated case where omega ~ N(0, 1) puts a stated
+     share of elements below the relu;
   4. time each kernel, its plain version and its bound with CUDA events;
-  5. drive the main path at full width through the user entry points:
-     preprocess_for_phase_estimation(use_fused_nb=True) ->
-     PhaseFitModel(num_samples=8).fit(num_steps=50) -> one loss-only
-     evaluation, counting the kernel launches of that run;
+  5. drive the two-stage workflow at full width through the user entry
+     points, counting the kernel launches of each stage (counts set to 0
+     just before it, read just after):
+       stage 1: preprocess_for_phase_estimation(use_fused_nb=True) ->
+       PhaseFitModel(num_samples=8).fit(num_steps=50) -> one loss-only
+       evaluation;
+       stage 2: preprocess_for_velocity_estimation(model_type="lrmn",
+       use_fused_nb=True) -> VelocityFitModel conditioned on stage 1's nu,
+       phi_xy and shape_inv, num_samples=2 -> fit(num_steps=50) -> one
+       loss-only evaluation;
   6. print the kernel table as one JSON line, the nvidia-smi line, and
      last {"ok": true, "device": {...}}.
 
-The configuration is the repository's Stereo-seq-class phase fit
-(bench.py "phase_scale"): NB likelihood, fused kernels, int16 counts,
-``lgamma_k_sum`` given, no delta_nu; counts are drawn on the card from
---seed.  Nothing here falls back to the CPU.
+The configuration is the repository's Stereo-seq-class fit (bench.py
+"phase_scale" and "velo_scale_svi"): NB likelihood, fused kernels, int16
+counts, ``lgamma_k_sum`` given, no delta_nu; spliced counts
+floor(exp(N(1, 0.8^2))) and unspliced floor(exp(N(0.4, 0.8^2))) are drawn on
+the card from --seed.  Nothing here falls back to the CPU.
 """
 from __future__ import annotations
 
@@ -34,12 +43,14 @@ import math
 import subprocess
 import sys
 import time
+import types
 
 NG, NC, H = 2048, 102_400, 2
 NH = 2 * H + 1
 RAGGED = [(1, 1), (129, 257), (3, 300)]
 LOSS_RTOL = 1e-5        # tests/test_nb_kernels.py:32
 GRAD_RTOL = 1e-4        # max|a-b| / max|a|, tests/test_nb_kernels.py:52
+VELO_GRAD_RTOL = 5e-4   # max|a-b| / max|a|, tests/test_nb_kernels.py:199
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 PEAK_FP32_PER_S = 67e12      # H100 SXM, float32 outside the tensor cores
 
@@ -59,6 +70,18 @@ OPS = {
     "lg_stir": 22, "lg_small": 5, "lg_sel": 2,
     "dg_stir": 10, "dg_small": 3, "dg_sel": 1,
 }
+# FP32 operations per (S, U) element pair, counted from csrc/nb_velo.cu with
+# Nh = 5 and no delta_nu; the NB terms as in OPS, once for S and once for U:
+#   common: 2 count converts, ElogS dot + cf 11, dEs 10, x 2, xr 2,
+#           ElogU log + 2 adds 3, 2 x (log_b 1, a+k 1, lp 4), lp sum + loss 2
+#   fwdgrad: 2 x (softplus + sigmoid 10, g_sig + g_elog 2), g_e 1,
+#            relu gate + 1/xr 4, g_x * omega 1, dcf 1, domega 2, dzeta 10,
+#            dzeta_dphi 10, dnu terms 15, -gU 1, the sums over cells of the
+#            7 gene-indexed values 7
+#   disp (disp_grad only): 2 x (dlp_da + g_r 6), g_r sum 1, its cell sum 1
+#   fwd: 2 x softplus 6
+#   lgamma / digamma ratio: per count as in OPS, over S and U
+OPS_VELO = {"common": 45, "fwdgrad": 76, "disp": 14, "fwd": 12}
 
 
 def fail(msg):
@@ -105,8 +128,33 @@ def make_inputs(torch, Ng, Nc, seed, Nb=0, int16=True, device="cuda"):
     return S, nu, zeta, cf, r, dnu, Db
 
 
-def lgamma_k_sum(torch, S):
-    return torch.lgamma(S.double() + 1.0).sum().float()
+def make_velo_inputs(torch, Ng, Nc, seed, Nb=0, int16=True, gated=False,
+                     device="cuda"):
+    """Velocity kernel inputs: the phase inputs of the same seed plus U
+    floor(exp(N(0.4, 0.8^2))) (bench.py's velo_scale), zeta and zeta_dphi
+    at new random phases, omega exp(N(-1, 0.2^2)), log_beta and log_gamma.
+    ``gated``: omega ~ N(0, 1) and gamma near exp(-1), so that a large
+    share of elements sits below the relu."""
+    from velocycle_tpu_torch.ops.fourier import fourier_basis
+
+    S, nu, zeta, cf, r, dnu, Db = make_inputs(torch, Ng, Nc, seed, Nb=Nb,
+                                              int16=int16, device=device)
+    g = torch.Generator(device=device)
+    g.manual_seed(seed + 1)
+    rn = lambda *s: torch.randn(s, generator=g, device=device)  # noqa: E731
+    U = torch.floor(torch.exp(rn(Ng, Nc) * 0.8 + 0.4))
+    U = U.to(torch.int16) if int16 else U
+    phi = rn(Nc) * 3.0
+    zeta = fourier_basis(phi, H).contiguous()
+    zdphi = fourier_basis(phi, H, der=1).contiguous()
+    omega = rn(Nc) if gated else torch.exp(rn(Nc) * 0.2 - 1.0)
+    lbeta = rn(Ng) * 0.2
+    lgamma = rn(Ng) * 0.2 - (1.0 if gated else 0.0)
+    return S, U, nu, zeta, zdphi, cf, omega, lbeta, lgamma, r, dnu, Db
+
+
+def lgamma_k_sum(torch, *counts):
+    return sum(torch.lgamma(K.double() + 1.0).sum() for K in counts).float()
 
 
 # ---------------------------------------------------------------------------
@@ -144,12 +192,18 @@ def _ptxas_summary(log):
     return out
 
 
-# main-path instantiations: phase_kernel<int16_t, NH=5, GRAD, WANT_DISP,
-# HAS_DNU=false, SKIP_K=true>
+# main-path instantiations: <int16_t, NH=5, GRAD, WANT_DISP, HAS_DNU=false,
+# SKIP_K=true>; stage 2 conditions shape_inv, so velo_fwdgrad has no
+# dispersion gradient
 MAIN_SYMBOLS = {
     "phase_fwdgrad": "phase_kernelIsLi5ELb1ELb1ELb0ELb1E",
     "phase_fwd": "phase_kernelIsLi5ELb0ELb0ELb0ELb1E",
+    "velo_fwdgrad": "velo_kernelIsLi5ELb1ELb0ELb0ELb1E",
+    "velo_fwd": "velo_kernelIsLi5ELb0ELb0ELb0ELb1E",
 }
+PHASE_GRADS = ("dnu", "dzeta", "dcf", "ddisp", "ddnu")
+VELO_GRADS = ("dnu", "dzeta", "dzdphi", "dcf", "domega", "dlog_beta",
+              "dlog_gamma", "ddisp", "ddnu")
 
 
 def phase_build():
@@ -183,9 +237,10 @@ def _rel(a, b):
     return float((a - b).abs().max() / (b.abs().max() + 1e-30))
 
 
-def _compare(torch, tag, k_out, p_out, grads=True):
-    """Hold a kernel's (loss[, grads]) against the plain version's."""
-    if not grads:
+def _compare(tag, k_out, p_out, names=None, grad_rtol=GRAD_RTOL):
+    """Hold a kernel's (loss[, grads]) against the plain version's; names
+    None means a loss alone."""
+    if names is None:
         kl, pl = float(k_out), float(p_out)
         rel = abs(kl - pl) / max(abs(pl), 1.0)
         print(f"[parity] {tag}: loss {kl:.9g} vs plain {pl:.9g} rel {rel:.2e}")
@@ -196,7 +251,7 @@ def _compare(torch, tag, k_out, p_out, grads=True):
     oks = [lrel < LOSS_RTOL]
     worst_abs = 0.0
     parts = [f"loss rel {lrel:.2e}"]
-    for name, a, b in zip(("dnu", "dzeta", "dcf", "ddisp", "ddnu"), kg, pg):
+    for name, a, b in zip(names, kg, pg):
         if b is None:
             check(a is None, f"{tag}: {name} returned without delta_nu")
             continue
@@ -206,71 +261,99 @@ def _compare(torch, tag, k_out, p_out, grads=True):
             parts.append(f"{name} zero {ok}")
         else:
             r = _rel(a, b)
-            ok = r < GRAD_RTOL
+            ok = r < grad_rtol
             parts.append(f"{name} {r:.2e}")
         oks.append(ok)
     print(f"[parity] {tag}: " + ", ".join(parts))
     return worst_abs, lrel, oks
 
 
-def _f64_diagnosis(torch, args, lgk, want_disp):
+def _f64_diagnosis(kern, plain, args, n_counts, lgk, want_disp, names):
     """Error of each side against an f64 evaluation, when parity fails."""
-    from velocycle_tpu_torch.ops import nb_kernels as K
-
-    S, nu, zeta, cf, r, dnu, Db = args
     d = lambda t: None if t is None else t.double()  # noqa: E731
-    k = K.phase_fwdgrad(S, nu, zeta, cf, r, dnu, Db, lgk, want_disp=want_disp)
-    p = K.phase_fwdgrad_plain(S, nu, zeta, cf, r, dnu, Db, lgk, want_disp=want_disp)
-    ref = K.phase_fwdgrad_plain(S, d(nu), d(zeta), d(cf), d(r), d(dnu), d(Db),
-                                lgk, want_disp=want_disp)
-    for name, side in (("kernel", k), ("plain", p)):
+    k = kern(*args, lgk, want_disp=want_disp)
+    p = plain(*args, lgk, want_disp=want_disp)
+    ref = plain(*args[:n_counts], *(d(t) for t in args[n_counts:]), lgk,
+                want_disp=want_disp)
+    for side_name, side in (("kernel", k), ("plain", p)):
         errs = [f"loss {abs(float(side[0]) - float(ref[0])):.3e}"]
-        for gname, a, b in zip(("dnu", "dzeta", "dcf", "ddisp", "ddnu"),
-                               side[1], ref[1]):
+        for gname, a, b in zip(names, side[1], ref[1]):
             if b is not None and float(b.abs().max()) > 0:
                 errs.append(f"{gname} {_rel(a.double(), b):.2e}")
-        print(f"[parity] f64 check, {name}: " + ", ".join(errs))
+        print(f"[parity] f64 check, {side_name}: " + ", ".join(errs))
+
+
+def _parity_cases(torch, seed, make, n_counts, kern, plain, fwd, fwd_plain,
+                  names, grad_rtol, cases):
+    """Run the parity cases of one kernel pair; returns ({kernel: [max abs
+    error, loss rel error]} at full width, all ok)."""
+    fwd_name, grad_name = fwd.__name__, kern.__name__
+    results = {fwd_name: [0.0, 0.0], grad_name: [0.0, 0.0]}
+    all_ok = True
+    for tag, Ng, Nc, Nb, int16, skip_k, extra in cases:
+        args = make(torch, Ng, Nc, seed + Ng + Nc, Nb=Nb, int16=int16, **extra)
+        if extra.get("gated"):
+            nu, zdphi, omega, lgamma = args[2], args[4], args[6], args[8]
+            x = (nu @ zdphi.T) * omega[None, :] + torch.exp(lgamma)[:, None]
+            share = float((x <= 0).float().mean())
+            del x
+            print(f"[parity] {tag}: {share:.4f} of elements have x <= 0 "
+                  f"(below the relu)")
+            check(share >= 0.10, f"gated case puts only {share:.4f} below the relu")
+        lgk = lgamma_k_sum(torch, *args[:n_counts]) if skip_k else None
+        desc = (f"{tag} ({'int16' if int16 else 'f32'}, lgamma_k_sum "
+                f"{'given' if skip_k else 'no'})")
+        for want_disp in (True, False):
+            kout = kern(*args, lgk, want_disp=want_disp)
+            pout = plain(*args, lgk, want_disp=want_disp)
+            torch.cuda.synchronize()
+            wabs, lrel, oks = _compare(
+                f"{grad_name} {desc} disp_grad={want_disp}", kout, pout,
+                names, grad_rtol,
+            )
+            if not all(oks):
+                all_ok = False
+                _f64_diagnosis(kern, plain, args, n_counts, lgk, want_disp,
+                               names)
+            if tag == "full":
+                results[grad_name] = [max(results[grad_name][0], wabs),
+                                      max(results[grad_name][1], lrel)]
+            del kout, pout
+        kl = fwd(*args, lgk)
+        pl = fwd_plain(*args, lgk)
+        torch.cuda.synchronize()
+        labs, lrel, oks = _compare(f"{fwd_name} {desc}", kl, pl)
+        all_ok &= all(oks)
+        if tag == "full":
+            results[fwd_name] = [labs, lrel]
+        del args
+        torch.cuda.empty_cache()
+    return results, all_ok
 
 
 def phase_parity(torch, seed):
     from velocycle_tpu_torch.ops import nb_kernels as K
 
-    results = {"phase_fwd": [0.0, 0.0], "phase_fwdgrad": [0.0, 0.0]}
-    cases = [("full", NG, NC, 0, True, True)]
-    cases += [(f"ragged {g}x{c}", g, c, 0, i % 2 == 0, i != 1)
+    cases = [("full", NG, NC, 0, True, True, {})]
+    cases += [(f"ragged {g}x{c}", g, c, 0, i % 2 == 0, i != 1, {})
               for i, (g, c) in enumerate(RAGGED)]
-    cases += [("delta_nu Nb=2 257x3001", 257, 3001, 2, True, True),
-              ("delta_nu Nb=2 full", NG, NC, 2, True, False)]
-    all_ok = True
-    for tag, Ng, Nc, Nb, int16, skip_k in cases:
-        args = make_inputs(torch, Ng, Nc, seed + Ng + Nc, Nb=Nb, int16=int16)
-        lgk = lgamma_k_sum(torch, args[0]) if skip_k else None
-        desc = f"{tag} ({'int16' if int16 else 'f32'}, lgamma_k_sum {'given' if skip_k else 'no'})"
-        for want_disp in (True, False):
-            kout = K.phase_fwdgrad(*args, lgk, want_disp=want_disp)
-            pout = K.phase_fwdgrad_plain(*args, lgk, want_disp=want_disp)
-            torch.cuda.synchronize()
-            wabs, lrel, oks = _compare(
-                torch, f"phase_fwdgrad {desc} disp_grad={want_disp}", kout, pout
-            )
-            if not all(oks):
-                all_ok = False
-                _f64_diagnosis(torch, args, lgk, want_disp)
-            if tag == "full":
-                results["phase_fwdgrad"] = [max(results["phase_fwdgrad"][0], wabs),
-                                            max(results["phase_fwdgrad"][1], lrel)]
-            del kout, pout
-        kl = K.phase_fwd(*args, lgk)
-        pl = K.phase_fwd_plain(*args, lgk)
-        torch.cuda.synchronize()
-        labs, lrel, oks = _compare(torch, f"phase_fwd {desc}", kl, pl, grads=False)
-        all_ok &= all(oks)
-        if tag == "full":
-            results["phase_fwd"] = [labs, lrel]
-        del args
-        torch.cuda.empty_cache()
-    check(all_ok, "a kernel disagrees with its plain version (see [parity] lines)")
-    return results
+    cases += [("delta_nu Nb=2 257x3001", 257, 3001, 2, True, True, {}),
+              ("delta_nu Nb=2 full", NG, NC, 2, True, False, {})]
+    results, ok_phase = _parity_cases(
+        torch, seed, make_inputs, 1, K.phase_fwdgrad,
+        K.phase_fwdgrad_plain, K.phase_fwd, K.phase_fwd_plain, PHASE_GRADS,
+        GRAD_RTOL, cases,
+    )
+    vcases = (cases[:1] + [("gated full", NG, NC, 0, True, True, {"gated": True})]
+              + cases[1:])
+    vresults, ok_velo = _parity_cases(
+        torch, seed, make_velo_inputs, 2, K.velo_fwdgrad,
+        K.velo_fwdgrad_plain, K.velo_fwd, K.velo_fwd_plain, VELO_GRADS,
+        VELO_GRAD_RTOL, vcases,
+    )
+    check(ok_phase and ok_velo,
+          "a kernel disagrees with its plain version (see [parity] lines)")
+    return {**results, **vresults}
 
 
 def _time(torch, fn, reps, warmup=2):
@@ -287,57 +370,99 @@ def _time(torch, fn, reps, warmup=2):
     return t0.elapsed_time(t1) / reps
 
 
+def _time_pair(torch, name, kern, plain, nbytes, nops, card, note):
+    """Kernel and plain version in turns (plain, kernel, kernel, plain),
+    against the bound max(bytes / HBM rate, FP32 operations / FP32 rate)."""
+    p1 = _time(torch, plain, reps=3, warmup=1)
+    k1 = _time(torch, kern, reps=20)
+    k2 = _time(torch, kern, reps=20)
+    p2 = _time(torch, plain, reps=3, warmup=1)
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = nops / PEAK_FP32_PER_S * 1e3
+    bound = max(t_bytes, t_ops)
+    ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+    print(f"[timing] {name} @ {NG}x{NC} int16 on {card}: kernel {k1:.4f} / "
+          f"{k2:.4f} ms, plain {p1:.3f} / {p2:.3f} ms, bound {bound:.4f} ms "
+          f"(bytes {t_bytes:.4f} ms = {nbytes / 1e9:.3f} GB; operations "
+          f"{t_ops:.4f} ms = {nops / 1e9:.2f} GFLOP, {note}), "
+          f"{bound / ms:.1%} of bound; library_ms: none (no single PyTorch "
+          f"call computes this function)")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def _ratio_ops(torch, counts, want_digamma):
+    """lgamma (and digamma) ratio operations over these counts."""
+    N = sum(K.numel() for K in counts)
+    n_ge2 = sum(int((K >= 2).sum()) for K in counts)
+    n_lt2 = N - n_ge2
+    lg = OPS["lg_stir"] * n_ge2 + OPS["lg_small"] * n_lt2 + OPS["lg_sel"] * N
+    dg = OPS["dg_stir"] * n_ge2 + OPS["dg_small"] * n_lt2 + OPS["dg_sel"] * N
+    return lg, (dg if want_digamma else 0), n_ge2 / N
+
+
 def phase_timing(torch, seed, card):
+    """Phase pair at the main path's variant (disp_grad on: stage 1 learns
+    shape_inv)."""
     from velocycle_tpu_torch.ops import nb_kernels as K
 
     S, nu, zeta, cf, r, dnu, Db = make_inputs(torch, NG, NC, seed)
     lgk = lgamma_k_sum(torch, S)
     N = S.numel()
-    n_ge2 = int((S >= 2).sum())
-    n_lt2 = N - n_ge2
-    in_bytes = (S.numel() * S.element_size()
-                + 4 * (nu.numel() + zeta.numel() + cf.numel() + r.numel()))
-    grad_bytes = 4 * (nu.numel() + zeta.numel() + cf.numel() + r.numel())
-    lg = OPS["lg_stir"] * n_ge2 + OPS["lg_small"] * n_lt2 + OPS["lg_sel"] * N
-    dg = OPS["dg_stir"] * n_ge2 + OPS["dg_small"] * n_lt2 + OPS["dg_sel"] * N
-    work = {
-        "phase_fwdgrad": (in_bytes + grad_bytes + 4,
-                          (OPS["common"] + OPS["fwdgrad"]) * N + lg + dg),
-        "phase_fwd": (in_bytes + 4, (OPS["common"] + OPS["fwd"]) * N + lg),
+    lg, dg, share = _ratio_ops(torch, [S], True)
+    params = 4 * (nu.numel() + zeta.numel() + cf.numel() + r.numel())
+    in_bytes = S.numel() * S.element_size() + params
+    note = f"{share:.3f} of counts >= 2"
+    out = {
+        "phase_fwdgrad": _time_pair(
+            torch, "phase_fwdgrad",
+            lambda: K.phase_fwdgrad(S, nu, zeta, cf, r, None, None, lgk),
+            lambda: K.phase_fwdgrad_plain(S, nu, zeta, cf, r, None, None, lgk),
+            in_bytes + params + 4,
+            (OPS["common"] + OPS["fwdgrad"]) * N + lg + dg, card, note),
+        "phase_fwd": _time_pair(
+            torch, "phase_fwd",
+            lambda: K.phase_fwd(S, nu, zeta, cf, r, None, None, lgk),
+            lambda: K.phase_fwd_plain(S, nu, zeta, cf, r, None, None, lgk),
+            in_bytes + 4, (OPS["common"] + OPS["fwd"]) * N + lg, card, note),
     }
-    fns = {
-        "phase_fwdgrad": (lambda: K.phase_fwdgrad(S, nu, zeta, cf, r, None, None, lgk),
-                          lambda: K.phase_fwdgrad_plain(S, nu, zeta, cf, r, None, None, lgk)),
-        "phase_fwd": (lambda: K.phase_fwd(S, nu, zeta, cf, r, None, None, lgk),
-                      lambda: K.phase_fwd_plain(S, nu, zeta, cf, r, None, None, lgk)),
-    }
-    out = {}
-    for name, (kern, plain) in fns.items():
-        # plain, kernel, kernel, plain: compare within one call, in turns
-        p1 = _time(torch, plain, reps=3, warmup=1)
-        k1 = _time(torch, kern, reps=20)
-        k2 = _time(torch, kern, reps=20)
-        p2 = _time(torch, plain, reps=3, warmup=1)
-        nbytes, nops = work[name]
-        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-        t_ops = nops / PEAK_FP32_PER_S * 1e3
-        bound = max(t_bytes, t_ops)
-        ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
-        out[name] = {
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        }
-        print(f"[timing] {name} @ {NG}x{NC} int16 on {card}: kernel {k1:.4f} / "
-              f"{k2:.4f} ms, plain {p1:.3f} / {p2:.3f} ms, bound {bound:.4f} ms "
-              f"(bytes {t_bytes:.4f} ms = {nbytes / 1e9:.3f} GB; operations "
-              f"{t_ops:.4f} ms = {nops / 1e9:.2f} GFLOP, {n_ge2 / N:.3f} of counts >= 2), "
-              f"{bound / ms:.1%} of bound; library_ms: none (no single PyTorch call "
-              f"computes this function)")
     return out
 
 
+def velo_timing(torch, seed, card):
+    """Velocity pair at the main path's variant (disp_grad off: stage 2
+    conditions shape_inv)."""
+    from velocycle_tpu_torch.ops import nb_kernels as K
+
+    args = make_velo_inputs(torch, NG, NC, seed)[:10]
+    S, U = args[:2]
+    lgk = lgamma_k_sum(torch, S, U)
+    N = S.numel()
+    lg, _, share = _ratio_ops(torch, [S, U], False)
+    params = 4 * sum(t.numel() for t in args[2:])
+    in_bytes = 2 * S.numel() * S.element_size() + params
+    note = f"{share:.3f} of S and U counts >= 2"
+    return {
+        "velo_fwdgrad": _time_pair(
+            torch, "velo_fwdgrad",
+            lambda: K.velo_fwdgrad(*args, None, None, lgk, want_disp=False),
+            lambda: K.velo_fwdgrad_plain(*args, None, None, lgk,
+                                         want_disp=False),
+            in_bytes + params + 4,
+            (OPS_VELO["common"] + OPS_VELO["fwdgrad"]) * N + lg, card, note),
+        "velo_fwd": _time_pair(
+            torch, "velo_fwd",
+            lambda: K.velo_fwd(*args, None, None, lgk),
+            lambda: K.velo_fwd_plain(*args, None, None, lgk),
+            in_bytes + 4, (OPS_VELO["common"] + OPS_VELO["fwd"]) * N + lg,
+            card, note),
+    }
+
+
 def _make_adata(torch, seed, device):
-    """AnnDataLite at full width with counts drawn on the card from seed."""
+    """AnnDataLite at full width with counts drawn on the card from seed:
+    spliced, phases, then unspliced (drawn last, so that stage 1's inputs
+    are those of the phase stage alone)."""
     import numpy as np
     import pandas as pd
 
@@ -345,20 +470,42 @@ def _make_adata(torch, seed, device):
 
     g = torch.Generator(device=device)
     g.manual_seed(seed)
-    counts = torch.floor(torch.exp(
-        torch.randn((NC, NG), generator=g, device=device) * 0.8 + 1.0
+    counts = lambda mean: torch.floor(torch.exp(  # noqa: E731
+        torch.randn((NC, NG), generator=g, device=device) * 0.8 + mean
     )).to(torch.int16).cpu().numpy()                      # (cells, genes)
+    spliced = counts(1.0)
     angles = (torch.rand(NC, generator=g, device=device) * 2 * math.pi).cpu().numpy()
+    unspliced = counts(0.4)
     genes = [f"G{i:05d}" for i in range(NG)]
     cells = [f"C{i:06d}" for i in range(NC)]
     adata = AnnDataLite(
         obs=pd.DataFrame(index=cells), var=pd.DataFrame(index=genes),
-        layers={"spliced": counts, "unspliced": counts},
+        layers={"spliced": spliced, "unspliced": unspliced},
     )
     return adata, genes, cells, np.asarray(angles, np.float64)
 
 
-def phase_main_path(torch, seed, num_steps=50, num_samples=8, device="cuda"):
+def _steady_state(torch, svi, state, data, tag):
+    """Steps/s over 20 steps after 3 warm-up steps (host clock), then the
+    profiler's summary of 5 more; not part of the counted run."""
+    state, _ = svi.update_chunk(state, 3, data)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, chunk = svi.update_chunk(state, 20, data)
+    chunk.cpu()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    steps_per_s = 20 / dt
+    print(f"[{tag}] steady state: {steps_per_s:.2f} steps/s "
+          f"({dt / 20 * 1e3:.2f} ms/step, host clock, 20 steps)")
+    profile_steps(torch, svi, state, data, tag)
+    return steps_per_s
+
+
+def phase_main_path(torch, seed, adata, genes, cells, angles, num_steps=50,
+                    num_samples=8, device="cuda"):
+    """Stage 1; returns (launches, steps/s, peak bytes, what stage 2 takes
+    from the fit)."""
     import numpy as np
 
     from velocycle_tpu_torch import (
@@ -367,7 +514,6 @@ def phase_main_path(torch, seed, num_steps=50, num_samples=8, device="cuda"):
     from velocycle_tpu_torch.ops import nb_kernels as K
 
     t0 = time.perf_counter()
-    adata, genes, cells, angles = _make_adata(torch, seed, device)
     cycle = Cycle.trivial_prior(genes, harmonics=H)
     phases = Phases.from_angles(angles, concentration=1.0, cell_names=cells)
     mp = preprocess_for_phase_estimation(
@@ -379,9 +525,8 @@ def phase_main_path(torch, seed, num_steps=50, num_samples=8, device="cuda"):
           "counts not int16 on the card")
     check(data.lgamma_k_sum is not None, "lgamma_k_sum missing")
     torch.cuda.synchronize()
-    print(f"[main] data + preprocess_for_phase_estimation: "
+    print(f"[main] preprocess_for_phase_estimation: "
           f"{time.perf_counter() - t0:.1f} s (host)")
-    del adata
 
     torch.cuda.reset_peak_memory_stats()
     K.reset_launch_counts()
@@ -424,25 +569,106 @@ def phase_main_path(torch, seed, num_steps=50, num_samples=8, device="cuda"):
           f"{num_samples} posterior draws: {fit_s:.2f} s; loss-only "
           f"evaluation {loss_only:.6g}; peak device memory "
           f"{peak / 2**30:.2f} GiB")
-    print(f"[main] launches in the main path: {launches}")
+    print(f"[main] launches in stage 1: {launches}")
+    steps_per_s = _steady_state(torch, fit.svi, fit.state, data, "main")
+    # what stage 2 needs; the fit's device tensors go with it
+    stage1 = types.SimpleNamespace(cycle_fit=fit.cycle_fit,
+                                   phase_fit=fit.phase_fit, params=fit.params)
+    return launches, steps_per_s, peak, stage1
 
-    # steady-state step rate (not part of the counted run)
-    svi, state = fit.svi, fit.state
-    state, _ = svi.update_chunk(state, 3, data)
-    torch.cuda.synchronize()
+
+def velocity_main_path(torch, seed, adata, stage1, num_steps=50,
+                       num_samples=2, device="cuda"):
+    """Stage 2, conditioned on stage 1's point estimates; returns
+    (launches, steps/s, peak bytes)."""
+    import numpy as np
+
+    from velocycle_tpu_torch import (
+        AngularSpeed, VelocityFitModel, preprocess_for_velocity_estimation,
+    )
+    from velocycle_tpu_torch.ops import nb_kernels as K
+
     t0 = time.perf_counter()
-    state, chunk = svi.update_chunk(state, 20, data)
-    chunk.cpu()
+    speed = AngularSpeed.trivial_prior(["c0"], harmonics=1, means=0.2, stds=0.5)
+    mp = preprocess_for_velocity_estimation(
+        adata, stage1.cycle_fit, stage1.phase_fit, speed, n_harmonics=H,
+        omega_n_harmonics=1, with_delta_nu=False, model_type="lrmn",
+        use_fused_nb=True, device=device,
+    )
     torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    steps_per_s = 20 / dt
-    print(f"[main] steady state: {steps_per_s:.2f} steps/s "
-          f"({dt / 20 * 1e3:.2f} ms/step, host clock, 20 steps)")
-    profile_steps(torch, svi, state, data)
+    print(f"[velo] preprocess_for_velocity_estimation: "
+          f"{time.perf_counter() - t0:.1f} s (host)")
+    data = mp.data
+    check(data.S.dtype == torch.int16 and data.U.dtype == torch.int16
+          and data.S.device.type == device and data.U.device.type == device,
+          "S and U not int16 on the card")
+    check(data.lgamma_k_sum is not None, "lgamma_k_sum missing")
+    check((data.Ng, data.Nc) == (NG, NC), f"velocity data {data.Ng}x{data.Nc}")
+    p = stage1.params
+    cond = {"nu": p["nu_locs"], "phi_xy": p["phixy_locs"],
+            "shape_inv": p["shape_inv_locs"]}
+
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    fit = VelocityFitModel(mp, condition_on=cond, num_samples=num_samples,
+                           n_per_bin=1)
+    data = fit.metaparams.data
+    check(data.disp_grad is False, "disp_grad still on with shape_inv conditioned")
+    t0 = time.perf_counter()
+    fit.fit(num_steps=num_steps, seed=seed)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    after_fit = dict(K.LAUNCHES)
+    with torch.no_grad():
+        loss_only = float(fit.svi.loss_fn(fit.state.params, 7, data))
+    launches = dict(K.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+
+    losses = np.asarray(fit.losses)
+    print(f"[velo] losses: first {losses[0]:.6g}, last {losses[-1]:.6g}, "
+          f"mean of last 10 {losses[-10:].mean():.6g}")
+    check(losses.shape == (num_steps,) and np.isfinite(losses).all(),
+          "non-finite velocity losses")
+    check(losses[-10:].mean() < losses[0], "velocity losses did not fall")
+    check(after_fit["velo_fwdgrad"] == num_steps,
+          f"velo_fwdgrad launched {after_fit['velo_fwdgrad']} times in "
+          f"{num_steps} steps")
+    check(after_fit["velo_fwd"] == 0, "velo_fwd launched during the fit")
+    check(math.isfinite(loss_only), "velocity loss-only evaluation not finite")
+    check(launches["velo_fwd"] == 1,
+          "the loss-only evaluation did not launch velo_fwd")
+    check(launches["phase_fwd"] == launches["phase_fwdgrad"] == 0,
+          "stage 2 launched a phase kernel")
+    speed_fit = fit.speed_fit.means_array
+    periods = fit.period_hours()
+    check(speed_fit.shape == (1, 3) and np.isfinite(speed_fit).all(),
+          f"bad AngularSpeed {speed_fit}")
+    check(periods.shape == (1,) and np.isfinite(periods).all(),
+          f"bad period {periods}")
+    post = fit.posterior
+    n = num_samples
+    want = {"log_gamma": (n, NG), "log_beta": (n, NG), "nu_omega": (n, 1, 3),
+            "gamma": (n, NG), "phi": (n, NC), "zeta": (n, NC, NH),
+            "zeta_dphi": (n, NC, NH), "zeta_omega": (n, NC, 3),
+            "omega": (n, NC), "ElogS": (n, NG, NC), "ElogU": (n, NG, NC),
+            "rho_real": (n, NG)}
+    check(sorted(post) == sorted(want), f"posterior sites {sorted(post)}")
+    for k, shape in want.items():
+        check(post[k].shape == shape and np.isfinite(post[k]).all(),
+              f"posterior {k}: {post[k].shape} (want {shape})")
+    print(f"[velo] fit of {num_steps} steps incl. init, extraction and "
+          f"{num_samples} posterior draws: {fit_s:.2f} s; loss-only "
+          f"evaluation {loss_only:.6g}; speed_fit nu_omega {speed_fit[0]}; "
+          f"period_hours {periods[0]:.6g}; peak device memory "
+          f"{peak / 2**30:.2f} GiB")
+    print(f"[velo] launches in stage 2: {launches}")
+    del post
+    fit.posterior = None
+    steps_per_s = _steady_state(torch, fit.svi, fit.state, data, "velo")
     return launches, steps_per_s, peak
 
 
-def profile_steps(torch, svi, state, data, n=5):
+def profile_steps(torch, svi, state, data, tag, n=5):
     """Device time by kernel over a few SVI steps (torch.profiler); only
     device-side kernel events are summed (an op row and the kernel it
     launches report the same device time)."""
@@ -465,16 +691,16 @@ def profile_steps(torch, svi, state, data, n=5):
         if dt:
             rows.append((dt, e.key, e.count))
     if not rows:
-        print("[profile] no device time in the trace: not measured")
+        print(f"[{tag}] profile: no device time in the trace: not measured")
         return
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows) / 1e6
     launches = sum(r[2] for r in rows) / n
-    print(f"[profile] {n} steps: wall {wall * 1e3:.2f} ms (profiler on), device "
+    print(f"[{tag}] profile, {n} steps: wall {wall * 1e3:.2f} ms (profiler on), device "
           f"kernels busy {busy * 1e3:.2f} ms ({busy / wall:.1%}), "
           f"{launches:.0f} kernel launches per step")
     for dt, key, count in rows[:6]:
-        print(f"[profile]   {dt / 1e3 / n:8.3f} ms/step  x{count / n:<5.1f} {key[:90]}")
+        print(f"[{tag}]   {dt / 1e3 / n:8.3f} ms/step  x{count / n:<5.1f} {key[:90]}")
 
 
 def main(argv=None):
@@ -501,25 +727,40 @@ def main(argv=None):
     name, count, smi = phase_device(torch)
     phase_build()
     errs = phase_parity(torch, args.seed)
-    timing = phase_timing(torch, args.seed, f"{smi}")
+    timing = phase_timing(torch, args.seed, smi)
+    timing.update(velo_timing(torch, args.seed, smi))
     torch.cuda.empty_cache()
-    launches, steps_per_s, peak = phase_main_path(torch, args.seed)
+    adata, genes, cells, angles = _make_adata(torch, args.seed, "cuda")
+    launches, steps_per_s, peak, stage1 = phase_main_path(
+        torch, args.seed, adata, genes, cells, angles)
+    torch.cuda.empty_cache()
+    vlaunches, vsteps_per_s, vpeak = velocity_main_path(
+        torch, args.seed, adata, stage1)
+    # each kernel's launches from the stage that drives it
+    launches.update(velo_fwd=vlaunches["velo_fwd"],
+                    velo_fwdgrad=vlaunches["velo_fwdgrad"])
 
     print("kernels: " + ", ".join(f"{k} ({v} launches)" for k, v in sorted(launches.items())))
-    replaces = {"phase_fwd": "velocycle_tpu/ops/nb_kernels.py:261",
-                "phase_fwdgrad": "velocycle_tpu/ops/nb_kernels.py:287"}
+    base = "velocycle_tpu/ops/nb_kernels.py"
+    kernels = {
+        "phase_fwd": ("nb_phase.cu", f"{base}:261"),
+        "phase_fwdgrad": ("nb_phase.cu", f"{base}:287"),
+        "velo_fwd": ("nb_velo.cu", f"{base}:624"),
+        "velo_fwdgrad": ("nb_velo.cu", f"{base}:659"),
+    }
     table = []
-    for k in ("phase_fwd", "phase_fwdgrad"):
+    for k, (src, replaces) in kernels.items():
         check(launches[k] > 0, f"{k} was not launched on the main path")
         table.append({
             "name": k, "route": "cuda",
-            "source": "velocycle_tpu_torch/csrc/nb_phase.cu",
-            "replaces": replaces[k], "launches": launches[k],
+            "source": f"velocycle_tpu_torch/csrc/{src}",
+            "replaces": replaces, "launches": launches[k],
             "max_abs_err": errs[k][0], "loss_rel_err": errs[k][1],
             **timing[k], "library_ms": None,
         })
-    print(f"[done] {time.perf_counter() - t_start:.1f} s; steps/s {steps_per_s:.3f}; "
-          f"peak {peak / 2**30:.2f} GiB")
+    print(f"[done] {time.perf_counter() - t_start:.1f} s; stage 1 "
+          f"{steps_per_s:.3f} steps/s, peak {peak / 2**30:.2f} GiB; stage 2 "
+          f"{vsteps_per_s:.3f} steps/s, peak {vpeak / 2**30:.2f} GiB")
     print(json.dumps({"kernels": table}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

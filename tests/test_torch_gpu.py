@@ -6,8 +6,9 @@ imports no JAX, so on a machine with a card and no JAX it runs alone:
     python -m pytest tests/test_torch_gpu.py -m gpu --noconftest -q
 
 Tolerances are those the kernels' plain versions are held to against the
-JAX package (tests/test_torch_nb_kernels.py): loss rel 1e-5, gradients
-max|a-b|/max|a| 1e-4.
+JAX package (tests/test_torch_nb_kernels.py, tests/test_torch_velocity_
+kernels.py): loss rel 1e-5, gradients max|a-b|/max|a| 1e-4 for the phase
+pair and 5e-4 for the velocity pair.
 """
 import dataclasses
 
@@ -84,7 +85,8 @@ def test_cuda_kernel_is_bit_reproducible_and_counts_launches():
     K.reset_launch_counts()
     a = K.phase_fwdgrad(*t)
     b = K.phase_fwdgrad(*t)
-    assert K.LAUNCHES == {"phase_fwd": 0, "phase_fwdgrad": 2}
+    assert K.LAUNCHES == {"phase_fwd": 0, "phase_fwdgrad": 2, "velo_fwd": 0,
+                          "velo_fwdgrad": 0}
     assert float(a[0]) == float(b[0])
     for x, y in zip(a[1], b[1]):
         if x is not None:
@@ -125,4 +127,132 @@ def test_fused_fit_on_the_card_launches_one_fwdgrad_per_step():
     # the same fit with the plain path on the card tracks it
     plain_mp = dataclasses.replace(mp, data=mp.data.replace(use_fused_nb=False))
     plain = T.PhaseFitModel(plain_mp, get_posterior=False).fit(num_steps=25)
+    np.testing.assert_allclose(fit.losses, plain.losses, rtol=5e-4)
+
+
+def _velo_inputs(Ng, Nc, Nh=5, seed=0, Nb=0, gated=False):
+    """(S, U, nu, zeta, zeta_dphi, cf, omega, log_beta, log_gamma, r
+    [, dnu, Db]); ``gated`` puts a large share of elements below the relu."""
+    rng = np.random.default_rng(seed)
+    S, nu, zeta, cf, r = _inputs(Ng, Nc, Nh=Nh, seed=seed)[:5]
+    H = (Nh - 1) // 2
+    h = np.arange(1, H + 1)
+    hphi = np.outer(rng.uniform(0, 2 * np.pi, Nc), h)
+    zeta = np.concatenate(
+        [np.ones((Nc, 1)),
+         np.stack([np.cos(hphi), np.sin(hphi)], -1).reshape(Nc, -1)], 1)
+    zdphi = np.concatenate(
+        [np.zeros((Nc, 1)),
+         np.stack([-h * np.sin(hphi), h * np.cos(hphi)], -1).reshape(Nc, -1)], 1)
+    omega = rng.normal(0, 1, Nc) if gated else np.exp(rng.normal(-1, 0.2, Nc))
+    out = [S, rng.poisson(1.5, (Ng, Nc)).astype(np.float32), nu,
+           zeta.astype(np.float32), zdphi.astype(np.float32), cf,
+           omega.astype(np.float32),
+           rng.normal(0, 0.2, Ng).astype(np.float32),
+           rng.normal(-1.0 if gated else 0.0, 0.2, Ng).astype(np.float32), r]
+    if Nb:
+        groups = rng.integers(0, Nb, Nc)
+        out += [rng.normal(0, 0.1, (Nb, Ng)).astype(np.float32),
+                (np.arange(Nb)[:, None] == groups[None, :]).astype(np.float32)]
+    return out
+
+
+VELO_GRADS = ("dnu", "dzeta", "dzdphi", "dcf", "domega", "dlog_beta",
+              "dlog_gamma", "ddisp", "ddnu")
+
+
+@pytest.mark.parametrize("Ng,Nc,Nh,Nb,int16,skip_k,gated", [
+    (1, 1, 5, 0, True, True, False), (129, 257, 5, 0, False, False, False),
+    (3, 300, 3, 0, True, True, False), (257, 3001, 5, 2, True, True, False),
+    (64, 1030, 7, 3, False, False, False), (300, 5000, 5, 0, True, True, True),
+])
+def test_cuda_velocity_kernels_match_plain(Ng, Nc, Nh, Nb, int16, skip_k,
+                                          gated):
+    dev = _cuda_or_skip()
+    args = _velo_inputs(Ng, Nc, Nh=Nh, seed=Ng + Nc, Nb=Nb, gated=gated)
+    if int16:
+        args[:2] = [a.astype(np.int16) for a in args[:2]]
+    t = [torch.as_tensor(a, device=dev) for a in args]
+    if not Nb:
+        t += [None, None]
+    lgk = (np.float32(sum(sps.gammaln(a.astype(np.float64) + 1.0).sum()
+                          for a in args[:2])) if skip_k else None)
+    for want_disp in (True, False):
+        kl, kg = K.velo_fwdgrad(*t, lgk, want_disp=want_disp)
+        pl, pg = K.velo_fwdgrad_plain(*t, lgk, want_disp=want_disp)
+        assert abs(float(kl) - float(pl)) / max(abs(float(pl)), 1.0) < 1e-5
+        for name, a, b in zip(VELO_GRADS, kg, pg):
+            if b is None:
+                assert a is None
+            elif not want_disp and name == "ddisp":
+                assert float(a.abs().max()) == 0.0
+            else:
+                assert _max_rel(a, b) < 5e-4, name
+    kf = float(K.velo_fwd(*t, lgk))
+    pf = float(K.velo_fwd_plain(*t, lgk))
+    assert abs(kf - pf) / max(abs(pf), 1.0) < 1e-5
+
+
+def test_cuda_velocity_kernel_is_bit_reproducible_and_counts_launches():
+    dev = _cuda_or_skip()
+    t = [torch.as_tensor(a, device=dev) for a in _velo_inputs(300, 5000, Nb=2)]
+    K.reset_launch_counts()
+    a = K.velo_fwdgrad(*t)
+    b = K.velo_fwdgrad(*t)
+    K.velo_fwd(*t)
+    assert K.LAUNCHES == {"phase_fwd": 0, "phase_fwdgrad": 0, "velo_fwd": 1,
+                          "velo_fwdgrad": 2}
+    assert float(a[0]) == float(b[0])
+    for x, y in zip(a[1], b[1]):
+        assert torch.equal(x, y)
+
+
+def test_cuda_velocity_wrappers_refuse_what_the_kernels_cannot_take():
+    dev = _cuda_or_skip()
+    t = [torch.as_tensor(a, device=dev) for a in _velo_inputs(8, 16)]
+    with pytest.raises(TypeError, match="U is"):
+        K.velo_fwd(t[0].to(torch.int16), *t[1:])
+    with pytest.raises(ValueError, match="contiguous"):
+        K.velo_fwd(*t[:4], t[4].T.contiguous().T, *t[5:])
+    with pytest.raises(ValueError, match="Nh"):
+        K.velo_fwd(*t[:2], *(x[:, :4].contiguous() for x in t[2:5]), *t[5:])
+    with pytest.raises(ValueError, match="is on"):
+        K.velo_fwd(*t[:6], t[6].cpu(), *t[7:])
+    with pytest.raises(ValueError, match="batches"):
+        K.velo_fwd(*t, torch.zeros(5, 8, device=dev),
+                   torch.zeros(5, 16, device=dev))
+
+
+def test_fused_velocity_fit_on_the_card_launches_one_fwdgrad_per_step():
+    dev = _cuda_or_skip()
+    import velocycle_tpu_torch as T
+
+    adata = T.simulate_data(Nc=600, Ng=40, seed=1)
+    cycle = T.Cycle.trivial_prior(list(adata.var.index), harmonics=2)
+    phases = T.Phases.from_angles(adata.obs["simulated_phis"].values, 2.0,
+                                  list(adata.obs.index))
+    speed = T.AngularSpeed.trivial_prior(["c0"], harmonics=1, means=0.2,
+                                         stds=0.5)
+    mp = T.preprocess_for_velocity_estimation(
+        adata, cycle, phases, speed, n_harmonics=2, omega_n_harmonics=1,
+        with_delta_nu=False, model_type="lrmn", use_fused_nb=True, device=dev,
+    )
+    assert mp.data.S.is_cuda and mp.data.U.dtype == torch.int16
+    rng = np.random.default_rng(0)
+    cond = {"nu": mp.data.mu_nu.cpu().numpy() + rng.normal(0, 0.2, (40, 5)),
+            "phi_xy": mp.data.phixy_prior.cpu().numpy(),
+            "shape_inv": np.full(40, 0.4)}
+    K.reset_launch_counts()
+    fit = T.VelocityFitModel(mp, condition_on=cond, num_samples=2,
+                             n_per_bin=1).fit(num_steps=25)
+    assert fit.metaparams.data.disp_grad is False
+    assert K.LAUNCHES["velo_fwdgrad"] == 25 and K.LAUNCHES["velo_fwd"] == 0
+    assert np.isfinite(fit.losses).all()
+    assert fit.losses[-5:].mean() < fit.losses[:5].mean()
+    assert np.isfinite(fit.period_hours()).all()
+    assert fit.posterior["ElogU"].shape == (2, 40, 600)
+    # the same fit with the plain path on the card tracks it
+    plain_mp = dataclasses.replace(mp, data=mp.data.replace(use_fused_nb=False))
+    plain = T.VelocityFitModel(plain_mp, condition_on=cond,
+                               get_posterior=False).fit(num_steps=25)
     np.testing.assert_allclose(fit.losses, plain.losses, rtol=5e-4)

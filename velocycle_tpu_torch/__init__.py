@@ -1,10 +1,12 @@
 """velocycle_tpu_torch: the PyTorch + CUDA port of velocycle_tpu.
 
-Same workflow as the JAX package, module for module: host containers and
-preprocessing build a `PhaseData` of device tensors, the phase model and
-guide run under the effect-handler DSL, and `PhaseFitModel` fits them with
-SVI.  The fused Negative-Binomial likelihood runs as hand-written CUDA
-kernels for Hopper (`ops/nb_kernels.py`, `csrc/`).
+Same two-stage workflow as the JAX package, module for module: host
+containers and preprocessing build a `PhaseData` or `VelocityData` of
+device tensors, the phase and velocity models and guides run under the
+effect-handler DSL, and `PhaseFitModel` then `VelocityFitModel` (conditioned
+on the phase fit) fit them with SVI.  The fused Negative-Binomial
+likelihoods of both stages run as hand-written CUDA kernels for Hopper
+(`ops/nb_kernels.py`, `csrc/`).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 with no card and no explicit CPU request they raise (`device.py`).
@@ -13,17 +15,20 @@ This package imports torch, numpy, scipy and pandas only — never jax or the
 JAX package, which stays in the repository as the reference.
 """
 from .anndata_lite import AnnDataLite  # noqa: F401
-from .containers import Cycle, FourierTable, Phases  # noqa: F401
+from .containers import AngularSpeed, Cycle, FourierTable, Phases  # noqa: F401
 from .device import resolve_device  # noqa: F401
-from .fit import PhaseFitModel  # noqa: F401
-from .models.metapars import Metapars, PhaseData  # noqa: F401
+from .fit import PhaseFitModel, VelocityFitModel  # noqa: F401
+from .models.metapars import Metapars, PhaseData, VelocityData  # noqa: F401
 from .preprocessing import (  # noqa: F401
+    filter_shared_genes,
     make_design_matrix,
     preprocess_for_phase_estimation,
+    preprocess_for_velocity_estimation,
 )
 from .simulate import simulate_data  # noqa: F401
 
 __all__ = [
+    "AngularSpeed",
     "AnnDataLite",
     "Cycle",
     "FourierTable",
@@ -31,8 +36,12 @@ __all__ = [
     "PhaseData",
     "PhaseFitModel",
     "Phases",
+    "VelocityData",
+    "VelocityFitModel",
+    "filter_shared_genes",
     "make_design_matrix",
     "preprocess_for_phase_estimation",
+    "preprocess_for_velocity_estimation",
     "resolve_device",
     "simulate_data",
 ]

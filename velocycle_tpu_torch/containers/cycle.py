@@ -4,8 +4,8 @@ Port of the array, constructor and CSV part of `velocycle_tpu/containers/
 cycle.py` on the shared `FourierTable` base.  Columns are genes; rows are
 ``nu0, nu1_cos, nu1_sin, ...``.  After a fit the container also holds the
 per-gene NB dispersion (``disp``).  The circle-symmetry operations
-(shift_zero, invert_direction, orientation checks), the spline prior and
-`reorder` are not ported yet.
+(shift_zero, invert_direction, orientation checks) and the spline prior are
+not ported yet.
 """
 from __future__ import annotations
 
@@ -13,7 +13,7 @@ import numpy as np
 
 from .fourier_table import FourierTable
 
-__all__ = ["Cycle"]
+__all__ = ["Cycle", "reorder"]
 
 
 class Cycle(FourierTable):
@@ -68,3 +68,12 @@ class Cycle(FourierTable):
             np.broadcast_to(stds, (k, n)).copy(),
             gene_names,
         )
+
+
+def reorder(cycle, gene_list):
+    """New Cycle with columns in ``gene_list`` order."""
+    return Cycle.from_array(
+        means_array=cycle.means[gene_list].values,
+        stds_array=cycle.stds[gene_list].values,
+        gene_names=list(gene_list),
+    )

@@ -74,6 +74,21 @@ class FourierTable:
     def set_stds(self, new_stds):
         self.stds = self._coerce(new_stds, self.stds)
 
+    def extend(self, names, means=0.0, stds=10.0):
+        """Append new column entities with a flat prior (in place)."""
+        n = len(names)
+        k = self.means.shape[0]
+        ext_means = pd.DataFrame(
+            np.broadcast_to(means, (k, n)).copy(),
+            index=self.means.index, columns=names,
+        )
+        ext_stds = pd.DataFrame(
+            np.broadcast_to(stds, (k, n)).copy(),
+            index=self.stds.index, columns=names,
+        )
+        self.means = pd.concat([self.means, ext_means], axis=1)
+        self.stds = pd.concat([self.stds, ext_stds], axis=1)
+
     # -- device views ------------------------------------------------------
     @property
     def means_tensor(self):

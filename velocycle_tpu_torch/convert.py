@@ -1,11 +1,13 @@
 """Carry JAX-package state into the port.
 
-  * `params_from_jax` takes the JAX SVI's unconstrained params (``nu_locs``,
-    ``nu_scales``, ``shape_inv_locs``, ``phixy_locs``, ``delta_nu_locs``,
-    as numpy arrays) and returns leaf tensors ready for the port's SVI.
-  * `phase_data_from_jax` takes a JAX `PhaseData` (its arrays as numpy,
-    or anything with the same attributes) and returns the port's
-    `PhaseData` with the same arrays and config.
+  * `params_from_jax` takes the JAX SVI's unconstrained params (any of
+    either stage's guides, e.g. ``nu_locs``, ``phixy_locs``, or the LRMN
+    ``loc``, ``cov_factor``, ``cov_diag``, ``rho_real_loc``, as numpy
+    arrays) and returns leaf tensors ready for the port's SVI.
+  * `phase_data_from_jax` / `velocity_data_from_jax` take a JAX
+    `PhaseData` / `VelocityData` (its arrays as numpy, or anything with the
+    same attributes) and return the port's container with the same arrays
+    and config.
 
 Neither imports jax: the inputs are read through ``np.asarray``.
 """
@@ -17,9 +19,11 @@ import numpy as np
 import torch
 
 from .device import resolve_device
-from .models.metapars import PHASE_TENSOR_FIELDS, PhaseData
+from .models.metapars import (
+    PHASE_TENSOR_FIELDS, VELOCITY_TENSOR_FIELDS, PhaseData, VelocityData,
+)
 
-__all__ = ["params_from_jax", "phase_data_from_jax"]
+__all__ = ["params_from_jax", "phase_data_from_jax", "velocity_data_from_jax"]
 
 
 def params_from_jax(params, device=None):
@@ -33,17 +37,27 @@ def params_from_jax(params, device=None):
     }
 
 
-def phase_data_from_jax(data, device=None):
-    """JAX `PhaseData` (arrays readable by ``np.asarray``) -> port
-    `PhaseData` on ``device``; dtypes kept (int16 counts stay int16)."""
+def _data_from_jax(cls, tensor_fields, data, device):
     dev = resolve_device(device)
     kw = {}
-    for f in dataclasses.fields(PhaseData):
+    for f in dataclasses.fields(cls):
         v = getattr(data, f.name)
-        if f.name in PHASE_TENSOR_FIELDS:
+        if f.name in tensor_fields:
             kw[f.name] = None if v is None else torch.as_tensor(
                 np.require(np.asarray(v), requirements="CW"), device=dev
             )
         else:
             kw[f.name] = v
-    return PhaseData(**kw)
+    return cls(**kw)
+
+
+def phase_data_from_jax(data, device=None):
+    """JAX `PhaseData` (arrays readable by ``np.asarray``) -> port
+    `PhaseData` on ``device``; dtypes kept (int16 counts stay int16)."""
+    return _data_from_jax(PhaseData, PHASE_TENSOR_FIELDS, data, device)
+
+
+def velocity_data_from_jax(data, device=None):
+    """JAX `VelocityData` -> port `VelocityData` on ``device``, as
+    `phase_data_from_jax`."""
+    return _data_from_jax(VelocityData, VELOCITY_TENSOR_FIELDS, data, device)

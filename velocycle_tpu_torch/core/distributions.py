@@ -1,4 +1,5 @@
-"""The distributions the phase model and guide need, in plain torch.
+"""The distributions the phase and velocity models and guides need, in
+plain torch.
 
 Same parameterizations and log-densities as `velocycle_tpu/core/
 distributions.py`, including the f32-hardened Gamma-Poisson.  ``sample``
@@ -23,6 +24,7 @@ __all__ = [
     "GammaPoisson",
     "NegativeBinomial",
     "Delta",
+    "LowRankMultivariateNormal",
     "generator",
 ]
 
@@ -218,3 +220,65 @@ class Delta(Distribution):
         ld = torch.as_tensor(self.log_density, dtype=self.v.dtype,
                              device=self.v.device)
         return ld.expand(torch.broadcast_shapes(value.shape, self.v.shape))
+
+
+class LowRankMultivariateNormal(Distribution):
+    """N(loc, W W^T + D): the LRMN velocity guide's joint family.
+
+    ``sample`` is reparameterized, ``loc + W eps_w + sqrt(D) eps_d`` with
+    both noises from one generator; ``log_prob`` uses the Woodbury identity
+    with the Cholesky factor of the (rank x rank) capacitance matrix."""
+
+    def __init__(self, loc, cov_factor, cov_diag):
+        self.loc, self.cov_factor, self.cov_diag = _promote(
+            loc, cov_factor, cov_diag
+        )
+
+    @property
+    def event_shape(self):
+        return tuple(self.loc.shape[-1:])
+
+    @property
+    def batch_shape(self):
+        return tuple(torch.broadcast_shapes(
+            self.loc.shape[:-1], self.cov_factor.shape[:-2],
+            self.cov_diag.shape[:-1],
+        ))
+
+    def rsample_from(self, eps_w, eps_d):
+        """The draw for given standard-normal noise (..., rank) and
+        (..., dim)."""
+        return (
+            self.loc
+            + (self.cov_factor @ eps_w[..., None])[..., 0]
+            + torch.sqrt(self.cov_diag) * eps_d
+        )
+
+    def sample(self, key, sample_shape=()):
+        g = generator(key, self.loc.device)
+        shape = tuple(sample_shape) + self.batch_shape
+        rank = self.cov_factor.shape[-1]
+        kw = dict(generator=g, device=self.loc.device, dtype=self.loc.dtype)
+        eps_w = torch.randn(shape + (rank,), **kw)
+        eps_d = torch.randn(shape + self.event_shape, **kw)
+        return self.rsample_from(eps_w, eps_d)
+
+    def log_prob(self, value):
+        W, D = self.cov_factor, self.cov_diag
+        diff = value - self.loc
+        d = self.loc.shape[-1]
+        rank = W.shape[-1]
+        Wt_Dinv = W.transpose(-1, -2) / D[..., None, :]
+        cap = torch.eye(rank, dtype=W.dtype, device=W.device) + Wt_Dinv @ W
+        L = torch.linalg.cholesky(cap)
+        rhs = (Wt_Dinv @ diff[..., None])
+        bshape = torch.broadcast_shapes(rhs.shape[:-2], L.shape[:-2])
+        y = torch.linalg.solve_triangular(
+            L.expand(bshape + L.shape[-2:]),
+            rhs.expand(bshape + rhs.shape[-2:]), upper=False,
+        )[..., 0]
+        mahal = (diff * (diff / D)).sum(-1) - (y * y).sum(-1)
+        logdet = torch.log(D).sum(-1) + 2.0 * torch.log(
+            torch.diagonal(L, dim1=-2, dim2=-1)
+        ).sum(-1)
+        return -0.5 * (mahal + logdet + d * _LOG_2PI)

@@ -1,9 +1,11 @@
-// Device functions shared by the fused Negative-Binomial kernels.
+// Device functions shared by the fused Negative-Binomial kernels
+// (nb_phase.cu, nb_velo.cu).
 //
 // CUDA counterparts of `velocycle_tpu_torch/ops/special.py` (the threshold-2
-// integer-count forms of `velocycle_tpu/ops/special.py`), written in the same
-// operation order so the kernels and their plain torch versions hold one
-// arithmetic.  Compiled without --use_fast_math: expf/logf/log1pf and the
+// integer-count forms of `velocycle_tpu/ops/special.py`) and of the NB
+// element functions `_nb_lp` / `_nb_lp_and_grads` of `ops/nb_kernels.py`,
+// written in the same operation order so the kernels and their plain torch
+// versions hold one arithmetic.  Compiled without --use_fast_math: expf/logf/log1pf and the
 // divisions are the IEEE-accurate library versions.
 #pragma once
 
@@ -91,6 +93,54 @@ __device__ __forceinline__ float lgamma_pos(float x) {
   series += 1.5056327351493116e-7f / (z + 8.0f);
   const float t = z + 7.0f + 0.5f;
   return 0.9189385332046727f + (z + 0.5f) * logf(t) - t + logf(series);
+}
+
+// NB log-pmf as the loss-only kernels evaluate it, at log_b = -log r - elog
+// (threshold-2 ratio lgamma, softplus through logf(1 + e)).
+template <bool SKIP_K>
+__device__ __forceinline__ float nb_lp(float k, float log_b, const GeneCols& c) {
+  float lgr, unused;
+  lgamma_digamma_ratio<false>(k, c, lgr, unused);
+  const float sp = fmaxf(log_b, 0.0f) + logf(1.0f + expf(-fabsf(log_b)));
+  float lp = lgr + c.a * log_b - (c.a + k) * sp;
+  if (!SKIP_K) lp -= lgamma_pos(k + 1.0f);
+  return lp;
+}
+
+// (log-pmf, d lp/d elog, d lp/d r) as the fwd+grad kernels evaluate them:
+// softplus and sigmoid share one exp; g_r is 0 unless WANT_DISP, which
+// compiles the digamma chain in.
+template <bool WANT_DISP, bool SKIP_K>
+__device__ __forceinline__ void nb_lp_grads(float k, float log_b, const GeneCols& c,
+                                            float& lp, float& g_elog, float& g_r) {
+  const float e = expf(-fabsf(log_b));
+  const float d = 1.0f / (1.0f + e);
+  const float sp = fmaxf(log_b, 0.0f) + log1pf(e);
+  const float sig = log_b >= 0.0f ? d : e * d;
+  float lgr, dgr = 0.0f;
+  lgamma_digamma_ratio<WANT_DISP>(k, c, lgr, dgr);
+  const float a_k = c.a + k;
+  lp = lgr + c.a * log_b - a_k * sp;
+  if (!SKIP_K) lp -= lgamma_pos(k + 1.0f);
+  const float g_sig = a_k * sig;
+  g_elog = g_sig - c.a;
+  g_r = 0.0f;
+  if (WANT_DISP) {
+    const float dlp_da = dgr + log_b - sp;
+    g_r = (dlp_da * (-c.a) + (g_sig - c.a)) * c.a;
+  }
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+__device__ __forceinline__ double warp_sum(double v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
 }
 
 }  // namespace vct

@@ -65,18 +65,6 @@ struct Args {
   cudaStream_t stream;
 };
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-__device__ __forceinline__ double warp_sum(double v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
 template <typename TK, int NH, bool GRAD, bool WANT_DISP, bool HAS_DNU, bool SKIP_K>
 __global__ void __launch_bounds__(kThreads)
 phase_kernel(const TK* __restrict__ S, const float* __restrict__ nu,
@@ -172,29 +160,11 @@ phase_kernel(const TK* __restrict__ S, const float* __restrict__ nu,
         }
         const float log_b = -c.log_r - elog;
         if constexpr (!GRAD) {
-          float lgr, unused;
-          vct::lgamma_digamma_ratio<false>(k, c, lgr, unused);
-          const float sp = fmaxf(log_b, 0.0f) + logf(1.0f + expf(-fabsf(log_b)));
-          float lp = lgr + c.a * log_b - (c.a + k) * sp;
-          if (!SKIP_K) lp -= vct::lgamma_pos(k + 1.0f);
+          const float lp = vct::nb_lp<SKIP_K>(k, log_b, c);
           chunk_loss += valid[i] ? lp : 0.0f;
         } else {
-          const float e = expf(-fabsf(log_b));
-          const float d = 1.0f / (1.0f + e);
-          const float sp = fmaxf(log_b, 0.0f) + log1pf(e);
-          const float sig = log_b >= 0.0f ? d : e * d;
-          float lgr, dgr = 0.0f;
-          vct::lgamma_digamma_ratio<WANT_DISP>(k, c, lgr, dgr);
-          const float a_k = c.a + k;
-          float lp = lgr + c.a * log_b - a_k * sp;
-          if (!SKIP_K) lp -= vct::lgamma_pos(k + 1.0f);
-          const float g_sig = a_k * sig;
-          float g_elog = g_sig - c.a;
-          float g_r = 0.0f;
-          if (WANT_DISP) {
-            const float dlp_da = dgr + log_b - sp;
-            g_r = (dlp_da * (-c.a) + (g_sig - c.a)) * c.a;
-          }
+          float lp, g_elog, g_r;
+          vct::nb_lp_grads<WANT_DISP, SKIP_K>(k, log_b, c, lp, g_elog, g_r);
           if (!valid[i]) {
             lp = 0.0f;
             g_elog = 0.0f;
@@ -216,11 +186,11 @@ phase_kernel(const TK* __restrict__ S, const float* __restrict__ nu,
 
       if constexpr (GRAD) {
 #pragma unroll
-        for (int h = 0; h < NH; ++h) v_nu[h] = warp_sum(v_nu[h]);
-        if (WANT_DISP) v_disp = warp_sum(v_disp);
+        for (int h = 0; h < NH; ++h) v_nu[h] = vct::warp_sum(v_nu[h]);
+        if (WANT_DISP) v_disp = vct::warp_sum(v_disp);
 #pragma unroll
         for (int b = 0; b < NB_SLOTS; ++b)
-          if (HAS_DNU && b < nb) v_ddnu[b] = warp_sum(v_ddnu[b]);
+          if (HAS_DNU && b < nb) v_ddnu[b] = vct::warp_sum(v_ddnu[b]);
         if (lane == 0) {
 #pragma unroll
           for (int h = 0; h < NH; ++h) s_red[gl][h][warp] = v_nu[h];
@@ -257,7 +227,7 @@ phase_kernel(const TK* __restrict__ S, const float* __restrict__ nu,
     }
   }
 
-  loss = warp_sum(loss);
+  loss = vct::warp_sum(loss);
   if (lane == 0) s_loss[warp] = loss;
   __syncthreads();
   if (tid == 0) {

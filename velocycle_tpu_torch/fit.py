@@ -1,12 +1,14 @@
-"""The phase-stage fit (port of `_FitModel` / `PhaseFitModel` of
-`velocycle_tpu/fit.py`).
+"""The fit classes of both stages (port of `_FitModel`, `PhaseFitModel` and
+`VelocityFitModel` of `velocycle_tpu/fit.py`).
 
-Construct with metaparameters and an optional ``condition_on`` dict, call
-``.fit(...)``, read back the posterior `Cycle` and `Phases` and a dict of
-posterior draws.  Conditioning on ``shape_inv`` turns the fused kernels'
-dispersion gradient off (``disp_grad=False``), and posterior draws replay
-through the plain model path even when the fit ran fused, so the sites the
-reference's Predictive exposes are all present.
+Construct with metaparameters and an optional ``condition_on`` dict (the
+velocity stage conditions on the phase stage's point estimates), call
+``.fit(...)``, read back the posterior `Cycle`, `Phases` (and
+`AngularSpeed`) and a dict of posterior draws.  Conditioning on
+``shape_inv`` turns the fused kernels' dispersion gradient off
+(``disp_grad=False``), and posterior draws replay through the plain model
+path even when the fit ran fused, so the sites the reference's Predictive
+exposes are all present.
 """
 from __future__ import annotations
 
@@ -15,13 +17,13 @@ import dataclasses
 import numpy as np
 import torch
 
-from .containers import Cycle, Phases
+from .containers import AngularSpeed, Cycle, Phases
 from .core import handlers
 from .infer import SVI, Trace_ELBO, clipped_adam
 from .infer.predictive import Predictive
-from .models.basis import expression_basis
+from .models.basis import expression_basis, omega_basis
 
-__all__ = ["PhaseFitModel"]
+__all__ = ["PhaseFitModel", "VelocityFitModel"]
 
 
 def _np(x):
@@ -204,3 +206,83 @@ class PhaseFitModel(_FitModel):
         out["ElogS"] = _np(base + cf[None, :])
         out["ElogS2"] = _np(base + cf.mean())
         return out
+
+
+class VelocityFitModel(_FitModel):
+    """Velocity-learning fit.
+
+    After ``.fit()``:
+      * ``cycle_fit`` — `Cycle` with ``log_gammas``/``log_betas``/``disp``
+      * ``phase_fit`` — `Phases`
+      * ``speed_fit`` — posterior `AngularSpeed` (condition-level omega
+        Fourier coefficients)
+      * ``posterior`` — sampled sites, ``ElogS``/``ElogU`` among them
+    """
+
+    def _extract(self):
+        mp = self.metaparams
+        p = self.params
+        Ng, Nx, Nhw = mp.Ng, mp.Nx, mp.Nhw
+        if mp.model_type == "lrmn":
+            # the joint low-rank MVN packs [log_gamma (Ng), nu_omega
+            # (Nx*Nhw)]; marginal sds from the diagonal of W W^T + D
+            loc = p["loc"]
+            sd = np.sqrt((p["cov_factor"] ** 2).sum(-1) + p["cov_diag"])
+            log_gamma, log_gamma_sd = loc[:Ng], sd[:Ng]
+            nuw = loc[Ng:].reshape(Nx, Nhw)
+            nuw_sd = sd[Ng:].reshape(Nx, Nhw)
+            self.rho_real = p.get("rho_real_loc")
+        else:
+            log_gamma = p["log_gamma_locs"]
+            log_gamma_sd = p["log_gamma_scales"]
+            nuw = p["nu_omega_locs"]
+            nuw_sd = p["nu_omega_scales"]
+            self.rho_real = None
+
+        cycle = Cycle.from_array(
+            p["nu_locs"].T, p["nu_scales"].T, mp.cycle_prior.genes
+        )
+        cycle.set_log_gammas(log_gamma)
+        cycle.set_log_betas(p["log_beta_locs"])
+        if "shape_inv_locs" in p:
+            cycle.set_disp(p["shape_inv_locs"])
+        self.cycle_fit = cycle
+        self.log_gamma_sd = log_gamma_sd
+        self.log_beta_sd = p.get("log_beta_scales")
+        self.phase_fit = _phases_from_params(p, mp)
+        self.speed_fit = AngularSpeed.from_array(
+            nuw.T, nuw_sd.T,
+            condition_names=mp.speed_prior.conditions,
+            num_coeffs=Nhw,
+        )
+        self.delta_nus = p.get("delta_nu_locs")
+        # reference-compatible aliases
+        self.cycle_pyro = cycle
+        self.phase_pyro = self.phase_fit
+        self.speed_pyro = self.speed_fit
+
+    def _posterior_sites(self):
+        mp = self.metaparams
+        rs = [
+            "log_gamma", "log_beta", "nu_omega", "gamma", "nu", "phi_xy",
+            "phi", "zeta", "zeta_dphi", "zeta_omega", "omega",
+            "ElogS", "ElogU",
+        ]
+        if mp.noisemodel == "NegativeBinomial":
+            rs.append("shape_inv")
+        if mp.with_delta_nu and "delta_nu" not in self.condition_on:
+            rs.append("delta_nu")
+        if mp.model_type == "lrmn":
+            rs.append("rho_real")
+        return [s for s in rs if s not in self.condition_on]
+
+    def period_hours(self, n_grid=1000):
+        """Cell-cycle period per condition: the trapezoid integral of
+        1/omega over the circle on an ``n_grid`` grid (the statistic the
+        reference tutorials compute as ``trapz(1/omega)``)."""
+        grid = np.linspace(0, 2 * np.pi, n_grid, endpoint=False)
+        zeta_w = _np(omega_basis(
+            self.metaparams.data, torch.as_tensor(grid, dtype=torch.float32)
+        ))
+        omega = self.speed_fit.means_array @ zeta_w.T   # (Nx, n_grid)
+        return np.trapezoid(1.0 / omega, grid, axis=-1)

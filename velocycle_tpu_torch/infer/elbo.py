@@ -1,7 +1,9 @@
 """Single-particle reparameterized Trace ELBO (port of `Trace_ELBO` in
 `velocycle_tpu/infer/elbo.py`): one draw from the guide, replayed through
 the model; loss = -(sum model log p - sum guide log q).  Delta guide sites
-contribute log q = 0."""
+contribute log q = 0, and auxiliary sites (``infer={"is_auxiliary": True}``,
+such as the LRMN guide's single draw feeding its Delta sites) contribute
+nothing, as in pyro, where that draw happens outside any sample site."""
 from __future__ import annotations
 
 from ..core import handlers
@@ -13,6 +15,8 @@ def _logp_sum(tr):
     total = 0.0
     for site in tr.values():
         if site["type"] != "sample" or site.get("hidden"):
+            continue
+        if site.get("infer", {}).get("is_auxiliary"):
             continue
         total = total + site["fn"].log_prob(site["value"]).sum()
     return total

@@ -25,7 +25,7 @@ class Predictive:
       params: dict of *constrained* parameter values substituted into both.
       num_samples: number of posterior draws.
       return_sites: site names to collect; None = all sample and
-        deterministic sites.
+        deterministic sites except auxiliary ones.
     """
 
     def __init__(self, model, guide=None, params=None, num_samples=1,
@@ -53,6 +53,8 @@ class Predictive:
         out = {}
         for name, site in {**guide_tr, **model_tr}.items():
             if site["type"] not in ("sample", "deterministic"):
+                continue
+            if site.get("infer", {}).get("is_auxiliary"):
                 continue
             if self.return_sites is not None and name not in self.return_sites:
                 continue

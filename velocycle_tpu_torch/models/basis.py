@@ -1,6 +1,6 @@
-"""Basis and latent-coordinate plumbing for the phase model: the Fourier
-kind with the ``xy`` parametrization of `velocycle_tpu/models/basis.py`
-(the spline kind and the wrapped phases are not ported yet)."""
+"""Basis and latent-coordinate plumbing for the phase and velocity models:
+the Fourier kind with the ``xy`` parametrization of `velocycle_tpu/models/
+basis.py` (the spline kind and the wrapped phases are not ported yet)."""
 from __future__ import annotations
 
 from ..core import distributions as dist
@@ -8,7 +8,7 @@ from ..core.handlers import deterministic, param, plate, sample
 from ..ops.circular import pack_direction
 from ..ops.fourier import fourier_basis
 
-__all__ = ["expression_basis", "sample_phi", "guide_phi"]
+__all__ = ["expression_basis", "omega_basis", "sample_phi", "guide_phi"]
 
 
 def _check_supported(mp):
@@ -25,6 +25,13 @@ def expression_basis(mp, phi, der=0):
     columns."""
     _check_supported(mp)
     return fourier_basis(phi, mp.num_harmonics_S, der=der)
+
+
+def omega_basis(mp, phi):
+    """Design matrix zeta_omega of the angular-speed series,
+    ``2*omega_harmonics + 1`` columns."""
+    _check_supported(mp)
+    return fourier_basis(phi, mp.omega_harmonics, der=0)
 
 
 def sample_phi(mp):

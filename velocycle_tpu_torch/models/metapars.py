@@ -1,10 +1,11 @@
 """Metaparameter containers: host preprocessing -> device tensors.
 
-`PhaseData` is the port of the JAX package's `flax.struct` pytree of the
-same name (`velocycle_tpu/models/metapars.py`): a dataclass whose array
-fields are tensors on one explicit device and whose config fields (sizes,
-flags, strings) are plain Python values.  ``.replace(**kw)`` returns a
-copy with fields changed, as `fit.py` uses it.
+`PhaseData` and `VelocityData` are the ports of the JAX package's
+`flax.struct` pytrees of the same names (`velocycle_tpu/models/
+metapars.py`): dataclasses whose array fields are tensors on one explicit
+device and whose config fields (sizes, flags, strings) are plain Python
+values.  ``.replace(**kw)`` returns a copy with fields changed, as `fit.py`
+uses it.
 """
 from __future__ import annotations
 
@@ -13,11 +14,25 @@ from typing import Any, Callable, Optional
 
 import torch
 
-__all__ = ["PhaseData", "Metapars", "PHASE_TENSOR_FIELDS"]
+__all__ = [
+    "PhaseData", "VelocityData", "Metapars", "PHASE_TENSOR_FIELDS",
+    "VELOCITY_TENSOR_FIELDS",
+]
+
+
+class _DeviceData:
+    """``replace`` and ``device`` of the device-side containers."""
+
+    def replace(self, **kw):
+        return dataclasses.replace(self, **kw)
+
+    @property
+    def device(self):
+        return self.S.device
 
 
 @dataclasses.dataclass
-class PhaseData:
+class PhaseData(_DeviceData):
     """Device-side data/priors for manifold learning (phase inference)."""
 
     # observed data
@@ -55,13 +70,6 @@ class PhaseData:
     # shape_inv is conditioned and that gradient is discarded
     disp_grad: bool = True
 
-    def replace(self, **kw):
-        return dataclasses.replace(self, **kw)
-
-    @property
-    def device(self):
-        return self.S.device
-
 
 # the tensor fields, in declaration order (the rest are static config)
 PHASE_TENSOR_FIELDS = (
@@ -72,14 +80,77 @@ PHASE_TENSOR_FIELDS = (
 
 
 @dataclasses.dataclass
+class VelocityData(_DeviceData):
+    """Device-side data/priors for velocity learning."""
+
+    S: torch.Tensor             # (Ng, Nc) counts; int16 on the fused path
+    U: torch.Tensor             # (Ng, Nc)
+    logS: torch.Tensor
+    logU: torch.Tensor
+    count_factor: torch.Tensor  # (Nc,)
+    mu_nu: torch.Tensor         # (Ng, Nh)
+    sd_nu: torch.Tensor
+    phixy_prior: torch.Tensor   # (Nc, 2)
+    D: torch.Tensor             # (Nx, Nc) condition design
+    Db: torch.Tensor            # (Nb, Nc) batch design
+    mu_dnu: torch.Tensor
+    sd_dnu: torch.Tensor
+    mu_gamma: torch.Tensor      # (Ng,) log-degradation prior
+    sd_gamma: torch.Tensor
+    mu_beta: torch.Tensor       # (Ng,) log-splicing prior
+    sd_beta: torch.Tensor
+    mu_nuomega: torch.Tensor    # (Nx, Nhw) angular-speed prior
+    sd_nuomega: torch.Tensor
+    gamma_alpha: torch.Tensor
+    gamma_beta: torch.Tensor
+    sigma_s_gc: torch.Tensor
+    sigma_u_gc: torch.Tensor
+    # LRMN hyperparameters
+    rho_mean: torch.Tensor
+    rho_std: torch.Tensor
+    rho_scale: torch.Tensor
+    phi_prior: Optional[torch.Tensor] = None
+    # precomputed sum(lgamma(S+1)) + sum(lgamma(U+1)) for the fused kernels
+    lgamma_k_sum: Optional[torch.Tensor] = None
+    # static config
+    Ng: int = 0
+    Nc: int = 0
+    Nb: int = 1
+    Nx: int = 1
+    Nhw: int = 3
+    num_harmonics_S: int = 2
+    omega_harmonics: int = 1
+    noisemodel: str = "NegativeBinomial"
+    with_delta_nu: bool = True
+    model_type: str = "lrmn"
+    rho_rank: int = 5
+    basis_kind: str = "fourier"
+    phi_parametrization: str = "xy"
+    # fused CUDA S+U NB likelihood (ops/nb_kernels.py); NegativeBinomial only
+    use_fused_nb: bool = False
+    # see PhaseData.disp_grad
+    disp_grad: bool = True
+
+
+VELOCITY_TENSOR_FIELDS = (
+    "S", "U", "logS", "logU", "count_factor", "mu_nu", "sd_nu",
+    "phixy_prior", "D", "Db", "mu_dnu", "sd_dnu", "mu_gamma", "sd_gamma",
+    "mu_beta", "sd_beta", "mu_nuomega", "sd_nuomega", "gamma_alpha",
+    "gamma_beta", "sigma_s_gc", "sigma_u_gc", "rho_mean", "rho_std",
+    "rho_scale", "phi_prior", "lgamma_k_sum",
+)
+
+
+@dataclasses.dataclass
 class Metapars:
     """Host-side wrapper: device data + prior containers + model selection."""
 
-    data: Any                     # PhaseData
+    data: Any                     # PhaseData or VelocityData
     model_fn: Callable
     guide_fn: Callable
     cycle_prior: Any = None       # Cycle
     phase_prior: Any = None       # Phases
+    speed_prior: Any = None       # AngularSpeed
     condition: Any = None         # names conditioned on (informational)
     extras: Optional[dict] = None
 

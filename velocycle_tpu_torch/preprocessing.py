@@ -1,10 +1,11 @@
 """Preprocessing: AnnData + prior containers -> device-ready metaparameters.
 
-Port of the phase half of `velocycle_tpu/preprocessing.py`.  All host work
-(densification, design matrices, size factors, the int16 count compaction
-and the f64 ``sum(lgamma(S+1))`` constant) is numpy and produces the same
-arrays as the JAX package; the result is one `PhaseData` whose tensors sit
-on ``device`` (the card unless ``device="cpu"``).
+Port of `velocycle_tpu/preprocessing.py` (Fourier basis).  All host work
+(gene filtering, densification, design matrices, size factors, the int16
+count compaction and the f64 ``sum(lgamma(K+1))`` constant) is numpy and
+produces the same arrays as the JAX package; the result is one `PhaseData`
+or `VelocityData` whose tensors sit on ``device`` (the card unless
+``device="cpu"``).
 """
 from __future__ import annotations
 
@@ -12,17 +13,55 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-from .containers import Cycle, Phases
+from .containers import AngularSpeed, Cycle, Phases, reorder
 from .device import resolve_device
-from .models.metapars import Metapars, PhaseData
+from .models.metapars import Metapars, PhaseData, VelocityData
 
-__all__ = ["make_design_matrix", "preprocess_for_phase_estimation"]
+__all__ = [
+    "filter_shared_genes",
+    "make_design_matrix",
+    "preprocess_for_phase_estimation",
+    "preprocess_for_velocity_estimation",
+]
 
 
 def _dense(x):
     if sp.issparse(x):
         return x.toarray()
     return np.asarray(x)
+
+
+def filter_shared_genes(cycle, data, filter_type="intersection"):
+    """Subset a Cycle and an AnnData to a common, sorted gene set.
+
+    "intersection" keeps genes present in both; "union" keeps all AnnData
+    genes, extending the Cycle with flat priors for genes it lacks (and
+    requires every Cycle gene to exist in the AnnData).
+    """
+    cycle_genes = set(cycle.genes)
+    data_genes = set(data.var.index)
+    if filter_type == "intersection":
+        keep = np.sort(np.array(list(cycle_genes & data_genes)))
+        new_data = data[:, list(keep)].copy()
+        new_cycle = Cycle.from_array(
+            means_array=cycle.means[keep].values,
+            stds_array=cycle.stds[keep].values,
+            gene_names=list(keep),
+        )
+    elif filter_type == "union":
+        missing = cycle_genes - data_genes
+        if missing:
+            raise ValueError(
+                f"Cycle genes not present in the AnnData: {sorted(missing)[:5]}"
+            )
+        keep = np.sort(np.array(list(cycle_genes | data_genes)))
+        new_data = data[:, list(keep)].copy()
+        new_cycle = cycle.copy()
+        new_cycle.extend(names=sorted(data_genes - cycle_genes))
+        new_cycle = reorder(new_cycle, list(keep))
+    else:
+        raise ValueError(f"invalid filter_type {filter_type!r}")
+    return new_cycle, new_data
 
 
 def make_design_matrix(adata, ids="batch"):
@@ -200,4 +239,147 @@ def preprocess_for_phase_estimation(
         phase_prior=phase_obj,
         condition=list((condition_on or {}).keys()),
         extras={"condition_on": dict(condition_on or {})},
+    )
+
+
+def preprocess_for_velocity_estimation(
+    adata,
+    cycle_obj: Cycle,
+    phase_obj: Phases,
+    speed_obj: AngularSpeed,
+    condition_design_mtx=None,
+    batch_design_mtx=None,
+    n_harmonics: int = 2,
+    omega_n_harmonics=None,
+    normalize: bool = False,
+    behavior: str = "intersection",
+    noisemodel: str = "NegativeBinomial",
+    with_delta_nu: bool = True,
+    condition_on=None,
+    count_factor=0.0,
+    mu_gamma: float = 0.0,
+    sd_gamma: float = 0.5,
+    mu_beta: float = 2.0,
+    sd_beta: float = 3.0,
+    mu_dnu: float = 0.0,
+    sd_dnu=0.1,
+    gamma_alpha: float = 1.0,
+    gamma_beta: float = 2.0,
+    model_type: str = "lrmn",
+    rho_mean: float = 4.0,
+    rho_std: float = 1.0,
+    rho_scale: float = 1.0,
+    rho_rank: int = 5,
+    basis_kind: str = "fourier",
+    phi_parametrization: str = "xy",
+    use_fused_nb: bool = False,
+    device=None,
+):
+    """Assemble `Metapars` for velocity learning; ``.data`` is a
+    `VelocityData` on ``device``.  Genes are filtered against the Cycle
+    (`filter_shared_genes` with ``behavior``); ``model_type`` selects the
+    LRMN guide ("lrmn") or the mean-field guide ("fourier", "meanfield",
+    "all")."""
+    from .models.velocity import (
+        velocity_guide, velocity_guide_lrmn, velocity_model,
+    )
+
+    dev = resolve_device(device)
+    if phi_parametrization != "xy":
+        raise NotImplementedError(
+            f"{phi_parametrization=}: the port has the 'xy' parametrization only"
+        )
+    if omega_n_harmonics is None:
+        omega_n_harmonics = speed_obj.harmonics
+    if speed_obj.harmonics != omega_n_harmonics:
+        raise ValueError(
+            f"speed prior has {speed_obj.harmonics} harmonics but "
+            f"omega_n_harmonics={omega_n_harmonics}"
+        )
+    if model_type == "lrmn":
+        guide_fn = velocity_guide_lrmn
+    elif model_type in ("fourier", "meanfield", "all"):
+        guide_fn = velocity_guide
+    else:
+        raise ValueError(
+            f"{model_type=} is not valid; use 'lrmn' or 'fourier'"
+        )
+    basis_cfg = _basis_config(basis_kind, cycle_obj, n_harmonics)
+    cycle_obj, adata = filter_shared_genes(
+        cycle_obj, adata, filter_type=behavior
+    )
+    S, U = _extract_counts(adata, normalize)
+    adata.layers["logS"] = np.log(S + 1 + 1e-16)
+    adata.layers["logU"] = np.log(U + 1 + 1e-16)
+
+    Nc = len(phase_obj)
+    if condition_design_mtx is None:
+        condition_design_mtx = np.ones((Nc, 1), dtype=np.int64)
+    if batch_design_mtx is None:
+        batch_design_mtx = np.ones((Nc, 1), dtype=np.int64)
+    condition_design_mtx = np.asarray(condition_design_mtx)
+    batch_design_mtx = np.asarray(batch_design_mtx)
+
+    Ng = len(cycle_obj)
+    Nb = batch_design_mtx.shape[-1]
+    Nx = condition_design_mtx.shape[-1]
+    sd_dnu_arr = np.broadcast_to(
+        np.asarray(sd_dnu, np.float32), (Nb,)
+    ).reshape(Nb, 1)
+    arrays = dict(
+        S=_compact_counts(use_fused_nb, S.T),
+        U=_compact_counts(use_fused_nb, U.T),
+        logS=np.asarray(adata.layers["logS"], np.float32).T,
+        logU=np.asarray(adata.layers["logU"], np.float32).T,
+        count_factor=np.broadcast_to(
+            np.asarray(count_factor, np.float32), (Nc,)
+        ).copy(),
+        mu_nu=cycle_obj.means_array,
+        sd_nu=cycle_obj.stds_array,
+        phixy_prior=phase_obj.phi_xy_array,
+        D=condition_design_mtx.T.astype(np.float32),
+        Db=batch_design_mtx.T.astype(np.float32),
+        mu_dnu=np.float32(mu_dnu),
+        sd_dnu=sd_dnu_arr,
+        mu_gamma=np.full((Ng,), mu_gamma, np.float32),
+        sd_gamma=np.full((Ng,), sd_gamma, np.float32),
+        mu_beta=np.full((Ng,), mu_beta, np.float32),
+        sd_beta=np.full((Ng,), sd_beta, np.float32),
+        mu_nuomega=speed_obj.means_array,   # (Nx, Nhw)
+        sd_nuomega=speed_obj.stds_array,
+        gamma_alpha=np.float32(gamma_alpha),
+        gamma_beta=np.float32(gamma_beta),
+        sigma_s_gc=np.float32(0.1),
+        sigma_u_gc=np.float32(0.1),
+        rho_mean=np.float32(rho_mean),
+        rho_std=np.float32(rho_std),
+        rho_scale=np.float32(rho_scale),
+        lgamma_k_sum=_lgamma_k_sum(use_fused_nb, S, U),
+    )
+    data = VelocityData(
+        **{k: _to_device(v, dev) for k, v in arrays.items()},
+        Ng=Ng,
+        Nc=Nc,
+        Nb=Nb,
+        Nx=Nx,
+        Nhw=2 * omega_n_harmonics + 1,
+        num_harmonics_S=n_harmonics,
+        omega_harmonics=omega_n_harmonics,
+        noisemodel=noisemodel,
+        with_delta_nu=with_delta_nu,
+        model_type=model_type,
+        rho_rank=rho_rank,
+        phi_parametrization=phi_parametrization,
+        use_fused_nb=use_fused_nb,
+        **basis_cfg,
+    )
+    return Metapars(
+        data=data,
+        model_fn=velocity_model,
+        guide_fn=guide_fn,
+        cycle_prior=cycle_obj,
+        phase_prior=phase_obj,
+        speed_prior=speed_obj,
+        condition=list((condition_on or {}).keys()),
+        extras={"condition_on": dict(condition_on or {}), "adata": adata},
     )
