@@ -16,7 +16,16 @@ in order; any failure exits non-zero and prints no result line:
      the velocity pair a gated case where omega ~ N(0, 1) puts a stated
      share of elements below the relu;
   4. time each kernel, its plain version and its bound with CUDA events;
-  5. drive the two-stage workflow at full width through the user entry
+  5. the roofline ladder (csrc/nb_ladder.cu, the port of
+     tools/kernel_profile.py): hold each rung against its plain version
+     (int16 and float32 at full width and at 257 x 3001, float32 at the
+     ragged shapes) and require v_full to be bit-identical to
+     phase_fwdgrad, time each rung beside its plain version and, where one
+     PyTorch call computes it, that call; then drive the ladder tool's entry
+     point `run_ladder` at full width for int16 and float32 counts, counting
+     its launches (counts set to 0 just before, read just after), and print
+     the rung differences;
+  6. drive the two-stage workflow at full width through the user entry
      points, counting the kernel launches of each stage (counts set to 0
      just before it, read just after):
        stage 1: preprocess_for_phase_estimation(use_fused_nb=True) ->
@@ -26,7 +35,7 @@ in order; any failure exits non-zero and prints no result line:
        use_fused_nb=True) -> VelocityFitModel conditioned on stage 1's nu,
        phi_xy and shape_inv, num_samples=2 -> fit(num_steps=50) -> one
        loss-only evaluation;
-  6. print the kernel table as one JSON line, the nvidia-smi line, and
+  7. print the kernel table as one JSON line, the nvidia-smi line, and
      last {"ok": true, "device": {...}}.
 
 The configuration is the repository's Stereo-seq-class fit (bench.py
@@ -51,8 +60,6 @@ RAGGED = [(1, 1), (129, 257), (3, 300)]
 LOSS_RTOL = 1e-5        # tests/test_nb_kernels.py:32
 GRAD_RTOL = 1e-4        # max|a-b| / max|a|, tests/test_nb_kernels.py:52
 VELO_GRAD_RTOL = 5e-4   # max|a-b| / max|a|, tests/test_nb_kernels.py:199
-PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
-PEAK_FP32_PER_S = 67e12      # H100 SXM, float32 outside the tensor cores
 
 # FP32 operations per count-matrix element, counted from csrc/nb_phase.cu
 # with Nh = 5 and no delta_nu (a transcendental or a division counts 1):
@@ -201,6 +208,11 @@ MAIN_SYMBOLS = {
     "velo_fwdgrad": "velo_kernelIsLi5ELb1ELb0ELb0ELb1E",
     "velo_fwd": "velo_kernelIsLi5ELb0ELb0ELb0ELb1E",
 }
+# the ladder's rungs in the order of csrc/nb_ladder.cu, and the line of
+# tools/kernel_profile.py that holds each one's TPU kernel
+LADDER_REPLACES = {"stream": 57, "matmul": 71, "logpmf": 83, "fwdgrad": 98,
+                   "v_full": 167, "v_nodig": 167, "v_nocell": 167,
+                   "vpu_only": 212}
 PHASE_GRADS = ("dnu", "dzeta", "dcf", "ddisp", "ddnu")
 VELO_GRADS = ("dnu", "dzeta", "dzdphi", "dcf", "domega", "dlog_beta",
               "dlog_gamma", "ddisp", "ddnu")
@@ -230,6 +242,16 @@ def phase_build():
                 if sym in full:
                     print(f"[build]   {kname} (main path): {r} registers, "
                           f"{s} B smem, spill stores {ss} B, loads {sl} B")
+        if src.stem == "nb_ladder":
+            for i, rung in enumerate(LADDER_REPLACES):
+                parts = []
+                for t, dtype in (("s", "int16"), ("f", "f32")):
+                    sym = f"ladder_kernelI{t}Li{i}EE"
+                    for full, (r, s, ss, sl) in info.items():
+                        if sym in full:
+                            parts.append(f"{dtype} {r} registers, {s} B smem, "
+                                         f"spill {ss}+{sl} B")
+                print(f"[build]   ladder {rung}: " + "; ".join(parts))
     return dt
 
 
@@ -356,39 +378,38 @@ def phase_parity(torch, seed):
     return {**results, **vresults}
 
 
-def _time(torch, fn, reps, warmup=2):
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(reps):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / reps
-
-
-def _time_pair(torch, name, kern, plain, nbytes, nops, card, note):
+def _time_pair(torch, name, kern, plain, nbytes, nops, card, note,
+               library=None):
     """Kernel and plain version in turns (plain, kernel, kernel, plain),
-    against the bound max(bytes / HBM rate, FP32 operations / FP32 rate)."""
-    p1 = _time(torch, plain, reps=3, warmup=1)
-    k1 = _time(torch, kern, reps=20)
-    k2 = _time(torch, kern, reps=20)
-    p2 = _time(torch, plain, reps=3, warmup=1)
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = nops / PEAK_FP32_PER_S * 1e3
-    bound = max(t_bytes, t_ops)
+    and the library call where one PyTorch call computes the same function
+    (after each kernel run), against the bound max(bytes / HBM rate, FP32
+    operations / FP32 rate) of `tools.kernel_profile.bound_ms`."""
+    from velocycle_tpu_torch.tools import kernel_profile as TP
+
+    lib_ms = []
+    p1 = TP.event_ms(plain, reps=3)
+    k1 = TP.event_ms(kern, reps=20, warmup=2)
+    if library is not None:
+        lib_ms.append(TP.event_ms(library[1], reps=20, warmup=2))
+    k2 = TP.event_ms(kern, reps=20, warmup=2)
+    if library is not None:
+        lib_ms.append(TP.event_ms(library[1], reps=20, warmup=2))
+    p2 = TP.event_ms(plain, reps=3)
+    t_bytes = nbytes / TP.PEAK_BYTES_PER_S * 1e3
+    t_ops = nops / TP.PEAK_FP32_PER_S * 1e3
+    bound, bound_by = TP.bound_ms(nbytes, nops)
     ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+    lib_note = ("none (no single PyTorch call computes this function)"
+                if library is None else
+                f"{lib_ms[0]:.4f} / {lib_ms[1]:.4f} ms ({library[0]})")
     print(f"[timing] {name} @ {NG}x{NC} int16 on {card}: kernel {k1:.4f} / "
           f"{k2:.4f} ms, plain {p1:.3f} / {p2:.3f} ms, bound {bound:.4f} ms "
           f"(bytes {t_bytes:.4f} ms = {nbytes / 1e9:.3f} GB; operations "
           f"{t_ops:.4f} ms = {nops / 1e9:.2f} GFLOP, {note}), "
-          f"{bound / ms:.1%} of bound; library_ms: none (no single PyTorch "
-          f"call computes this function)")
+          f"{bound / ms:.1%} of bound; library_ms: {lib_note}")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+            "bound_by": bound_by,
+            "library_ms": sum(lib_ms) / len(lib_ms) if lib_ms else None}
 
 
 def _ratio_ops(torch, counts, want_digamma):
@@ -457,6 +478,127 @@ def velo_timing(torch, seed, card):
             in_bytes + 4, (OPS_VELO["common"] + OPS_VELO["fwd"]) * N + lg,
             card, note),
     }
+
+
+LADDER_GRADS = {"fwdgrad": ("dnu",),
+                "v_full": ("dnu_part", "ddisp_part", "dzeta", "dcf")}
+LADDER_GRADS["v_nodig"] = LADDER_GRADS["v_nocell"] = LADDER_GRADS["v_full"]
+
+
+def _ladder_parity(torch, seed):
+    """Each rung against its plain version, at full width and at a shape
+    with a partial last gene chunk and cell tile (257 x 3001) in int16 and
+    float32, and in float32 at the ragged shapes; then v_full against
+    phase_fwdgrad wherever there is more than one cell tile, which must be
+    bit-identical: the rungs are cut from phase_fwdgrad, so a change to
+    that kernel that leaves them behind fails here.  Returns {rung: [max
+    abs error, loss rel error]} over the full-width cases."""
+    from velocycle_tpu_torch.ops import ladder_kernels as L
+    from velocycle_tpu_torch.ops import nb_kernels as K
+    from velocycle_tpu_torch.tools import kernel_profile as TP
+
+    results = {rung: [0.0, 0.0] for rung in L.RUNGS}
+    all_ok, identical = True, True
+    cases = [(tag, g, c, int16) for tag, g, c in (("full", NG, NC),
+                                                  ("ragged 257x3001", 257, 3001))
+             for int16 in (True, False)]
+    cases += [(f"ragged {g}x{c}", g, c, False) for g, c in RAGGED]
+    for tag, Ng, Nc, int16 in cases:
+        args = TP.make_inputs(Ng, Nc, int16, seed + Ng + Nc, "cuda")
+        n_rep = max(Nc // TP.TPU_CELL_TILE, 1)
+        desc = f"{tag} ({'int16' if int16 else 'f32'})"
+        for rung in L.RUNGS:
+            kout = L.run_rung(rung, *args, n_rep)
+            pout = L.run_rung(rung, *args, n_rep, plain=True)
+            torch.cuda.synchronize()
+            names = LADDER_GRADS.get(rung)
+            wabs, lrel, oks = _compare(
+                f"ladder_{rung} {desc}",
+                kout if names else kout[0], pout if names else pout[0], names)
+            all_ok &= all(oks)
+            if tag == "full":
+                results[rung] = [max(results[rung][0], wabs),
+                                 max(results[rung][1], lrel)]
+            del kout, pout
+        if Nc > L.CELLS_PER_BLOCK:
+            # v_full is phase_fwdgrad with cf, no delta_nu, lgamma(k+1)
+            # skipped and the dispersion gradient: same function, same layout
+            # (both sum the raw gene partials over tiles in one call)
+            out = L.ladder_run("v_full", *args)
+            gene = out.gene_part.sum(0)
+            mine = (out.loss_part.sum().float(), gene[:, :L.NH], out.dzeta,
+                    out.dcf, gene[:, L.NH])
+            ploss, pgrads = K.phase_fwdgrad(*args, None, None, 0.0,
+                                            want_disp=True)
+            theirs = (ploss, *pgrads[:4])
+            same = [bool(torch.equal(a, b)) for a, b in zip(mine, theirs)]
+            identical &= all(same)
+            print(f"[ladder] v_full vs phase_fwdgrad ({desc}): bit-identical "
+                  f"{all(same)} (loss, dnu, dzeta, dcf, ddisp: {same})")
+        del args
+        torch.cuda.empty_cache()
+    check(all_ok, "a ladder rung disagrees with its plain version "
+                  "(see [parity] lines)")
+    check(identical, "v_full is not bit-identical to phase_fwdgrad: the "
+                     "ladder no longer cuts down the production kernel")
+    return results
+
+
+def phase_ladder(torch, seed, card):
+    """The roofline ladder: parity, timing of each rung (int16, full
+    width), then `run_ladder` at full width for int16 and float32 counts
+    with the launches counted.  Returns ({rung: [max abs error, loss rel
+    error]}, {rung: timing}, {rung: launches})."""
+    from velocycle_tpu_torch.ops import ladder_kernels as L
+    from velocycle_tpu_torch.tools import kernel_profile as TP
+
+    errs = _ladder_parity(torch, seed)
+
+    args = TP.make_inputs(NG, NC, True, seed, "cuda")
+    S, nu, zeta, cf, r = args
+    n_rep = NC // TP.TPU_CELL_TILE
+    S32 = S.float()
+    libraries = {
+        "stream": ("torch.sum(S, dtype=torch.float32) on the int16 counts",
+                   lambda: torch.sum(S, dtype=torch.float32)),
+        "matmul": ('torch.einsum("gc,gh,ch->", S, nu, zeta) on float32 counts',
+                   lambda: torch.einsum("gc,gh,ch->", S32, nu, zeta)),
+    }
+    timing = {}
+    for rung in L.RUNGS:
+        nbytes, nops = TP.work(rung, *args)
+        timing[rung] = _time_pair(
+            torch, f"ladder_{rung}",
+            lambda: L.run_rung(rung, *args, n_rep),
+            lambda: L.run_rung(rung, *args, n_rep, plain=True),
+            nbytes, nops, card, "counted on this run's data",
+            library=libraries.get(rung))
+    del S32, args, S, nu, zeta, cf, r
+    torch.cuda.empty_cache()
+
+    L.reset_launch_counts()
+    rows = {}
+    for dtype in ("int16", "float32"):
+        rows[dtype] = TP.run_ladder(int16=dtype == "int16", seed=seed,
+                                    device="cuda")
+        torch.cuda.empty_cache()
+    launches = dict(L.LAUNCHES)
+    for dtype, dtype_rows in rows.items():
+        print(f"[ladder] run_ladder, {dtype} counts, {NG}x{NC} on {card}:")
+        for row in dtype_rows:
+            check(math.isfinite(row["loss"]),
+                  f"ladder {row['name']} ({dtype}): loss {row['loss']}")
+            print(f"[ladder]   {TP.format_row(row)}")
+        k = {row["name"]: row["kernel_ms"] for row in dtype_rows}
+        diffs = [("matmul - stream (ElogS)", "matmul", "stream"),
+                 ("logpmf - matmul (NB log-pmf)", "logpmf", "matmul"),
+                 ("fwdgrad - logpmf (gradients)", "fwdgrad", "logpmf"),
+                 ("v_full - v_nodig (digamma chain)", "v_full", "v_nodig"),
+                 ("v_full - v_nocell (cell gradients)", "v_full", "v_nocell")]
+        print(f"[ladder]   rung differences, kernel ms ({dtype}): " + "; ".join(
+            f"{label} {k[a] - k[b]:+.4f}" for label, a, b in diffs))
+    print(f"[ladder] launches in run_ladder: {launches}")
+    return errs, timing, launches
 
 
 def _make_adata(torch, seed, device):
@@ -730,6 +872,9 @@ def main(argv=None):
     timing = phase_timing(torch, args.seed, smi)
     timing.update(velo_timing(torch, args.seed, smi))
     torch.cuda.empty_cache()
+    ladder_errs, ladder_timing, ladder_launches = phase_ladder(
+        torch, args.seed, smi)
+    torch.cuda.empty_cache()
     adata, genes, cells, angles = _make_adata(torch, args.seed, "cuda")
     launches, steps_per_s, peak, stage1 = phase_main_path(
         torch, args.seed, adata, genes, cells, angles)
@@ -756,7 +901,19 @@ def main(argv=None):
             "source": f"velocycle_tpu_torch/csrc/{src}",
             "replaces": replaces, "launches": launches[k],
             "max_abs_err": errs[k][0], "loss_rel_err": errs[k][1],
-            **timing[k], "library_ms": None,
+            **timing[k],
+        })
+    # the ladder's launches come from its own entry point, run_ladder
+    for rung, line in LADDER_REPLACES.items():
+        check(ladder_launches[rung] > 0,
+              f"ladder_{rung} was not launched by run_ladder")
+        table.append({
+            "name": f"ladder_{rung}", "route": "cuda",
+            "source": "velocycle_tpu_torch/csrc/nb_ladder.cu",
+            "replaces": f"tools/kernel_profile.py:{line}",
+            "launches": ladder_launches[rung],
+            "max_abs_err": ladder_errs[rung][0],
+            "loss_rel_err": ladder_errs[rung][1], **ladder_timing[rung],
         })
     print(f"[done] {time.perf_counter() - t_start:.1f} s; stage 1 "
           f"{steps_per_s:.3f} steps/s, peak {peak / 2**30:.2f} GiB; stage 2 "

@@ -199,7 +199,9 @@ def test_package_never_imports_jax():
     offenders = [f for f in files if pat.search(open(f).read())]
     assert not offenders, offenders
     code = ("import sys, velocycle_tpu_torch, velocycle_tpu_torch.fit, "
-            "velocycle_tpu_torch.convert, velocycle_tpu_torch.ops.nb_kernels; "
+            "velocycle_tpu_torch.convert, velocycle_tpu_torch.ops.nb_kernels, "
+            "velocycle_tpu_torch.ops.ladder_kernels, "
+            "velocycle_tpu_torch.tools.kernel_profile; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'optax', 'velocycle_tpu')); print(bad)")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

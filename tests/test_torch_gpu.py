@@ -7,8 +7,9 @@ imports no JAX, so on a machine with a card and no JAX it runs alone:
 
 Tolerances are those the kernels' plain versions are held to against the
 JAX package (tests/test_torch_nb_kernels.py, tests/test_torch_velocity_
-kernels.py): loss rel 1e-5, gradients max|a-b|/max|a| 1e-4 for the phase
-pair and 5e-4 for the velocity pair.
+kernels.py, tests/test_torch_ladder.py): loss rel 1e-5, gradients
+max|a-b|/max|a| 1e-4 for the phase pair and the ladder, 5e-4 for the
+velocity pair.
 """
 import dataclasses
 
@@ -17,7 +18,9 @@ import pytest
 import scipy.special as sps
 import torch
 
+from velocycle_tpu_torch.ops import ladder_kernels as L
 from velocycle_tpu_torch.ops import nb_kernels as K
+from velocycle_tpu_torch.tools import kernel_profile as TP
 
 pytestmark = pytest.mark.gpu
 
@@ -256,3 +259,59 @@ def test_fused_velocity_fit_on_the_card_launches_one_fwdgrad_per_step():
     plain = T.VelocityFitModel(plain_mp, condition_on=cond,
                                get_posterior=False).fit(num_steps=25)
     np.testing.assert_allclose(fit.losses, plain.losses, rtol=5e-4)
+
+
+# ---------------------------------------------------------------------------
+# the roofline ladder (csrc/nb_ladder.cu)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("int16", [True, False], ids=["i16", "f32"])
+@pytest.mark.parametrize("Ng,Nc", [(1, 1), (129, 257), (3, 300), (64, 1030)])
+def test_cuda_ladder_rungs_match_plain(Ng, Nc, int16):
+    dev = _cuda_or_skip()
+    args = TP.make_inputs(Ng, Nc, int16, seed=Ng + Nc, device=dev)
+    for rung in L.RUNGS:
+        kl, kg = L.run_rung(rung, *args, n_rep=3)
+        pl, pg = L.run_rung(rung, *args, n_rep=3, plain=True)
+        assert abs(float(kl) - float(pl)) / max(abs(float(pl)), 1.0) < 1e-5, rung
+        assert len(kg) == len(pg)
+        for a, b in zip(kg, pg):
+            if b is None:
+                assert a is None, rung
+            else:
+                assert _max_rel(a, b) < 1e-4, rung
+
+
+@pytest.mark.parametrize("int16", [True, False], ids=["i16", "f32"])
+def test_cuda_ladder_v_full_is_phase_fwdgrad(int16):
+    """Bit for bit: the rungs are cut from phase_fwdgrad's body and layout,
+    so a change to that kernel that leaves them behind fails here."""
+    dev = _cuda_or_skip()
+    S, nu, zeta, cf, r = TP.make_inputs(300, 5000, int16, device=dev)
+    out = L.ladder_run("v_full", S, nu, zeta, cf, r)
+    gene = out.gene_part.sum(0)
+    pl, (pdnu, pdzeta, pdcf, pddisp, _) = K.phase_fwdgrad(
+        S, nu, zeta, cf, r, None, None, 0.0, want_disp=True)
+    assert torch.equal(out.loss_part.sum().float(), pl)
+    for a, b in ((gene[:, :5], pdnu), (gene[:, 5], pddisp), (out.dzeta, pdzeta),
+                 (out.dcf, pdcf)):
+        assert torch.equal(a, b)
+
+
+def test_cuda_ladder_is_bit_reproducible_and_counts_launches():
+    dev = _cuda_or_skip()
+    args = TP.make_inputs(300, 5000, False, device=dev)
+    L.reset_launch_counts()
+    for rung in L.RUNGS:
+        la, ga = L.run_rung(rung, *args, n_rep=3)
+        lb, gb = L.run_rung(rung, *args, n_rep=3)
+        assert float(la) == float(lb), rung
+        for x, y in zip(ga, gb):
+            assert (x is None and y is None) or torch.equal(x, y), rung
+    assert L.LAUNCHES == {rung: 2 for rung in L.RUNGS}
+    with pytest.raises(ValueError, match="Nh = 5"):
+        L.ladder_matmul(args[0], args[1][:, :3].contiguous(),
+                        args[2][:, :3].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        L.ladder_matmul(args[0], args[1], args[2].T.contiguous().T)
+    assert L.LAUNCHES["matmul"] == 2

@@ -39,14 +39,11 @@
 #include <cuda_runtime.h>
 
 #include "nb_common.cuh"
+#include "phase_layout.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kCellsPerThread = 2;
-constexpr int kCellsPerBlock = kThreads * kCellsPerThread;
-constexpr int kWarps = kThreads / 32;
-constexpr int kGeneChunk = 32;
+using namespace vct::phase_layout;
 constexpr int kMaxNb = 4;
 
 struct Args {

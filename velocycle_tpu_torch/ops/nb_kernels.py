@@ -291,12 +291,18 @@ _SHAPES = {"nu": "gh", "zeta": "ch", "zeta_dphi": "ch", "count_factor": "c",
 def _check_inputs(counts, params, delta_nu, Db, lib_name):
     """Shapes always; device, dtype and contiguity for the kernels.
 
-    counts: [(name, (Ng, Nc) tensor)]; params: {name: tensor}, names from
-    `_SHAPES`; lib_name: the csrc/ source whose kernels take them."""
-    S = counts[0][1]
-    if S.dim() != 2:
-        raise ValueError(f"S must be (Ng, Nc), got {tuple(S.shape)}")
-    Ng, Nc = S.shape
+    counts: [(name, (Ng, Nc) tensor)], or empty for a kernel that reads no
+    count matrix (Ng and Nc then come from nu and zeta); params: {name:
+    tensor}, names from `_SHAPES`; lib_name: the csrc/ source whose kernels
+    take them."""
+    if counts:
+        S = counts[0][1]
+        if S.dim() != 2:
+            raise ValueError(f"S must be (Ng, Nc), got {tuple(S.shape)}")
+        Ng, Nc = S.shape
+    else:
+        S = params["nu"]
+        Ng, Nc = S.shape[0], params["zeta"].shape[0]
     Nh = params["nu"].shape[-1]
     dims = {"g": Ng, "c": Nc, "h": Nh}
     want = {name: tuple(dims[d] for d in _SHAPES[name]) for name in params}
@@ -327,14 +333,15 @@ def _check_inputs(counts, params, delta_nu, Db, lib_name):
             f"the NB kernels are built for Nh in {SUPPORTED_NH}, got {Nh}"
         )
     if Ng < 1 or Nc < 1:
-        raise ValueError(f"empty count matrix {tuple(S.shape)}")
-    lib = _lib(lib_name)
-    max_nb = getattr(lib, lib_name.replace("nb_", "vct_") + "_max_nb")()
-    if delta_nu is not None and delta_nu.shape[0] > max_nb:
-        raise ValueError(
-            f"the NB kernels take at most {max_nb} batches, got "
-            f"{delta_nu.shape[0]}"
-        )
+        raise ValueError(f"empty count matrix {(Ng, Nc)}")
+    if delta_nu is not None:
+        lib = _lib(lib_name)
+        max_nb = getattr(lib, lib_name.replace("nb_", "vct_") + "_max_nb")()
+        if delta_nu.shape[0] > max_nb:
+            raise ValueError(
+                f"the NB kernels take at most {max_nb} batches, got "
+                f"{delta_nu.shape[0]}"
+            )
     for name, t in [*counts, *got.items()]:
         if t.device != S.device:
             raise ValueError(f"{name} is on {t.device}, counts on {S.device}")

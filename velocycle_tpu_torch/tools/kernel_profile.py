@@ -1,0 +1,209 @@
+"""Roofline ladder of the phase fwd+grad kernel on the card.
+
+    python -m velocycle_tpu_torch.tools.kernel_profile [i16]
+
+The port of tools/kernel_profile.py.  It runs each rung of
+`ops.ladder_kernels` (csrc/nb_ladder.cu: `phase_fwdgrad` stripped down step
+by step, in its launch layout) at the TPU tool's shape, 2048 genes x 102,400
+cells, Nh = 5, float32 counts or with ``i16`` int16 ones, from the same
+distributions.  As there, each rung runs ``n_it`` steps chained through nu
+(``nu - 1e-30 * loss``, and ``nu - 1e-12 * sum_tiles dnu`` for the
+variants), and its row gives the steps' host-clock time per step under the
+TPU tool's row name.  Each row adds the kernel-only time (CUDA events around
+``n_it`` launches of the kernel alone, back to back) and the rung's bound:
+the larger of the bytes it must move over 3.35 TB/s and its FP32 operations,
+counted on this run's data, over 67 TFLOP/s (the H100 SXM's published
+peaks).  The differences between rungs say where `phase_fwdgrad`'s time
+goes.  It runs on the card and raises without one; ``device="cpu"`` runs
+the plain versions instead (no kernel time then).
+"""
+from __future__ import annotations
+
+import math
+import sys
+import time
+
+import torch
+
+from ..device import resolve_device
+from ..ops import ladder_kernels as L
+
+NG, NC = 2048, 102_400
+TPU_CELL_TILE = 4096      # the TPU tool's TC: its stream rung adds nu Nc // TC times
+PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
+PEAK_FP32_PER_S = 67e12      # H100 SXM, float32 outside the tensor cores
+ROWS = ("stream", "matmul", "logpmf", "fwdgrad", "vpu_only", "v_full",
+        "v_nodig", "v_nocell")   # the TPU tool's print order
+
+# FP32 operations per count-matrix element, counted from csrc/nb_ladder.cu
+# with Nh = 5 as chip_smoke.py counts the phase kernels (a transcendental or
+# a division counts 1), besides the lgamma / digamma ratios below:
+#   stream    count convert 1, sum 1
+#   matmul    count convert 1, ElogS dot 10, product 1, sum 1
+#   logpmf    convert 1, dot 10, log_b 1, a+k 1, lp 4, softplus 6, sum 1
+#   fwdgrad   logpmf's 18 besides softplus, softplus + sigmoid 10,
+#             g_sig + g_elog 2, dnu accumulation 10
+#   v_full    fwdgrad + cf 1, dlp_da + g_r 6, ddisp 1, dzeta 10, dcf 1
+#   v_nodig   v_full without dlp_da + g_r (its sum of g_elog replaces ddisp)
+#   v_nocell  v_full without dzeta and dcf
+#   vpu_only  dot 10, floor(3 |elog|) 3, log_b 1, a+k 1, lp 4, softplus 6,
+#             sum 1 (on its synthetic counts)
+ELEMENT_OPS = {"stream": 2, "matmul": 13, "logpmf": 24, "fwdgrad": 40,
+               "v_full": 59, "v_nodig": 53, "v_nocell": 48, "vpu_only": 26}
+# lgamma ratio: Stirling difference 22 where k >= 2, small-k sum 5 where
+# k < 2, branch select 2; digamma ratio (v_full, v_nocell): 10, 3, 1
+LGAMMA_OPS = (22, 5, 2)
+DIGAMMA_OPS = (10, 3, 1)
+DIGAMMA_RUNGS = ("v_full", "v_nocell")
+
+
+def make_inputs(Ng=NG, Nc=NC, int16=False, seed=0, device=None):
+    """(S, nu, zeta, cf, r) drawn on ``device`` as tools/kernel_profile.py
+    draws them: S = floor(exp(0.8 N + 1)), nu = 0.5 N, zeta the Fourier
+    basis [1, cos, sin, cos 2, sin 2] at U(0, 6.28) angles, cf = 0.2 N,
+    r = exp(0.3 N)."""
+    dev = resolve_device(device)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    rn = lambda *s: torch.randn(s, generator=g, device=dev)  # noqa: E731
+    S = torch.floor(torch.exp(rn(Ng, Nc) * 0.8 + 1.0))
+    S = S.to(torch.int16) if int16 else S
+    nu = rn(Ng, L.NH) * 0.5
+    ang = torch.rand(Nc, generator=g, device=dev) * 6.28
+    zeta = torch.stack([torch.ones_like(ang), torch.cos(ang), torch.sin(ang),
+                        torch.cos(2 * ang), torch.sin(2 * ang)], -1)
+    r = torch.exp(rn(Ng) * 0.3)
+    cf = rn(Nc) * 0.2
+    return S, nu, zeta.contiguous(), cf, r
+
+
+def work(rung, S, nu, zeta, cf, r):
+    """(bytes, FP32 operations) of one rung on these inputs: each input read
+    once, each output written once; the lgamma and digamma ratios counted by
+    branch on this data (vpu_only's synthetic counts included)."""
+    Ng, Nc = nu.shape[0], zeta.shape[0]
+    sizes = {"nu": nu.numel(), "zeta": zeta.numel(), "count_factor": Nc,
+             "dispersion": Ng}
+    nbytes = 4 * sum(sizes[n] for n in L.READS[rung]) + 4   # + the loss
+    if rung != "vpu_only":
+        nbytes += S.numel() * S.element_size()
+    if rung == "fwdgrad":
+        nbytes += 4 * Ng * L.NH
+    elif rung.startswith("v_"):
+        nbytes += 4 * Ng * (L.NH + 1)
+        if rung != "v_nocell":
+            nbytes += 4 * Nc * (L.NH + 1)
+    N = Ng * Nc
+    ops = ELEMENT_OPS[rung] * N
+    if rung not in ("stream", "matmul"):
+        k = torch.floor(torch.abs(nu @ zeta.T) * 3.0) if rung == "vpu_only" else S
+        n_ge2 = int((k >= 2).sum())
+        n_lt2 = N - n_ge2
+        tables = [LGAMMA_OPS] + ([DIGAMMA_OPS] if rung in DIGAMMA_RUNGS else [])
+        for stir, small, sel in tables:
+            ops += stir * n_ge2 + small * n_lt2 + sel * N
+    return nbytes, ops
+
+
+def bound_ms(nbytes, ops):
+    """(least time in ms on the H100 at its published peaks, "bytes" or
+    "operations": whichever sets it)."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_FP32_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def event_ms(fn, reps, warmup=1):
+    """Mean ms of ``reps`` back-to-back calls of ``fn`` on the card, CUDA
+    events around them all, after ``warmup`` calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def run_ladder(int16=False, seed=0, device=None, Ng=NG, Nc=NC, n_it=25):
+    """One row per rung, in the TPU tool's order: {"name", "ms_per_step"
+    (host clock over ``n_it`` chained steps), "kernel_ms" (CUDA events; None
+    on the CPU), "bound_ms", "bound_by", "bytes", "ops", "loss" (the last
+    step's), "device"}.  On the card the rungs run as CUDA kernels; with
+    ``device="cpu"`` as their plain versions."""
+    dev = resolve_device(device)
+    S, nu0, zeta, cf, r = make_inputs(Ng, Nc, int16, seed, dev)
+    n_rep = Nc // TPU_CELL_TILE
+    cuda = dev.type == "cuda"
+    rows = []
+    for name in ROWS:
+        def step(nu):
+            # chained as the TPU tool chains its scan: through the loss, or
+            # for the variants through the dnu partials summed over tiles
+            loss, grads = L.run_rung(name, S, nu, zeta, cf, r, n_rep,
+                                     plain=not cuda)
+            if name.startswith("v_"):
+                return loss, nu - 1e-12 * grads[0].sum(0)
+            return loss, nu - 1e-30 * loss
+
+        step(nu0)                                 # warm-up (and first build)
+        _sync(dev)
+        nu = nu0
+        t0 = time.perf_counter()
+        for _ in range(n_it):
+            loss, nu = step(nu)
+        last = float(loss)
+        _sync(dev)
+        ms_step = (time.perf_counter() - t0) / n_it * 1e3
+        kernel_ms = None
+        if cuda:
+            counts = None if name == "vpu_only" else S
+            kernel_ms = event_ms(
+                lambda: L.ladder_run(name, counts, nu0, zeta, cf, r, n_rep),
+                n_it)
+        nbytes, ops = work(name, S, nu0, zeta, cf, r)
+        bound, by = bound_ms(nbytes, ops)
+        rows.append({"name": name, "ms_per_step": ms_step,
+                     "kernel_ms": kernel_ms, "bound_ms": bound,
+                     "bound_by": by, "bytes": nbytes, "ops": ops,
+                     "loss": last, "device": str(dev)})
+    return rows
+
+
+def format_row(row):
+    """The TPU tool's row (name, ms/step), then kernel-only time and bound."""
+    width = 9 if row["name"].startswith("v_") else 8
+    out = f"{row['name']:{width}s} {row['ms_per_step']:6.2f} ms/step"
+    if row["kernel_ms"] is not None:
+        out += f"  kernel {row['kernel_ms']:.4f} ms"
+    out += f"  bound {row['bound_ms']:.4f} ms ({row['bound_by']})"
+    if row["kernel_ms"]:
+        out += f", {row['bound_ms'] / row['kernel_ms']:.1%} of roofline"
+    return out
+
+
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else argv
+    int16 = "i16" in argv
+    dev = resolve_device(None)
+    print(f"# {torch.cuda.get_device_name(dev)}: "
+          f"{'int16' if int16 else 'float32'} counts, {NG} x {NC}, "
+          f"Nh {L.NH}, 25 chained steps per rung", flush=True)
+    for row in run_ladder(int16=int16, device=dev):
+        if not math.isfinite(row["loss"]):
+            raise SystemExit(f"{row['name']}: non-finite loss {row['loss']}")
+        print(format_row(row), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
