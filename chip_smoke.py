@@ -8,20 +8,24 @@ in order; any failure exits non-zero and prints no result line:
 
   1. report the card (name, count, nvidia-smi name and power limit);
   2. build every CUDA kernel from velocycle_tpu_torch/csrc/ (one nvcc per
-     source, started together) and print ptxas' registers / shared memory
-     / spills;
+     source, started together) and print ptxas' registers / static shared
+     memory / spills beside each phase instantiation's dynamic shared
+     memory;
   3. hold each kernel against its plain torch version on the card: at full
      width (2048 genes x 102,400 cells, Nh=5, int16 counts), at ragged
      shapes, with delta_nu (Nb=2), with disp_grad True and False, and for
      the velocity pair a gated case where omega ~ N(0, 1) puts a stated
      share of elements below the relu;
-  4. time each kernel, its plain version and its bound with CUDA events;
-  5. the roofline ladder (csrc/nb_ladder.cu, the port of
-     tools/kernel_profile.py): hold each rung against its plain version
+  4. time each kernel, its plain version and its bound with CUDA events,
+     and print each phase kernel's grid and resident CTAs and warps per SM;
+  5. the roofline ladder (the port of tools/kernel_profile.py: compile-time
+     cuts of the phase kernels' one body, csrc/phase_kernel.cuh, launched
+     through csrc/nb_phase.cu): hold each rung against its plain version
      (int16 and float32 at full width and at 257 x 3001, float32 at the
      ragged shapes) and require v_full to be bit-identical to
      phase_fwdgrad, time each rung beside its plain version and, where one
-     PyTorch call computes it, that call; then drive the ladder tool's entry
+     PyTorch call computes it, that call, and the stream rung's achieved
+     bytes per second; then drive the ladder tool's entry
      point `run_ladder` at full width for int16 and float32 counts, counting
      its launches (counts set to 0 just before, read just after), and print
      the rung differences;
@@ -61,7 +65,7 @@ LOSS_RTOL = 1e-5        # tests/test_nb_kernels.py:32
 GRAD_RTOL = 1e-4        # max|a-b| / max|a|, tests/test_nb_kernels.py:52
 VELO_GRAD_RTOL = 5e-4   # max|a-b| / max|a|, tests/test_nb_kernels.py:199
 
-# FP32 operations per count-matrix element, counted from csrc/nb_phase.cu
+# FP32 operations per count-matrix element, counted from csrc/phase_kernel.cuh
 # with Nh = 5 and no delta_nu (a transcendental or a division counts 1):
 #   common: ElogS dot + cf 11, log_b 1, count convert 1, a+k 1, lp 4, loss 1
 #   fwdgrad: softplus + sigmoid 10, g_sig + g_elog 2, dlp_da + g_r 6,
@@ -112,16 +116,19 @@ def smi_line():
 # inputs
 # ---------------------------------------------------------------------------
 
-def make_inputs(torch, Ng, Nc, seed, Nb=0, int16=True, device="cuda"):
+def make_inputs(torch, Ng, Nc, seed, Nb=0, int16=True, device="cuda",
+                view=False):
     """Kernel inputs drawn on the card: counts floor(exp(N(1, 0.8^2))) (as
-    bench.py's phase_scale), Fourier zeta at random phases."""
+    bench.py's phase_scale), Fourier zeta at random phases.  ``view``: S is
+    rows 1: of an (Ng + 1, Nc) matrix, so with an odd Nc its first element
+    is off a 16-byte boundary."""
     from velocycle_tpu_torch.ops.fourier import fourier_basis
 
     g = torch.Generator(device=device)
     g.manual_seed(seed)
     rn = lambda *s: torch.randn(s, generator=g, device=device)  # noqa: E731
-    S = torch.floor(torch.exp(rn(Ng, Nc) * 0.8 + 1.0))
-    S = S.to(torch.int16) if int16 else S
+    S = torch.floor(torch.exp(rn(Ng + int(view), Nc) * 0.8 + 1.0))
+    S = (S.to(torch.int16) if int16 else S)[int(view):]
     nu = rn(Ng, NH) * 0.4
     nu[:, 0] += 0.5
     zeta = fourier_basis(rn(Nc) * 3.0, H).contiguous()
@@ -199,17 +206,18 @@ def _ptxas_summary(log):
     return out
 
 
-# main-path instantiations: <int16_t, NH=5, GRAD, WANT_DISP, HAS_DNU=false,
-# SKIP_K=true>; stage 2 conditions shape_inv, so velo_fwdgrad has no
-# dispersion gradient
-MAIN_SYMBOLS = {
-    "phase_fwdgrad": "phase_kernelIsLi5ELb1ELb1ELb0ELb1E",
-    "phase_fwd": "phase_kernelIsLi5ELb0ELb0ELb0ELb1E",
+# main-path instantiations of csrc/nb_velo.cu: <int16_t, NH=5, GRAD,
+# WANT_DISP, HAS_DNU=false, SKIP_K=true>; stage 2 conditions shape_inv, so
+# velo_fwdgrad has no dispersion gradient
+VELO_SYMBOLS = {
     "velo_fwdgrad": "velo_kernelIsLi5ELb1ELb0ELb0ELb1E",
     "velo_fwd": "velo_kernelIsLi5ELb0ELb0ELb0ELb1E",
 }
-# the ladder's rungs in the order of csrc/nb_ladder.cu, and the line of
-# tools/kernel_profile.py that holds each one's TPU kernel
+# the phase kernels on the main path as (mode of nb_kernels.PHASE_MODES,
+# want_disp): int16 counts, Nh = 5, no delta_nu, lgamma(k+1) skipped
+PHASE_MAIN = {"phase_fwdgrad": ("fwdgrad", True), "phase_fwd": ("fwd", False)}
+# the ladder's rungs in the order of ops/ladder_kernels.py RUNGS, and the
+# line of tools/kernel_profile.py that holds each one's TPU kernel
 LADDER_REPLACES = {"stream": 57, "matmul": 71, "logpmf": 83, "fwdgrad": 98,
                    "v_full": 167, "v_nodig": 167, "v_nocell": 167,
                    "vpu_only": 212}
@@ -218,41 +226,70 @@ VELO_GRADS = ("dnu", "dzeta", "dzdphi", "dcf", "domega", "dlog_beta",
               "dlog_gamma", "ddisp", "ddnu")
 
 
+def _phase_symbol(K, mode, want_disp, int16):
+    """The mangled name of phase_kernel<TK, 5, CUT, WANT_DISP, HAS_DNU=false,
+    SKIP_K=true> (csrc/phase_kernel.cuh)."""
+    return (f"phase_kernelI{'s' if int16 else 'f'}Li5ELi"
+            f"{K.PHASE_MODES.index(mode)}ELb{int(want_disp)}ELb0ELb1E")
+
+
 def phase_build():
     from velocycle_tpu_torch.ops import cuda_build
+    from velocycle_tpu_torch.ops import ladder_kernels as L
+    from velocycle_tpu_torch.ops import nb_kernels as K
 
     t0 = time.perf_counter()
     cuda_build.build_all()
     dt = time.perf_counter() - t0
     print(f"[build] {sorted(p.name for p in cuda_build.CSRC.glob('*.cu'))} "
           f"built in {dt:.1f} s (nvcc, concurrent)")
+    infos = {}
     for src in sorted(cuda_build.CSRC.glob("*.cu")):
         log = cuda_build.build_log(src.stem)
-        info = _ptxas_summary(log)
+        info = infos[src.stem] = _ptxas_summary(log)
         if not info:
             print(f"[build] {src.name}: {log.strip()[:200]}")
             continue
         regs = [v[0] for v in info.values()]
         spills = max(v[2] + v[3] for v in info.values())
         print(f"[build] {src.name}: {len(info)} kernels, registers "
-              f"{min(regs)}..{max(regs)}, smem <= "
+              f"{min(regs)}..{max(regs)}, static smem <= "
               f"{max(v[1] for v in info.values())} B, max spill bytes {spills}")
-        for kname, sym in MAIN_SYMBOLS.items():
-            for full, (r, s, ss, sl) in info.items():
-                if sym in full:
-                    print(f"[build]   {kname} (main path): {r} registers, "
-                          f"{s} B smem, spill stores {ss} B, loads {sl} B")
-        if src.stem == "nb_ladder":
-            for i, rung in enumerate(LADDER_REPLACES):
-                parts = []
-                for t, dtype in (("s", "int16"), ("f", "f32")):
-                    sym = f"ladder_kernelI{t}Li{i}EE"
-                    for full, (r, s, ss, sl) in info.items():
-                        if sym in full:
-                            parts.append(f"{dtype} {r} registers, {s} B smem, "
-                                         f"spill {ss}+{sl} B")
-                print(f"[build]   ladder {rung}: " + "; ".join(parts))
+
+    def show(label, info, sym, dyn=None):
+        if not info:     # built before this process: no ptxas report
+            return
+        for full, (r, sm, ss, sl) in info.items():
+            if sym in full:
+                extra = "" if dyn is None else f", {dyn} B dynamic smem"
+                print(f"[build]   {label}: {r} registers, {sm} B static "
+                      f"smem{extra}, spill stores {ss} B, loads {sl} B")
+                return
+        fail(f"{label}: no instantiation {sym} in the ptxas output")
+
+    for name, sym in VELO_SYMBOLS.items():
+        show(f"{name} (main path)", infos["nb_velo"], sym)
+    for name, (mode, wd) in PHASE_MAIN.items():
+        dyn = K.phase_plan(mode, True, NG, NC, want_disp=wd).dyn_smem
+        show(f"{name} (main path)", infos["nb_phase"],
+             _phase_symbol(K, mode, wd, True), dyn)
+    for rung, (mode, wd) in L.MODES.items():
+        for int16 in (True, False):
+            dyn = K.phase_plan(mode, int16, NG, NC, want_disp=wd).dyn_smem
+            show(f"ladder {rung} ({'int16' if int16 else 'f32'})",
+                 infos["nb_phase"], _phase_symbol(K, mode, wd, int16), dyn)
     return dt
+
+
+def _plan_note(torch, K, mode, want_disp, int16, Ng=NG, Nc=NC):
+    """The grid of one phase-kernel call and what is resident per SM."""
+    p = K.phase_plan(mode, int16, Ng, Nc, want_disp=want_disp)
+    lay = K.phase_layout()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return (f"grid {p.grid} CTAs of {lay.threads} threads on {sms} SMs, "
+            f"{p.blocks_per_sm} resident CTAs = "
+            f"{p.blocks_per_sm * lay.threads // 32} warps per SM, "
+            f"{p.dyn_smem} B dynamic smem per CTA")
 
 
 def _rel(a, b):
@@ -361,13 +398,20 @@ def phase_parity(torch, seed):
               for i, (g, c) in enumerate(RAGGED)]
     cases += [("delta_nu Nb=2 257x3001", 257, 3001, 2, True, True, {}),
               ("delta_nu Nb=2 full", NG, NC, 2, True, False, {})]
+    vcases = (cases[:1] + [("gated full", NG, NC, 0, True, True, {"gated": True})]
+              + cases[1:])
+    # the phase kernels' count ring: float32 counts at full width, and a
+    # matrix whose rows (and first element) start off 16-byte boundaries
+    cases += [("full f32", NG, NC, 0, False, True, {}),
+              ("misaligned view 129x3001", 129, 3001, 0, True, True,
+               {"view": True}),
+              ("misaligned view 129x3001 f32", 129, 3001, 2, False, True,
+               {"view": True})]
     results, ok_phase = _parity_cases(
         torch, seed, make_inputs, 1, K.phase_fwdgrad,
         K.phase_fwdgrad_plain, K.phase_fwd, K.phase_fwd_plain, PHASE_GRADS,
         GRAD_RTOL, cases,
     )
-    vcases = (cases[:1] + [("gated full", NG, NC, 0, True, True, {"gated": True})]
-              + cases[1:])
     vresults, ok_velo = _parity_cases(
         torch, seed, make_velo_inputs, 2, K.velo_fwdgrad,
         K.velo_fwdgrad_plain, K.velo_fwd, K.velo_fwd_plain, VELO_GRADS,
@@ -434,6 +478,9 @@ def phase_timing(torch, seed, card):
     params = 4 * (nu.numel() + zeta.numel() + cf.numel() + r.numel())
     in_bytes = S.numel() * S.element_size() + params
     note = f"{share:.3f} of counts >= 2"
+    for name, (mode, wd) in PHASE_MAIN.items():
+        print(f"[timing] {name} plan at {NG}x{NC} int16: "
+              + _plan_note(torch, K, mode, wd, True))
     out = {
         "phase_fwdgrad": _time_pair(
             torch, "phase_fwdgrad",
@@ -502,7 +549,8 @@ def _ladder_parity(torch, seed):
     cases = [(tag, g, c, int16) for tag, g, c in (("full", NG, NC),
                                                   ("ragged 257x3001", 257, 3001))
              for int16 in (True, False)]
-    cases += [(f"ragged {g}x{c}", g, c, False) for g, c in RAGGED]
+    cases += [(f"ragged {g}x{c}", g, c, int16) for g, c in RAGGED
+              for int16 in (True, False)]
     for tag, Ng, Nc, int16 in cases:
         args = TP.make_inputs(Ng, Nc, int16, seed + Ng + Nc, "cuda")
         n_rep = max(Nc // TP.TPU_CELL_TILE, 1)
@@ -520,7 +568,7 @@ def _ladder_parity(torch, seed):
                 results[rung] = [max(results[rung][0], wabs),
                                  max(results[rung][1], lrel)]
             del kout, pout
-        if Nc > L.CELLS_PER_BLOCK:
+        if Nc > K.phase_layout().cells_per_tile:
             # v_full is phase_fwdgrad with cf, no delta_nu, lgamma(k+1)
             # skipped and the dispersion gradient: same function, same layout
             # (both sum the raw gene partials over tiles in one call)
@@ -550,6 +598,7 @@ def phase_ladder(torch, seed, card):
     with the launches counted.  Returns ({rung: [max abs error, loss rel
     error]}, {rung: timing}, {rung: launches})."""
     from velocycle_tpu_torch.ops import ladder_kernels as L
+    from velocycle_tpu_torch.ops import nb_kernels as K
     from velocycle_tpu_torch.tools import kernel_profile as TP
 
     errs = _ladder_parity(torch, seed)
@@ -567,12 +616,20 @@ def phase_ladder(torch, seed, card):
     timing = {}
     for rung in L.RUNGS:
         nbytes, nops = TP.work(rung, *args)
+        mode, wd = L.MODES[rung]
+        print(f"[timing] ladder_{rung} plan at {NG}x{NC} int16: "
+              + _plan_note(torch, K, mode, wd, True))
         timing[rung] = _time_pair(
             torch, f"ladder_{rung}",
             lambda: L.run_rung(rung, *args, n_rep),
             lambda: L.run_rung(rung, *args, n_rep, plain=True),
             nbytes, nops, card, "counted on this run's data",
             library=libraries.get(rung))
+        if rung == "stream":
+            rate = nbytes / (timing[rung]["ms"] * 1e-3)
+            print(f"[timing] ladder_stream moves {nbytes / 1e9:.4f} GB at "
+                  f"{rate / 1e12:.3f} TB/s, {rate / TP.PEAK_BYTES_PER_S:.1%} "
+                  f"of the HBM rate")
     del S32, args, S, nu, zeta, cf, r
     torch.cuda.empty_cache()
 
@@ -888,8 +945,8 @@ def main(argv=None):
     print("kernels: " + ", ".join(f"{k} ({v} launches)" for k, v in sorted(launches.items())))
     base = "velocycle_tpu/ops/nb_kernels.py"
     kernels = {
-        "phase_fwd": ("nb_phase.cu", f"{base}:261"),
-        "phase_fwdgrad": ("nb_phase.cu", f"{base}:287"),
+        "phase_fwd": ("phase_kernel.cuh", f"{base}:261"),
+        "phase_fwdgrad": ("phase_kernel.cuh", f"{base}:287"),
         "velo_fwd": ("nb_velo.cu", f"{base}:624"),
         "velo_fwdgrad": ("nb_velo.cu", f"{base}:659"),
     }
@@ -909,7 +966,7 @@ def main(argv=None):
               f"ladder_{rung} was not launched by run_ladder")
         table.append({
             "name": f"ladder_{rung}", "route": "cuda",
-            "source": "velocycle_tpu_torch/csrc/nb_ladder.cu",
+            "source": "velocycle_tpu_torch/csrc/phase_kernel.cuh",
             "replaces": f"tools/kernel_profile.py:{line}",
             "launches": ladder_launches[rung],
             "max_abs_err": ladder_errs[rung][0],

@@ -82,6 +82,91 @@ def test_cuda_kernels_match_plain(Ng, Nc, Nh, Nb, int16, skip_k):
     assert abs(kf - pf) / max(abs(pf), 1.0) < 1e-5
 
 
+_LAYOUT = K.phase_layout()
+_GC = _LAYOUT.gene_chunk
+_TILE = _LAYOUT.cells_per_tile
+
+
+@pytest.mark.parametrize("int16", [True, False], ids=["i16", "f32"])
+@pytest.mark.parametrize("Nc", [_TILE // 2 + 13, 3 * _TILE + 5],
+                         ids=["odd-below-one-tile", "several-tiles-unaligned"])
+@pytest.mark.parametrize("Ng", [1, _GC - 1, _GC + 1, _LAYOUT.stages * _GC + 1])
+def test_cuda_phase_kernels_at_the_ring_edges(Ng, Nc, int16):
+    """Gene counts at the edges of a chunk and of the ring of staged chunks,
+    odd cell counts (so most rows of S start off a 16-byte boundary), with
+    and without delta_nu; then the same call again, bit for bit."""
+    dev = _cuda_or_skip()
+    Nb = 2 if (Ng + int16) % 2 else 0
+    args = _inputs(Ng, Nc, seed=Ng * Nc, Nb=Nb)
+    if int16:
+        args[0] = args[0].astype(np.int16)
+    t = [torch.as_tensor(a, device=dev) for a in args]
+    if not Nb:
+        t += [None, None]
+    lgk = np.float32(sps.gammaln(args[0].astype(np.float64) + 1.0).sum())
+    for want_disp in (True, False):
+        kl, kg = K.phase_fwdgrad(*t, lgk, want_disp=want_disp)
+        pl, pg = K.phase_fwdgrad_plain(*t, lgk, want_disp=want_disp)
+        assert abs(float(kl) - float(pl)) / max(abs(float(pl)), 1.0) < 1e-5
+        for name, a, b in zip(("dnu", "dzeta", "dcf", "ddisp", "ddnu"), kg, pg):
+            if b is None:
+                assert a is None
+            elif not want_disp and name == "ddisp":
+                assert float(a.abs().max()) == 0.0
+            else:
+                assert _max_rel(a, b) < 1e-4, name
+        again = K.phase_fwdgrad(*t, lgk, want_disp=want_disp)
+        assert torch.equal(again[0], kl)
+        for a, b in zip(again[1], kg):
+            assert (a is None and b is None) or torch.equal(a, b)
+    kf = K.phase_fwd(*t, lgk)
+    pf = float(K.phase_fwd_plain(*t, lgk))
+    assert abs(float(kf) - pf) / max(abs(pf), 1.0) < 1e-5
+    assert torch.equal(K.phase_fwd(*t, lgk), kf)
+
+
+@pytest.mark.parametrize("int16", [True, False], ids=["i16", "f32"])
+def test_cuda_phase_kernels_take_a_misaligned_view(int16):
+    """S as rows 1: of a larger matrix with an odd cell count: contiguous,
+    but its first element is off a 16-byte boundary, so the ring copies
+    the piece below it element by element."""
+    dev = _cuda_or_skip()
+    Ng, Nc = 40, 2 * _TILE + 3
+    big, nu, zeta, cf, r = _inputs(Ng + 1, Nc, seed=5)
+    if int16:
+        big = big.astype(np.int16)
+    S = torch.as_tensor(big, device=dev)[1:]
+    assert S.is_contiguous() and S.data_ptr() % 16 != 0
+    t = [S] + [torch.as_tensor(a, device=dev) for a in (nu[1:], zeta, cf, r[1:])]
+    kl, kg = K.phase_fwdgrad(*t)
+    pl, pg = K.phase_fwdgrad_plain(*t)
+    assert abs(float(kl) - float(pl)) / max(abs(float(pl)), 1.0) < 1e-5
+    for a, b in zip(kg[:4], pg[:4]):
+        assert _max_rel(a, b) < 1e-4
+    pf = float(K.phase_fwd_plain(*t))
+    assert abs(float(K.phase_fwd(*t)) - pf) / max(abs(pf), 1.0) < 1e-5
+
+
+def test_cuda_phase_plan_fills_every_sm_evenly():
+    """At full width the grid is every CTA the card holds at once, each
+    carrying the same number of units to within one, so that the most
+    loaded SM carries at most 10% more than the mean, with at least 24
+    warps' worth of cells (768) resident per SM on the main path."""
+    _cuda_or_skip()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    Ng, Nc = 2048, 102_400
+    units = (Ng // _GC) * (Nc // _TILE)
+    for mode, wd in (("fwdgrad", True), ("fwd", False)):
+        p = K.phase_plan(mode, True, Ng, Nc, want_disp=wd)
+        assert p.grid == sms * p.blocks_per_sm
+        assert p.blocks_per_sm * _LAYOUT.cells_per_tile >= 24 * 32
+        most = -(-units // p.grid)
+        assert most - units // p.grid <= 1
+        assert p.blocks_per_sm * most <= 1.1 * units / sms
+        assert p.dyn_smem > 0
+        assert (p.pieces > 0) == (mode == "fwdgrad")
+
+
 def test_cuda_kernel_is_bit_reproducible_and_counts_launches():
     dev = _cuda_or_skip()
     t = [torch.as_tensor(a, device=dev) for a in _inputs(300, 5000)]
@@ -262,7 +347,7 @@ def test_fused_velocity_fit_on_the_card_launches_one_fwdgrad_per_step():
 
 
 # ---------------------------------------------------------------------------
-# the roofline ladder (csrc/nb_ladder.cu)
+# the roofline ladder (cuts of csrc/phase_kernel.cuh)
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("int16", [True, False], ids=["i16", "f32"])

@@ -22,6 +22,7 @@ import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
+from velocycle_tpu.ops import nb_kernels as JK
 from velocycle_tpu_torch.ops import ladder_kernels as L
 from velocycle_tpu_torch.ops import nb_kernels as TK
 from velocycle_tpu_torch.tools import kernel_profile as TP
@@ -162,14 +163,43 @@ def test_plain_v_full_is_phase_fwdgrad_plain(Nc):
     ploss, (pdnu, pdzeta, pdcf, pddisp, pddnu) = TK.phase_fwdgrad_plain(
         S, nu, zeta, cf, r, lgamma_k_sum=0.0, want_disp=True)
     assert pddnu is None
-    assert dnu_p.shape == (-(-Nc // L.CELLS_PER_BLOCK), 16, 5)
+    tile = TK.phase_layout().cells_per_tile
+    assert dnu_p.shape == (-(-Nc // tile), 16, 5)
     assert torch.equal(loss, ploss)
     assert torch.equal(dzeta, pdzeta) and torch.equal(dcf, pdcf)
-    if Nc <= L.CELLS_PER_BLOCK:
+    if Nc <= tile:
         assert torch.equal(dnu_p[0], pdnu) and torch.equal(ddisp_p[0], pddisp)
     else:
         assert _max_rel(dnu_p.sum(0).numpy(), pdnu.numpy()) < 1e-6
         assert _max_rel(ddisp_p.sum(0).numpy(), pddisp.numpy()) < 1e-6
+
+
+_TILE = TK.phase_layout().cells_per_tile
+
+
+@pytest.mark.parametrize("Nc", [_TILE - 27, 2 * _TILE, 3 * _TILE + 37],
+                         ids=["below-one-tile", "exact-multiple", "ragged"])
+def test_plain_tile_partials_sum_to_the_untiled_gradients(Nc):
+    """The gene partials of v_full's plain twin, one per cell tile of the
+    kernels' layout, summed over tiles in the kernel wrapper's order (one
+    torch sum over the first axis) are phase_fwdgrad's untiled plain
+    gradients and the JAX reference's."""
+    args = _inputs(Nc=Nc, seed=11)
+    S, nu, zeta, cf, r = (torch.as_tensor(a) for a in args)
+    loss, dnu_p, ddisp_p, dzeta, dcf = L.ladder_variant_plain(S, nu, zeta, cf, r)
+    assert dnu_p.shape == (-(-Nc // _TILE), 16, 5)
+    assert ddisp_p.shape == (-(-Nc // _TILE), 16)
+    ploss, (pdnu, pdzeta, pdcf, pddisp, _) = TK.phase_fwdgrad_plain(
+        S, nu, zeta, cf, r, lgamma_k_sum=0.0, want_disp=True)
+    for part, whole in ((dnu_p, pdnu), (ddisp_p, pddisp)):
+        assert _max_rel(part.sum(0).numpy(), whole.numpy()) < 1e-6
+    # the JAX reference: value and gradients of the NB log-likelihood with
+    # ElogS = nu zeta^T + cf (lgamma(k+1) kept, so only the gradients compare)
+    jargs = [jnp.asarray(a) for a in args]
+    _, jg = jax.value_and_grad(JK.nb_loglik_reference,
+                               argnums=(1, 2, 3, 4))(*jargs)
+    for got, want in zip((dnu_p.sum(0), dzeta, dcf, ddisp_p.sum(0)), jg):
+        assert _max_rel(got.numpy(), np.asarray(want)) < 1e-4
 
 
 def test_run_ladder_on_the_cpu_gives_the_eight_rows():

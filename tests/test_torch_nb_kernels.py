@@ -185,6 +185,25 @@ def test_kernel_wrappers_refuse_what_they_cannot_take():
         TK.nb_loglik_fused(*args, delta_nu=torch.zeros(1, 8))
 
 
+def test_phase_layout_is_the_kernel_sources_one_definition():
+    """phase_layout() reads csrc/phase_kernel.cuh, which the library
+    reports back on the card: the tile is whole cells per thread and its
+    rows are whole 16-byte pieces in both count types."""
+    import re
+
+    from velocycle_tpu_torch.ops import cuda_build
+
+    lay = TK.phase_layout()
+    text = (cuda_build.CSRC / "phase_kernel.cuh").read_text()
+    for name, value in zip(("kThreads", "kCellsPerTile", "kGeneChunk",
+                            "kStages", "kMaxNb"), lay):
+        assert re.findall(rf"constexpr int {name} = (\d+);", text) == [str(value)]
+    assert lay.cells_per_tile % lay.threads == 0 and lay.threads % 32 == 0
+    assert lay.cells_per_tile * 2 % 16 == 0
+    assert lay.stages >= 2 and lay.gene_chunk >= 1 and lay.max_nb >= 2
+    assert TK.PHASE_MODES[:2] == ("fwd", "fwdgrad")
+
+
 @pytest.mark.slow
 def test_fused_matches_jax_interpret_mode_pallas():
     """Against the JAX package's fused kernel itself (interpret mode)."""

@@ -1,34 +1,31 @@
-// Fused phase-stage Negative-Binomial likelihood for Hopper (sm_90a).
+// Phase-stage Negative-Binomial kernels for Hopper (sm_90a): the C interface
+// over the one templated body of phase_kernel.cuh.
 //
 // Replaces the Pallas TPU kernels `_phase_fwd_kernel` and
-// `_phase_fwdgrad_kernel` of `velocycle_tpu/ops/nb_kernels.py`.  Computes
+// `_phase_fwdgrad_kernel` of `velocycle_tpu/ops/nb_kernels.py`, which compute
 //
 //   sum_{g,c} NB_logpmf(S[g,c] | ElogS[g,c], r[g]),
 //   ElogS = nu @ zeta^T + cf [+ delta_nu^T @ Db]
 //
-// and, in the fwd+grad variant, its gradients w.r.t. nu (Ng,Nh), zeta (Nc,Nh),
-// cf (Nc,), r (Ng,) and delta_nu (Nb,Ng) in ONE pass over the count matrix.
-// No (Ng, Nc) intermediate ever reaches device memory.
+// and, in the fwd+grad form, its gradients w.r.t. nu (Ng,Nh), zeta (Nc,Nh),
+// cf (Nc,), r (Ng,) and delta_nu (Nb,Ng) in ONE pass over the count matrix,
+// with no (Ng, Nc) intermediate in device memory; and the kernels of the
+// roofline ladder of `tools/kernel_profile.py` (`k_stream`, `k_matmul`,
+// `k_logpmf`, `k_fwdgrad`, `_variant_kernel`, `k_vpu_only`), each the same
+// body cut down at compile time (phase_kernel.cuh `Cut`).  The ladder's
+// v_full is the FWDGRAD instantiation that `phase_fwdgrad` launches.
 //
 // What bounds it on the H100: the per-element special-function arithmetic
 // (the threshold-2 lgamma/digamma ratio, softplus/sigmoid: ~4 transcendentals
-// and ~5 divisions per element in IEEE precision), not the int16 count stream
-// (0.42 GB at 2048 x 102400, 0.125 ms at 3.35 TB/s).  So the design spends
-// nothing on the stream and everything on keeping the element loop lean:
-//   * one CTA per tile of kCellsPerBlock cells sweeps ALL genes, so the
-//     cell-indexed gradients (dzeta, dcf) live in registers for the whole
-//     kernel and are written once, with no atomics;
-//   * per gene chunk, nu and every dispersion-only column of the special
-//     functions (1/r, log r, log(a+j), 1/(a+j), Stirling terms at a+2) are
-//     computed once per gene into shared memory, not once per element;
-//   * the gene-indexed gradients (dnu, ddisp, ddnu) are reduced over the
-//     CTA's cells (warp shuffles, then one shared-memory pass per gene chunk)
-//     into a per-cell-tile partial buffer (n_tiles, Ng, Nh+1+Nb) that the
-//     host wrapper sums over tiles in a fixed order; the loss goes through
-//     per-CTA double partials the same way.  No float atomics: results are
-//     bit-reproducible run to run.
-// Known limits of this first version: one shuffle tree per gene and value,
-// 2-byte count loads, Nh unrolled FMAs with no tensor cores.
+// and ~5 divisions per element in IEEE precision) and, unless they are
+// hidden, the latencies of the count loads; the count stream itself is 0.42
+// GB at 2048 x 102400 int16, 0.125 ms at 3.35 TB/s.  phase_kernel.cuh says
+// what the layout does about both: an even split over a persistent grid,
+// and the counts staged ahead of the arithmetic in a cp.async ring.
+// Gene-indexed sums go to per-cell-tile partials and the loss to per-CTA
+// doubles, summed by the caller in a fixed order; the cell gradients to
+// per-CTA pieces that cell_sum_kernel adds in CTA order: no float atomics,
+// repeats are bit-identical.
 //
 // Build (plain C interface, loaded with ctypes):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
@@ -39,284 +36,233 @@
 #include <cuda_runtime.h>
 
 #include "nb_common.cuh"
-#include "phase_layout.cuh"
+#include "phase_kernel.cuh"
 
 namespace {
 
-using namespace vct::phase_layout;
-constexpr int kMaxNb = 4;
+using namespace vct::phase;
 
 struct Args {
-  const void* S;
+  int mode;           // a Cut
+  const void* S;      // (Ng, Nc) int16 or float32; null for VPU_ONLY
   const float* nu;
   const float* zeta;
   const float* cf;
   const float* disp;
   const float* dnu;   // (Nb, Ng) or null
   const float* Db;    // (Nb, Nc) or null
-  int Ng, Nc, Nh, Nb;
-  double* loss_part;  // (n_tiles,)
-  float* gene_part;   // (n_tiles, Ng, Nh + 1 + Nb)
-  float* dzeta;       // (Nc, Nh)
-  float* dcf;         // (Nc,)
+  int Ng, Nc, Nh, Nb, n_rep;
+  bool skip_k, want_disp;
+  double* loss_part;  // (grid,)
+  float* gene_part;   // (n_tiles, Ng, NV) or null
+  float* cell_piece;  // (pieces, Nh + 1, Nc) or null
+  float* dzeta;       // (Nc, Nh) or null
+  float* dcf;         // (Nc,) or null
   cudaStream_t stream;
 };
 
-template <typename TK, int NH, bool GRAD, bool WANT_DISP, bool HAS_DNU, bool SKIP_K>
-__global__ void __launch_bounds__(kThreads)
-phase_kernel(const TK* __restrict__ S, const float* __restrict__ nu,
-             const float* __restrict__ zeta, const float* __restrict__ cf,
-             const float* __restrict__ disp, const float* __restrict__ dnu,
-             const float* __restrict__ Db, int Ng, int Nc, int Nb,
-             double* __restrict__ loss_part, float* __restrict__ gene_part,
-             float* __restrict__ dzeta, float* __restrict__ dcf) {
-  constexpr int NB_SLOTS = HAS_DNU ? kMaxNb : 1;
-  constexpr int NV_MAX = NH + 1 + (HAS_DNU ? kMaxNb : 0);
-  __shared__ float s_nu[kGeneChunk][NH];
-  __shared__ vct::GeneCols s_cols[kGeneChunk];
-  __shared__ float s_dnu[kGeneChunk][NB_SLOTS];
-  __shared__ float s_red[GRAD ? kGeneChunk : 1][GRAD ? NV_MAX : 1][kWarps];
-  __shared__ double s_loss[kWarps];
+// How one call is laid out on the card.
+struct Plan {
+  int grid;           // CTAs: loss_part entries
+  int pieces;         // most cell-gradient pieces of one tile (0: none)
+  int blocks_per_sm;  // resident CTAs per SM (occupancy)
+  int dyn_smem;       // dynamic shared memory per CTA, bytes (the ring)
+};
 
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int tile = blockIdx.x;
-  const int nb = HAS_DNU ? Nb : 0;
-  const int NV = NH + 1 + nb;
+template <typename TK, int NH, int CUT, bool WANT_DISP, bool HAS_DNU, bool SKIP_K>
+struct Inst {
+  static constexpr int kCut = CUT;
+  static constexpr int kRingBytes = kStages * stage_bytes<TK, NH, HAS_DNU>();
 
-  // this thread's cells: registers for the whole gene sweep
-  int cell[kCellsPerThread];
-  bool valid[kCellsPerThread];
-  float z[kCellsPerThread][NH];
-  float cfv[kCellsPerThread];
-  float db[kCellsPerThread][NB_SLOTS];
-  float dz[kCellsPerThread][NH];
-  float dc[kCellsPerThread];
-#pragma unroll
-  for (int i = 0; i < kCellsPerThread; ++i) {
-    cell[i] = tile * kCellsPerBlock + i * kThreads + tid;
-    valid[i] = cell[i] < Nc;
-#pragma unroll
-    for (int h = 0; h < NH; ++h) {
-      z[i][h] = valid[i] ? zeta[static_cast<size_t>(cell[i]) * NH + h] : 0.0f;
-      dz[i][h] = 0.0f;
-    }
-    cfv[i] = valid[i] ? cf[cell[i]] : 0.0f;
-    dc[i] = 0.0f;
-#pragma unroll
-    for (int b = 0; b < NB_SLOTS; ++b)
-      db[i][b] = (HAS_DNU && b < nb && valid[i])
-                     ? Db[static_cast<size_t>(b) * Nc + cell[i]] : 0.0f;
+  static auto kernel() {
+    return phase_kernel<TK, NH, CUT, WANT_DISP, HAS_DNU, SKIP_K>;
   }
 
-  double loss = 0.0;
-  for (int g0 = 0; g0 < Ng; g0 += kGeneChunk) {
-    const int gn = min(kGeneChunk, Ng - g0);
-    for (int i = tid; i < gn * NH; i += kThreads)
-      s_nu[i / NH][i % NH] = nu[static_cast<size_t>(g0) * NH + i];
-    if (tid < gn) s_cols[tid] = vct::gene_cols(disp[g0 + tid]);
-    if (HAS_DNU) {
-      for (int i = tid; i < gn * nb; i += kThreads)
-        s_dnu[i % gn][i / gn] = dnu[static_cast<size_t>(i / gn) * Ng + g0 + i % gn];
-    }
-    __syncthreads();
+  // The ring's size as the launch limit (required above 48 KB), and as much
+  // of the SM's memory for shared memory as it offers, so that the
+  // occupancy the plan counts on is the one the launch gets.  Once per
+  // instantiation and process.
+  static int set_attributes() {
+    static const int rc = [] {
+      cudaError_t e = cudaFuncSetAttribute(
+          kernel(), cudaFuncAttributeMaxDynamicSharedMemorySize, kRingBytes);
+      if (e == cudaSuccess)
+        e = cudaFuncSetAttribute(kernel(), cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 cudaSharedmemCarveoutMaxShared);
+      return static_cast<int>(e);
+    }();
+    return rc;
+  }
 
-    float chunk_loss = 0.0f;
-    for (int gl = 0; gl < gn; ++gl) {
-      const size_t row = static_cast<size_t>(g0 + gl) * Nc;
-      const vct::GeneCols c = s_cols[gl];
-      float nuv[NH];
-#pragma unroll
-      for (int h = 0; h < NH; ++h) nuv[h] = s_nu[gl][h];
-      float dnv[NB_SLOTS];
-#pragma unroll
-      for (int b = 0; b < NB_SLOTS; ++b) dnv[b] = (HAS_DNU && b < nb) ? s_dnu[gl][b] : 0.0f;
-
-      float v_nu[NH];
-      float v_ddnu[NB_SLOTS];
-      float v_disp = 0.0f;
-#pragma unroll
-      for (int h = 0; h < NH; ++h) v_nu[h] = 0.0f;
-#pragma unroll
-      for (int b = 0; b < NB_SLOTS; ++b) v_ddnu[b] = 0.0f;
-
-#pragma unroll
-      for (int i = 0; i < kCellsPerThread; ++i) {
-        const float k = valid[i] ? static_cast<float>(S[row + cell[i]]) : 0.0f;
-        float dot = 0.0f;
-#pragma unroll
-        for (int h = 0; h < NH; ++h) dot += nuv[h] * z[i][h];
-        float elog = dot + cfv[i];
-        if (HAS_DNU) {
-          float off = 0.0f;
-#pragma unroll
-          for (int b = 0; b < NB_SLOTS; ++b)
-            if (b < nb) off += dnv[b] * db[i][b];
-          elog += off;
-        }
-        const float log_b = -c.log_r - elog;
-        if constexpr (!GRAD) {
-          const float lp = vct::nb_lp<SKIP_K>(k, log_b, c);
-          chunk_loss += valid[i] ? lp : 0.0f;
-        } else {
-          float lp, g_elog, g_r;
-          vct::nb_lp_grads<WANT_DISP, SKIP_K>(k, log_b, c, lp, g_elog, g_r);
-          if (!valid[i]) {
-            lp = 0.0f;
-            g_elog = 0.0f;
-            g_r = 0.0f;
-          }
-          chunk_loss += lp;
-          dc[i] += g_elog;
-          v_disp += g_r;
-#pragma unroll
-          for (int h = 0; h < NH; ++h) {
-            dz[i][h] += g_elog * nuv[h];
-            v_nu[h] += g_elog * z[i][h];
-          }
-#pragma unroll
-          for (int b = 0; b < NB_SLOTS; ++b)
-            if (HAS_DNU && b < nb) v_ddnu[b] += g_elog * db[i][b];
-        }
-      }
-
-      if constexpr (GRAD) {
-#pragma unroll
-        for (int h = 0; h < NH; ++h) v_nu[h] = vct::warp_sum(v_nu[h]);
-        if (WANT_DISP) v_disp = vct::warp_sum(v_disp);
-#pragma unroll
-        for (int b = 0; b < NB_SLOTS; ++b)
-          if (HAS_DNU && b < nb) v_ddnu[b] = vct::warp_sum(v_ddnu[b]);
-        if (lane == 0) {
-#pragma unroll
-          for (int h = 0; h < NH; ++h) s_red[gl][h][warp] = v_nu[h];
-          s_red[gl][NH][warp] = WANT_DISP ? v_disp : 0.0f;
-#pragma unroll
-          for (int b = 0; b < NB_SLOTS; ++b)
-            if (HAS_DNU && b < nb) s_red[gl][NH + 1 + b][warp] = v_ddnu[b];
-        }
+  // A persistent grid: every CTA the card holds at once, at most one per
+  // unit; pieces, the most CTAs that share one tile.
+  static int plan(const Args& a, Plan& p) {
+    int rc = set_attributes();
+    int dev = 0, sms = 0;
+    if (rc == 0) rc = static_cast<int>(cudaGetDevice(&dev));
+    if (rc == 0)
+      rc = static_cast<int>(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev));
+    if (rc == 0)
+      rc = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &p.blocks_per_sm, kernel(), kThreads, kRingBytes));
+    if (rc != 0) return rc;
+    if (p.blocks_per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+    const int n_chunks = (a.Ng + kGeneChunk - 1) / kGeneChunk;
+    const int tiles = (a.Nc + kCellsPerTile - 1) / kCellsPerTile;
+    const long long U = static_cast<long long>(tiles) * n_chunks;
+    const long long slots = static_cast<long long>(sms) * p.blocks_per_sm;
+    p.grid = static_cast<int>(U < slots ? U : slots);
+    p.dyn_smem = kRingBytes;
+    p.pieces = 0;
+    if (Flags<CUT>::cell_grads) {
+      for (int t = 0; t < tiles; ++t) {
+        const long long first = static_cast<long long>(t) * n_chunks;
+        const int n = unit_owner(first + n_chunks - 1, U, p.grid) -
+                      unit_owner(first, U, p.grid) + 1;
+        if (n > p.pieces) p.pieces = n;
       }
     }
-    loss += static_cast<double>(chunk_loss);
-
-    if constexpr (GRAD) {
-      __syncthreads();
-      for (int i = tid; i < gn * NV; i += kThreads) {
-        const int gl = i / NV;
-        const int v = i % NV;
-        float s = 0.0f;
-#pragma unroll
-        for (int w = 0; w < kWarps; ++w) s += s_red[gl][v][w];
-        gene_part[(static_cast<size_t>(tile) * Ng + g0 + gl) * NV + v] = s;
-      }
-    }
-    __syncthreads();  // the next chunk overwrites the staged columns
+    return 0;
   }
 
-  if constexpr (GRAD) {
-#pragma unroll
-    for (int i = 0; i < kCellsPerThread; ++i) {
-      if (!valid[i]) continue;
-#pragma unroll
-      for (int h = 0; h < NH; ++h) dzeta[static_cast<size_t>(cell[i]) * NH + h] = dz[i][h];
-      dcf[cell[i]] = dc[i];
-    }
+  static int run(const Args& a, const Plan& p) {
+    phase_kernel<TK, NH, CUT, WANT_DISP, HAS_DNU, SKIP_K>
+        <<<p.grid, kThreads, p.dyn_smem, a.stream>>>(
+        static_cast<const TK*>(a.S), a.nu, a.zeta, a.cf, a.disp, a.dnu, a.Db, a.Ng, a.Nc,
+        a.Nb, a.n_rep, a.loss_part, a.gene_part, a.cell_piece);
+    int rc = static_cast<int>(cudaGetLastError());
+    if (rc != 0 || !Flags<CUT>::cell_grads) return rc;
+    cell_sum_kernel<NH><<<(a.Nc + 255) / 256, 256, 0, a.stream>>>(
+        a.cell_piece, a.Ng, a.Nc, p.grid, a.dzeta, a.dcf);
+    return static_cast<int>(cudaGetLastError());
   }
+};
 
-  loss = vct::warp_sum(loss);
-  if (lane == 0) s_loss[warp] = loss;
-  __syncthreads();
-  if (tid == 0) {
-    double s = 0.0;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) s += s_loss[w];
-    loss_part[tile] = s;
-  }
+// Calls op.template go<Inst<...>>() for the instantiation the arguments
+// select.  The production modes take Nh in {3, 5, 7}, any flags and up to
+// kMaxNb batches; the ladder's rungs Nh = 5, no batches, and the flags the
+// TPU tool fixes for each.
+template <typename TK, int NH, int CUT, bool WD, bool DNU, class Op>
+int pick_skip(const Args& a, const Op& op) {
+  return a.skip_k ? op.template go<Inst<TK, NH, CUT, WD, DNU, true>>()
+                  : op.template go<Inst<TK, NH, CUT, WD, DNU, false>>();
 }
 
-template <typename TK, int NH, bool GRAD, bool WANT_DISP, bool HAS_DNU, bool SKIP_K>
-void launch(const Args& a) {
-  const int tiles = (a.Nc + kCellsPerBlock - 1) / kCellsPerBlock;
-  phase_kernel<TK, NH, GRAD, WANT_DISP, HAS_DNU, SKIP_K>
-      <<<tiles, kThreads, 0, a.stream>>>(
-          static_cast<const TK*>(a.S), a.nu, a.zeta, a.cf, a.disp, a.dnu, a.Db,
-          a.Ng, a.Nc, a.Nb, a.loss_part, a.gene_part, a.dzeta, a.dcf);
+template <typename TK, int NH, int CUT, bool WD, class Op>
+int pick_dnu(const Args& a, const Op& op) {
+  return a.Nb > 0 ? pick_skip<TK, NH, CUT, WD, true>(a, op)
+                  : pick_skip<TK, NH, CUT, WD, false>(a, op);
 }
 
-template <typename TK, int NH, bool GRAD, bool WANT_DISP, bool HAS_DNU>
-void pick_skip(const Args& a, bool skip_k) {
-  if (skip_k) launch<TK, NH, GRAD, WANT_DISP, HAS_DNU, true>(a);
-  else launch<TK, NH, GRAD, WANT_DISP, HAS_DNU, false>(a);
+template <typename TK, int NH, class Op>
+int pick_mode(const Args& a, const Op& op) {
+  if (a.mode == FWD) return pick_dnu<TK, NH, FWD, false>(a, op);
+  if (a.want_disp) return pick_dnu<TK, NH, FWDGRAD, true>(a, op);
+  return pick_dnu<TK, NH, FWDGRAD, false>(a, op);
 }
 
-template <typename TK, int NH, bool GRAD, bool WANT_DISP>
-void pick_dnu(const Args& a, bool skip_k) {
-  if (a.Nb > 0) pick_skip<TK, NH, GRAD, WANT_DISP, true>(a, skip_k);
-  else pick_skip<TK, NH, GRAD, WANT_DISP, false>(a, skip_k);
-}
-
-template <typename TK, int NH, bool GRAD>
-void pick_disp(const Args& a, bool want_disp, bool skip_k) {
-  if constexpr (GRAD) {
-    if (want_disp) {
-      pick_dnu<TK, NH, true, true>(a, skip_k);
-      return;
-    }
-  }
-  pick_dnu<TK, NH, GRAD, false>(a, skip_k);
-}
-
-template <typename TK, bool GRAD>
-int pick_nh(const Args& a, bool want_disp, bool skip_k) {
-  switch (a.Nh) {
-    case 3: pick_disp<TK, 3, GRAD>(a, want_disp, skip_k); break;
-    case 5: pick_disp<TK, 5, GRAD>(a, want_disp, skip_k); break;
-    case 7: pick_disp<TK, 7, GRAD>(a, want_disp, skip_k); break;
+template <typename TK, class Op>
+int pick_rung(const Args& a, const Op& op) {
+  switch (a.mode) {
+    case STREAM: return op.template go<Inst<TK, 5, STREAM, false, false, true>>();
+    case MATMUL: return op.template go<Inst<TK, 5, MATMUL, false, false, true>>();
+    case LOGPMF: return op.template go<Inst<TK, 5, LOGPMF, false, false, true>>();
+    case GRAD_NU: return op.template go<Inst<TK, 5, GRAD_NU, false, false, true>>();
+    case V_NODIG: return op.template go<Inst<TK, 5, V_NODIG, false, false, true>>();
+    case V_NOCELL: return op.template go<Inst<TK, 5, V_NOCELL, true, false, true>>();
+    case VPU_ONLY: return op.template go<Inst<TK, 5, VPU_ONLY, false, false, true>>();
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return 0;
 }
 
-template <bool GRAD>
-int run(const Args& a, int counts_int16, bool want_disp, bool skip_k) {
-  if (a.Ng < 1 || a.Nc < 1 || a.Nb < 0 || a.Nb > kMaxNb)
-    return static_cast<int>(cudaErrorInvalidValue);
-  (void)cudaGetLastError();
-  const int rc = counts_int16 ? pick_nh<int16_t, GRAD>(a, want_disp, skip_k)
-                              : pick_nh<float, GRAD>(a, want_disp, skip_k);
-  if (rc != 0) return rc;
-  return static_cast<int>(cudaGetLastError());
+template <typename TK, class Op>
+int pick_nh(const Args& a, const Op& op) {
+  if (a.mode != FWD && a.mode != FWDGRAD) {
+    if (a.Nh != 5 || a.Nb != 0) return static_cast<int>(cudaErrorInvalidValue);
+    return pick_rung<TK>(a, op);
+  }
+  switch (a.Nh) {
+    case 3: return pick_mode<TK, 3>(a, op);
+    case 5: return pick_mode<TK, 5>(a, op);
+    case 7: return pick_mode<TK, 7>(a, op);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
+
+template <class Op>
+int dispatch(const Args& a, bool counts_int16, const Op& op) {
+  if (a.mode < 0 || a.mode >= kNumCuts || a.Ng < 1 || a.Nc < 1 || a.Nb < 0 ||
+      a.Nb > kMaxNb)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return counts_int16 ? pick_nh<int16_t>(a, op) : pick_nh<float>(a, op);
+}
+
+struct PlanOp {
+  const Args& a;
+  Plan& p;
+  template <class K> int go() const { return K::plan(a, p); }
+};
+
+struct RunOp {
+  const Args& a;
+  int grid, pieces;
+  template <class K> int go() const {
+    Plan p;
+    const int rc = K::plan(a, p);
+    if (rc != 0) return rc;
+    // the caller's buffers were sized from vct_phase_plan
+    if (p.grid != grid || p.pieces > pieces ||
+        (Flags<K::kCut>::cell_grads && (a.cell_piece == nullptr || a.dzeta == nullptr)))
+      return static_cast<int>(cudaErrorInvalidValue);
+    return K::run(a, p);
+  }
+};
 
 }  // namespace
 
 extern "C" {
 
-int vct_phase_cells_per_block() { return kCellsPerBlock; }
-
-int vct_phase_max_nb() { return kMaxNb; }
-
-// Loss only: loss_part (n_tiles,) doubles, summed by the caller.
-int vct_phase_fwd(const void* S, int counts_int16, const float* nu, const float* zeta,
-                  const float* cf, const float* disp, const float* dnu, const float* Db,
-                  int Ng, int Nc, int Nh, int Nb, int skip_k, double* loss_part,
-                  void* stream) {
-  Args a{S, nu, zeta, cf, disp, dnu, Db, Ng, Nc, Nh, Nb,
-         loss_part, nullptr, nullptr, nullptr, static_cast<cudaStream_t>(stream)};
-  return run<false>(a, counts_int16, false, skip_k != 0);
+// The layout constants: {threads per CTA, cells per tile, genes per chunk,
+// ring stages, max batches}.  Returns how many it wrote.
+int vct_phase_layout(int* out, int n) {
+  const int v[] = {kThreads, kCellsPerTile, kGeneChunk, kStages, kMaxNb};
+  int i = 0;
+  for (; i < n && i < 5; ++i) out[i] = v[i];
+  return i;
 }
 
-// Loss and all gradients: loss_part (n_tiles,), gene_part (n_tiles, Ng, Nh+1+Nb),
-// dzeta (Nc, Nh), dcf (Nc,).
-int vct_phase_fwdgrad(const void* S, int counts_int16, const float* nu, const float* zeta,
-                      const float* cf, const float* disp, const float* dnu, const float* Db,
-                      int Ng, int Nc, int Nh, int Nb, int skip_k, int want_disp,
-                      double* loss_part, float* gene_part, float* dzeta, float* dcf,
-                      void* stream) {
-  Args a{S, nu, zeta, cf, disp, dnu, Db, Ng, Nc, Nh, Nb,
-         loss_part, gene_part, dzeta, dcf, static_cast<cudaStream_t>(stream)};
-  return run<true>(a, counts_int16, want_disp != 0, skip_k != 0);
+// The plan of one call: out = {grid, pieces, blocks_per_sm, dyn_smem}.  The
+// caller sizes loss_part (grid,) and, for the cell-gradient modes,
+// cell_piece (pieces, Nh + 1, Nc) from it.
+int vct_phase_plan(int mode, int counts_int16, int Ng, int Nc, int Nh, int Nb, int skip_k,
+                   int want_disp, int* out) {
+  const Args a{mode, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+               Ng, Nc, Nh, Nb, 0, skip_k != 0, want_disp != 0};
+  Plan p{};
+  const int rc = dispatch(a, counts_int16 != 0, PlanOp{a, p});
+  out[0] = p.grid;
+  out[1] = p.pieces;
+  out[2] = p.blocks_per_sm;
+  out[3] = p.dyn_smem;
+  return rc;
+}
+
+// One launch of `mode` (a Cut) with the grid and pieces of its plan:
+// loss_part (grid,) doubles; the gradient modes gene_part (n_tiles, Ng,
+// NV); FWDGRAD and V_NODIG dzeta (Nc, Nh) and dcf (Nc,), through the
+// cell_piece (pieces, Nh + 1, Nc) scratch.  Pointers a mode does not read or
+// write may be null.  Returns the CUDA error of the launches, or
+// cudaErrorInvalidValue for arguments or buffers the plan does not match.
+int vct_phase_run(int mode, const void* S, int counts_int16, const float* nu,
+                  const float* zeta, const float* cf, const float* disp, const float* dnu,
+                  const float* Db, int Ng, int Nc, int Nh, int Nb, int skip_k, int want_disp,
+                  int n_rep, int grid, int pieces, double* loss_part, float* gene_part,
+                  float* cell_piece, float* dzeta, float* dcf, void* stream) {
+  const Args a{mode, S, nu, zeta, cf, disp, dnu, Db, Ng, Nc, Nh, Nb, n_rep,
+               skip_k != 0, want_disp != 0, loss_part, gene_part, cell_piece, dzeta, dcf,
+               static_cast<cudaStream_t>(stream)};
+  (void)cudaGetLastError();
+  return dispatch(a, counts_int16 != 0, RunOp{a, grid, pieces});
 }
 
 }  // extern "C"

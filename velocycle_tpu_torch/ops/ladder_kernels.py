@@ -1,10 +1,12 @@
 """The roofline ladder of the phase fwd+grad kernel: CUDA kernels and their
 plain versions.
 
-Each rung is `phase_fwdgrad` (csrc/nb_phase.cu) cut down by one piece of
-work, in its launch layout, so that the differences between rungs say where
-that kernel's time goes on the card.  The rungs replace the Pallas TPU
-kernels of tools/kernel_profile.py (all in `csrc/nb_ladder.cu`):
+Each rung is `phase_fwdgrad` cut down by one piece of work: a compile-time
+cut (`Cut`) of the one body in csrc/phase_kernel.cuh that `phase_fwd` and
+`phase_fwdgrad` instantiate too, launched through the same library
+(csrc/nb_phase.cu) in the same layout, so that the differences between rungs
+say where that kernel's time goes on the card.  The rungs replace the
+Pallas TPU kernels of tools/kernel_profile.py:
 
   rung       TPU kernel                 computes (no lgamma(k+1) term)
   stream     k_stream        :57        sum float(S) + n_rep * sum(nu)
@@ -12,7 +14,7 @@ kernels of tools/kernel_profile.py (all in `csrc/nb_ladder.cu`):
   logpmf     k_logpmf        :83        sum NB_logpmf(S | nu @ zeta^T, r)
   fwdgrad    k_fwdgrad       :98        logpmf's loss + dnu; no digamma chain
   v_full     _variant_kernel :167       loss, dnu, ddisp, dzeta, dcf, cf in
-                                        ElogS: phase_fwdgrad's function
+                                        ElogS: phase_fwdgrad's instantiation
   v_nodig    _variant_kernel            v_full without the digamma chain; the
                                         ddisp slot holds sum_c g_elog
   v_nocell   _variant_kernel            v_full without dzeta and dcf
@@ -21,9 +23,9 @@ kernels of tools/kernel_profile.py (all in `csrc/nb_ladder.cu`):
 
 ``n_rep`` is the TPU tool's cell-tile count N_C (its stream kernel adds the
 nu block once per grid cell).  Gene-indexed gradients come out per cell tile
-of `CELLS_PER_BLOCK` cells, as the kernel writes them; the variants return
-those partials and `ladder_fwdgrad` their sum (fixed order, no float
-atomics).  Nh = 5 only, as the TPU tool fixes it.
+of `nb_kernels.phase_layout().cells_per_tile` cells, as the kernel writes
+them; the variants return those partials and `ladder_fwdgrad` their sum
+(fixed order, no float atomics).  Nh = 5 only, as the TPU tool fixes it.
 
 The kernel functions take CUDA tensors and raise on CPU tensors; the
 ``*_plain`` functions are their plain torch versions (the CPU path and the
@@ -33,16 +35,14 @@ ladder at full width.
 """
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple, Optional
 
 import torch
 
-from . import cuda_build
 from . import nb_kernels as K
 
 __all__ = [
-    "CELLS_PER_BLOCK", "LAUNCHES", "NH", "READS", "RUNGS", "LadderOut",
+    "LAUNCHES", "MODES", "NH", "READS", "RUNGS", "LadderOut",
     "ladder_fwdgrad", "ladder_fwdgrad_plain", "ladder_logpmf",
     "ladder_logpmf_plain", "ladder_matmul", "ladder_matmul_plain",
     "ladder_run", "ladder_stream", "ladder_stream_plain", "ladder_variant",
@@ -50,11 +50,15 @@ __all__ = [
     "reset_launch_counts", "run_rung",
 ]
 
-# the rung order of csrc/nb_ladder.cu
 RUNGS = ("stream", "matmul", "logpmf", "fwdgrad", "v_full", "v_nodig",
          "v_nocell", "vpu_only")
+# each rung's mode of vct_phase_run (nb_kernels.PHASE_MODES) and the
+# want_disp it is built with; v_full is phase_fwdgrad's own instantiation
+MODES = {"stream": ("stream", False), "matmul": ("matmul", False),
+         "logpmf": ("logpmf", False), "fwdgrad": ("grad_nu", False),
+         "v_full": ("fwdgrad", True), "v_nodig": ("v_nodig", False),
+         "v_nocell": ("v_nocell", True), "vpu_only": ("vpu_only", False)}
 NH = 5
-CELLS_PER_BLOCK = 512    # csrc/phase_layout.cuh kCellsPerBlock
 # kernel launches on the card, by rung; chip_smoke.py resets these just
 # before it drives the ladder and reads them just after
 LAUNCHES = {r: 0 for r in RUNGS}
@@ -74,7 +78,7 @@ _VARIANTS = {(True, True): "v_full", (False, True): "v_nodig",
 
 
 class LadderOut(NamedTuple):
-    """What one rung's kernel writes: loss partials (n_tiles,) float64,
+    """What one rung's kernel writes: loss partials (one per CTA) float64,
     gene partials (n_tiles, Ng, Nh) for fwdgrad and (n_tiles, Ng, Nh + 1)
     for the variants (last column ddisp, or sum_c g_elog for v_nodig),
     dzeta (Nc, Nh) and dcf (Nc,) for v_full and v_nodig; None where the
@@ -91,28 +95,8 @@ def reset_launch_counts():
 
 
 # ---------------------------------------------------------------------------
-# CUDA kernels (csrc/nb_ladder.cu)
+# CUDA kernels (csrc/phase_kernel.cuh through csrc/nb_phase.cu)
 # ---------------------------------------------------------------------------
-
-def _lib():
-    lib = cuda_build.load("nb_ladder")
-    if getattr(lib, "_vct_typed", False):
-        return lib
-    P, I = ctypes.c_void_p, ctypes.c_int
-    lib.vct_ladder_cells_per_block.argtypes = []
-    lib.vct_ladder_cells_per_block.restype = I
-    # rung, S, int16 flag, nu, zeta, cf, disp, Ng, Nc, Nh, n_rep, loss_part,
-    # gene_part, dzeta, dcf, stream
-    lib.vct_ladder_run.argtypes = [I, P, I, P, P, P, P, I, I, I, I, P, P, P,
-                                   P, P]
-    lib.vct_ladder_run.restype = I
-    got = lib.vct_ladder_cells_per_block()
-    if got != CELLS_PER_BLOCK:
-        raise RuntimeError(f"csrc/nb_ladder.cu has {got} cells per block, "
-                           f"the wrapper {CELLS_PER_BLOCK}")
-    lib._vct_typed = True
-    return lib
-
 
 def _check(rung, S, params):
     """What the kernels take: Nh = 5, int16/float32 counts, float32
@@ -137,8 +121,7 @@ def _check(rung, S, params):
     if ref.device.type != "cuda":
         raise ValueError(f"ladder_{rung} launches a CUDA kernel; got CPU "
                          f"tensors")
-    K._check_inputs([] if S is None else [("S", S)], params, None, None,
-                    "nb_ladder")
+    K._check_inputs([] if S is None else [("S", S)], params, None, None)
 
 
 def ladder_run(rung, S, nu, zeta=None, cf=None, r=None, n_rep=0):
@@ -150,32 +133,11 @@ def ladder_run(rung, S, nu, zeta=None, cf=None, r=None, n_rep=0):
     given = {"nu": nu, "zeta": zeta, "count_factor": cf, "dispersion": r}
     params = {n: t for n, t in given.items() if t is not None}
     _check(rung, S, params)
-    lib = _lib()
-    Ng, Nc = nu.shape[0], (zeta.shape[0] if S is None else S.shape[1])
-    tiles = -(-Nc // CELLS_PER_BLOCK)
-    dev = nu.device
-    f32 = dict(dtype=torch.float32, device=dev)
-    loss_part = torch.empty(tiles, dtype=torch.float64, device=dev)
-    gene_part = dzeta = dcf = None
-    if rung == "fwdgrad":
-        gene_part = torch.empty((tiles, Ng, NH), **f32)
-    elif rung.startswith("v_"):
-        gene_part = torch.empty((tiles, Ng, NH + 1), **f32)
-    if rung in ("v_full", "v_nodig"):
-        dzeta = torch.empty((Nc, NH), **f32)
-        dcf = torch.empty(Nc, **f32)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.vct_ladder_run(
-            RUNGS.index(rung), K._ptr(S),
-            int(S is not None and S.dtype == torch.int16),
-            *(K._ptr(t) for t in given.values()), Ng, Nc, NH, int(n_rep),
-            loss_part.data_ptr(), K._ptr(gene_part), K._ptr(dzeta),
-            K._ptr(dcf), stream,
-        )
-    K._raise_on(rc, f"ladder_{rung}")
+    mode, want_disp = MODES[rung]
+    out = K._phase_launch(mode, S, nu, zeta, cf, r, skip_k=True,
+                          want_disp=want_disp, n_rep=n_rep)
     LAUNCHES[rung] += 1
-    return LadderOut(loss_part, gene_part, dzeta, dcf)
+    return LadderOut(*out)
 
 
 def _loss(out):
@@ -234,13 +196,13 @@ def ladder_vpu_only(nu, zeta, r):
 
 def _per_tile(x, Nc):
     """(Ng, Nc) -> (n_tiles, Ng): sums over each kernel cell tile."""
-    return torch.stack([x[:, s:s + CELLS_PER_BLOCK].sum(1)
-                        for s in range(0, Nc, CELLS_PER_BLOCK)])
+    B = K.phase_layout().cells_per_tile
+    return torch.stack([x[:, s:s + B].sum(1) for s in range(0, Nc, B)])
 
 
 def _per_tile_mm(g, zeta):
     """(n_tiles, Ng, Nh): g @ zeta over each kernel cell tile."""
-    B = CELLS_PER_BLOCK
+    B = K.phase_layout().cells_per_tile
     return torch.stack([g[:, s:s + B] @ zeta[s:s + B]
                         for s in range(0, zeta.shape[0], B)])
 

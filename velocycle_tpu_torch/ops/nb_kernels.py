@@ -9,7 +9,9 @@ kinetic coupling ``ElogU = -log_beta + log(relu(dEs * omega + exp(
 log_gamma)) + 1e-5) + ElogS``, ``dEs = nu @ zeta_dphi^T``.  Four
 hand-written CUDA kernels carry them on the card:
 
-  * ``phase_fwd`` / ``phase_fwdgrad`` (`csrc/nb_phase.cu`) replace the
+  * ``phase_fwd`` / ``phase_fwdgrad`` (`csrc/nb_phase.cu`, two
+    instantiations of the one body in `csrc/phase_kernel.cuh`, which also
+    carries the roofline ladder of `ops/ladder_kernels.py`) replace the
     Pallas kernels `_phase_fwd_kernel` / `_phase_fwdgrad_kernel` of
     velocycle_tpu/ops/nb_kernels.py;
   * ``velo_fwd`` / ``velo_fwdgrad`` (`csrc/nb_velo.cu`) replace
@@ -34,6 +36,9 @@ Use the plain model path (``use_fused_nb=False``) for fractional data.
 from __future__ import annotations
 
 import ctypes
+import functools
+import re
+from typing import NamedTuple
 
 import torch
 
@@ -45,6 +50,9 @@ from .special import (
 
 __all__ = [
     "LAUNCHES",
+    "PHASE_MODES",
+    "PhaseLayout",
+    "PhasePlan",
     "SUPPORTED_NH",
     "nb_loglik_fused",
     "nb_loglik_reference",
@@ -54,6 +62,8 @@ __all__ = [
     "phase_fwd_plain",
     "phase_fwdgrad",
     "phase_fwdgrad_plain",
+    "phase_layout",
+    "phase_plan",
     "reset_launch_counts",
     "velo_fwd",
     "velo_fwd_plain",
@@ -242,38 +252,168 @@ def velo_fwdgrad_plain(S, U, nu, zeta, zeta_dphi, cf, omega, log_beta,
 
 
 # ---------------------------------------------------------------------------
-# CUDA kernels (csrc/nb_phase.cu, csrc/nb_velo.cu)
+# CUDA kernels (csrc/nb_phase.cu over csrc/phase_kernel.cuh, csrc/nb_velo.cu)
 # ---------------------------------------------------------------------------
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
+# the `Cut` order of csrc/phase_kernel.cuh: the modes of vct_phase_run.  fwd
+# and fwdgrad are phase_fwd / phase_fwdgrad; the rest are the roofline
+# ladder's rungs (ops/ladder_kernels.py), whose v_full is fwdgrad itself
+PHASE_MODES = ("fwd", "fwdgrad", "stream", "matmul", "logpmf", "grad_nu",
+               "v_nodig", "v_nocell", "vpu_only")
+# gene-partial columns of the gradient modes besides dnu (Nh) and ddelta_nu
+# (Nb): the ddisp slot; and the modes that write dzeta and dcf
+_PHASE_GENE_EXTRA = {"fwdgrad": 1, "grad_nu": 0, "v_nodig": 1, "v_nocell": 1}
+_PHASE_CELL_GRADS = ("fwdgrad", "v_nodig")
+_LAYOUT_NAMES = ("kThreads", "kCellsPerTile", "kGeneChunk", "kStages",
+                 "kMaxNb")
 
-# the C interface of each csrc/ source: count matrices, float parameters,
-# gene-partial columns besides dnu and ddelta_nu, and cell-indexed gradients
-# ((Nc, Nh) ones first, then (Nc,) ones)
-_ABI = {
-    "nb_phase": {"counts": 1, "params": 4, "gene_extra": 1, "cell_grads": 2},
-    "nb_velo": {"counts": 2, "params": 8, "gene_extra": 3, "cell_grads": 4},
-}
+
+class PhaseLayout(NamedTuple):
+    """The phase kernels' layout constants (csrc/phase_kernel.cuh)."""
+    threads: int
+    cells_per_tile: int     # cells of one tile: the gene partials' first axis
+    gene_chunk: int         # genes staged per step of the sweep
+    stages: int             # count-ring stages in shared memory
+    max_nb: int             # most delta_nu batches
 
 
-def _lib(name):
-    """The loaded library of csrc/<name>.cu with its C functions typed."""
-    lib = cuda_build.load(name)
+class PhasePlan(NamedTuple):
+    """How one call of a phase kernel is laid out on the card
+    (vct_phase_plan)."""
+    grid: int               # CTAs, one loss partial each
+    pieces: int             # cell-gradient pieces per cell (0: none)
+    blocks_per_sm: int      # resident CTAs per SM
+    dyn_smem: int           # dynamic shared memory per CTA, bytes
+
+
+@functools.lru_cache(maxsize=None)
+def phase_layout():
+    """The layout constants of the phase kernels, from csrc/phase_kernel.cuh,
+    their one definition; the built library reports the same numbers
+    (`vct_phase_layout`, checked when it is loaded).  The plain versions
+    read them here to cut their partials as the kernels do."""
+    text = (cuda_build.CSRC / "phase_kernel.cuh").read_text()
+    vals = []
+    for name in _LAYOUT_NAMES:
+        m = re.search(rf"constexpr int {name} = (\d+);", text)
+        if m is None:
+            raise RuntimeError(f"csrc/phase_kernel.cuh defines no {name}")
+        vals.append(int(m.group(1)))
+    return PhaseLayout(*vals)
+
+
+def _phase_lib():
+    """The loaded library of csrc/nb_phase.cu with its C functions typed and
+    its layout (``lib.layout``, as the library reports it); raises unless
+    that is `phase_layout()`."""
+    lib = cuda_build.load("nb_phase")
     if getattr(lib, "_vct_typed", False):
         return lib
-    abi = _ABI[name]
-    stem = name.replace("nb_", "vct_")
+    lib.vct_phase_layout.argtypes = [_P, _I]
+    # mode, int16 flag, Ng, Nc, Nh, Nb, skip_k, want_disp, out
+    lib.vct_phase_plan.argtypes = [_I] * 8 + [_P]
+    # mode, S, int16 flag, nu, zeta, cf, disp, dnu, Db, Ng, Nc, Nh, Nb,
+    # skip_k, want_disp, n_rep, grid, pieces, loss_part, gene_part,
+    # cell_piece, dzeta, dcf, stream
+    lib.vct_phase_run.argtypes = ([_I, _P, _I] + [_P] * 6 + [_I] * 9
+                                  + [_P] * 5 + [_P])
+    for fn in (lib.vct_phase_layout, lib.vct_phase_plan, lib.vct_phase_run):
+        fn.restype = _I
+    out = (ctypes.c_int * len(_LAYOUT_NAMES))()
+    lib.vct_phase_layout(out, len(out))
+    lib.layout = PhaseLayout(*out)
+    if lib.layout != phase_layout():
+        raise RuntimeError(f"libnb_phase reports {lib.layout}, "
+                           f"csrc/phase_kernel.cuh {phase_layout()}")
+    lib._vct_typed = True
+    return lib
+
+
+@functools.lru_cache(maxsize=256)
+def _phase_plan(device_index, mode, int16, Ng, Nc, Nh, Nb, skip_k,
+                want_disp):
+    lib = _phase_lib()
+    out = (ctypes.c_int * 4)()
+    with torch.cuda.device(device_index):
+        rc = lib.vct_phase_plan(PHASE_MODES.index(mode), int(int16), Ng, Nc,
+                                Nh, Nb, int(skip_k), int(want_disp), out)
+    _raise_on(rc, f"phase {mode} plan")
+    return PhasePlan(*out)
+
+
+def phase_plan(mode, int16, Ng, Nc, Nh=5, Nb=0, skip_k=True, want_disp=True,
+               device=None):
+    """The `PhasePlan` of one call of the phase kernel in ``mode``
+    (`PHASE_MODES`) on ``device`` (default: the current card), for int16
+    or float32 counts."""
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    return _phase_plan(index, mode, bool(int16), Ng, Nc, Nh, Nb, bool(skip_k),
+                       bool(want_disp))
+
+
+def _phase_launch(mode, S, nu, zeta, cf, r, delta_nu=None, Db=None,
+                  skip_k=True, want_disp=False, n_rep=0):
+    """One launch of csrc/nb_phase.cu in ``mode`` (`PHASE_MODES`) on checked
+    CUDA tensors; inputs the mode does not read may be None.  Returns
+    (loss partials (grid,) float64, gene partials (n_tiles, Ng, NV) or None,
+    dzeta (Nc, Nh) or None, dcf (Nc,) or None)."""
+    lib = _phase_lib()
+    Ng, Nh = nu.shape
+    Nc = zeta.shape[0] if S is None else S.shape[1]
+    Nb = 0 if delta_nu is None else delta_nu.shape[0]
+    int16 = S is not None and S.dtype == torch.int16
+    dev = nu.device
+    plan = phase_plan(mode, int16, Ng, Nc, Nh, Nb, skip_k, want_disp, dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    loss_part = torch.empty(plan.grid, dtype=torch.float64, device=dev)
+    gene_part = cell_piece = dzeta = dcf = None
+    if mode in _PHASE_GENE_EXTRA:
+        tiles = -(-Nc // lib.layout.cells_per_tile)
+        gene_part = torch.empty(
+            (tiles, Ng, Nh + _PHASE_GENE_EXTRA[mode] + Nb), **f32)
+    if mode in _PHASE_CELL_GRADS:
+        dzeta = torch.empty((Nc, Nh), **f32)
+        dcf = torch.empty(Nc, **f32)
+        if plan.pieces:
+            cell_piece = torch.empty((plan.pieces, Nh + 1, Nc), **f32)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.vct_phase_run(
+            PHASE_MODES.index(mode), _ptr(S), int(int16), _ptr(nu),
+            _ptr(zeta), _ptr(cf), _ptr(r), _ptr(delta_nu), _ptr(Db), Ng, Nc,
+            Nh, Nb, int(skip_k), int(want_disp), int(n_rep), plan.grid,
+            plan.pieces, loss_part.data_ptr(), _ptr(gene_part),
+            _ptr(cell_piece), _ptr(dzeta), _ptr(dcf), stream,
+        )
+    _raise_on(rc, f"phase {mode}")
+    return loss_part, gene_part, dzeta, dcf
+
+
+# the C interface of csrc/nb_velo.cu: count matrices, float parameters,
+# gene-partial columns besides dnu and ddelta_nu, and cell-indexed gradients
+# ((Nc, Nh) ones first, then (Nc,) ones)
+_VELO_ABI = {"counts": 2, "params": 8, "gene_extra": 3, "cell_grads": 4}
+
+
+def _velo_lib():
+    """The loaded library of csrc/nb_velo.cu with its C functions typed."""
+    lib = cuda_build.load("nb_velo")
+    if getattr(lib, "_vct_typed", False):
+        return lib
+    abi = _VELO_ABI
     # counts..., int16 flag, params..., dnu, Db, Ng, Nc, Nh, Nb, skip_k
     common = ([_P] * abi["counts"] + [_I] + [_P] * abi["params"] + [_P, _P]
               + [_I] * 5)
     for fn, argtypes in (
-        (f"{stem}_cells_per_block", []),
-        (f"{stem}_max_nb", []),
-        (f"{stem}_fwd", common + [_P, _P]),
+        ("vct_velo_cells_per_block", []),
+        ("vct_velo_max_nb", []),
+        ("vct_velo_fwd", common + [_P, _P]),
         # ..., want_disp, loss_part, gene_part, cell grads..., stream
-        (f"{stem}_fwdgrad",
+        ("vct_velo_fwdgrad",
          common + [_I, _P, _P] + [_P] * abi["cell_grads"] + [_P]),
     ):
         getattr(lib, fn).argtypes = argtypes
@@ -288,13 +428,14 @@ _SHAPES = {"nu": "gh", "zeta": "ch", "zeta_dphi": "ch", "count_factor": "c",
            "dispersion": "g"}
 
 
-def _check_inputs(counts, params, delta_nu, Db, lib_name):
+def _check_inputs(counts, params, delta_nu, Db, max_nb=None):
     """Shapes always; device, dtype and contiguity for the kernels.
 
     counts: [(name, (Ng, Nc) tensor)], or empty for a kernel that reads no
     count matrix (Ng and Nc then come from nu and zeta); params: {name:
-    tensor}, names from `_SHAPES`; lib_name: the csrc/ source whose kernels
-    take them."""
+    tensor}, names from `_SHAPES`; max_nb: a function giving the most
+    delta_nu batches the kernels take (asked only for CUDA tensors with
+    delta_nu)."""
     if counts:
         S = counts[0][1]
         if S.dim() != 2:
@@ -334,14 +475,11 @@ def _check_inputs(counts, params, delta_nu, Db, lib_name):
         )
     if Ng < 1 or Nc < 1:
         raise ValueError(f"empty count matrix {(Ng, Nc)}")
-    if delta_nu is not None:
-        lib = _lib(lib_name)
-        max_nb = getattr(lib, lib_name.replace("nb_", "vct_") + "_max_nb")()
-        if delta_nu.shape[0] > max_nb:
-            raise ValueError(
-                f"the NB kernels take at most {max_nb} batches, got "
-                f"{delta_nu.shape[0]}"
-            )
+    if delta_nu is not None and delta_nu.shape[0] > max_nb():
+        raise ValueError(
+            f"the NB kernels take at most {max_nb()} batches, got "
+            f"{delta_nu.shape[0]}"
+        )
     for name, t in [*counts, *got.items()]:
         if t.device != S.device:
             raise ValueError(f"{name} is on {t.device}, counts on {S.device}")
@@ -360,24 +498,24 @@ def _raise_on(rc, name):
         raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
 
 
-def _launch(name, lib_name, counts, params, delta_nu, Db, lgamma_k_sum,
-            want_disp=None):
-    """Check, allocate the partial buffers, launch one kernel and count it:
-    the loss-only kernel, or with ``want_disp`` given the fwd+grad one.
+def _velo_launch(name, counts, params, delta_nu, Db, lgamma_k_sum,
+                 want_disp=None):
+    """Check, allocate the partial buffers, launch one velocity kernel and
+    count it: the loss-only kernel, or with ``want_disp`` given the
+    fwd+grad one.
 
     Returns (loss, gene partials summed over the cell tiles (Ng, NV) or
     None, [cell-indexed gradients])."""
-    _check_inputs(counts, params, delta_nu, Db, lib_name)
+    _check_inputs(counts, params, delta_nu, Db, _velo_max_nb)
     S = counts[0][1]
     if S.device.type != "cuda":
         raise ValueError(f"{name} launches a CUDA kernel; got CPU tensors")
-    lib = _lib(lib_name)
-    stem = lib_name.replace("nb_", "vct_")
+    lib = _velo_lib()
     Ng, Nc = S.shape
     nu = params["nu"]
     Nh = nu.shape[1]
     Nb = 0 if delta_nu is None else delta_nu.shape[0]
-    tiles = -(-Nc // getattr(lib, f"{stem}_cells_per_block")())
+    tiles = -(-Nc // lib.vct_velo_cells_per_block())
     dev = S.device
     args = [*(_ptr(t) for _, t in counts), int(S.dtype == torch.int16),
             *(_ptr(t) for t in params.values()), _ptr(delta_nu), _ptr(Db),
@@ -386,9 +524,9 @@ def _launch(name, lib_name, counts, params, delta_nu, Db, lgamma_k_sum,
     gene_part, cell = None, []
     if want_disp is None:
         tail = [loss_part.data_ptr()]
-        fn = getattr(lib, f"{stem}_fwd")
+        fn = lib.vct_velo_fwd
     else:
-        abi = _ABI[lib_name]
+        abi = _VELO_ABI
         gene_part = torch.empty((tiles, Ng, Nh + abi["gene_extra"] + Nb),
                                 dtype=torch.float32, device=dev)
         half = abi["cell_grads"] // 2
@@ -396,7 +534,7 @@ def _launch(name, lib_name, counts, params, delta_nu, Db, lgamma_k_sum,
                 for shape in [(Nc, Nh)] * half + [(Nc,)] * half]
         tail = [int(bool(want_disp)), loss_part.data_ptr(),
                 gene_part.data_ptr(), *(t.data_ptr() for t in cell)]
-        fn = getattr(lib, f"{stem}_fwdgrad")
+        fn = lib.vct_velo_fwdgrad
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(*args, *tail, stream)
@@ -408,27 +546,46 @@ def _launch(name, lib_name, counts, params, delta_nu, Db, lgamma_k_sum,
     return loss, gene, cell
 
 
+def _phase_max_nb():
+    return _phase_lib().layout.max_nb
+
+
+def _velo_max_nb():
+    return _velo_lib().vct_velo_max_nb()
+
+
 def _phase_params(nu, zeta, cf, r):
     return {"nu": nu, "zeta": zeta, "count_factor": cf, "dispersion": r}
 
 
+def _phase_checked(name, S, nu, zeta, cf, r, delta_nu, Db):
+    _check_inputs([("S", S)], _phase_params(nu, zeta, cf, r), delta_nu, Db,
+                  _phase_max_nb)
+    if S.device.type != "cuda":
+        raise ValueError(f"{name} launches a CUDA kernel; got CPU tensors")
+
+
 def phase_fwd(S, nu, zeta, cf, r, delta_nu=None, Db=None, lgamma_k_sum=None):
     """Loss of the fused phase NB likelihood on the card (CUDA tensors)."""
-    loss, _, _ = _launch("phase_fwd", "nb_phase", [("S", S)],
-                         _phase_params(nu, zeta, cf, r), delta_nu, Db,
-                         lgamma_k_sum)
-    return loss
+    _phase_checked("phase_fwd", S, nu, zeta, cf, r, delta_nu, Db)
+    loss_part, _, _, _ = _phase_launch("fwd", S, nu, zeta, cf, r, delta_nu,
+                                       Db, skip_k=lgamma_k_sum is not None)
+    LAUNCHES["phase_fwd"] += 1
+    return _finish_loss(loss_part.sum(), lgamma_k_sum)
 
 
 def phase_fwdgrad(S, nu, zeta, cf, r, delta_nu=None, Db=None,
                   lgamma_k_sum=None, want_disp=True):
     """Loss and every gradient of the fused phase NB likelihood on the card:
     (loss, (dnu, dzeta, dcf, ddisp, ddelta_nu)), as `phase_fwdgrad_plain`."""
-    loss, gene, (dzeta, dcf) = _launch(
-        "phase_fwdgrad", "nb_phase", [("S", S)],
-        _phase_params(nu, zeta, cf, r), delta_nu, Db, lgamma_k_sum,
-        want_disp=want_disp,
-    )
+    _phase_checked("phase_fwdgrad", S, nu, zeta, cf, r, delta_nu, Db)
+    loss_part, gene_part, dzeta, dcf = _phase_launch(
+        "fwdgrad", S, nu, zeta, cf, r, delta_nu, Db,
+        skip_k=lgamma_k_sum is not None, want_disp=bool(want_disp))
+    LAUNCHES["phase_fwdgrad"] += 1
+    loss = _finish_loss(loss_part.sum(), lgamma_k_sum)
+    # fixed-order reduction over the cell tiles (no float atomics)
+    gene = gene_part.sum(0)
     Nh = nu.shape[1]
     dnu = gene[:, :Nh].contiguous()
     ddisp = gene[:, Nh].contiguous()
@@ -445,8 +602,8 @@ def _velo_params(nu, zeta, zeta_dphi, cf, omega, log_beta, log_gamma, r):
 def velo_fwd(S, U, nu, zeta, zeta_dphi, cf, omega, log_beta, log_gamma, r,
              delta_nu=None, Db=None, lgamma_k_sum=None):
     """Loss of the fused velocity S+U NB likelihood on the card."""
-    loss, _, _ = _launch(
-        "velo_fwd", "nb_velo", [("S", S), ("U", U)],
+    loss, _, _ = _velo_launch(
+        "velo_fwd", [("S", S), ("U", U)],
         _velo_params(nu, zeta, zeta_dphi, cf, omega, log_beta, log_gamma, r),
         delta_nu, Db, lgamma_k_sum,
     )
@@ -460,8 +617,8 @@ def velo_fwdgrad(S, U, nu, zeta, zeta_dphi, cf, omega, log_beta, log_gamma,
     the card, as `velo_fwdgrad_plain`.  The kernel's gene partials hold
     [dnu (Nh), ddisp, dlog_beta, sum_c g_x, ddelta_nu (Nb)] per gene;
     dlog_gamma is sum_c g_x times exp(log_gamma), applied after the sum."""
-    loss, gene, (dzeta, dzdphi, dcf, domega) = _launch(
-        "velo_fwdgrad", "nb_velo", [("S", S), ("U", U)],
+    loss, gene, (dzeta, dzdphi, dcf, domega) = _velo_launch(
+        "velo_fwdgrad", [("S", S), ("U", U)],
         _velo_params(nu, zeta, zeta_dphi, cf, omega, log_beta, log_gamma, r),
         delta_nu, Db, lgamma_k_sum, want_disp=want_disp,
     )
@@ -541,7 +698,7 @@ def nb_loglik_fused(S, nu, zeta, count_factor, dispersion,
     """
     _check_inputs([("S", S)], _phase_params(nu, zeta, count_factor,
                                             dispersion), delta_nu, Db,
-                  "nb_phase")
+                  _phase_max_nb)
     return _fused(
         (phase_fwd, phase_fwdgrad), (phase_fwd_plain, phase_fwdgrad_plain), 1,
         (S, nu, zeta, count_factor, dispersion, delta_nu, Db),
@@ -564,7 +721,7 @@ def nbsu_loglik_fused(S, U, nu, zeta, zeta_dphi, count_factor, omega,
     """
     params = _velo_params(nu, zeta, zeta_dphi, count_factor, omega,
                           log_beta, log_gamma, dispersion)
-    _check_inputs([("S", S), ("U", U)], params, delta_nu, Db, "nb_velo")
+    _check_inputs([("S", S), ("U", U)], params, delta_nu, Db, _velo_max_nb)
     return _fused(
         (velo_fwd, velo_fwdgrad), (velo_fwd_plain, velo_fwdgrad_plain), 2,
         (S, U, *params.values(), delta_nu, Db), lgamma_k_sum, disp_grad,

@@ -3,8 +3,9 @@
     python -m velocycle_tpu_torch.tools.kernel_profile [i16]
 
 The port of tools/kernel_profile.py.  It runs each rung of
-`ops.ladder_kernels` (csrc/nb_ladder.cu: `phase_fwdgrad` stripped down step
-by step, in its launch layout) at the TPU tool's shape, 2048 genes x 102,400
+`ops.ladder_kernels` (`phase_fwdgrad` stripped down step by step: compile-time
+cuts of its body, csrc/phase_kernel.cuh, in its launch layout) at the TPU
+tool's shape, 2048 genes x 102,400
 cells, Nh = 5, float32 counts or with ``i16`` int16 ones, from the same
 distributions.  As there, each rung runs ``n_it`` steps chained through nu
 (``nu - 1e-30 * loss``, and ``nu - 1e-12 * sum_tiles dnu`` for the
@@ -35,7 +36,7 @@ PEAK_FP32_PER_S = 67e12      # H100 SXM, float32 outside the tensor cores
 ROWS = ("stream", "matmul", "logpmf", "fwdgrad", "vpu_only", "v_full",
         "v_nodig", "v_nocell")   # the TPU tool's print order
 
-# FP32 operations per count-matrix element, counted from csrc/nb_ladder.cu
+# FP32 operations per count-matrix element, counted from csrc/phase_kernel.cuh
 # with Nh = 5 as chip_smoke.py counts the phase kernels (a transcendental or
 # a division counts 1), besides the lgamma / digamma ratios below:
 #   stream    count convert 1, sum 1
