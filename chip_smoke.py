@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch + CUDA port (`velocycle_tpu_torch`).
 
-    python3 chip_smoke.py [--seed 0]
+    python3 chip_smoke.py [--seed 0] [--digest | --kernels]
 
 Run from the root of a checkout, on a machine with one CUDA card.  Phases,
 in order; any failure exits non-zero and prints no result line:
@@ -9,15 +9,22 @@ in order; any failure exits non-zero and prints no result line:
   1. report the card (name, count, nvidia-smi name and power limit);
   2. build every CUDA kernel from velocycle_tpu_torch/csrc/ (one nvcc per
      source, started together) and print ptxas' registers / static shared
-     memory / spills beside each phase instantiation's dynamic shared
-     memory;
-  3. hold each kernel against its plain torch version on the card: at full
-     width (2048 genes x 102,400 cells, Nh=5, int16 counts), at ragged
-     shapes, with delta_nu (Nb=2), with disp_grad True and False, and for
-     the velocity pair a gated case where omega ~ N(0, 1) puts a stated
-     share of elements below the relu;
+     memory / spills beside each main-path and ladder instantiation's
+     dynamic shared memory;
+  3. print a digest of phase_fwdgrad's and phase_fwd's full-width results
+     (``--digest`` prints it alone, with any checkout's package: equal
+     digests mean bit-identical results), then hold each kernel against
+     its plain torch version on the card: at full width (2048 genes x
+     102,400 cells, Nh=5, int16 counts), at ragged shapes, with delta_nu
+     (Nb=2), with disp_grad True and False, for the velocity pair a gated
+     case where omega ~ N(0, 1) puts a stated share of elements below the
+     relu and float32 S beside int16 U (and the reverse), and in both
+     stages basis widths off the instantiations (Nh = 4, 9, 11) and more
+     batches than they take as such (Nb = 5, 6);
   4. time each kernel, its plain version and its bound with CUDA events,
-     and print each phase kernel's grid and resident CTAs and warps per SM;
+     and print each main-path kernel's grid and resident CTAs and warps per
+     SM (``--kernels``: build, then this for the four main-path kernels
+     alone, to compare layouts);
   5. the roofline ladder (the port of tools/kernel_profile.py: compile-time
      cuts of the phase kernels' one body, csrc/phase_kernel.cuh, launched
      through csrc/nb_phase.cu): hold each rung against its plain version
@@ -116,22 +123,27 @@ def smi_line():
 # inputs
 # ---------------------------------------------------------------------------
 
-def make_inputs(torch, Ng, Nc, seed, Nb=0, int16=True, device="cuda",
-                view=False):
-    """Kernel inputs drawn on the card: counts floor(exp(N(1, 0.8^2))) (as
-    bench.py's phase_scale), Fourier zeta at random phases.  ``view``: S is
-    rows 1: of an (Ng + 1, Nc) matrix, so with an odd Nc its first element
-    is off a 16-byte boundary."""
+def _basis(phi, nh, der=0):
+    """The first nh Fourier basis columns at phases phi."""
     from velocycle_tpu_torch.ops.fourier import fourier_basis
 
+    return fourier_basis(phi, nh // 2, der=der)[:, :nh].contiguous()
+
+
+def make_inputs(torch, Ng, Nc, seed, Nb=0, int16=True, device="cuda",
+                view=False, nh=NH):
+    """Kernel inputs drawn on the card: counts floor(exp(N(1, 0.8^2))) (as
+    bench.py's phase_scale), Fourier zeta (nh columns) at random phases.
+    ``view``: S is rows 1: of an (Ng + 1, Nc) matrix, so with an odd Nc its
+    first element is off a 16-byte boundary."""
     g = torch.Generator(device=device)
     g.manual_seed(seed)
     rn = lambda *s: torch.randn(s, generator=g, device=device)  # noqa: E731
     S = torch.floor(torch.exp(rn(Ng + int(view), Nc) * 0.8 + 1.0))
     S = (S.to(torch.int16) if int16 else S)[int(view):]
-    nu = rn(Ng, NH) * 0.4
+    nu = rn(Ng, nh) * 0.4
     nu[:, 0] += 0.5
-    zeta = fourier_basis(rn(Nc) * 3.0, H).contiguous()
+    zeta = _basis(rn(Nc) * 3.0, nh)
     cf = rn(Nc) * 0.1
     r = (rn(Ng) * 0.2 + 0.5).abs() + 0.05
     dnu = Db = None
@@ -143,24 +155,24 @@ def make_inputs(torch, Ng, Nc, seed, Nb=0, int16=True, device="cuda",
 
 
 def make_velo_inputs(torch, Ng, Nc, seed, Nb=0, int16=True, gated=False,
-                     device="cuda"):
+                     device="cuda", u_int16=None, nh=NH):
     """Velocity kernel inputs: the phase inputs of the same seed plus U
     floor(exp(N(0.4, 0.8^2))) (bench.py's velo_scale), zeta and zeta_dphi
     at new random phases, omega exp(N(-1, 0.2^2)), log_beta and log_gamma.
     ``gated``: omega ~ N(0, 1) and gamma near exp(-1), so that a large
-    share of elements sits below the relu."""
-    from velocycle_tpu_torch.ops.fourier import fourier_basis
-
+    share of elements sits below the relu.  ``int16`` is S's count type,
+    ``u_int16`` U's (default: the same)."""
     S, nu, zeta, cf, r, dnu, Db = make_inputs(torch, Ng, Nc, seed, Nb=Nb,
-                                              int16=int16, device=device)
+                                              int16=int16, device=device,
+                                              nh=nh)
     g = torch.Generator(device=device)
     g.manual_seed(seed + 1)
     rn = lambda *s: torch.randn(s, generator=g, device=device)  # noqa: E731
     U = torch.floor(torch.exp(rn(Ng, Nc) * 0.8 + 0.4))
-    U = U.to(torch.int16) if int16 else U
+    U = U.to(torch.int16) if (int16 if u_int16 is None else u_int16) else U
     phi = rn(Nc) * 3.0
-    zeta = fourier_basis(phi, H).contiguous()
-    zdphi = fourier_basis(phi, H, der=1).contiguous()
+    zeta = _basis(phi, nh)
+    zdphi = _basis(phi, nh, der=1)
     omega = rn(Nc) if gated else torch.exp(rn(Nc) * 0.2 - 1.0)
     lbeta = rn(Ng) * 0.2
     lgamma = rn(Ng) * 0.2 - (1.0 if gated else 0.0)
@@ -206,13 +218,10 @@ def _ptxas_summary(log):
     return out
 
 
-# main-path instantiations of csrc/nb_velo.cu: <int16_t, NH=5, GRAD,
-# WANT_DISP, HAS_DNU=false, SKIP_K=true>; stage 2 conditions shape_inv, so
-# velo_fwdgrad has no dispersion gradient
-VELO_SYMBOLS = {
-    "velo_fwdgrad": "velo_kernelIsLi5ELb1ELb0ELb0ELb1E",
-    "velo_fwd": "velo_kernelIsLi5ELb0ELb0ELb0ELb1E",
-}
+# the velocity kernels on the main path as (cut of nb_kernels.VELO_CUTS,
+# want_disp): int16 S and U, Nh = 5, no delta_nu, lgamma(k+1) skipped;
+# stage 2 conditions shape_inv, so velo_fwdgrad has no dispersion gradient
+VELO_MAIN = {"velo_fwdgrad": ("fwdgrad", False), "velo_fwd": ("fwd", False)}
 # the phase kernels on the main path as (mode of nb_kernels.PHASE_MODES,
 # want_disp): int16 counts, Nh = 5, no delta_nu, lgamma(k+1) skipped
 PHASE_MAIN = {"phase_fwdgrad": ("fwdgrad", True), "phase_fwd": ("fwd", False)}
@@ -231,6 +240,13 @@ def _phase_symbol(K, mode, want_disp, int16):
     SKIP_K=true> (csrc/phase_kernel.cuh)."""
     return (f"phase_kernelI{'s' if int16 else 'f'}Li5ELi"
             f"{K.PHASE_MODES.index(mode)}ELb{int(want_disp)}ELb0ELb1E")
+
+
+def _velo_symbol(K, cut, want_disp):
+    """The mangled name of velo_kernel<int16_t, int16_t, 5, CUT, WANT_DISP,
+    HAS_DNU=false, SKIP_K=true> (csrc/velo_kernel.cuh)."""
+    return (f"velo_kernelIssLi5ELi{K.VELO_CUTS.index(cut)}ELb{int(want_disp)}"
+            f"ELb0ELb1E")
 
 
 def phase_build():
@@ -267,8 +283,10 @@ def phase_build():
                 return
         fail(f"{label}: no instantiation {sym} in the ptxas output")
 
-    for name, sym in VELO_SYMBOLS.items():
-        show(f"{name} (main path)", infos["nb_velo"], sym)
+    for name, (cut, wd) in VELO_MAIN.items():
+        dyn = K.velo_plan(cut, True, True, NG, NC, want_disp=wd).dyn_smem
+        show(f"{name} (main path)", infos["nb_velo"],
+             _velo_symbol(K, cut, wd), dyn)
     for name, (mode, wd) in PHASE_MAIN.items():
         dyn = K.phase_plan(mode, True, NG, NC, want_disp=wd).dyn_smem
         show(f"{name} (main path)", infos["nb_phase"],
@@ -281,10 +299,15 @@ def phase_build():
     return dt
 
 
-def _plan_note(torch, K, mode, want_disp, int16, Ng=NG, Nc=NC):
-    """The grid of one phase-kernel call and what is resident per SM."""
-    p = K.phase_plan(mode, int16, Ng, Nc, want_disp=want_disp)
-    lay = K.phase_layout()
+def _plan_note(torch, K, mode, want_disp, int16, Ng=NG, Nc=NC, velo=False):
+    """The grid of one phase- (or velocity-) kernel call and what is
+    resident per SM."""
+    if velo:
+        p = K.velo_plan(mode, int16, int16, Ng, Nc, want_disp=want_disp)
+        lay = K.velo_layout()
+    else:
+        p = K.phase_plan(mode, int16, Ng, Nc, want_disp=want_disp)
+        lay = K.phase_layout()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     return (f"grid {p.grid} CTAs of {lay.threads} threads on {sms} SMs, "
             f"{p.blocks_per_sm} resident CTAs = "
@@ -360,8 +383,9 @@ def _parity_cases(torch, seed, make, n_counts, kern, plain, fwd, fwd_plain,
                   f"(below the relu)")
             check(share >= 0.10, f"gated case puts only {share:.4f} below the relu")
         lgk = lgamma_k_sum(torch, *args[:n_counts]) if skip_k else None
-        desc = (f"{tag} ({'int16' if int16 else 'f32'}, lgamma_k_sum "
-                f"{'given' if skip_k else 'no'})")
+        dtypes = " / ".join("int16" if a.dtype == torch.int16 else "f32"
+                            for a in args[:n_counts])
+        desc = f"{tag} ({dtypes}, lgamma_k_sum {'given' if skip_k else 'no'})"
         for want_disp in (True, False):
             kout = kern(*args, lgk, want_disp=want_disp)
             pout = plain(*args, lgk, want_disp=want_disp)
@@ -398,8 +422,18 @@ def phase_parity(torch, seed):
               for i, (g, c) in enumerate(RAGGED)]
     cases += [("delta_nu Nb=2 257x3001", 257, 3001, 2, True, True, {}),
               ("delta_nu Nb=2 full", NG, NC, 2, True, False, {})]
-    vcases = (cases[:1] + [("gated full", NG, NC, 0, True, True, {"gated": True})]
-              + cases[1:])
+    # basis widths off the instantiations (zero-padded) and batch counts
+    # beyond them (folded into basis columns), in both stages
+    wide = [(f"Nh={nh} Nb={nb} 257x3001", 257, 3001, nb, True, True, {"nh": nh})
+            for nh, nb in ((4, 0), (9, 0), (11, 2), (5, 5), (5, 6))]
+    vcases = (cases[:1] + [("gated full", NG, NC, 0, True, True, {"gated": True}),
+                           ("full f32", NG, NC, 0, False, True, {}),
+                           ("S f32, U int16, full", NG, NC, 0, False, True,
+                            {"u_int16": True}),
+                           ("S int16, U f32, 257x3001", 257, 3001, 2, True, False,
+                            {"u_int16": False})]
+              + cases[1:] + wide)
+    cases += wide
     # the phase kernels' count ring: float32 counts at full width, and a
     # matrix whose rows (and first element) start off 16-byte boundaries
     cases += [("full f32", NG, NC, 0, False, True, {}),
@@ -510,6 +544,9 @@ def velo_timing(torch, seed, card):
     params = 4 * sum(t.numel() for t in args[2:])
     in_bytes = 2 * S.numel() * S.element_size() + params
     note = f"{share:.3f} of S and U counts >= 2"
+    for name, (cut, wd) in VELO_MAIN.items():
+        print(f"[timing] {name} plan at {NG}x{NC} int16: "
+              + _plan_note(torch, K, cut, wd, True, velo=True))
     return {
         "velo_fwdgrad": _time_pair(
             torch, "velo_fwdgrad",
@@ -902,9 +939,37 @@ def profile_steps(torch, svi, state, data, tag, n=5):
         print(f"[{tag}]   {dt / 1e3 / n:8.3f} ms/step  x{count / n:<5.1f} {key[:90]}")
 
 
+def phase_digest(torch, seed):
+    """sha256 of phase_fwdgrad's and phase_fwd's outputs on the main path's
+    full-width inputs: equal digests from two checkouts mean bit-identical
+    results.  Uses only what every version of the port has."""
+    import hashlib
+
+    from velocycle_tpu_torch.ops import nb_kernels as K
+
+    S, nu, zeta, cf, r, _, _ = make_inputs(torch, NG, NC, seed)
+    lgk = lgamma_k_sum(torch, S)
+    loss, grads = K.phase_fwdgrad(S, nu, zeta, cf, r, None, None, lgk,
+                                  want_disp=True)
+    outs = {"phase_fwdgrad": [loss, *(g for g in grads if g is not None)],
+            "phase_fwd": [K.phase_fwd(S, nu, zeta, cf, r, None, None, lgk)]}
+    for name, tensors in outs.items():
+        h = hashlib.sha256()
+        for t in tensors:
+            h.update(t.detach().contiguous().cpu().numpy().tobytes())
+        what = "loss and gradients" if len(tensors) > 1 else "loss"
+        print(f"[digest] {name} @ {NG}x{NC} int16 ({what}): "
+              f"sha256 {h.hexdigest()}")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--digest", action="store_true",
+                    help="print phase_digest's line and stop (no result line)")
+    ap.add_argument("--kernels", action="store_true",
+                    help="build, then time the four main-path kernels and "
+                         "stop (no result line): for comparing layouts")
     args = ap.parse_args(argv)
 
     import torch
@@ -924,7 +989,15 @@ def main(argv=None):
     t_start = time.perf_counter()
 
     name, count, smi = phase_device(torch)
+    if args.digest:
+        phase_digest(torch, args.seed)
+        return 0
     phase_build()
+    if args.kernels:
+        phase_timing(torch, args.seed, smi)
+        velo_timing(torch, args.seed, smi)
+        return 0
+    phase_digest(torch, args.seed)
     errs = phase_parity(torch, args.seed)
     timing = phase_timing(torch, args.seed, smi)
     timing.update(velo_timing(torch, args.seed, smi))
@@ -947,8 +1020,8 @@ def main(argv=None):
     kernels = {
         "phase_fwd": ("phase_kernel.cuh", f"{base}:261"),
         "phase_fwdgrad": ("phase_kernel.cuh", f"{base}:287"),
-        "velo_fwd": ("nb_velo.cu", f"{base}:624"),
-        "velo_fwdgrad": ("nb_velo.cu", f"{base}:659"),
+        "velo_fwd": ("velo_kernel.cuh", f"{base}:624"),
+        "velo_fwdgrad": ("velo_kernel.cuh", f"{base}:659"),
     }
     table = []
     for k, (src, replaces) in kernels.items():

@@ -188,10 +188,24 @@ def test_cuda_wrappers_refuse_what_the_kernels_cannot_take():
         K.phase_fwd(t[0].double(), *t[1:])
     with pytest.raises(ValueError, match="contiguous"):
         K.phase_fwd(t[0], t[1], t[2].T.contiguous().T, *t[3:])
-    with pytest.raises(ValueError, match="Nh"):
-        K.phase_fwd(t[0], t[1][:, :4].contiguous(), t[2][:, :4].contiguous(), *t[3:])
     with pytest.raises(ValueError, match="is on"):
         K.phase_fwd(t[0], t[1].cpu(), *t[2:])
+
+
+@pytest.mark.parametrize("stage", ["phase", "velo"])
+@pytest.mark.parametrize("Nh,Nb", [(17, 0), (11, 6), (16, 1)])
+def test_cuda_wrappers_name_the_width_limit(stage, Nh, Nb):
+    """One column past the widest instantiation raises, naming the limit."""
+    dev = _cuda_or_skip()
+    make = _inputs if stage == "phase" else _velo_inputs
+    t = [torch.as_tensor(a, device=dev) for a in make(8, 16, Nh=Nh, Nb=Nb)]
+    fwd, fwdgrad = ((K.phase_fwd, K.phase_fwdgrad) if stage == "phase"
+                    else (K.velo_fwd, K.velo_fwdgrad))
+    K.reset_launch_counts()
+    for fn in (fwd, fwdgrad):
+        with pytest.raises(ValueError, match="at most MAX_WIDTH = 16 basis"):
+            fn(*t)
+    assert sum(K.LAUNCHES.values()) == 0
 
 
 def test_fused_fit_on_the_card_launches_one_fwdgrad_per_step():
@@ -220,18 +234,20 @@ def test_fused_fit_on_the_card_launches_one_fwdgrad_per_step():
 
 def _velo_inputs(Ng, Nc, Nh=5, seed=0, Nb=0, gated=False):
     """(S, U, nu, zeta, zeta_dphi, cf, omega, log_beta, log_gamma, r
-    [, dnu, Db]); ``gated`` puts a large share of elements below the relu."""
+    [, dnu, Db]); ``gated`` puts a large share of elements below the relu.
+    zeta and zeta_dphi are the first Nh Fourier columns."""
     rng = np.random.default_rng(seed)
     S, nu, zeta, cf, r = _inputs(Ng, Nc, Nh=Nh, seed=seed)[:5]
-    H = (Nh - 1) // 2
+    H = Nh // 2
     h = np.arange(1, H + 1)
     hphi = np.outer(rng.uniform(0, 2 * np.pi, Nc), h)
     zeta = np.concatenate(
         [np.ones((Nc, 1)),
-         np.stack([np.cos(hphi), np.sin(hphi)], -1).reshape(Nc, -1)], 1)
+         np.stack([np.cos(hphi), np.sin(hphi)], -1).reshape(Nc, -1)], 1)[:, :Nh]
     zdphi = np.concatenate(
         [np.zeros((Nc, 1)),
-         np.stack([-h * np.sin(hphi), h * np.cos(hphi)], -1).reshape(Nc, -1)], 1)
+         np.stack([-h * np.sin(hphi), h * np.cos(hphi)], -1).reshape(Nc, -1)],
+        1)[:, :Nh]
     omega = rng.normal(0, 1, Nc) if gated else np.exp(rng.normal(-1, 0.2, Nc))
     out = [S, rng.poisson(1.5, (Ng, Nc)).astype(np.float32), nu,
            zeta.astype(np.float32), zdphi.astype(np.float32), cf,
@@ -247,6 +263,50 @@ def _velo_inputs(Ng, Nc, Nh=5, seed=0, Nb=0, gated=False):
 
 VELO_GRADS = ("dnu", "dzeta", "dzdphi", "dcf", "domega", "dlog_beta",
               "dlog_gamma", "ddisp", "ddnu")
+_VLAYOUT = K.velo_layout()
+_VGC = _VLAYOUT.gene_chunk
+_VTILE = _VLAYOUT.cells_per_tile
+
+
+def _check_velo(t, lgk=None, repeat=False):
+    """velo_fwdgrad (both dispersion settings) and velo_fwd against their
+    plain versions on the card tensors ``t``; with ``repeat``, each kernel
+    call again, bit for bit."""
+    for want_disp in (True, False):
+        kl, kg = K.velo_fwdgrad(*t, lgk, want_disp=want_disp)
+        pl, pg = K.velo_fwdgrad_plain(*t, lgk, want_disp=want_disp)
+        assert abs(float(kl) - float(pl)) / max(abs(float(pl)), 1.0) < 1e-5
+        for name, a, b in zip(VELO_GRADS, kg, pg):
+            if b is None:
+                assert a is None
+            elif not want_disp and name == "ddisp":
+                assert float(a.abs().max()) == 0.0
+            else:
+                assert a.shape == b.shape, name
+                assert _max_rel(a, b) < 5e-4, name
+        if repeat:
+            again = K.velo_fwdgrad(*t, lgk, want_disp=want_disp)
+            assert torch.equal(again[0], kl)
+            for a, b in zip(again[1], kg):
+                assert (a is None and b is None) or torch.equal(a, b)
+    kf = K.velo_fwd(*t, lgk)
+    pf = float(K.velo_fwd_plain(*t, lgk))
+    assert abs(float(kf) - pf) / max(abs(pf), 1.0) < 1e-5
+    if repeat:
+        assert torch.equal(K.velo_fwd(*t, lgk), kf)
+
+
+def _velo_tensors(args, dev, s_int16, u_int16, skip_k=True):
+    if s_int16:
+        args[0] = args[0].astype(np.int16)
+    if u_int16:
+        args[1] = args[1].astype(np.int16)
+    t = [torch.as_tensor(a, device=dev) for a in args]
+    if len(t) == 10:
+        t += [None, None]
+    lgk = (np.float32(sum(sps.gammaln(a.astype(np.float64) + 1.0).sum()
+                          for a in args[:2])) if skip_k else None)
+    return t, lgk
 
 
 @pytest.mark.parametrize("Ng,Nc,Nh,Nb,int16,skip_k,gated", [
@@ -258,27 +318,97 @@ def test_cuda_velocity_kernels_match_plain(Ng, Nc, Nh, Nb, int16, skip_k,
                                           gated):
     dev = _cuda_or_skip()
     args = _velo_inputs(Ng, Nc, Nh=Nh, seed=Ng + Nc, Nb=Nb, gated=gated)
-    if int16:
-        args[:2] = [a.astype(np.int16) for a in args[:2]]
-    t = [torch.as_tensor(a, device=dev) for a in args]
-    if not Nb:
-        t += [None, None]
-    lgk = (np.float32(sum(sps.gammaln(a.astype(np.float64) + 1.0).sum()
-                          for a in args[:2])) if skip_k else None)
+    _check_velo(*_velo_tensors(args, dev, int16, int16, skip_k))
+
+
+@pytest.mark.parametrize("s_int16,u_int16", [(True, True), (True, False),
+                                             (False, True), (False, False)],
+                         ids=["i16-i16", "i16-f32", "f32-i16", "f32-f32"])
+def test_cuda_velocity_kernels_take_mixed_count_types(s_int16, u_int16):
+    """S and U each int16 or float32 on its own, over several cell tiles,
+    with delta_nu and the relu gate exercised."""
+    dev = _cuda_or_skip()
+    args = _velo_inputs(131, 3 * _VTILE + 7, seed=7, Nb=2, gated=True)
+    _check_velo(*_velo_tensors(args, dev, s_int16, u_int16), repeat=True)
+
+
+@pytest.mark.parametrize("stage", ["phase", "velo"])
+@pytest.mark.parametrize("Nh,Nb", [(4, 0), (9, 0), (11, 0), (5, 5), (5, 6),
+                                   (9, 2), (16, 0)])
+def test_cuda_kernels_take_any_width_and_batch_count(stage, Nh, Nb):
+    """Widths off the instantiations run zero-padded and batches beyond
+    them folded into basis columns, in both stages, against the plain
+    versions at the original shapes."""
+    dev = _cuda_or_skip()
+    Ng, Nc = 70, 2 * _VTILE + 9
+    if stage == "velo":
+        args = _velo_inputs(Ng, Nc, Nh=Nh, seed=Nh + Nb, Nb=Nb, gated=True)
+        _check_velo(*_velo_tensors(args, dev, True, False), repeat=True)
+        return
+    args = _inputs(Ng, Nc, Nh=Nh, seed=Nh + Nb, Nb=Nb)
+    args[0] = args[0].astype(np.int16)
+    t = [torch.as_tensor(a, device=dev) for a in args] + [None, None][:7 - len(args)]
     for want_disp in (True, False):
-        kl, kg = K.velo_fwdgrad(*t, lgk, want_disp=want_disp)
-        pl, pg = K.velo_fwdgrad_plain(*t, lgk, want_disp=want_disp)
+        kl, kg = K.phase_fwdgrad(*t, want_disp=want_disp)
+        pl, pg = K.phase_fwdgrad_plain(*t, want_disp=want_disp)
         assert abs(float(kl) - float(pl)) / max(abs(float(pl)), 1.0) < 1e-5
-        for name, a, b in zip(VELO_GRADS, kg, pg):
+        for name, a, b in zip(("dnu", "dzeta", "dcf", "ddisp", "ddnu"), kg, pg):
             if b is None:
                 assert a is None
             elif not want_disp and name == "ddisp":
                 assert float(a.abs().max()) == 0.0
             else:
-                assert _max_rel(a, b) < 5e-4, name
-    kf = float(K.velo_fwd(*t, lgk))
-    pf = float(K.velo_fwd_plain(*t, lgk))
-    assert abs(kf - pf) / max(abs(pf), 1.0) < 1e-5
+                assert a.shape == b.shape, name
+                assert _max_rel(a, b) < 1e-4, name
+    pf = float(K.phase_fwd_plain(*t))
+    assert abs(float(K.phase_fwd(*t)) - pf) / max(abs(pf), 1.0) < 1e-5
+
+
+@pytest.mark.parametrize("int16", [True, False], ids=["i16", "f32"])
+@pytest.mark.parametrize("Nc", [_VTILE // 2 + 13, 3 * _VTILE + 5],
+                         ids=["odd-below-one-tile", "several-tiles-unaligned"])
+@pytest.mark.parametrize("Ng", [1, _VGC - 1, _VGC + 1, _VLAYOUT.stages * _VGC + 1])
+def test_cuda_velocity_kernels_at_the_ring_edges(Ng, Nc, int16):
+    """Gene counts at the edges of a chunk and of the ring of staged chunks,
+    odd cell counts (most rows of S and U start off a 16-byte boundary),
+    with and without delta_nu; each call again, bit for bit."""
+    dev = _cuda_or_skip()
+    Nb = 2 if (Ng + int16) % 2 else 0
+    args = _velo_inputs(Ng, Nc, seed=Ng * Nc, Nb=Nb, gated=True)
+    _check_velo(*_velo_tensors(args, dev, int16, not int16), repeat=True)
+
+
+@pytest.mark.parametrize("int16", [True, False], ids=["i16", "f32"])
+def test_cuda_velocity_kernels_take_a_misaligned_view(int16):
+    """S and U as rows 1: of larger matrices with an odd cell count:
+    contiguous, but their first elements are off 16-byte boundaries."""
+    dev = _cuda_or_skip()
+    Ng, Nc = 40, 2 * _VTILE + 3
+    big = _velo_inputs(Ng + 1, Nc, seed=5)
+    args = _velo_inputs(Ng, Nc, seed=6)
+    t, _ = _velo_tensors(big, dev, int16, int16)
+    S, U = t[0][1:], t[1][1:]
+    assert S.is_contiguous() and S.data_ptr() % 16 != 0 and U.data_ptr() % 16 != 0
+    rest, _ = _velo_tensors(args, dev, False, False)
+    _check_velo([S, U] + rest[2:])
+
+
+def test_cuda_velo_plan_fills_every_sm_evenly():
+    """At full width the grid is every CTA the card holds at once, each
+    carrying the same number of units to within one, so that the most
+    loaded SM carries at most 10% more than the mean."""
+    _cuda_or_skip()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    Ng, Nc = 2048, 102_400
+    units = (Ng // _VGC) * (Nc // _VTILE)
+    for cut in K.VELO_CUTS:
+        p = K.velo_plan(cut, True, True, Ng, Nc)
+        assert p.grid == sms * p.blocks_per_sm
+        most = -(-units // p.grid)
+        assert most - units // p.grid <= 1
+        assert p.blocks_per_sm * most <= 1.1 * units / sms
+        assert p.dyn_smem > 0
+        assert (p.pieces > 0) == (cut == "fwdgrad")
 
 
 def test_cuda_velocity_kernel_is_bit_reproducible_and_counts_launches():
@@ -298,17 +428,12 @@ def test_cuda_velocity_kernel_is_bit_reproducible_and_counts_launches():
 def test_cuda_velocity_wrappers_refuse_what_the_kernels_cannot_take():
     dev = _cuda_or_skip()
     t = [torch.as_tensor(a, device=dev) for a in _velo_inputs(8, 16)]
-    with pytest.raises(TypeError, match="U is"):
-        K.velo_fwd(t[0].to(torch.int16), *t[1:])
+    with pytest.raises(TypeError, match="U must be int16 or float32"):
+        K.velo_fwd(t[0], t[1].double(), *t[2:])
     with pytest.raises(ValueError, match="contiguous"):
         K.velo_fwd(*t[:4], t[4].T.contiguous().T, *t[5:])
-    with pytest.raises(ValueError, match="Nh"):
-        K.velo_fwd(*t[:2], *(x[:, :4].contiguous() for x in t[2:5]), *t[5:])
     with pytest.raises(ValueError, match="is on"):
         K.velo_fwd(*t[:6], t[6].cpu(), *t[7:])
-    with pytest.raises(ValueError, match="batches"):
-        K.velo_fwd(*t, torch.zeros(5, 8, device=dev),
-                   torch.zeros(5, 16, device=dev))
 
 
 def test_fused_velocity_fit_on_the_card_launches_one_fwdgrad_per_step():
@@ -340,6 +465,40 @@ def test_fused_velocity_fit_on_the_card_launches_one_fwdgrad_per_step():
     assert np.isfinite(fit.period_hours()).all()
     assert fit.posterior["ElogU"].shape == (2, 40, 600)
     # the same fit with the plain path on the card tracks it
+    plain_mp = dataclasses.replace(mp, data=mp.data.replace(use_fused_nb=False))
+    plain = T.VelocityFitModel(plain_mp, condition_on=cond,
+                               get_posterior=False).fit(num_steps=25)
+    np.testing.assert_allclose(fit.losses, plain.losses, rtol=5e-4)
+
+
+def test_fused_velocity_fit_on_mixed_count_types():
+    """One spliced count beyond int16: S stays float32 and U compacts to
+    int16; the fused fit launches one velo_fwdgrad per step and tracks the
+    plain path."""
+    dev = _cuda_or_skip()
+    import velocycle_tpu_torch as T
+
+    adata = T.simulate_data(Nc=600, Ng=40, seed=1)
+    adata.layers["spliced"][3, 2] = 40_000
+    cycle = T.Cycle.trivial_prior(list(adata.var.index), harmonics=2)
+    phases = T.Phases.from_angles(adata.obs["simulated_phis"].values, 2.0,
+                                  list(adata.obs.index))
+    speed = T.AngularSpeed.trivial_prior(["c0"], harmonics=1, means=0.2,
+                                         stds=0.5)
+    mp = T.preprocess_for_velocity_estimation(
+        adata, cycle, phases, speed, n_harmonics=2, omega_n_harmonics=1,
+        with_delta_nu=False, model_type="lrmn", use_fused_nb=True, device=dev,
+    )
+    assert mp.data.S.dtype == torch.float32 and mp.data.U.dtype == torch.int16
+    rng = np.random.default_rng(0)
+    cond = {"nu": mp.data.mu_nu.cpu().numpy() + rng.normal(0, 0.2, (40, 5)),
+            "phi_xy": mp.data.phixy_prior.cpu().numpy(),
+            "shape_inv": np.full(40, 0.4)}
+    K.reset_launch_counts()
+    fit = T.VelocityFitModel(mp, condition_on=cond,
+                             get_posterior=False).fit(num_steps=25)
+    assert K.LAUNCHES["velo_fwdgrad"] == 25
+    assert np.isfinite(fit.losses).all()
     plain_mp = dataclasses.replace(mp, data=mp.data.replace(use_fused_nb=False))
     plain = T.VelocityFitModel(plain_mp, condition_on=cond,
                                get_posterior=False).fit(num_steps=25)

@@ -204,6 +204,114 @@ def test_phase_layout_is_the_kernel_sources_one_definition():
     assert TK.PHASE_MODES[:2] == ("fwd", "fwdgrad")
 
 
+def test_velo_layout_is_the_kernel_sources_one_definition():
+    """velo_layout() reads csrc/velo_kernel.cuh, which the library reports
+    back on the card: the tile is whole cells per thread and its rows are
+    whole 16-byte pieces in both count types."""
+    import re
+
+    from velocycle_tpu_torch.ops import cuda_build
+
+    lay = TK.velo_layout()
+    text = (cuda_build.CSRC / "velo_kernel.cuh").read_text()
+    for name, value in zip(("kThreads", "kCellsPerTile", "kGeneChunk",
+                            "kStages", "kMaxNb"), lay):
+        assert re.findall(rf"constexpr int {name} = (\d+);", text) == [str(value)]
+    assert lay.cells_per_tile % lay.threads == 0 and lay.threads % 32 == 0
+    assert lay.cells_per_tile * 2 % 16 == 0
+    assert lay.stages >= 2 and lay.gene_chunk >= 1 and lay.max_nb >= 2
+    assert TK.VELO_CUTS == ("fwd", "fwdgrad")
+
+
+def test_kernel_widths_are_the_sources_instantiations():
+    """KERNEL_WIDTHS and DNU_WIDTH are the widths `pick_nh` dispatches to in
+    both kernel sources and the delta_nu bound of csrc/nb_common.cuh."""
+    import re
+
+    from velocycle_tpu_torch.ops import cuda_build
+
+    for src in ("nb_phase.cu", "nb_velo.cu"):
+        text = (cuda_build.CSRC / src).read_text()
+        cases = re.findall(r"case (\d+): return pick_(?:mode|cut)<", text)
+        assert tuple(int(c) for c in cases) == TK.KERNEL_WIDTHS, src
+    common = (cuda_build.CSRC / "nb_common.cuh").read_text()
+    assert re.findall(r"constexpr int kMaxDnuWidth = (\d+);", common) == [
+        str(TK.DNU_WIDTH)]
+    assert TK.MAX_WIDTH == max(TK.KERNEL_WIDTHS)
+
+
+@pytest.mark.parametrize("Nh,Nb,want", [
+    (5, 0, (5, False)), (3, 4, (3, False)), (4, 0, (5, False)),
+    (7, 4, (7, False)), (8, 0, (11, False)), (9, 2, (11, True)),
+    (11, 0, (11, False)), (5, 5, (11, True)), (5, 6, (11, True)),
+    (12, 0, (16, False)), (16, 0, (16, False)), (11, 5, (16, True)),
+])
+def test_kernel_width_picks_the_next_instantiation(Nh, Nb, want):
+    assert TK.kernel_width(Nh, Nb, 4) == want
+
+
+@pytest.mark.parametrize("Nh,Nb", [(17, 0), (11, 6), (16, 1)])
+def test_kernel_width_names_its_limit(Nh, Nb):
+    with pytest.raises(ValueError, match="at most MAX_WIDTH = 16 basis columns"):
+        TK.kernel_width(Nh, Nb, 4)
+
+
+WIDE = [(4, 0), (9, 0), (11, 0), (5, 5), (5, 6), (9, 2)]
+
+
+def _widened_value_and_grads(args, want_disp=True):
+    """Loss and gradients through the kernels' width route with the plain
+    version in place of the kernel: widen, fwd+grad, narrow."""
+    t = [torch.as_tensor(a) for a in args] + [None, None][:7 - len(args)]
+    S, nu, zeta, cf, r, dnu, Db = t
+    Nb = 0 if dnu is None else dnu.shape[0]
+    width, fold = TK.kernel_width(nu.shape[1], Nb, TK.phase_layout().max_nb)
+    assert width in TK.KERNEL_WIDTHS
+    nu_w, (zeta_w,), dnu_w, Db_w = TK.widen_inputs(nu, [zeta], dnu, Db, width,
+                                                   fold)
+    assert nu_w.shape[1] == zeta_w.shape[1] == width
+    assert (dnu_w is None) == (fold or Nb == 0)
+    loss, g = TK.phase_fwdgrad_plain(S, nu_w, zeta_w, cf, r, dnu_w, Db_w,
+                                     want_disp=want_disp)
+    gnu, (gzeta,), gdnu = TK.narrow_grads(g[0], [g[1]], g[4], nu.shape[1], Nb,
+                                          fold)
+    return loss, (gnu, gzeta, g[2], g[3], gdnu)
+
+
+@pytest.mark.parametrize("Nh,Nb", WIDE)
+def test_widened_inputs_narrow_back_to_the_plain_result(Nh, Nb):
+    """Zero columns add exact zeros and folded batches are basis columns:
+    the plain fwd+grad of the widened inputs, narrowed back, is the plain
+    fwd+grad of the originals (to f32 rounding of the reordered sums)."""
+    args = _inputs(Ng=30, Nc=70, Nh=Nh, seed=Nh + Nb, Nb=Nb)
+    t = [torch.as_tensor(a) for a in args] + [None, None][:7 - len(args)]
+    for want_disp in (True, False):
+        loss, grads = TK.phase_fwdgrad_plain(*t, want_disp=want_disp)
+        wloss, wgrads = _widened_value_and_grads(args, want_disp)
+        assert abs(float(wloss) - float(loss)) / abs(float(loss)) < 1e-6
+        for name, a, b in zip(NAMES, wgrads, grads):
+            if b is None:
+                assert a is None
+            else:
+                assert a.shape == b.shape, name
+                assert _max_rel(a.numpy(), b.numpy()) < 1e-5, name
+
+
+@pytest.mark.parametrize("Nh,Nb", WIDE)
+def test_wide_and_batched_shapes_match_jax(Nh, Nb):
+    """Basis widths off the kernels' instantiations and more batches than
+    they take as such, against the JAX package: the port's fused
+    likelihood (its plain version here) and the kernels' width route."""
+    args = _inputs(Ng=30, Nc=70, Nh=Nh, seed=Nh + Nb, Nb=Nb)
+    jl, jg = _jax_value_and_grads(args)
+    wl, wg = _widened_value_and_grads(args)
+    wg = [g.numpy() for g in wg if g is not None]
+    for tl, tg in (_torch_value_and_grads(args), (float(wl), wg)):
+        assert abs(tl - jl) / max(abs(jl), 1.0) < 1e-5
+        for name, a, b in zip(NAMES, tg, jg):
+            assert _max_rel(a, b) < 5e-4, (name, _max_rel(a, b))
+
+
 @pytest.mark.slow
 def test_fused_matches_jax_interpret_mode_pallas():
     """Against the JAX package's fused kernel itself (interpret mode)."""

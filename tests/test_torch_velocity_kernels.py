@@ -37,15 +37,16 @@ def _inputs(Ng=60, Nc=90, Nh=5, seed=0, Nb=0, gated=False):
     [, dnu, Db]).  ``gated``: omega ~ N(0, 1) and gamma ~ exp(-1), so that a
     large share of elements sits below the relu (x <= 0)."""
     rng = np.random.default_rng(seed)
-    H = (Nh - 1) // 2
+    H = Nh // 2   # the first Nh Fourier columns of H harmonics
     hphi = np.outer(rng.uniform(0, 2 * np.pi, Nc), np.arange(1, H + 1))
     h = np.arange(1, H + 1)
     zeta = np.concatenate(
         [np.ones((Nc, 1)),
-         np.stack([np.cos(hphi), np.sin(hphi)], -1).reshape(Nc, -1)], 1)
+         np.stack([np.cos(hphi), np.sin(hphi)], -1).reshape(Nc, -1)], 1)[:, :Nh]
     zdphi = np.concatenate(
         [np.zeros((Nc, 1)),
-         np.stack([-h * np.sin(hphi), h * np.cos(hphi)], -1).reshape(Nc, -1)], 1)
+         np.stack([-h * np.sin(hphi), h * np.cos(hphi)], -1).reshape(Nc, -1)],
+        1)[:, :Nh]
     omega = rng.normal(0, 1, Nc) if gated else np.exp(rng.normal(-1, 0.2, Nc))
     out = [
         rng.poisson(3, (Ng, Nc)).astype(np.float32),
@@ -177,6 +178,80 @@ def test_int16_counts_match_float32():
     assert l32 == l16
     for a, b in zip(g32, g16):
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("s_int16,u_int16", [(True, False), (False, True)])
+def test_mixed_count_dtypes_match_float32(s_int16, u_int16):
+    """S and U each int16 or float32 on its own, as preprocessing leaves a
+    dataset with a count beyond int16 in one matrix only: the same loss and
+    gradients as float32 counts in both."""
+    args = _inputs(Ng=40, Nc=200, seed=11, gated=True)
+    l32, g32 = _torch_value_and_grads(args)
+    mixed = [args[0].astype(np.int16) if s_int16 else args[0],
+             args[1].astype(np.int16) if u_int16 else args[1]] + args[2:]
+    lm, gm = _torch_value_and_grads(mixed)
+    assert lm == l32
+    for a, b in zip(gm, g32):
+        np.testing.assert_array_equal(a, b)
+
+
+WIDE = [(4, 0), (9, 0), (11, 0), (5, 5), (5, 6), (9, 2)]
+
+
+def _widened_value_and_grads(args, want_disp=True):
+    """Loss and gradients through the kernels' width route with the plain
+    version in place of the kernel: widen (zeta takes Db's columns,
+    zeta_dphi zeros), fwd+grad, narrow."""
+    t = [torch.as_tensor(a) for a in args] + [None, None][:12 - len(args)]
+    nu, zeta, zdphi, dnu, Db = t[2], t[3], t[4], t[10], t[11]
+    Nb = 0 if dnu is None else dnu.shape[0]
+    width, fold = TK.kernel_width(nu.shape[1], Nb, TK.velo_layout().max_nb)
+    assert width in TK.KERNEL_WIDTHS
+    nu_w, (zeta_w, zdphi_w), dnu_w, Db_w = TK.widen_inputs(
+        nu, [zeta, zdphi], dnu, Db, width, fold)
+    assert nu_w.shape[1] == zeta_w.shape[1] == zdphi_w.shape[1] == width
+    loss, g = TK.velo_fwdgrad_plain(*t[:2], nu_w, zeta_w, zdphi_w, *t[5:10],
+                                    dnu_w, Db_w, want_disp=want_disp)
+    gnu, (gzeta, gzdphi), gdnu = TK.narrow_grads(g[0], [g[1], g[2]], g[8],
+                                                 nu.shape[1], Nb, fold)
+    return loss, (gnu, gzeta, gzdphi, *g[3:8], gdnu)
+
+
+@pytest.mark.parametrize("Nh,Nb", WIDE)
+def test_widened_inputs_narrow_back_to_the_plain_result(Nh, Nb):
+    """Zero columns add exact zeros (dEs, so x and the relu gate, keep
+    their bits) and folded batches are basis columns: the plain fwd+grad of
+    the widened inputs, narrowed back, is the plain fwd+grad of the
+    originals (to f32 rounding of the reordered ElogS sum)."""
+    args = _inputs(Ng=30, Nc=70, Nh=Nh, seed=Nh + Nb, Nb=Nb, gated=True)
+    t = [torch.as_tensor(a) for a in args] + [None, None][:12 - len(args)]
+    x = TK._velo_elogs(*t[2:9], t[10], t[11])[4]
+    nu_w, (zeta_w, zdphi_w), _, _ = TK.widen_inputs(
+        t[2], [t[3], t[4]], t[10], t[11], *TK.kernel_width(Nh, Nb, 4))
+    assert torch.equal(TK._velo_elogs(nu_w, zeta_w, zdphi_w, *t[5:9], None,
+                                      None)[4], x)
+    for want_disp in (True, False):
+        loss, grads = TK.velo_fwdgrad_plain(*t, want_disp=want_disp)
+        wloss, wgrads = _widened_value_and_grads(args, want_disp)
+        assert abs(float(wloss) - float(loss)) / abs(float(loss)) < 1e-6
+        for name, a, b in zip(NAMES, wgrads, grads):
+            if b is None:
+                assert a is None
+            else:
+                assert a.shape == b.shape, name
+                assert _max_rel(a.numpy(), b.numpy()) < 1e-5, name
+
+
+@pytest.mark.parametrize("Nh,Nb", WIDE)
+def test_wide_and_batched_shapes_match_jax(Nh, Nb):
+    """Basis widths off the kernels' instantiations and more batches than
+    they take as such, against the JAX package: the port's fused
+    likelihood (its plain version here) and the kernels' width route."""
+    args = _inputs(Ng=30, Nc=70, Nh=Nh, seed=Nh + Nb, Nb=Nb, gated=True)
+    j = _jax_value_and_grads(JK.nbsu_loglik_reference, args)
+    wl, wg = _widened_value_and_grads(args)
+    _assert_match(_torch_value_and_grads(args), j)
+    _assert_match((float(wl), [g.numpy() for g in wg if g is not None]), j)
 
 
 def test_lgamma_k_sum_shortcut_matches():

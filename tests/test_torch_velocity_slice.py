@@ -58,8 +58,12 @@ def _simulate(pkg, Ng, Nc, seed=7):
 
 
 def _metapars(pkg, fused=False, with_dnu=False, model_type="lrmn", Ng=24,
-              Nc=90, normalize=False, behavior="intersection"):
+              Nc=90, normalize=False, behavior="intersection", big_s=False):
+    """``big_s``: one spliced count of 40,000, beyond int16, so that the
+    fused path keeps S in float32 and compacts U to int16."""
     adata = _simulate(pkg, Ng, Nc)
+    if big_s:
+        adata.layers["spliced"][3, 2] = 40_000
     genes = list(adata.var.index)
     cycle = pkg.Cycle.trivial_prior(genes, harmonics=2)
     phases = pkg.Phases.from_angles(adata.obs["simulated_phis"].values,
@@ -107,6 +111,17 @@ def test_velocity_data_fields_match_jax(fused, with_dnu, model_type,
     assert ours.speed_prior.conditions == ["c0"]
     _assert_velocity_data_equal(
         velocity_data_from_jax(theirs.data, device="cpu"), theirs.data)
+
+
+def test_mixed_count_dtypes_match_jax():
+    """One spliced count beyond int16: both packages keep S in float32 and
+    compact U to int16, with equal values (and lgamma_k_sum)."""
+    ours = _metapars(T, True, big_s=True)
+    theirs = _metapars(V, True, big_s=True)
+    _assert_velocity_data_equal(ours.data, theirs.data)
+    assert ours.data.S.dtype == torch.float32
+    assert ours.data.U.dtype == torch.int16
+    assert float(ours.data.S.max()) == 40_000.0
 
 
 @pytest.mark.parametrize("behavior", ["intersection", "union"])
@@ -307,6 +322,20 @@ def test_conditioned_stage_two_elbo_matches_jax(fused):
         assert np.abs(tg[k]).max() == 0.0 and np.abs(jg[k]).max() == 0.0
 
 
+@pytest.mark.parametrize("conditioned", [False, True])
+def test_fused_elbo_on_mixed_count_dtypes_matches_jax(conditioned):
+    """float32 S beside int16 U on the fused path: the ELBO and every
+    param gradient as the JAX package's, at the gates above."""
+    jmp = _metapars(V, True, False, "lrmn", big_s=True)
+    assert jmp.data.S.dtype == jnp.float32 and jmp.data.U.dtype == jnp.int16
+    jl, jg, tl, tg = _elbo_and_grads(jmp, True, conditioned=conditioned,
+                                     disp_grad=not conditioned)
+    assert abs(tl - jl) / abs(jl) < 1e-5, (tl, jl)
+    for k in jg:
+        err = np.abs(tg[k] - jg[k]).max() / (np.abs(jg[k]).max() + 1e-9)
+        assert err < 1e-5, (k, err)
+
+
 def test_lrmn_draw_is_auxiliary_in_elbo_and_predictive():
     mp = _metapars(T)
     data = mp.data
@@ -403,9 +432,11 @@ def test_extraction_and_period_match_jax_at_the_same_params(model_type):
 
 
 @pytest.mark.slow
-def test_fused_elbo_matches_jax_fused_interpret_mode():
-    """Port fused vs the JAX package's fused (interpret-mode Pallas) path."""
-    jmp = _metapars(V, True, True, "lrmn")
+@pytest.mark.parametrize("big_s", [False, True])
+def test_fused_elbo_matches_jax_fused_interpret_mode(big_s):
+    """Port fused vs the JAX package's fused (interpret-mode Pallas) path;
+    ``big_s``: float32 S beside int16 U."""
+    jmp = _metapars(V, True, True, "lrmn", big_s=big_s)
     jl, jg, tl, tg = _elbo_and_grads(jmp, True, jax_fused=True)
     assert abs(tl - jl) / abs(jl) < 1e-5, (tl, jl)
     for k in jg:

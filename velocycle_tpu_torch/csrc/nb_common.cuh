@@ -1,5 +1,7 @@
 // Device functions shared by the fused Negative-Binomial kernels
-// (nb_phase.cu, nb_velo.cu).
+// (phase_kernel.cuh, velo_kernel.cuh): the NB element, the warp
+// reduce-scatter, the even split of a persistent grid and the cp.async
+// copies of the count rings.
 //
 // CUDA counterparts of `velocycle_tpu_torch/ops/special.py` (the threshold-2
 // integer-count forms of `velocycle_tpu/ops/special.py`) and of the NB
@@ -12,6 +14,11 @@
 #include <cuda_runtime.h>
 
 namespace vct {
+
+// The basis widths Nh the kernels are instantiated for: 3, 5 and 7 with and
+// without delta_nu batches, 11 and 16 without (nb_phase.cu and nb_velo.cu,
+// `pick_nh`; ops/nb_kernels.py KERNEL_WIDTHS).
+constexpr int kMaxDnuWidth = 7;
 
 // Per-gene columns of the NB log-pmf and of `lgamma_digamma_ratio`: they
 // depend on the dispersion r only, so a kernel computes them once per gene
@@ -141,6 +148,77 @@ __device__ __forceinline__ double warp_sum(double v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
+}
+
+__host__ __device__ constexpr int pow2_at_least(int n) {
+  int p = 1;
+  while (p < n) p *= 2;
+  return p;
+}
+
+__host__ __device__ constexpr int log2_exact(int p) {
+  int l = 0;
+  while ((1 << l) < p) ++l;
+  return l;
+}
+
+// Warp reduce-scatter of P values (P a power of two, <= 32): afterwards the
+// lanes l with l % (32 / P) == 0 hold in v[0] the warp total of value
+// l / (32 / P).  Each of the first log2(P) steps trades half of the values a
+// lane holds with its partner; the rest is a plain butterfly on one value.
+template <int P>
+__device__ __forceinline__ void warp_reduce_scatter(float (&v)[P], int lane) {
+  static_assert(P <= 32, "a warp reduce-scatters at most 32 values");
+  constexpr int LOG_P = log2_exact(P);
+#pragma unroll
+  for (int step = 0; step < LOG_P; ++step) {
+    const int half = P >> (step + 1);
+    const int off = 16 >> step;
+    const bool upper = (lane & off) != 0;
+#pragma unroll
+    for (int j = 0; j < P / 2; ++j) {
+      if (j < half) {
+        const float send = upper ? v[j] : v[j + half];
+        const float keep = upper ? v[j + half] : v[j];
+        v[j] = keep + __shfl_xor_sync(0xffffffffu, send, off);
+      }
+    }
+  }
+#pragma unroll
+  for (int o = 16 >> LOG_P; o > 0; o >>= 1) v[0] += __shfl_xor_sync(0xffffffffu, v[0], o);
+}
+
+// The even split of a persistent grid: U units, tile-major (unit u = tile
+// u / n_chunks, gene chunk u % n_chunks); CTA p of P owns [p U / P, (p + 1)
+// U / P).  The CTA that owns unit u:
+__host__ __device__ inline int unit_owner(long long u, long long U, int P) {
+  return static_cast<int>(((u + 1) * P - 1) / U);
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, of which the first `bytes` are read and the
+// rest zero-filled; src and dst 16-byte aligned.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 }  // namespace vct

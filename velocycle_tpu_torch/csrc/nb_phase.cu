@@ -41,6 +41,7 @@
 namespace {
 
 using namespace vct::phase;
+using vct::unit_owner;
 
 struct Args {
   int mode;           // a Cut
@@ -139,9 +140,11 @@ struct Inst {
 };
 
 // Calls op.template go<Inst<...>>() for the instantiation the arguments
-// select.  The production modes take Nh in {3, 5, 7}, any flags and up to
-// kMaxNb batches; the ladder's rungs Nh = 5, no batches, and the flags the
-// TPU tool fixes for each.
+// select.  The production modes take Nh in {3, 5, 7} with up to kMaxNb
+// batches, or 11 and 16 without (the Python wrapper pads other widths with
+// zero columns and folds more batches into extra columns), and any flags;
+// the ladder's rungs Nh = 5, no batches, and the flags the TPU tool fixes
+// for each.
 template <typename TK, int NH, int CUT, bool WD, bool DNU, class Op>
 int pick_skip(const Args& a, const Op& op) {
   return a.skip_k ? op.template go<Inst<TK, NH, CUT, WD, DNU, true>>()
@@ -150,8 +153,12 @@ int pick_skip(const Args& a, const Op& op) {
 
 template <typename TK, int NH, int CUT, bool WD, class Op>
 int pick_dnu(const Args& a, const Op& op) {
-  return a.Nb > 0 ? pick_skip<TK, NH, CUT, WD, true>(a, op)
-                  : pick_skip<TK, NH, CUT, WD, false>(a, op);
+  if constexpr (NH <= vct::kMaxDnuWidth) {
+    if (a.Nb > 0) return pick_skip<TK, NH, CUT, WD, true>(a, op);
+  } else {
+    if (a.Nb > 0) return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return pick_skip<TK, NH, CUT, WD, false>(a, op);
 }
 
 template <typename TK, int NH, class Op>
@@ -185,6 +192,8 @@ int pick_nh(const Args& a, const Op& op) {
     case 3: return pick_mode<TK, 3>(a, op);
     case 5: return pick_mode<TK, 5>(a, op);
     case 7: return pick_mode<TK, 7>(a, op);
+    case 11: return pick_mode<TK, 11>(a, op);
+    case 16: return pick_mode<TK, 16>(a, op);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -106,76 +106,6 @@ __host__ __device__ constexpr int stage_bytes() {
          (kGeneChunk * (NH + 1 + (HAS_DNU ? kMaxNb : 0)) * 4 + 15) / 16 * 16;
 }
 
-// The even split: U units, tile-major (unit u = tile u / n_chunks, gene
-// chunk u % n_chunks); CTA p of P owns [p U / P, (p + 1) U / P).  The CTA
-// that owns unit u:
-__host__ __device__ inline int unit_owner(long long u, long long U, int P) {
-  return static_cast<int>(((u + 1) * P - 1) / U);
-}
-
-__host__ __device__ constexpr int pow2_at_least(int n) {
-  int p = 1;
-  while (p < n) p *= 2;
-  return p;
-}
-
-__host__ __device__ constexpr int log2_exact(int p) {
-  int l = 0;
-  while ((1 << l) < p) ++l;
-  return l;
-}
-
-// Warp reduce-scatter of P values (P a power of two, <= 32): afterwards the
-// lanes l with l % (32 / P) == 0 hold in v[0] the warp total of value
-// l / (32 / P).  Each of the first log2(P) steps trades half of the values a
-// lane holds with its partner; the rest is a plain butterfly on one value.
-template <int P>
-__device__ __forceinline__ void warp_reduce_scatter(float (&v)[P], int lane) {
-  constexpr int LOG_P = log2_exact(P);
-#pragma unroll
-  for (int step = 0; step < LOG_P; ++step) {
-    const int half = P >> (step + 1);
-    const int off = 16 >> step;
-    const bool upper = (lane & off) != 0;
-#pragma unroll
-    for (int j = 0; j < P / 2; ++j) {
-      if (j < half) {
-        const float send = upper ? v[j] : v[j + half];
-        const float keep = upper ? v[j + half] : v[j];
-        v[j] = keep + __shfl_xor_sync(0xffffffffu, send, off);
-      }
-    }
-  }
-#pragma unroll
-  for (int o = 16 >> LOG_P; o > 0; o >>= 1) v[0] += __shfl_xor_sync(0xffffffffu, v[0], o);
-}
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, of which the first `bytes` are read and the
-// rest zero-filled; src and dst 16-byte aligned.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 template <typename TK, int NH, int CUT, bool WANT_DISP, bool HAS_DNU, bool SKIP_K>
 __global__ void __launch_bounds__(kThreads, kMinBlocksPerSm)
 phase_kernel(const TK* __restrict__ S, const float* __restrict__ nu,

@@ -24,6 +24,9 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+# per source: nb_velo.cu instantiates its body for every (S, U) count-type
+# pair, so its compiler optimizations run on all of the machine's cores
+SOURCE_FLAGS = {"nb_velo": ["-split-compile=0"]}
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -49,7 +52,7 @@ def _target(name: str) -> Path:
     for p in sorted(CSRC.glob("*.cu*")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + SOURCE_FLAGS.get(name, [])).encode())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:12]}.so"
 
 
@@ -61,7 +64,8 @@ def _start(name: str):
         return target, None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = target.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [_nvcc(), *NVCC_FLAGS, *SOURCE_FLAGS.get(name, []), "-o", str(tmp),
+           str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(
         cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
     )

@@ -14,8 +14,16 @@ hand-written CUDA kernels carry them on the card:
     carries the roofline ladder of `ops/ladder_kernels.py`) replace the
     Pallas kernels `_phase_fwd_kernel` / `_phase_fwdgrad_kernel` of
     velocycle_tpu/ops/nb_kernels.py;
-  * ``velo_fwd`` / ``velo_fwdgrad`` (`csrc/nb_velo.cu`) replace
+  * ``velo_fwd`` / ``velo_fwdgrad`` (`csrc/nb_velo.cu`, two
+    instantiations of the one body in `csrc/velo_kernel.cuh`) replace
     `_velo_fwd_kernel` / `_velo_fwdgrad_kernel`.
+
+Count matrices are int16 or float32, S and U each on its own.  Basis
+widths: the kernels are instantiated for Nh in (3, 5, 7) with up to four
+delta_nu batches, and 11 and 16 without; `kernel_width` sends any other
+shape to the next width, with zero columns and the batches folded into
+basis columns (`widen_inputs`, `narrow_grads`), up to MAX_WIDTH = 16 basis
+columns in all.
 
 The ``*_fwd`` kernel gives the loss alone (loss-only evaluations); the
 ``*_fwdgrad`` kernel gives the loss AND every gradient in one pass (every
@@ -49,11 +57,15 @@ from .special import (
 )
 
 __all__ = [
+    "KERNEL_WIDTHS",
     "LAUNCHES",
+    "Layout",
+    "MAX_WIDTH",
     "PHASE_MODES",
-    "PhaseLayout",
-    "PhasePlan",
-    "SUPPORTED_NH",
+    "Plan",
+    "VELO_CUTS",
+    "kernel_width",
+    "narrow_grads",
     "nb_loglik_fused",
     "nb_loglik_reference",
     "nbsu_loglik_fused",
@@ -69,13 +81,15 @@ __all__ = [
     "velo_fwd_plain",
     "velo_fwdgrad",
     "velo_fwdgrad_plain",
+    "velo_layout",
+    "velo_plan",
+    "widen_inputs",
 ]
 
 # kernel launches on the card, by kernel; chip_smoke.py resets these just
 # before it drives each stage of the main path and reads them just after
 LAUNCHES = {"phase_fwd": 0, "phase_fwdgrad": 0, "velo_fwd": 0,
             "velo_fwdgrad": 0}
-SUPPORTED_NH = (3, 5, 7)   # template instantiations in csrc/*.cu
 
 
 def reset_launch_counts():
@@ -252,7 +266,84 @@ def velo_fwdgrad_plain(S, U, nu, zeta, zeta_dphi, cf, omega, log_beta,
 
 
 # ---------------------------------------------------------------------------
-# CUDA kernels (csrc/nb_phase.cu over csrc/phase_kernel.cuh, csrc/nb_velo.cu)
+# basis widths: padding and batch folding for the kernels' instantiations
+# ---------------------------------------------------------------------------
+
+# the basis widths the kernels are instantiated for (csrc/nb_phase.cu and
+# csrc/nb_velo.cu, `pick_nh`); up to DNU_WIDTH also with delta_nu batches
+# as such (csrc/nb_common.cuh kMaxDnuWidth)
+KERNEL_WIDTHS = (3, 5, 7, 11, 16)
+MAX_WIDTH = KERNEL_WIDTHS[-1]
+DNU_WIDTH = 7
+
+
+def kernel_width(Nh, Nb, max_nb):
+    """(width, fold): the instantiated basis width that runs Nh basis
+    columns and Nb delta_nu batches, and whether the batches are folded
+    into basis columns.
+
+    Nh <= DNU_WIDTH with Nb <= max_nb runs at the next width of (3, 5, 7)
+    with delta_nu as such.  Otherwise the batches become Nb extra columns
+    (`widen_inputs`) and Nh + Nb runs at the next of KERNEL_WIDTHS.  Beyond
+    MAX_WIDTH basis columns there is no instantiation: ValueError."""
+    if Nb <= max_nb:
+        for w in KERNEL_WIDTHS:
+            if Nh <= w <= DNU_WIDTH:
+                return w, False
+    n = Nh + Nb
+    for w in KERNEL_WIDTHS:
+        if n <= w:
+            return w, Nb > 0
+    raise ValueError(
+        f"the NB kernels take at most MAX_WIDTH = {MAX_WIDTH} basis columns, "
+        f"the Nh = {Nh} basis columns plus, beyond Nh <= {DNU_WIDTH} with "
+        f"<= {max_nb} batches, one column per delta_nu batch (Nb = {Nb})"
+    )
+
+
+def widen_inputs(nu, zetas, delta_nu, Db, width, fold):
+    """The kernels' inputs at ``width`` basis columns (`kernel_width`).
+
+    With ``fold`` the batch offsets become basis columns: nu' = [nu |
+    delta_nu^T], zetas[0]' = [zeta | Db^T] and every other cell basis (the
+    velocity stage's zeta_dphi) [z | 0], so that ElogS and dEs keep their
+    values; then zero columns up to ``width``, which add exact zeros to
+    every dot product.  Returns (nu', [zetas'], delta_nu or None (folded),
+    Db or None); the inputs themselves when nothing changes."""
+    Nh = nu.shape[1]
+    if width == Nh and not fold:
+        return nu, list(zetas), delta_nu, Db
+    Nb = delta_nu.shape[0] if fold else 0
+    pad = width - Nh - Nb
+    cols_nu = [nu] + ([delta_nu.T] if fold else [])
+    out = []
+    for i, z in enumerate(zetas):
+        cols = [z]
+        if fold:
+            cols.append(Db.T if i == 0 else z.new_zeros(z.shape[0], Nb))
+        out.append(cols)
+    if pad:
+        cols_nu.append(nu.new_zeros(nu.shape[0], pad))
+        for cols, z in zip(out, zetas):
+            cols.append(z.new_zeros(z.shape[0], pad))
+    nu_w = torch.cat(cols_nu, 1).contiguous()
+    zetas_w = [torch.cat(cols, 1).contiguous() for cols in out]
+    return nu_w, zetas_w, (None if fold else delta_nu), (None if fold else Db)
+
+
+def narrow_grads(dnu, dzetas, ddnu, Nh, Nb, fold):
+    """The gradients of `widen_inputs`'s inputs from those of its outputs:
+    dnu[:, :Nh] and each dzeta[:, :Nh]; with ``fold`` ddelta_nu is
+    dnu[:, Nh:Nh + Nb]^T.  The padded columns' gradients are dropped."""
+    if fold:
+        ddnu = dnu[:, Nh:Nh + Nb].T.contiguous()
+    return (dnu[:, :Nh].contiguous(), [d[:, :Nh].contiguous() for d in dzetas],
+            ddnu)
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernels (csrc/nb_phase.cu over csrc/phase_kernel.cuh, csrc/nb_velo.cu
+# over csrc/velo_kernel.cuh)
 # ---------------------------------------------------------------------------
 
 _P = ctypes.c_void_p
@@ -267,26 +358,43 @@ PHASE_MODES = ("fwd", "fwdgrad", "stream", "matmul", "logpmf", "grad_nu",
 # (Nb): the ddisp slot; and the modes that write dzeta and dcf
 _PHASE_GENE_EXTRA = {"fwdgrad": 1, "grad_nu": 0, "v_nodig": 1, "v_nocell": 1}
 _PHASE_CELL_GRADS = ("fwdgrad", "v_nodig")
+# the `Cut` order of csrc/velo_kernel.cuh
+VELO_CUTS = ("fwd", "fwdgrad")
+# gene-partial columns of velo_fwdgrad besides dnu and ddelta_nu: ddisp,
+# dlog_beta and sum_c g_x (velo_kernel.cuh kGeneExtra)
+_VELO_GENE_EXTRA = 3
 _LAYOUT_NAMES = ("kThreads", "kCellsPerTile", "kGeneChunk", "kStages",
                  "kMaxNb")
 
 
-class PhaseLayout(NamedTuple):
-    """The phase kernels' layout constants (csrc/phase_kernel.cuh)."""
+class Layout(NamedTuple):
+    """A kernel body's layout constants (csrc/phase_kernel.cuh,
+    csrc/velo_kernel.cuh)."""
     threads: int
     cells_per_tile: int     # cells of one tile: the gene partials' first axis
     gene_chunk: int         # genes staged per step of the sweep
     stages: int             # count-ring stages in shared memory
-    max_nb: int             # most delta_nu batches
+    max_nb: int             # most delta_nu batches taken as such
 
 
-class PhasePlan(NamedTuple):
-    """How one call of a phase kernel is laid out on the card
-    (vct_phase_plan)."""
+class Plan(NamedTuple):
+    """How one call of a kernel is laid out on the card (vct_phase_plan,
+    vct_velo_plan)."""
     grid: int               # CTAs, one loss partial each
     pieces: int             # cell-gradient pieces per cell (0: none)
     blocks_per_sm: int      # resident CTAs per SM
     dyn_smem: int           # dynamic shared memory per CTA, bytes
+
+
+def _read_layout(header):
+    text = (cuda_build.CSRC / header).read_text()
+    vals = []
+    for name in _LAYOUT_NAMES:
+        m = re.search(rf"constexpr int {name} = (\d+);", text)
+        if m is None:
+            raise RuntimeError(f"csrc/{header} defines no {name}")
+        vals.append(int(m.group(1)))
+    return Layout(*vals)
 
 
 @functools.lru_cache(maxsize=None)
@@ -295,72 +403,108 @@ def phase_layout():
     their one definition; the built library reports the same numbers
     (`vct_phase_layout`, checked when it is loaded).  The plain versions
     read them here to cut their partials as the kernels do."""
-    text = (cuda_build.CSRC / "phase_kernel.cuh").read_text()
-    vals = []
-    for name in _LAYOUT_NAMES:
-        m = re.search(rf"constexpr int {name} = (\d+);", text)
-        if m is None:
-            raise RuntimeError(f"csrc/phase_kernel.cuh defines no {name}")
-        vals.append(int(m.group(1)))
-    return PhaseLayout(*vals)
+    return _read_layout("phase_kernel.cuh")
 
 
-def _phase_lib():
-    """The loaded library of csrc/nb_phase.cu with its C functions typed and
+@functools.lru_cache(maxsize=None)
+def velo_layout():
+    """The layout constants of the velocity kernels, from
+    csrc/velo_kernel.cuh, their one definition; the built library reports
+    the same numbers (`vct_velo_layout`, checked when it is loaded)."""
+    return _read_layout("velo_kernel.cuh")
+
+
+def _typed_lib(name, prefix, layout, argtypes):
+    """The loaded library of csrc/<name>.cu with its C functions typed and
     its layout (``lib.layout``, as the library reports it); raises unless
-    that is `phase_layout()`."""
-    lib = cuda_build.load("nb_phase")
+    that is ``layout``."""
+    lib = cuda_build.load(name)
     if getattr(lib, "_vct_typed", False):
         return lib
-    lib.vct_phase_layout.argtypes = [_P, _I]
-    # mode, int16 flag, Ng, Nc, Nh, Nb, skip_k, want_disp, out
-    lib.vct_phase_plan.argtypes = [_I] * 8 + [_P]
-    # mode, S, int16 flag, nu, zeta, cf, disp, dnu, Db, Ng, Nc, Nh, Nb,
-    # skip_k, want_disp, n_rep, grid, pieces, loss_part, gene_part,
-    # cell_piece, dzeta, dcf, stream
-    lib.vct_phase_run.argtypes = ([_I, _P, _I] + [_P] * 6 + [_I] * 9
-                                  + [_P] * 5 + [_P])
-    for fn in (lib.vct_phase_layout, lib.vct_phase_plan, lib.vct_phase_run):
-        fn.restype = _I
+    for fn, types in argtypes.items():
+        getattr(lib, fn).argtypes = types
+        getattr(lib, fn).restype = _I
     out = (ctypes.c_int * len(_LAYOUT_NAMES))()
-    lib.vct_phase_layout(out, len(out))
-    lib.layout = PhaseLayout(*out)
-    if lib.layout != phase_layout():
-        raise RuntimeError(f"libnb_phase reports {lib.layout}, "
-                           f"csrc/phase_kernel.cuh {phase_layout()}")
+    getattr(lib, f"{prefix}_layout")(out, len(out))
+    lib.layout = Layout(*out)
+    if lib.layout != layout:
+        raise RuntimeError(f"lib{name} reports {lib.layout}, the kernel "
+                           f"source {layout}")
     lib._vct_typed = True
     return lib
 
 
+def _phase_lib():
+    """The loaded library of csrc/nb_phase.cu, typed and checked."""
+    return _typed_lib("nb_phase", "vct_phase", phase_layout(), {
+        "vct_phase_layout": [_P, _I],
+        # mode, int16 flag, Ng, Nc, Nh, Nb, skip_k, want_disp, out
+        "vct_phase_plan": [_I] * 8 + [_P],
+        # mode, S, int16 flag, nu, zeta, cf, disp, dnu, Db, Ng, Nc, Nh, Nb,
+        # skip_k, want_disp, n_rep, grid, pieces, loss_part, gene_part,
+        # cell_piece, dzeta, dcf, stream
+        "vct_phase_run": [_I, _P, _I] + [_P] * 6 + [_I] * 9 + [_P] * 6,
+    })
+
+
+def _velo_lib():
+    """The loaded library of csrc/nb_velo.cu, typed and checked."""
+    # S, S int16 flag, U, U int16 flag, nu, zeta, zeta_dphi, cf, omega,
+    # log_beta, log_gamma, disp, dnu, Db, Ng, Nc, Nh, Nb, skip_k
+    common = [_P, _I, _P, _I] + [_P] * 10 + [_I] * 5
+    return _typed_lib("nb_velo", "vct_velo", velo_layout(), {
+        "vct_velo_layout": [_P, _I],
+        # cut, S int16, U int16, Ng, Nc, Nh, Nb, skip_k, want_disp, out
+        "vct_velo_plan": [_I] * 9 + [_P],
+        # ..., grid, loss_part, stream
+        "vct_velo_fwd": common + [_I, _P, _P],
+        # ..., want_disp, grid, pieces, loss_part, gene_part, cell_piece,
+        # dzeta, dzeta_dphi, dcf, domega, stream
+        "vct_velo_fwdgrad": common + [_I] * 3 + [_P] * 8,
+    })
+
+
+def _device_index(device):
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    return dev.index if dev.index is not None else torch.cuda.current_device()
+
+
 @functools.lru_cache(maxsize=256)
-def _phase_plan(device_index, mode, int16, Ng, Nc, Nh, Nb, skip_k,
-                want_disp):
-    lib = _phase_lib()
+def _plan(lib_fn, device_index, args):
+    lib = _phase_lib() if lib_fn == "vct_phase_plan" else _velo_lib()
     out = (ctypes.c_int * 4)()
     with torch.cuda.device(device_index):
-        rc = lib.vct_phase_plan(PHASE_MODES.index(mode), int(int16), Ng, Nc,
-                                Nh, Nb, int(skip_k), int(want_disp), out)
-    _raise_on(rc, f"phase {mode} plan")
-    return PhasePlan(*out)
+        rc = getattr(lib, lib_fn)(*args, out)
+    _raise_on(rc, f"{lib_fn} {args}")
+    return Plan(*out)
 
 
 def phase_plan(mode, int16, Ng, Nc, Nh=5, Nb=0, skip_k=True, want_disp=True,
                device=None):
-    """The `PhasePlan` of one call of the phase kernel in ``mode``
+    """The `Plan` of one call of the phase kernel in ``mode``
     (`PHASE_MODES`) on ``device`` (default: the current card), for int16
-    or float32 counts."""
-    dev = torch.device("cuda") if device is None else torch.device(device)
-    index = dev.index if dev.index is not None else torch.cuda.current_device()
-    return _phase_plan(index, mode, bool(int16), Ng, Nc, Nh, Nb, bool(skip_k),
-                       bool(want_disp))
+    or float32 counts, at an instantiated width Nh."""
+    return _plan("vct_phase_plan", _device_index(device), (
+        PHASE_MODES.index(mode), int(bool(int16)), Ng, Nc, Nh, Nb,
+        int(bool(skip_k)), int(bool(want_disp))))
+
+
+def velo_plan(cut, s_int16, u_int16, Ng, Nc, Nh=5, Nb=0, skip_k=True,
+              want_disp=False, device=None):
+    """The `Plan` of one call of the velocity kernel cut ``cut``
+    (`VELO_CUTS`) on ``device`` (default: the current card), for int16 or
+    float32 S and U each, at an instantiated width Nh."""
+    return _plan("vct_velo_plan", _device_index(device), (
+        VELO_CUTS.index(cut), int(bool(s_int16)), int(bool(u_int16)), Ng, Nc,
+        Nh, Nb, int(bool(skip_k)), int(bool(want_disp))))
 
 
 def _phase_launch(mode, S, nu, zeta, cf, r, delta_nu=None, Db=None,
                   skip_k=True, want_disp=False, n_rep=0):
     """One launch of csrc/nb_phase.cu in ``mode`` (`PHASE_MODES`) on checked
-    CUDA tensors; inputs the mode does not read may be None.  Returns
-    (loss partials (grid,) float64, gene partials (n_tiles, Ng, NV) or None,
-    dzeta (Nc, Nh) or None, dcf (Nc,) or None)."""
+    CUDA tensors at an instantiated width; inputs the mode does not read may
+    be None.  Returns (loss partials (grid,) float64, gene partials
+    (n_tiles, Ng, NV) or None, dzeta (Nc, Nh) or None, dcf (Nc,) or None)."""
     lib = _phase_lib()
     Ng, Nh = nu.shape
     Nc = zeta.shape[0] if S is None else S.shape[1]
@@ -393,35 +537,6 @@ def _phase_launch(mode, S, nu, zeta, cf, r, delta_nu=None, Db=None,
     return loss_part, gene_part, dzeta, dcf
 
 
-# the C interface of csrc/nb_velo.cu: count matrices, float parameters,
-# gene-partial columns besides dnu and ddelta_nu, and cell-indexed gradients
-# ((Nc, Nh) ones first, then (Nc,) ones)
-_VELO_ABI = {"counts": 2, "params": 8, "gene_extra": 3, "cell_grads": 4}
-
-
-def _velo_lib():
-    """The loaded library of csrc/nb_velo.cu with its C functions typed."""
-    lib = cuda_build.load("nb_velo")
-    if getattr(lib, "_vct_typed", False):
-        return lib
-    abi = _VELO_ABI
-    # counts..., int16 flag, params..., dnu, Db, Ng, Nc, Nh, Nb, skip_k
-    common = ([_P] * abi["counts"] + [_I] + [_P] * abi["params"] + [_P, _P]
-              + [_I] * 5)
-    for fn, argtypes in (
-        ("vct_velo_cells_per_block", []),
-        ("vct_velo_max_nb", []),
-        ("vct_velo_fwd", common + [_P, _P]),
-        # ..., want_disp, loss_part, gene_part, cell grads..., stream
-        ("vct_velo_fwdgrad",
-         common + [_I, _P, _P] + [_P] * abi["cell_grads"] + [_P]),
-    ):
-        getattr(lib, fn).argtypes = argtypes
-        getattr(lib, fn).restype = _I
-    lib._vct_typed = True
-    return lib
-
-
 # parameter shapes over g = genes, c = cells, h = basis columns
 _SHAPES = {"nu": "gh", "zeta": "ch", "zeta_dphi": "ch", "count_factor": "c",
            "omega": "c", "log_beta": "g", "log_gamma": "g",
@@ -429,13 +544,14 @@ _SHAPES = {"nu": "gh", "zeta": "ch", "zeta_dphi": "ch", "count_factor": "c",
 
 
 def _check_inputs(counts, params, delta_nu, Db, max_nb=None):
-    """Shapes always; device, dtype and contiguity for the kernels.
+    """Shapes always; device, dtype, contiguity and the basis width for the
+    kernels.
 
     counts: [(name, (Ng, Nc) tensor)], or empty for a kernel that reads no
-    count matrix (Ng and Nc then come from nu and zeta); params: {name:
-    tensor}, names from `_SHAPES`; max_nb: a function giving the most
-    delta_nu batches the kernels take (asked only for CUDA tensors with
-    delta_nu)."""
+    count matrix (Ng and Nc then come from nu and zeta), each int16 or
+    float32 on its own; params: {name: tensor}, names from `_SHAPES`;
+    max_nb: the most delta_nu batches the kernels take as such, for the
+    width check of `kernel_width` (None: no width check)."""
     if counts:
         S = counts[0][1]
         if S.dim() != 2:
@@ -453,6 +569,7 @@ def _check_inputs(counts, params, delta_nu, Db, max_nb=None):
         got[name] = t
     if (delta_nu is None) != (Db is None):
         raise ValueError("delta_nu and Db must be given together")
+    Nb = 0
     if delta_nu is not None:
         Nb = delta_nu.shape[0]
         want.update(delta_nu=(Nb, Ng), Db=(Nb, Nc))
@@ -464,22 +581,13 @@ def _check_inputs(counts, params, delta_nu, Db, max_nb=None):
             )
     if S.device.type != "cuda":
         return
-    if S.dtype not in (torch.int16, torch.float32):
-        raise TypeError(f"counts must be int16 or float32, got {S.dtype}")
-    for name, t in counts[1:]:
-        if t.dtype != S.dtype:
-            raise TypeError(f"{name} is {t.dtype}, S is {S.dtype}")
-    if Nh not in SUPPORTED_NH:
-        raise ValueError(
-            f"the NB kernels are built for Nh in {SUPPORTED_NH}, got {Nh}"
-        )
+    for name, t in counts:
+        if t.dtype not in (torch.int16, torch.float32):
+            raise TypeError(f"{name} must be int16 or float32, got {t.dtype}")
+    if max_nb is not None:
+        kernel_width(Nh, Nb, max_nb)
     if Ng < 1 or Nc < 1:
         raise ValueError(f"empty count matrix {(Ng, Nc)}")
-    if delta_nu is not None and delta_nu.shape[0] > max_nb():
-        raise ValueError(
-            f"the NB kernels take at most {max_nb()} batches, got "
-            f"{delta_nu.shape[0]}"
-        )
     for name, t in [*counts, *got.items()]:
         if t.device != S.device:
             raise ValueError(f"{name} is on {t.device}, counts on {S.device}")
@@ -498,99 +606,61 @@ def _raise_on(rc, name):
         raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
 
 
-def _velo_launch(name, counts, params, delta_nu, Db, lgamma_k_sum,
-                 want_disp=None):
-    """Check, allocate the partial buffers, launch one velocity kernel and
-    count it: the loss-only kernel, or with ``want_disp`` given the
-    fwd+grad one.
-
-    Returns (loss, gene partials summed over the cell tiles (Ng, NV) or
-    None, [cell-indexed gradients])."""
-    _check_inputs(counts, params, delta_nu, Db, _velo_max_nb)
-    S = counts[0][1]
-    if S.device.type != "cuda":
+def _on_card(name, counts, params, delta_nu, Db, max_nb):
+    """Check a kernel call and choose its width: (width, fold) of
+    `kernel_width`; raises for CPU tensors."""
+    _check_inputs(counts, params, delta_nu, Db, max_nb)
+    ref = counts[0][1]
+    if ref.device.type != "cuda":
         raise ValueError(f"{name} launches a CUDA kernel; got CPU tensors")
-    lib = _velo_lib()
-    Ng, Nc = S.shape
-    nu = params["nu"]
-    Nh = nu.shape[1]
     Nb = 0 if delta_nu is None else delta_nu.shape[0]
-    tiles = -(-Nc // lib.vct_velo_cells_per_block())
-    dev = S.device
-    args = [*(_ptr(t) for _, t in counts), int(S.dtype == torch.int16),
-            *(_ptr(t) for t in params.values()), _ptr(delta_nu), _ptr(Db),
-            Ng, Nc, Nh, Nb, int(lgamma_k_sum is not None)]
-    loss_part = torch.empty(tiles, dtype=torch.float64, device=dev)
-    gene_part, cell = None, []
-    if want_disp is None:
-        tail = [loss_part.data_ptr()]
-        fn = lib.vct_velo_fwd
-    else:
-        abi = _VELO_ABI
-        gene_part = torch.empty((tiles, Ng, Nh + abi["gene_extra"] + Nb),
-                                dtype=torch.float32, device=dev)
-        half = abi["cell_grads"] // 2
-        cell = [torch.empty(shape, dtype=torch.float32, device=dev)
-                for shape in [(Nc, Nh)] * half + [(Nc,)] * half]
-        tail = [int(bool(want_disp)), loss_part.data_ptr(),
-                gene_part.data_ptr(), *(t.data_ptr() for t in cell)]
-        fn = lib.vct_velo_fwdgrad
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(*args, *tail, stream)
-    _raise_on(rc, name)
-    LAUNCHES[name] += 1
-    loss = _finish_loss(loss_part.sum(), lgamma_k_sum)
-    # fixed-order reduction over the cell tiles (no float atomics)
-    gene = None if gene_part is None else gene_part.sum(0)
-    return loss, gene, cell
-
-
-def _phase_max_nb():
-    return _phase_lib().layout.max_nb
-
-
-def _velo_max_nb():
-    return _velo_lib().vct_velo_max_nb()
+    return kernel_width(params["nu"].shape[1], Nb, max_nb)
 
 
 def _phase_params(nu, zeta, cf, r):
     return {"nu": nu, "zeta": zeta, "count_factor": cf, "dispersion": r}
 
 
-def _phase_checked(name, S, nu, zeta, cf, r, delta_nu, Db):
-    _check_inputs([("S", S)], _phase_params(nu, zeta, cf, r), delta_nu, Db,
-                  _phase_max_nb)
-    if S.device.type != "cuda":
-        raise ValueError(f"{name} launches a CUDA kernel; got CPU tensors")
+def _phase_call(name, S, nu, zeta, cf, r, delta_nu, Db, lgamma_k_sum,
+                want_disp=False):
+    """Check, widen where the shape needs it, launch and count one phase
+    kernel.  Returns (loss, gene partials summed over the cell tiles or
+    None, dzeta or None, dcf or None, (Nh, Nb, fold, kernel delta_nu))."""
+    width, fold = _on_card(name, [("S", S)], _phase_params(nu, zeta, cf, r),
+                           delta_nu, Db, phase_layout().max_nb)
+    nu_k, (zeta_k,), dnu_k, Db_k = widen_inputs(nu, [zeta], delta_nu, Db,
+                                                width, fold)
+    mode = "fwdgrad" if name == "phase_fwdgrad" else "fwd"
+    loss_part, gene_part, dzeta, dcf = _phase_launch(
+        mode, S, nu_k, zeta_k, cf, r, dnu_k, Db_k,
+        skip_k=lgamma_k_sum is not None, want_disp=bool(want_disp))
+    LAUNCHES[name] += 1
+    loss = _finish_loss(loss_part.sum(), lgamma_k_sum)
+    # fixed-order reduction over the cell tiles (no float atomics)
+    gene = None if gene_part is None else gene_part.sum(0)
+    Nb = 0 if delta_nu is None else delta_nu.shape[0]
+    return loss, gene, dzeta, dcf, (nu.shape[1], Nb, fold, dnu_k)
 
 
 def phase_fwd(S, nu, zeta, cf, r, delta_nu=None, Db=None, lgamma_k_sum=None):
     """Loss of the fused phase NB likelihood on the card (CUDA tensors)."""
-    _phase_checked("phase_fwd", S, nu, zeta, cf, r, delta_nu, Db)
-    loss_part, _, _, _ = _phase_launch("fwd", S, nu, zeta, cf, r, delta_nu,
-                                       Db, skip_k=lgamma_k_sum is not None)
-    LAUNCHES["phase_fwd"] += 1
-    return _finish_loss(loss_part.sum(), lgamma_k_sum)
+    return _phase_call("phase_fwd", S, nu, zeta, cf, r, delta_nu, Db,
+                       lgamma_k_sum)[0]
 
 
 def phase_fwdgrad(S, nu, zeta, cf, r, delta_nu=None, Db=None,
                   lgamma_k_sum=None, want_disp=True):
     """Loss and every gradient of the fused phase NB likelihood on the card:
-    (loss, (dnu, dzeta, dcf, ddisp, ddelta_nu)), as `phase_fwdgrad_plain`."""
-    _phase_checked("phase_fwdgrad", S, nu, zeta, cf, r, delta_nu, Db)
-    loss_part, gene_part, dzeta, dcf = _phase_launch(
-        "fwdgrad", S, nu, zeta, cf, r, delta_nu, Db,
-        skip_k=lgamma_k_sum is not None, want_disp=bool(want_disp))
-    LAUNCHES["phase_fwdgrad"] += 1
-    loss = _finish_loss(loss_part.sum(), lgamma_k_sum)
-    # fixed-order reduction over the cell tiles (no float atomics)
-    gene = gene_part.sum(0)
-    Nh = nu.shape[1]
-    dnu = gene[:, :Nh].contiguous()
-    ddisp = gene[:, Nh].contiguous()
-    ddnu = gene[:, Nh + 1:].T.contiguous() if delta_nu is not None else None
-    return loss, (dnu, dzeta, dcf, ddisp, ddnu)
+    (loss, (dnu, dzeta, dcf, ddisp, ddelta_nu)), as `phase_fwdgrad_plain`.
+    The kernel's gene partials hold [dnu (width), ddisp, ddelta_nu (Nb)]."""
+    loss, gene, dzeta, dcf, (Nh, Nb, fold, dnu_k) = _phase_call(
+        "phase_fwdgrad", S, nu, zeta, cf, r, delta_nu, Db, lgamma_k_sum,
+        want_disp)
+    W = dzeta.shape[1]
+    ddnu = gene[:, W + 1:].T.contiguous() if dnu_k is not None else None
+    dnu, (dzeta,), ddnu = narrow_grads(gene[:, :W], [dzeta], ddnu, Nh, Nb,
+                                       fold)
+    return loss, (dnu, dzeta, dcf, gene[:, W].contiguous(), ddnu)
 
 
 def _velo_params(nu, zeta, zeta_dphi, cf, omega, log_beta, log_gamma, r):
@@ -599,15 +669,67 @@ def _velo_params(nu, zeta, zeta_dphi, cf, omega, log_beta, log_gamma, r):
             "log_gamma": log_gamma, "dispersion": r}
 
 
+def _velo_call(name, S, U, params, delta_nu, Db, lgamma_k_sum,
+               want_disp=False):
+    """Check, widen where the shape needs it, size the buffers from the
+    plan, launch and count one velocity kernel.  Returns (loss, gene
+    partials summed over the cell tiles (Ng, W + 3 + Nb) or None, [dzeta,
+    dzeta_dphi, dcf, domega] at width W or [], (Nh, Nb, fold, kernel
+    delta_nu))."""
+    width, fold = _on_card(name, [("S", S), ("U", U)], params, delta_nu, Db,
+                           velo_layout().max_nb)
+    nu, (zeta, zdphi), dnu_k, Db_k = widen_inputs(
+        params["nu"], [params["zeta"], params["zeta_dphi"]], delta_nu, Db,
+        width, fold)
+    lib = _velo_lib()
+    Ng, Nc = S.shape
+    Nb_k = 0 if dnu_k is None else dnu_k.shape[0]
+    cut = "fwdgrad" if name == "velo_fwdgrad" else "fwd"
+    s16, u16 = S.dtype == torch.int16, U.dtype == torch.int16
+    skip_k = lgamma_k_sum is not None
+    dev = S.device
+    plan = velo_plan(cut, s16, u16, Ng, Nc, width, Nb_k, skip_k,
+                     bool(want_disp), dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    loss_part = torch.empty(plan.grid, dtype=torch.float64, device=dev)
+    args = [_ptr(S), int(s16), _ptr(U), int(u16), _ptr(nu), _ptr(zeta),
+            _ptr(zdphi), *(_ptr(params[k]) for k in (
+                "count_factor", "omega", "log_beta", "log_gamma",
+                "dispersion")),
+            _ptr(dnu_k), _ptr(Db_k), Ng, Nc, width, Nb_k, int(skip_k)]
+    gene_part, cell = None, []
+    if cut == "fwd":
+        fn, tail = lib.vct_velo_fwd, [plan.grid, loss_part.data_ptr()]
+    else:
+        tiles = -(-Nc // lib.layout.cells_per_tile)
+        gene_part = torch.empty((tiles, Ng, width + _VELO_GENE_EXTRA + Nb_k),
+                                **f32)
+        cell_piece = torch.empty((plan.pieces, 2 * width + 2, Nc), **f32)
+        cell = [torch.empty(shape, **f32)
+                for shape in ((Nc, width), (Nc, width), (Nc,), (Nc,))]
+        fn = lib.vct_velo_fwdgrad
+        tail = [int(bool(want_disp)), plan.grid, plan.pieces,
+                loss_part.data_ptr(), gene_part.data_ptr(),
+                cell_piece.data_ptr(), *(t.data_ptr() for t in cell)]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(*args, *tail, stream)
+    _raise_on(rc, name)
+    LAUNCHES[name] += 1
+    loss = _finish_loss(loss_part.sum(), lgamma_k_sum)
+    # fixed-order reduction over the cell tiles (no float atomics)
+    gene = None if gene_part is None else gene_part.sum(0)
+    Nb = 0 if delta_nu is None else delta_nu.shape[0]
+    return loss, gene, cell, (params["nu"].shape[1], Nb, fold, dnu_k)
+
+
 def velo_fwd(S, U, nu, zeta, zeta_dphi, cf, omega, log_beta, log_gamma, r,
              delta_nu=None, Db=None, lgamma_k_sum=None):
     """Loss of the fused velocity S+U NB likelihood on the card."""
-    loss, _, _ = _velo_launch(
-        "velo_fwd", [("S", S), ("U", U)],
+    return _velo_call(
+        "velo_fwd", S, U,
         _velo_params(nu, zeta, zeta_dphi, cf, omega, log_beta, log_gamma, r),
-        delta_nu, Db, lgamma_k_sum,
-    )
-    return loss
+        delta_nu, Db, lgamma_k_sum)[0]
 
 
 def velo_fwdgrad(S, U, nu, zeta, zeta_dphi, cf, omega, log_beta, log_gamma,
@@ -615,22 +737,22 @@ def velo_fwdgrad(S, U, nu, zeta, zeta_dphi, cf, omega, log_beta, log_gamma,
                  want_disp=True):
     """Loss and every gradient of the fused velocity S+U NB likelihood on
     the card, as `velo_fwdgrad_plain`.  The kernel's gene partials hold
-    [dnu (Nh), ddisp, dlog_beta, sum_c g_x, ddelta_nu (Nb)] per gene;
+    [dnu (width), ddisp, dlog_beta, sum_c g_x, ddelta_nu (Nb)] per gene;
     dlog_gamma is sum_c g_x times exp(log_gamma), applied after the sum."""
-    loss, gene, (dzeta, dzdphi, dcf, domega) = _velo_launch(
-        "velo_fwdgrad", [("S", S), ("U", U)],
-        _velo_params(nu, zeta, zeta_dphi, cf, omega, log_beta, log_gamma, r),
-        delta_nu, Db, lgamma_k_sum, want_disp=want_disp,
-    )
-    Nh = nu.shape[1]
-    dnu = gene[:, :Nh].contiguous()
-    ddisp = gene[:, Nh].contiguous()
-    dlbeta = gene[:, Nh + 1].contiguous()
-    dlgamma = gene[:, Nh + 2] * torch.exp(log_gamma)
-    ddnu = gene[:, Nh + 3:].T.contiguous() if delta_nu is not None else None
-    return loss, (dnu, dzeta, dzdphi, dcf, domega, dlbeta, dlgamma, ddisp,
-                  ddnu)
-
+    loss, gene, (dzeta, dzdphi, dcf, domega), (Nh, Nb, fold, dnu_k) = \
+        _velo_call(
+            "velo_fwdgrad", S, U,
+            _velo_params(nu, zeta, zeta_dphi, cf, omega, log_beta, log_gamma,
+                         r),
+            delta_nu, Db, lgamma_k_sum, want_disp)
+    W = dzeta.shape[1]
+    ddnu = gene[:, W + 3:].T.contiguous() if dnu_k is not None else None
+    dnu, (dzeta, dzdphi), ddnu = narrow_grads(
+        gene[:, :W], [dzeta, dzdphi], ddnu, Nh, Nb, fold)
+    return loss, (dnu, dzeta, dzdphi, dcf, domega,
+                  gene[:, W + 1].contiguous(),
+                  gene[:, W + 2] * torch.exp(log_gamma),
+                  gene[:, W].contiguous(), ddnu)
 
 # ---------------------------------------------------------------------------
 # autograd bindings
@@ -695,10 +817,14 @@ def nb_loglik_fused(S, nu, zeta, count_factor, dispersion,
 
     Returns a 0-d float32 tensor, differentiable w.r.t. nu, zeta,
     count_factor, dispersion and delta_nu.
+
+    On the card the basis is limited to MAX_WIDTH = 16 columns: Nh <= 16,
+    and Nh + Nb <= 16 unless Nh <= 7 and Nb <= 4 (`kernel_width`); beyond
+    that it raises ValueError.  CPU tensors take any shape.
     """
     _check_inputs([("S", S)], _phase_params(nu, zeta, count_factor,
                                             dispersion), delta_nu, Db,
-                  _phase_max_nb)
+                  phase_layout().max_nb)
     return _fused(
         (phase_fwd, phase_fwdgrad), (phase_fwd_plain, phase_fwdgrad_plain), 1,
         (S, nu, zeta, count_factor, dispersion, delta_nu, Db),
@@ -712,16 +838,17 @@ def nbsu_loglik_fused(S, U, nu, zeta, zeta_dphi, count_factor, omega,
                       disp_grad=True):
     """Fused velocity-stage joint NB log-likelihood of S and U.
 
-    Same contract as `nb_loglik_fused`, plus U (Ng, Nc) counts of the same
-    dtype as S, zeta_dphi (Nc, Nh), omega (Nc,), log_beta and log_gamma
-    (Ng,).  ``lgamma_k_sum`` is ``sum(lgamma(S+1)) + sum(lgamma(U+1))``.
+    Same contract as `nb_loglik_fused`, the MAX_WIDTH limit included, plus
+    U (Ng, Nc) counts, int16 or float32 whatever S is, zeta_dphi (Nc, Nh),
+    omega (Nc,), log_beta and log_gamma (Ng,).  ``lgamma_k_sum`` is ``sum(lgamma(S+1)) + sum(lgamma(U+1))``.
     Differentiable w.r.t. nu, zeta, zeta_dphi, count_factor, omega,
     log_beta, log_gamma, dispersion and delta_nu; ``disp_grad=False``
     returns a ZERO dispersion gradient.
     """
     params = _velo_params(nu, zeta, zeta_dphi, count_factor, omega,
                           log_beta, log_gamma, dispersion)
-    _check_inputs([("S", S), ("U", U)], params, delta_nu, Db, _velo_max_nb)
+    _check_inputs([("S", S), ("U", U)], params, delta_nu, Db,
+                  velo_layout().max_nb)
     return _fused(
         (velo_fwd, velo_fwdgrad), (velo_fwd_plain, velo_fwdgrad_plain), 2,
         (S, U, *params.values(), delta_nu, Db), lgamma_k_sum, disp_grad,
