@@ -46,7 +46,19 @@ in order; any failure exits non-zero and prints no result line:
        use_fused_nb=True) -> VelocityFitModel conditioned on stage 1's nu,
        phi_xy and shape_inv, num_samples=2 -> fit(num_steps=50) -> one
        loss-only evaluation;
-  7. print the kernel table as one JSON line, the nvidia-smi line, and
+  7. [quickstart]: the README quick start and example 06's gauge fixes at
+     full width through the port's public API: the counts (the main path's
+     draw, 1,918 cycling genes and 130 fillers, a three-class phase label)
+     written to disk as CSR (.h5ad when h5py imports, else MatrixMarket) and
+     read back, normalize_total, Phases.from_pca_heuristic on the card (a
+     4,096-cell subset held against the CPU's float64 angles to 1e-5 rad)
+     and from_lda_heuristic, invert_direction (twice: the same bits back) and
+     shift_zero on the pair, the phase fit (check_model clean, 20 steps,
+     two snapshots) and the LRMN velocity fit (20 steps), each counted
+     (phase_fwdgrad and velo_fwdgrad once per step), CSV save / load exact,
+     period_hours and the grid MLE prior (Poisson, 100 bins); every time
+     printed beside the card;
+  8. print the kernel table as one JSON line, the nvidia-smi line, and
      last {"ok": true, "device": {...}}.
 
 The configuration is the repository's Stereo-seq-class fit (bench.py
@@ -904,6 +916,247 @@ def velocity_main_path(torch, seed, adata, stage1, num_steps=50,
     return launches, steps_per_s, peak
 
 
+def _write_counts(adata, layers, directory):
+    """The counts on disk as CSR: one .h5ad if h5py imports, else a
+    MatrixMarket file per layer with the cell and gene names beside them
+    (the 10x layout).  Returns (route, read), ``read()`` loading them back
+    into an AnnDataLite through the port."""
+    import importlib.util
+    import os
+
+    import pandas as pd
+
+    import velocycle_tpu_torch as vt
+    from velocycle_tpu_torch import native
+
+    if importlib.util.find_spec("h5py") is not None:
+        path = os.path.join(directory, "counts.h5ad")
+        vt.write_h5ad(vt.AnnDataLite(obs=adata.obs, var=adata.var, layers=layers),
+                      path)
+        return ".h5ad (write_h5ad / read_h5ad)", lambda: vt.read_h5ad(path)
+    import scipy.io as sio
+
+    for name, m in layers.items():
+        sio.mmwrite(os.path.join(directory, f"{name}.mtx"), m)
+    adata.obs.to_csv(os.path.join(directory, "barcodes.tsv"), sep="\t")
+    adata.var.to_csv(os.path.join(directory, "features.tsv"), sep="\t")
+
+    def read():
+        kw = dict(sep="\t", index_col=0, dtype=str, keep_default_na=False)
+        obs = pd.read_csv(os.path.join(directory, "barcodes.tsv"), **kw)
+        var = pd.read_csv(os.path.join(directory, "features.tsv"), **kw)
+        return vt.AnnDataLite(obs=obs, var=var, layers={
+            name: native.read_mtx(os.path.join(directory, f"{name}.mtx")).tocsr()
+            for name in layers})
+
+    return "MatrixMarket (scipy.io.mmwrite / native.read_mtx)", read
+
+
+def _eigh_note(torch, mat, device="cuda"):
+    """Why the PCA prior takes its eigendecomposition on the host: the
+    card's covariance against the host's, and the card's eigh of it
+    against LAPACK's (top-2 eigenvectors, signs aligned)."""
+    X = torch.log(torch.as_tensor(mat, device=device) + 0.1)
+    Xc = X - X.mean(0)
+    cov = Xc.T @ Xc / (X.shape[0] - 1)
+    Xh = Xc.cpu()
+    cov_err = float(((Xh.T @ Xh / (X.shape[0] - 1)) - cov.cpu()).abs().max()
+                    / cov.abs().max())
+    vd = torch.linalg.eigh(cov)[1][:, -2:].cpu()
+    vh = torch.linalg.eigh(cov.cpu())[1][:, -2:]
+    vd = vd * torch.sign((vd * vh).sum(0))
+    print(f"[quickstart] PCA subset covariance, card vs host: max rel diff "
+          f"{cov_err:.2e}; top-2 eigenvectors of that covariance, card eigh vs "
+          f"host LAPACK: max diff {float((vd - vh).abs().max()):.2e}")
+
+
+def phase_quickstart(torch, seed, card, num_steps=20, pca_subset=4096):
+    """The README quick start and example 06's gauge fixes at full width,
+    through the port's public API: counts from disk, normalize_total, the
+    PCA prior (on the card) and the LDA prior, the joint gauge fixes, the
+    phase fit with check_model and snapshots, CSV save / load, the velocity
+    fit conditioned on it, period_hours, and the grid MLE prior.  Each fit
+    is counted (counts set to 0 just before it, read just after).  Returns
+    {kernel: launches}."""
+    import importlib.util
+    import resource
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import scipy.sparse as sp
+
+    import velocycle_tpu_torch as vt
+    from velocycle_tpu_torch import native
+    from velocycle_tpu_torch.ops import nb_kernels as K
+    from velocycle_tpu_torch.ops.circular import circular_corrcoef, circular_distance
+
+    def took(label, t0, sync=False):
+        if sync:
+            torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        print(f"[quickstart] {label}: {dt:.2f} s on {card}")
+        return dt
+
+    print("[quickstart] installed on this machine: " + ", ".join(
+        f"{m} {'yes' if importlib.util.find_spec(m) else 'no'}"
+        for m in ("h5py", "sklearn")))
+    check(native.available(), f"native ingest not available: {native.build_error()}")
+    print(f"[quickstart] native ingest library: available, g++ build "
+          f"{native.build_seconds():.2f} s in this process")
+    torch.cuda.reset_peak_memory_stats()
+
+    # the counts of _make_adata, 1,918 cycling genes and 130 fillers, and
+    # a three-class phase label cut from the drawn angles (example 06)
+    drawn, _, cells, angles = _make_adata(torch, seed, "cuda")
+    large = list(vt.genes.get_cycling_gene_set("Large"))
+    names = large + [f"FILLER{i:03d}" for i in range(NG - len(large))]
+    check(len(set(names)) == NG, "gene names are not unique")
+    drawn.var.index = names
+    drawn.obs["phase"] = np.select([angles < 2.0, angles < 4.0], ["G1", "S"], "G2M")
+    layers = {k: sp.csr_matrix(drawn.layers[k]) for k in ("spliced", "unspliced")}
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        t0 = time.perf_counter()
+        route, read = _write_counts(drawn, layers, tmp)
+        took(f"write {NG} x {NC} spliced + unspliced CSR ({route})", t0)
+        t0 = time.perf_counter()
+        adata = read()
+        took("read back", t0)
+        for k, m in layers.items():
+            back = adata.layers[k]
+            check(sp.issparse(back) and back.shape == (NC, NG)
+                  and (back != m).nnz == 0, f"{k} changed on disk")
+        check(list(adata.var.index) == names and list(adata.obs.index) == cells
+              and list(adata.obs["phase"]) == list(drawn.obs["phase"]),
+              "names or labels changed on disk")
+        del drawn, layers
+
+        t0 = time.perf_counter()
+        vt.normalize_total(adata)
+        took("normalize_total", t0)
+        cycle = vt.Cycle.trivial_prior(list(adata.var.index), harmonics=H)
+
+        t0 = time.perf_counter()
+        pca = vt.Phases.from_pca_heuristic(adata, genes_to_use=large)
+        took(f"Phases.from_pca_heuristic ({len(large)} genes, on the card)", t0,
+             sync=True)
+        sub = adata[np.arange(pca_subset), :]
+        on_card = vt.Phases.from_pca_heuristic(sub, genes_to_use=large)
+        on_cpu = vt.Phases.from_pca_heuristic(sub, genes_to_use=large, device="cpu")
+        err = float(circular_distance(torch.as_tensor(on_card.phis),
+                                      torch.as_tensor(on_cpu.phis)).abs().max())
+        print(f"[quickstart] PCA angles on {pca_subset} cells, card vs CPU "
+              f"(float64): max {err:.3e} rad")
+        check(err <= 1e-5, f"card PCA angles differ from the CPU's by {err} rad")
+        _eigh_note(torch, np.asarray(sub.layers["S_sz"])[
+            :, np.isin(np.asarray(sub.var.index), large)])
+
+        t0 = time.perf_counter()
+        prior = vt.Phases.from_lda_heuristic(adata, labels="phase")
+        took(f"Phases.from_lda_heuristic ({NG} genes, 3 classes, host)", t0)
+        print(f"[quickstart] circular corr of the PCA and LDA priors: "
+              f"{float(circular_corrcoef(torch.as_tensor(pca.phis), torch.as_tensor(prior.phis))):.4f}")
+
+        # example 06's gauge fixes, jointly on (Cycle, Phases)
+        before = prior.phi_xy.values.copy(), cycle.means.values.copy()
+        vt.invert_direction(cycle, prior)
+        vt.invert_direction(cycle, prior)
+        check(np.array_equal(prior.phi_xy.values, before[0])
+              and np.array_equal(cycle.means.values, before[1]),
+              "invert_direction twice did not give the same bits back")
+        shift, maxcor, _ = prior.max_corr(adata.obs["n_scounts"].values)
+        vt.shift_zero(cycle, prior, phase=shift)
+        print(f"[quickstart] gauge: invert_direction twice bit-identical; "
+              f"shift_zero(phase={shift:.4f}) at UMI max-corr {maxcor:.4f}")
+
+        t0 = time.perf_counter()
+        mp = vt.preprocess_for_phase_estimation(
+            adata, cycle, prior, n_harmonics=H, with_delta_nu=False,
+            use_fused_nb=True)
+        took("preprocess_for_phase_estimation", t0, sync=True)
+        check(mp.data.S.dtype == torch.int16, "counts from disk not int16")
+        fit = vt.PhaseFitModel(mp, num_samples=2, n_per_bin=2)
+        problems = fit.check_model()
+        check(problems == [], f"check_model found {problems}")
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        fit.fit(num_steps=num_steps, seed=seed, store_output=True,
+                intermediate_output_step_size=num_steps // 2, store_num_samples=2)
+        fit_s = took(f"PhaseFitModel.fit({num_steps} steps, 2 snapshots, 2 "
+                     "posterior draws)", t0, sync=True)
+        launches = dict(K.LAUNCHES)
+        peak1 = torch.cuda.max_memory_allocated()
+        losses = np.asarray(fit.losses)
+        check(np.isfinite(losses).all() and losses[-10:].mean() < losses[0],
+              f"stage-1 losses {losses[0]} -> {losses[-1]}")
+        check(launches["phase_fwdgrad"] == num_steps and launches["phase_fwd"] == 0,
+              f"stage 1 launched {launches}, want phase_fwdgrad x{num_steps}")
+        snaps = fit.intermediate_output
+        check([s["step"] for s in snaps] == [num_steps // 2, num_steps],
+              f"snapshots at {[s['step'] for s in snaps]}")
+        check(all(s["phi_xy"].shape == (2, NC, 2) for s in snaps), "snapshot shapes")
+
+        t0 = time.perf_counter()
+        fit.cycle_fit.save(Path(tmp) / "cycle.csv")
+        fit.phase_fit.save(Path(tmp) / "phases.csv")
+        cycle_fit = vt.Cycle.load(Path(tmp) / "cycle.csv")
+        phase_fit = vt.Phases.load(Path(tmp) / "phases.csv")
+        took("save + load of cycle_fit and phase_fit (CSV)", t0)
+        for got, want in ((cycle_fit.means, fit.cycle_fit.means),
+                          (cycle_fit.stds, fit.cycle_fit.stds),
+                          (phase_fit.phi_xy, fit.phase_fit.phi_xy)):
+            check(np.array_equal(got.values.astype(want.values.dtype), want.values)
+                  and list(got.columns) == list(want.columns), "CSV round trip")
+
+        t0 = time.perf_counter()
+        speed = vt.AngularSpeed.trivial_prior(["c0"], harmonics=1, means=0.2, stds=0.5)
+        vmp = vt.preprocess_for_velocity_estimation(
+            adata, cycle_fit, phase_fit, speed, n_harmonics=H,
+            omega_n_harmonics=1, with_delta_nu=False, model_type="lrmn",
+            use_fused_nb=True)
+        took("preprocess_for_velocity_estimation", t0, sync=True)
+        p = fit.params
+        vfit = vt.VelocityFitModel(vmp, condition_on={
+            "nu": p["nu_locs"], "phi_xy": p["phixy_locs"],
+            "shape_inv": p["shape_inv_locs"]}, num_samples=2, n_per_bin=1)
+        del fit, mp
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        vfit.fit(num_steps=num_steps, seed=seed)
+        vfit_s = took(f"VelocityFitModel.fit({num_steps} steps, LRMN, 2 posterior "
+                      "draws)", t0, sync=True)
+        vlaunches = dict(K.LAUNCHES)
+        peak2 = torch.cuda.max_memory_allocated()
+        vlosses = np.asarray(vfit.losses)
+        check(np.isfinite(vlosses).all() and vlosses[-10:].mean() < vlosses[0],
+              f"stage-2 losses {vlosses[0]} -> {vlosses[-1]}")
+        check(vlaunches["velo_fwdgrad"] == num_steps and vlaunches["velo_fwd"] == 0,
+              f"stage 2 launched {vlaunches}, want velo_fwdgrad x{num_steps}")
+        periods = vfit.period_hours()
+        check(periods.shape == (1,) and np.isfinite(periods).all(), f"period {periods}")
+        vfit.posterior = None
+
+        t0 = time.perf_counter()
+        mle = vt.Phases.flat_prior(adata)
+        mle.from_cycle_mle(cycle_fit, adata, noisemodel="Poisson", bins=100)
+        took("Phases.from_cycle_mle (Poisson, 100 bins, on the card)", t0, sync=True)
+        check(mle.shape == (2, NC) and np.isfinite(mle.phi_xy.values).all()
+              and np.allclose(mle.concentrations, 10.0), "bad grid MLE phases")
+    host_peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+    print(f"[quickstart] losses: stage 1 {losses[0]:.6g} -> {losses[-1]:.6g}, "
+          f"stage 2 {vlosses[0]:.6g} -> {vlosses[-1]:.6g}; period_hours "
+          f"{periods[0]:.6g}; fits {fit_s:.2f} s and {vfit_s:.2f} s")
+    print(f"[quickstart] launches: stage 1 {launches}; stage 2 {vlaunches}")
+    print(f"[quickstart] peak device memory: stage-1 fit {peak1 / 2**30:.2f} GiB, "
+          f"stage-2 fit {peak2 / 2**30:.2f} GiB; host peak RSS of the process "
+          f"{host_peak:.2f} GiB; on {card}")
+    return launches, vlaunches
+
+
 def profile_steps(torch, svi, state, data, tag, n=5):
     """Device time by kernel over a few SVI steps (torch.profiler); only
     device-side kernel events are summed (an op row and the kernel it
@@ -1014,6 +1267,10 @@ def main(argv=None):
     # each kernel's launches from the stage that drives it
     launches.update(velo_fwd=vlaunches["velo_fwd"],
                     velo_fwdgrad=vlaunches["velo_fwdgrad"])
+    del adata, stage1
+    torch.cuda.empty_cache()
+    phase_quickstart(torch, args.seed, smi)
+    torch.cuda.empty_cache()
 
     print("kernels: " + ", ".join(f"{k} ({v} launches)" for k, v in sorted(launches.items())))
     base = "velocycle_tpu/ops/nb_kernels.py"

@@ -198,10 +198,15 @@ def test_package_never_imports_jax():
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     offenders = [f for f in files if pat.search(open(f).read())]
     assert not offenders, offenders
+    assert os.path.join(REPO, "velocycle_tpu_torch", "native", "__init__.py") in files
+    assert os.path.join(REPO, "velocycle_tpu_torch", "genes.py") in files
     code = ("import sys, velocycle_tpu_torch, velocycle_tpu_torch.fit, "
             "velocycle_tpu_torch.convert, velocycle_tpu_torch.ops.nb_kernels, "
             "velocycle_tpu_torch.ops.ladder_kernels, "
-            "velocycle_tpu_torch.tools.kernel_profile; "
+            "velocycle_tpu_torch.tools.kernel_profile, "
+            "velocycle_tpu_torch.native, velocycle_tpu_torch.genes, "
+            "velocycle_tpu_torch.alignment, velocycle_tpu_torch.anndata_lite; "
+            "velocycle_tpu_torch.native.available(); "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'optax', 'velocycle_tpu')); print(bad)")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

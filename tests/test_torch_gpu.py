@@ -559,3 +559,61 @@ def test_cuda_ladder_is_bit_reproducible_and_counts_launches():
     with pytest.raises(ValueError, match="contiguous"):
         L.ladder_matmul(args[0], args[1], args[2].T.contiguous().T)
     assert L.LAUNCHES["matmul"] == 2
+
+
+# ---------------------------------------------------------------------------
+# the real-data front door on the card machine
+# ---------------------------------------------------------------------------
+
+def _normalized_sim(Nc, Ng, seed):
+    import velocycle_tpu_torch as T
+
+    adata = T.simulate_data(Nc=Nc, Ng=Ng, seed=seed)
+    T.normalize_total(adata)
+    return T, adata
+
+
+def test_cuda_pca_prior_matches_the_cpu_path():
+    """The PCA prior on the card against the same function on the CPU, both
+    float64: angles within 1e-5 rad, the same components (no sign flip)."""
+    dev = _cuda_or_skip()
+    T, adata = _normalized_sim(3000, 200, seed=4)
+    genes = list(adata.var.index[::2])
+    a = T.Phases.from_pca_heuristic(adata, genes_to_use=genes, device=dev)
+    b = T.Phases.from_pca_heuristic(adata, genes_to_use=genes, device="cpu")
+    arc = np.abs(np.angle(np.exp(1j * (a.phis - b.phis)))).max()
+    assert arc <= 1e-5, arc
+    np.testing.assert_allclose(a.pca.components_, b.pca.components_, atol=1e-9)
+    np.testing.assert_allclose(a.pcs, b.pcs, atol=1e-9 * np.abs(b.pcs).max())
+
+
+@pytest.mark.parametrize("noisemodel", ["Poisson", "NegativeBinomial"])
+def test_cuda_cycle_mle_in_chunks_matches_one_chunk(noisemodel, monkeypatch):
+    """The grid MLE on the card walks the cells in chunks; the result is the
+    one-chunk result bit for bit."""
+    from velocycle_tpu_torch.containers import phases as PH
+
+    dev = _cuda_or_skip()
+    T, adata = _normalized_sim(2000, 60, seed=5)
+    nu = np.asarray(adata.uns["simulated_nu"]).T
+    cycle = T.Cycle.from_array(nu, np.full(nu.shape, 0.3), list(adata.var.index))
+    one = T.Phases.flat_prior(adata)
+    one.from_cycle_mle(cycle, adata, noisemodel=noisemodel, device=dev)
+    monkeypatch.setattr(PH, "MLE_CHUNK_BYTES", 100 * 60 * 4 * 37)
+    chunked = T.Phases.flat_prior(adata)
+    chunked.from_cycle_mle(cycle, adata, noisemodel=noisemodel, device=dev)
+    np.testing.assert_array_equal(chunked.phi_xy.values, one.phi_xy.values)
+    assert np.allclose(one.concentrations, 10.0)
+
+
+def test_native_ingest_builds_on_the_card_machine():
+    import scipy.sparse as sp
+
+    from velocycle_tpu_torch import native
+
+    _cuda_or_skip()
+    assert native.available(), native.build_error()
+    m = sp.random(300, 70, density=0.1, format="csr", random_state=0,
+                  dtype=np.float32)
+    np.testing.assert_array_equal(native.csr_to_dense(m, transpose=True),
+                                  m.toarray().T)

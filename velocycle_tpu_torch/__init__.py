@@ -11,10 +11,17 @@ likelihoods of both stages run as hand-written CUDA kernels for Hopper
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 with no card and no explicit CPU request they raise (`device.py`).
 
-This package imports torch, numpy, scipy and pandas only — never jax or the
-JAX package, which stays in the repository as the reference.
+Real data enters as in the JAX package: `read_h5ad` (or `native.read_mtx`),
+`normalize_total`, `genes.get_cycling_gene_set`, the `Phases` prior builders
+and the joint gauge fixes `invert_direction` / `shift_zero`.
+
+This package imports torch, numpy, scipy and pandas (h5py only inside the
+.h5ad functions) — never jax or the JAX package, which stays in the
+repository as the reference.
 """
-from .anndata_lite import AnnDataLite  # noqa: F401
+from . import alignment, genes, native  # noqa: F401
+from .alignment import invert_direction, shift_zero  # noqa: F401
+from .anndata_lite import AnnDataLite, read_h5ad, write_h5ad  # noqa: F401
 from .containers import AngularSpeed, Cycle, FourierTable, Phases  # noqa: F401
 from .device import resolve_device  # noqa: F401
 from .fit import PhaseFitModel, VelocityFitModel  # noqa: F401
@@ -22,6 +29,7 @@ from .models.metapars import Metapars, PhaseData, VelocityData  # noqa: F401
 from .preprocessing import (  # noqa: F401
     filter_shared_genes,
     make_design_matrix,
+    normalize_total,
     preprocess_for_phase_estimation,
     preprocess_for_velocity_estimation,
 )
@@ -39,9 +47,15 @@ __all__ = [
     "VelocityData",
     "VelocityFitModel",
     "filter_shared_genes",
+    "genes",
+    "invert_direction",
     "make_design_matrix",
+    "normalize_total",
     "preprocess_for_phase_estimation",
     "preprocess_for_velocity_estimation",
+    "read_h5ad",
     "resolve_device",
+    "shift_zero",
     "simulate_data",
+    "write_h5ad",
 ]

@@ -1,13 +1,19 @@
 """Cycle: per-gene Fourier harmonic coefficients of the cell-cycle manifold.
 
-Port of the array, constructor and CSV part of `velocycle_tpu/containers/
-cycle.py` on the shared `FourierTable` base.  Columns are genes; rows are
-``nu0, nu1_cos, nu1_sin, ...``.  After a fit the container also holds the
-per-gene NB dispersion (``disp``).  The circle-symmetry operations
-(shift_zero, invert_direction, orientation checks) and the spline prior are
-not ported yet.
+Port of `velocycle_tpu/containers/cycle.py` on the shared `FourierTable`
+base.  Columns are genes; rows are ``nu0, nu1_cos, nu1_sin, ...``.  After a
+fit the container also holds the per-gene NB dispersion (``disp``) and, after
+a velocity fit, the kinetics (``log_gammas``, ``log_betas``).  The spline
+prior is not ported yet.
+
+`shift_zero` keeps the JAX package's deliberate divergence from the
+reference: harmonic ``h`` is rotated by ``h*delta`` (the correct phase
+shift of a Fourier series), where the reference rotates every harmonic by
+the first harmonic's angle.
 """
 from __future__ import annotations
+
+from math import atan2
 
 import numpy as np
 
@@ -68,6 +74,60 @@ class Cycle(FourierTable):
             np.broadcast_to(stds, (k, n)).copy(),
             gene_names,
         )
+
+    # -- circle-symmetry operations ---------------------------------------
+    def shift_zero(self, gene=None, phase=None):
+        """Rotate the manifold so ``gene``'s first-harmonic peak (or the
+        given ``phase``) lands at phase zero.  In place."""
+        if gene is not None:
+            if gene not in self.means.columns:
+                raise KeyError(f"gene {gene!r} not found in Cycle")
+            c1, s1 = self.means[gene].iloc[1:3].values
+            delta = atan2(s1, c1)
+        elif phase is not None:
+            delta = float(phase)
+        else:
+            raise ValueError("specify either gene= or phase= for the shift")
+
+        vals = self.means.values.copy()
+        for h in range(1, self.harmonics + 1):
+            ch, sh = np.cos(h * delta), np.sin(h * delta)
+            c_rows = vals[2 * h - 1, :].copy()
+            s_rows = vals[2 * h, :].copy()
+            # nu expressed in phi' = phi - delta coordinates
+            vals[2 * h - 1, :] = c_rows * ch + s_rows * sh
+            vals[2 * h, :] = -c_rows * sh + s_rows * ch
+        self.set_means(vals)
+
+    def invert_direction(self):
+        """Mirror the cycle direction: negate every sin row.  In place."""
+        vals = self.means.values.copy()
+        sin_rows = 2 * (1 + np.arange(self.harmonics))
+        vals[sin_rows, :] = -vals[sin_rows, :]
+        self.set_means(vals)
+
+    def check_orientation(self, gene_pair=("TOP2A", "E2F1")):
+        """True when the first gene peaks before the second going around the
+        circle (the reference's TOP2A/E2F1 orientation test)."""
+        g1, g2 = gene_pair
+        if g1 not in self.means.columns or g2 not in self.means.columns:
+            raise KeyError(f"gene pair {gene_pair} not found in Cycle")
+        phi = []
+        for g in (g1, g2):
+            c1, s1 = self.means[g].iloc[1:3].values
+            a = atan2(s1, c1)
+            phi.append(a + 2 * np.pi if a < 0 else a)
+        return (phi[1] - phi[0]) > 0
+
+    def peak_phases(self):
+        """Per-gene first-harmonic peak phase in [0, 2*pi)."""
+        c1 = self.means.iloc[1].values
+        s1 = self.means.iloc[2].values
+        return np.mod(np.arctan2(s1, c1), 2 * np.pi)
+
+    def amplitudes(self):
+        """Per-gene first-harmonic amplitude |nu1|."""
+        return np.hypot(self.means.iloc[1].values, self.means.iloc[2].values)
 
 
 def reorder(cycle, gene_list):

@@ -89,6 +89,37 @@ class FourierTable:
         self.means = pd.concat([self.means, ext_means], axis=1)
         self.stds = pd.concat([self.stds, ext_stds], axis=1)
 
+    def add_harmonics(self, extra_harmonics=1, means=None, stds=None):
+        """Append ``extra_harmonics`` cos/sin row pairs (defaults: mean 0,
+        std 10).  In place."""
+        n_cols = self.shape[1]
+        base = int(self.harmonics)
+        mean_rows = (
+            None if means is None
+            else np.broadcast_to(means, (2 * extra_harmonics, n_cols)).copy()
+        )
+        std_rows = (
+            None if stds is None
+            else np.broadcast_to(stds, (2 * extra_harmonics, n_cols)).copy()
+        )
+        for i in range(extra_harmonics):
+            h = base + 1 + i
+            for j, trig in enumerate(("cos", "sin")):
+                row = f"nu{h}_{trig}"
+                self.means.loc[row] = (
+                    np.zeros(n_cols) if mean_rows is None
+                    else mean_rows[2 * i + j]
+                )
+                self.stds.loc[row] = (
+                    10.0 * np.ones(n_cols) if std_rows is None
+                    else std_rows[2 * i + j]
+                )
+
+    def remove_harmonics(self, n=1):
+        """Drop the last ``n`` coefficient rows.  In place."""
+        self.means = self.means.iloc[:-n, :]
+        self.stds = self.stds.iloc[:-n, :]
+
     # -- device views ------------------------------------------------------
     @property
     def means_tensor(self):

@@ -1,8 +1,8 @@
 """Effect handlers: the probabilistic-program transforms of the model DSL.
 
 Port of `velocycle_tpu/core/handlers.py` (sample/param/factor/
-deterministic/plate and the trace, seed, substitute, condition, replay and
-block handlers).  A model is a plain Python function; interpreting it under
+deterministic/plate, the trace, seed, substitute, condition, replay and
+block handlers, and `check_plate_shapes`).  A model is a plain Python function; interpreting it under
 a handler stack yields a trace of torch tensors, and autograd records the
 computation as it runs.
 
@@ -33,6 +33,7 @@ __all__ = [
     "Trace",
     "fold_in",
     "site_seed",
+    "check_plate_shapes",
 ]
 
 _STACK = []
@@ -275,3 +276,47 @@ class plate(Messenger):
         msg.setdefault("cond_indep_stack", []).append(
             (self.name, self.size, self.dim)
         )
+
+
+def check_plate_shapes(fn, *args, key=None, **kwargs):
+    """Verify plate/shape consistency of a model or guide.
+
+    Traces ``fn`` (under `seed` with root ``key``, default 0) and checks,
+    for every sample site, that
+
+      * each declared plate's ``size`` appears among the site's value
+        dimensions (size-1 plates broadcast and always pass), and
+      * ``fn.log_prob(value)`` has a shape broadcast-compatible with the
+        value's leading dimensions.
+
+    Returns a list of human-readable violation strings (empty = clean).
+    """
+    tr = trace(seed(fn, 0 if key is None else key)).get_trace(*args, **kwargs)
+    problems = []
+    for name, site in tr.items():
+        if site["type"] != "sample":
+            continue
+        shape = tuple(torch.as_tensor(site["value"]).shape)
+        for pname, size, _dim in site.get("cond_indep_stack", []):
+            if size <= 1:
+                continue
+            if size not in shape:
+                problems.append(
+                    f"site {name!r}: plate {pname!r} (size {size}) does "
+                    f"not appear in value shape {shape}"
+                )
+        fn_ = site.get("fn")
+        if fn_ is not None:
+            with torch.no_grad():
+                lp_shape = tuple(torch.as_tensor(fn_.log_prob(site["value"])).shape)
+            # log_prob batch dims must align with the value's leading dims
+            # (event dims are summed out by to_event)
+            ok = len(lp_shape) <= len(shape) and all(
+                a == b or a == 1 or b == 1 for a, b in zip(lp_shape, shape)
+            )
+            if not ok:
+                problems.append(
+                    f"site {name!r}: log_prob shape {lp_shape} does not "
+                    f"align with value shape {shape}"
+                )
+    return problems

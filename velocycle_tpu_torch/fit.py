@@ -79,7 +79,9 @@ class _FitModel:
         self.svi = None
 
     def fit(self, optimizer=None, loss=None, num_steps=1000, seed=0,
-            log_every=0):
+            log_every=0, callback=None, store_output=False,
+            intermediate_output_step_size=100, store_num_samples=50,
+            live_plot=False):
         """Run SVI and extract posterior estimates.
 
         Args:
@@ -90,7 +92,19 @@ class _FitModel:
           num_steps: SVI steps (>= 1).
           seed: root integer seed of the fit's random draws.
           log_every: print the loss at chunk ends when non-zero.
+          callback: ``callback(step, state, last_loss)`` at chunk ends.
+          store_output: keep a posterior snapshot every
+            ``intermediate_output_step_size`` steps (chunk ends) in
+            ``self.intermediate_output``: ``store_num_samples`` draws of the
+            latent sites (no ElogS/ElogU), seeded by the step.
+          live_plot: the live ELBO plot waits for the plots.py port; True
+            raises NotImplementedError.
         """
+        if live_plot:
+            raise NotImplementedError(
+                "live_plot=True needs plots.py, which velocycle_tpu_torch has "
+                "not ported yet"
+            )
         if optimizer is None:
             optimizer = clipped_adam(
                 lr=0.05, betas=(0.80, 0.99),
@@ -98,9 +112,25 @@ class _FitModel:
             )
         self.svi = SVI(self.model, self.guide, optimizer,
                        loss or Trace_ELBO())
+        self.intermediate_output = []
+        chunk_size = None
+        if store_output:
+            chunk_size = min(intermediate_output_step_size, num_steps)
+            user_callback = callback
+
+            def callback(step, state, last_loss):
+                params = {k: _np(v)
+                          for k, v in self.svi.get_params(state).items()}
+                self.intermediate_output.append(
+                    self._snapshot_posterior(params, step, store_num_samples)
+                )
+                if user_callback is not None:
+                    user_callback(step, state, last_loss)
+
         self.state, self.losses = self.svi.run(
             seed, num_steps, self.metaparams.data,
-            log_every=log_every, early_exit=self.early_exit,
+            log_every=log_every, callback=callback,
+            early_exit=self.early_exit, chunk_size=chunk_size,
         )
         self.params = {
             k: _np(v) for k, v in self.svi.get_params(self.state).items()
@@ -118,21 +148,33 @@ class _FitModel:
     def _posterior_sites(self):
         raise NotImplementedError
 
-    def sample_posterior(self, num_samples=1, rs=None, seed=1):
-        """Guide->model replayed draws of the requested sites at the fitted
-        params: {site: (num_samples, ...) numpy array}."""
-        # the fused fit path records no ElogS site; replay through the
-        # plain path so every site is present
-        data = self.metaparams.data.replace(use_fused_nb=False)
+    def sample_posterior(self, num_samples=1, rs=None, seed=1, data=None,
+                         params=None):
+        """Guide->model replayed draws of the requested sites at ``params``
+        (default: the fitted params) on ``data`` (default: the fit's):
+        {site: (num_samples, ...) numpy array}.  Draws replay through the
+        plain model path even for fused data, so every site is present."""
+        data = self.metaparams.data if data is None else data
+        data = data.replace(use_fused_nb=False)
         constrained = {
             k: torch.as_tensor(v, dtype=torch.float32, device=data.device)
-            for k, v in self.params.items()
+            for k, v in (self.params if params is None else params).items()
         }
         pred = Predictive(
             self.model, guide=self.guide, params=constrained,
             num_samples=num_samples, return_sites=rs,
         )
         return {k: _np(v) for k, v in pred(seed, data).items()}
+
+    def _snapshot_posterior(self, params, step, num_samples):
+        """One intermediate posterior snapshot: ``num_samples`` draws of the
+        latent sites (no ElogS/ElogU), seeded by ``step``."""
+        sites = [s for s in self._posterior_sites()
+                 if s not in ("ElogS", "ElogU")]
+        snap = self.sample_posterior(num_samples=num_samples, rs=sites,
+                                     seed=step, params=params)
+        snap["step"] = step
+        return snap
 
     def _build_posterior(self, seed):
         rs = self._posterior_sites()
@@ -150,6 +192,34 @@ class _FitModel:
             k: np.concatenate([c[k] for c in chunks], axis=0)
             for k in chunks[0]
         }
+
+    # -- debugging ---------------------------------------------------------
+    def _format_shapes(self, fn):
+        tr = handlers.trace(handlers.seed(fn, 0)).get_trace(self.metaparams.data)
+        return "\n".join(
+            f"{site['type']:>13} {name:<20} {tuple(np.shape(site['value']))}"
+            for name, site in tr.items()
+        )
+
+    def check_model(self, raise_on_error=False):
+        """Print the model's trace shapes and verify its plate/log_prob
+        shape consistency (`handlers.check_plate_shapes`); returns the
+        problems found (empty = clean)."""
+        print(self._format_shapes(self.model))
+        return self._check_plates(self.model, raise_on_error)
+
+    def check_guide(self, raise_on_error=False):
+        """As `check_model`, for the guide."""
+        print(self._format_shapes(self.guide))
+        return self._check_plates(self.guide, raise_on_error)
+
+    def _check_plates(self, fn, raise_on_error):
+        problems = handlers.check_plate_shapes(fn, self.metaparams.data)
+        for p in problems:
+            print(f"PLATE CHECK: {p}")
+        if problems and raise_on_error:
+            raise ValueError("\n".join(problems))
+        return problems
 
 
 class PhaseFitModel(_FitModel):
@@ -206,6 +276,13 @@ class PhaseFitModel(_FitModel):
         out["ElogS"] = _np(base + cf[None, :])
         out["ElogS2"] = _np(base + cf.mean())
         return out
+
+    def polar_plot(self, **kwargs):
+        """The polar plot waits for the plots.py port."""
+        raise NotImplementedError(
+            "polar_plot needs plots.py, which velocycle_tpu_torch has not "
+            "ported yet"
+        )
 
 
 class VelocityFitModel(_FitModel):

@@ -122,17 +122,20 @@ class SVI:
                 for k, v in constrain(state.params, self.constraints).items()
             }
 
-    def run(self, key, num_steps, *args, log_every=0, early_exit=False,
-            early_exit_patience=200, chunk_size=None, **kwargs):
+    def run(self, key, num_steps, *args, log_every=0, callback=None,
+            early_exit=False, early_exit_patience=200, chunk_size=None,
+            **kwargs):
         """Run ``num_steps`` updates; returns (state, losses ndarray).
 
-        Host-side checks happen only at chunk boundaries.  `early_exit`
-        stops after ``early_exit_patience`` steps once
-        |mean(last 100) - mean(last 10)| < 5."""
+        Host-side checks happen only at chunk boundaries: the log line,
+        ``callback(step, state, last_loss)`` and `early_exit`, which stops
+        after ``early_exit_patience`` steps once |mean(last 100) - mean(last
+        10)| < 5.  Chunks are 100 steps when any of them is asked for, else
+        ``min(num_steps, 1000)``, unless ``chunk_size`` is given."""
         if num_steps < 1:
             raise ValueError(f"num_steps must be >= 1, got {num_steps}")
         if chunk_size is None:
-            chunk_size = 100 if (early_exit or log_every) else (
+            chunk_size = 100 if (early_exit or log_every or callback) else (
                 min(num_steps, 1000)
             )
         state = self.init(key, *args, **kwargs)
@@ -145,6 +148,8 @@ class SVI:
             done += n
             if log_every:
                 print(f"step {done}: elbo loss = {float(losses[-1][-1]):.3f}")
+            if callback is not None:
+                callback(done, state, losses[-1][-1])
             if early_exit and done > early_exit_patience:
                 recent = np.concatenate(losses)[-100:]
                 if abs(recent.mean() - recent[-10:].mean()) < 5:

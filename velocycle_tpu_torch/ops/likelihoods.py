@@ -1,4 +1,4 @@
-"""The Negative-Binomial count likelihood in plain torch.
+"""The Negative-Binomial and Poisson count likelihoods in plain torch.
 
 NB parameterization: ``GammaPoisson(1/r, 1/(r * exp(ElogS)))`` with
 per-gene dispersion r, in the cancellation-free form of
@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["lgamma_diff", "nb_logpmf"]
+__all__ = ["lgamma_diff", "nb_logpmf", "poisson_logpmf"]
 
 
 def _stirling_rc(z):
@@ -54,3 +54,8 @@ def nb_logpmf(k, elog_mu, dispersion):
         - a * torch.logaddexp(s, zero)
         - k * torch.logaddexp(-s, zero)
     )
+
+
+def poisson_logpmf(k, elog_mu):
+    """Poisson log-pmf at counts ``k`` with log-mean ``elog_mu``."""
+    return k * elog_mu - torch.exp(elog_mu) - torch.lgamma(k + 1.0)

@@ -1,16 +1,15 @@
 """Preprocessing: AnnData + prior containers -> device-ready metaparameters.
 
 Port of `velocycle_tpu/preprocessing.py` (Fourier basis).  All host work
-(gene filtering, densification, design matrices, size factors, the int16
-count compaction and the f64 ``sum(lgamma(K+1))`` constant) is numpy and
-produces the same arrays as the JAX package; the result is one `PhaseData`
-or `VelocityData` whose tensors sit on ``device`` (the card unless
-``device="cpu"``).
+(gene filtering, densification through the native ingest, design matrices,
+size factors, the int16 count compaction and the f64 ``sum(lgamma(K+1))``
+constant) is numpy and produces the same arrays as the JAX package; the
+result is one `PhaseData` or `VelocityData` whose tensors sit on
+``device`` (the card unless ``device="cpu"``).
 """
 from __future__ import annotations
 
 import numpy as np
-import scipy.sparse as sp
 import torch
 
 from .containers import AngularSpeed, Cycle, Phases, reorder
@@ -20,14 +19,23 @@ from .models.metapars import Metapars, PhaseData, VelocityData
 __all__ = [
     "filter_shared_genes",
     "make_design_matrix",
+    "normalize_total",
     "preprocess_for_phase_estimation",
     "preprocess_for_velocity_estimation",
+    "invert_direction",
+    "shift_zero",
 ]
+
+# the joint (Cycle, Phases) gauge fixes, reachable here as in the JAX
+# package (the reference star-imports them into its preprocessing module)
+from .alignment import invert_direction, shift_zero  # noqa: E402,F401
 
 
 def _dense(x):
-    if sp.issparse(x):
-        return x.toarray()
+    if hasattr(x, "todense"):
+        from . import native
+
+        return native.csr_to_dense(x)
     return np.asarray(x)
 
 
@@ -91,7 +99,9 @@ def _basis_config(basis_kind, cycle_obj, n_harmonics):
     return {"basis_kind": "fourier"}
 
 
-def _normalize_total(adata):
+def normalize_total(adata):
+    """Add size-normalized layers ``S_sz``/``U_sz`` and per-cell totals
+    ``n_scounts``/``n_ucounts``.  In place."""
     S = _dense(adata.layers["spliced"])
     U = _dense(adata.layers["unspliced"])
     adata.obs["n_scounts"] = S.sum(1)
@@ -108,7 +118,7 @@ def _extract_counts(adata, normalize):
     """(S, U) as dense (Nc, Ng) float32 arrays."""
     if normalize:
         if "S_sz" not in adata.layers or "U_sz" not in adata.layers:
-            _normalize_total(adata)
+            normalize_total(adata)
         return (
             np.asarray(adata.layers["S_sz"], dtype=np.float32),
             np.asarray(adata.layers["U_sz"], dtype=np.float32),
