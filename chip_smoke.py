@@ -58,7 +58,23 @@ in order; any failure exits non-zero and prints no result line:
      (phase_fwdgrad and velo_fwdgrad once per step), CSV save / load exact,
      period_hours and the grid MLE prior (Poisson, 100 bins); every time
      printed beside the card;
-  8. print the kernel table as one JSON line, the nvidia-smi line, and
+  8. [variants]: the model variants at full width through the public entry
+     points.  First phase_fwdgrad / phase_fwd and velo_fwdgrad / velo_fwd
+     at the default spline basis' 11 columns, held against their plain
+     versions (disp_grad both ways) and timed beside their bounds.  Then
+     (a) the spline two-stage fit on example 04's draw (pseudotime t ~
+     U(0, 1), an 11-column spline field, kinetic U at omega = 0.5, int16
+     counts drawn on the card): Cycle.spline_prior, stage 1 with phi free
+     (50 steps, exactly 50 phase_fwdgrad launches at width 11, one loss-only
+     evaluation = one phase_fwd), stage 2 with a constant speed
+     conditioned on stage 1's phi and nu (50 steps, 50 velo_fwdgrad at
+     width 11, one velo_fwd), phi_locs inside (0, 1), period_hours over the
+     domain finite and positive; (b) the wrapped phases on the main path's
+     draw (50 phase_fwdgrad at width 5); (c) LBA, 20 steps of the analytic
+     mixture, then the enumerated form under TraceEnum_ELBO at the fitted
+     params (losses equal to rtol 1e-5, no kernel launch).  Losses finite
+     and falling, steps/s, device profiles and peak memory printed;
+  9. print the kernel table as one JSON line, the nvidia-smi line, and
      last {"ok": true, "device": {...}}.
 
 The configuration is the repository's Stereo-seq-class fit (bench.py
@@ -112,6 +128,12 @@ OPS = {
 #   fwd: 2 x softplus 6
 #   lgamma / digamma ratio: per count as in OPS, over S and U
 OPS_VELO = {"common": 45, "fwdgrad": 76, "disp": 14, "fwd": 12}
+# each basis column past Nh = 5 adds, per element: phase common 2 (the
+# ElogS dot), phase fwdgrad 4 (dzeta and dnu); velocity common 4 (the
+# ElogS and dEs dots), velocity fwdgrad 7 (dzeta 2, dzeta_dphi 2, dnu 3)
+OPS_PER_COLUMN = {"common": 2, "fwdgrad": 4, "velo_common": 4,
+                  "velo_fwdgrad": 7}
+W_SPLINE = 11           # the default spline basis: spline_n_basis + 1
 
 
 def fail(msg):
@@ -378,9 +400,9 @@ def _f64_diagnosis(kern, plain, args, n_counts, lgk, want_disp, names):
 
 
 def _parity_cases(torch, seed, make, n_counts, kern, plain, fwd, fwd_plain,
-                  names, grad_rtol, cases):
+                  names, grad_rtol, cases, record="full"):
     """Run the parity cases of one kernel pair; returns ({kernel: [max abs
-    error, loss rel error]} at full width, all ok)."""
+    error, loss rel error]} of the case tagged ``record``, all ok)."""
     fwd_name, grad_name = fwd.__name__, kern.__name__
     results = {fwd_name: [0.0, 0.0], grad_name: [0.0, 0.0]}
     all_ok = True
@@ -410,7 +432,7 @@ def _parity_cases(torch, seed, make, n_counts, kern, plain, fwd, fwd_plain,
                 all_ok = False
                 _f64_diagnosis(kern, plain, args, n_counts, lgk, want_disp,
                                names)
-            if tag == "full":
+            if tag == record:
                 results[grad_name] = [max(results[grad_name][0], wabs),
                                       max(results[grad_name][1], lrel)]
             del kout, pout
@@ -419,7 +441,7 @@ def _parity_cases(torch, seed, make, n_counts, kern, plain, fwd, fwd_plain,
         torch.cuda.synchronize()
         labs, lrel, oks = _compare(f"{fwd_name} {desc}", kl, pl)
         all_ok &= all(oks)
-        if tag == "full":
+        if tag == record:
             results[fwd_name] = [labs, lrel]
         del args
         torch.cuda.empty_cache()
@@ -1157,6 +1179,324 @@ def phase_quickstart(torch, seed, card, num_steps=20, pca_subset=4096):
     return launches, vlaunches
 
 
+def _spline_adata(torch, seed, device):
+    """Example 04's draw (`simulate_pseudotime_counts`) at full width, on the
+    card from seed: t ~ U(0, 1), W (NG, 11) ~ N(0, 0.5^2) with W[:, 0] + 3,
+    ElogS = W B(t)^T on the default spline basis, gamma = exp(N(0, 0.3^2)),
+    beta = exp(N(2, 0.3^2)), ElogU = -log beta + log(relu(W dB(t)^T * 0.5 +
+    gamma) + 1e-5) + ElogS; S and U Poisson, stored int16.  Returns
+    (adata, t, W)."""
+    import pandas as pd
+
+    from velocycle_tpu_torch import AnnDataLite
+    from velocycle_tpu_torch.ops.splines import spline_basis_auto
+
+    g = torch.Generator(device=device)
+    g.manual_seed(seed + 8)
+    t = torch.rand(NC, generator=g, device=device).sort().values
+    W = torch.randn((NG, W_SPLINE), generator=g, device=device) * 0.5
+    W[:, 0] += 3.0
+    B = spline_basis_auto(t, domain=(0.0, 1.0))
+    dB = spline_basis_auto(t, der=1, domain=(0.0, 1.0))
+    gamma = torch.exp(torch.randn(NG, generator=g, device=device) * 0.3)
+    beta = torch.exp(torch.randn(NG, generator=g, device=device) * 0.3 + 2.0)
+    ElogS = W @ B.T
+    kin = (W @ dB.T) * 0.5 + gamma[:, None]
+    ElogU = (-torch.log(beta)[:, None]
+             + torch.log(torch.clamp(kin, min=0.0) + 1e-5) + ElogS)
+    del kin
+    layers = {}
+    for name, elog in (("spliced", ElogS), ("unspliced", ElogU)):
+        K = torch.poisson(torch.exp(elog), generator=g)
+        check(float(K.max()) < 32767, f"{name} counts exceed int16")
+        layers[name] = K.to(torch.int16).T.contiguous().cpu().numpy()
+        del K
+    del ElogS, ElogU
+    adata = AnnDataLite(
+        obs=pd.DataFrame(index=[f"C{i:06d}" for i in range(NC)]),
+        var=pd.DataFrame(index=[f"G{i:05d}" for i in range(NG)]),
+        layers=layers,
+    )
+    return adata, t, W
+
+
+def _width_launches(K):
+    """{kernel: {width: launches}} of the kernels launched since the last
+    reset."""
+    return {k: dict(v) for k, v in K.LAUNCH_WIDTHS.items() if v}
+
+
+def _counted_fit(torch, K, fit, num_steps, seed, tag):
+    """Fit with the launch counts set to 0 just before and read just after,
+    then one loss-only evaluation read on its own; checks that the losses
+    are finite and fall.  Returns (launches by width in the fit, in the
+    evaluation, peak device bytes of both)."""
+    import numpy as np
+
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    fit.fit(num_steps=num_steps, seed=seed)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    in_fit = _width_launches(K)
+    K.reset_launch_counts()
+    with torch.no_grad():
+        loss_only = float(fit.svi.loss_fn(fit.state.params, 7,
+                                          fit.metaparams.data))
+    in_eval = _width_launches(K)
+    peak = torch.cuda.max_memory_allocated()
+    losses = np.asarray(fit.losses)
+    print(f"[variants] {tag}: losses {losses[0]:.6g} -> {losses[-1]:.6g} "
+          f"(mean of last 10 {losses[-10:].mean():.6g}); fit of {num_steps} "
+          f"steps incl. init, extraction and posterior draws {fit_s:.2f} s; "
+          f"loss-only evaluation {loss_only:.6g}; peak device memory "
+          f"{peak / 2**30:.2f} GiB; launches by width: fit {in_fit}, "
+          f"evaluation {in_eval}")
+    check(losses.shape == (num_steps,) and np.isfinite(losses).all()
+          and losses[-10:].mean() < losses[0], f"{tag}: losses {losses}")
+    check(math.isfinite(loss_only), f"{tag}: loss-only evaluation not finite")
+    return in_fit, in_eval, peak
+
+
+def _variant_kernels(torch, seed, card):
+    """Both fwdgrad kernels at the spline path's 11 columns, full width:
+    parity with their plain versions (disp_grad both ways), then time,
+    plain time and bound; the bound counted as at Nh = 5, plus
+    OPS_PER_COLUMN for each extra column (disp_grad on: the spline fits
+    learn shape_inv)."""
+    from velocycle_tpu_torch.ops import nb_kernels as K
+
+    tag = f"Nh={W_SPLINE} full"
+    case = [(tag, NG, NC, 0, True, True, {"nh": W_SPLINE})]
+    res, ok = _parity_cases(torch, seed, make_inputs, 1, K.phase_fwdgrad,
+                            K.phase_fwdgrad_plain, K.phase_fwd,
+                            K.phase_fwd_plain, PHASE_GRADS, GRAD_RTOL, case,
+                            record=tag)
+    vres, vok = _parity_cases(torch, seed, make_velo_inputs, 2, K.velo_fwdgrad,
+                              K.velo_fwdgrad_plain, K.velo_fwd, K.velo_fwd_plain,
+                              VELO_GRADS, VELO_GRAD_RTOL, case, record=tag)
+    check(ok and vok, f"a kernel disagrees with its plain version at "
+          f"{W_SPLINE} columns (see [parity] lines)")
+    extra = W_SPLINE - NH
+    timing = {}
+    S, nu, zeta, cf, r, _, _ = make_inputs(torch, NG, NC, seed, nh=W_SPLINE)
+    lgk = lgamma_k_sum(torch, S)
+    lg, dg, share = _ratio_ops(torch, [S], True)
+    params = 4 * (nu.numel() + zeta.numel() + cf.numel() + r.numel())
+    ops = (OPS["common"] + OPS["fwdgrad"] + extra * (
+        OPS_PER_COLUMN["common"] + OPS_PER_COLUMN["fwdgrad"])) * S.numel()
+    timing["phase_fwdgrad"] = _time_pair(
+        torch, f"phase_fwdgrad at {W_SPLINE} columns",
+        lambda: K.phase_fwdgrad(S, nu, zeta, cf, r, None, None, lgk),
+        lambda: K.phase_fwdgrad_plain(S, nu, zeta, cf, r, None, None, lgk),
+        S.numel() * S.element_size() + 2 * params + 4, ops + lg + dg, card,
+        f"{share:.3f} of counts >= 2")
+    del S, nu, zeta, cf, r
+    args = make_velo_inputs(torch, NG, NC, seed, nh=W_SPLINE)[:10]
+    S, U = args[:2]
+    lgk = lgamma_k_sum(torch, S, U)
+    lg, dg, share = _ratio_ops(torch, [S, U], True)
+    params = 4 * sum(t.numel() for t in args[2:])
+    ops = (OPS_VELO["common"] + OPS_VELO["fwdgrad"] + OPS_VELO["disp"]
+           + extra * (OPS_PER_COLUMN["velo_common"]
+                      + OPS_PER_COLUMN["velo_fwdgrad"])) * S.numel()
+    timing["velo_fwdgrad"] = _time_pair(
+        torch, f"velo_fwdgrad at {W_SPLINE} columns",
+        lambda: K.velo_fwdgrad(*args, None, None, lgk, want_disp=True),
+        lambda: K.velo_fwdgrad_plain(*args, None, None, lgk, want_disp=True),
+        2 * S.numel() * S.element_size() + 2 * params + 4, ops + lg + dg,
+        card, f"{share:.3f} of S and U counts >= 2, disp_grad on")
+    del args, S, U
+    torch.cuda.empty_cache()
+    return {**res, **vres}, timing
+
+
+def phase_variants(torch, seed, card, num_steps=50, lba_steps=20,
+                   device="cuda"):
+    """[variants]: the model variants at full width through the public entry
+    points, each fit's kernel launches counted by width.  Returns
+    ({kernel: {width: launches}} over the variant fits, the 11-column
+    kernels' parity and timing)."""
+    import numpy as np
+
+    import velocycle_tpu_torch as vt
+    from velocycle_tpu_torch.infer import SVI, Trace_ELBO, TraceEnum_ELBO
+    from velocycle_tpu_torch.models import phase as P
+    from velocycle_tpu_torch.ops import nb_kernels as K
+
+    errs, timing = _variant_kernels(torch, seed, card)
+    launches = {k: {} for k in K.LAUNCHES}
+
+    def add(counts):
+        for k, by_w in counts.items():
+            for w, n in by_w.items():
+                launches[k][w] = launches[k].get(w, 0) + n
+
+    def took(label, t0):
+        torch.cuda.synchronize()
+        print(f"[variants] {label}: {time.perf_counter() - t0:.2f} s on {card}")
+
+    # (a) the spline two-stage fit (example 04's workflow)
+    t0 = time.perf_counter()
+    adata, t, W = _spline_adata(torch, seed, device)
+    took("spline draw (counts on the card, to the host as int16)", t0)
+    genes, cells = list(adata.var.index), list(adata.obs.index)
+    gp = torch.Generator(device=device)
+    gp.manual_seed(seed + 9)
+    prior_t = torch.clamp(t + torch.randn(NC, generator=gp, device=device) * 0.05,
+                          0.0, 1.0).cpu().numpy()
+    phases = vt.Phases.from_angles(prior_t, cell_names=cells)
+    t0 = time.perf_counter()
+    mp = vt.preprocess_for_phase_estimation(
+        adata, vt.Cycle.spline_prior(genes, n_basis=W_SPLINE - 1, stds=3.0),
+        phases, basis_kind="spline", spline_domain=(0.0, 1.0),
+        noisemodel="NegativeBinomial", use_fused_nb=True, with_delta_nu=False,
+        device=device)
+    took("preprocess_for_phase_estimation (spline)", t0)
+    check(mp.data.mu_nu.shape == (NG, W_SPLINE) and mp.data.S.dtype == torch.int16,
+          f"spline PhaseData {tuple(mp.data.mu_nu.shape)} {mp.data.S.dtype}")
+    fit = vt.PhaseFitModel(mp, num_samples=2, n_per_bin=2)
+    in_fit, in_eval, peak1 = _counted_fit(torch, K, fit, num_steps, seed,
+                                          "spline stage 1 (phi free)")
+    check(in_fit == {"phase_fwdgrad": {W_SPLINE: num_steps}},
+          f"spline stage 1 launched {in_fit}")
+    check(in_eval == {"phase_fwd": {W_SPLINE: 1}},
+          f"spline stage-1 evaluation launched {in_eval}")
+    add(in_fit), add(in_eval)
+    phi = fit.params["phi_locs"]
+    check(np.isfinite(phi).all() and (phi > 0).all() and (phi < 1).all(),
+          f"phi_locs outside (0, 1): [{phi.min()}, {phi.max()}]")
+    check("phi_xy" not in fit.posterior, "spline posterior has phi_xy")
+    sps1 = _steady_state(torch, fit.svi, fit.state, mp.data, "variants spline-1")
+
+    from velocycle_tpu_torch.ops.splines import spline_basis_auto
+    with torch.no_grad():
+        B = spline_basis_auto(t, domain=(0.0, 1.0))
+        x = torch.as_tensor(fit.params["nu_locs"], device=device) @ B.T
+        y = W @ B.T
+        x, y = x - x.mean(), y - y.mean()
+        corr = float((x * y).mean() / (x.pow(2).mean() * y.pow(2).mean()).sqrt())
+        pcorr = float(np.corrcoef(phi, t.cpu().numpy())[0, 1])
+        del x, y, B
+    print(f"[variants] spline stage 1: ElogS correlation with the truth "
+          f"{corr:.4f}, phi_locs correlation with the true pseudotime "
+          f"{pcorr:.4f} (printed, not gated)")
+
+    t0 = time.perf_counter()
+    speed = vt.AngularSpeed.from_array([[0.0]], [[1.0]], condition_names=["traj"],
+                                       num_coeffs=1)
+    vmp = vt.preprocess_for_velocity_estimation(
+        adata, fit.cycle_fit, fit.phase_fit, speed, basis_kind="spline",
+        spline_domain=(0.0, 1.0), model_type="fourier",
+        noisemodel="NegativeBinomial", use_fused_nb=True, with_delta_nu=False,
+        device=device)
+    took("preprocess_for_velocity_estimation (spline)", t0)
+    check(vmp.data.Nhw == 1 and vmp.data.U.dtype == torch.int16, "spline VelocityData")
+    cond = {"phi": phi, "nu": fit.params["nu_locs"]}
+    del fit, mp
+    vfit = vt.VelocityFitModel(vmp, condition_on=cond, num_samples=2, n_per_bin=1)
+    in_fit, in_eval, peak2 = _counted_fit(torch, K, vfit, num_steps, seed,
+                                          "spline stage 2 (phi, nu conditioned)")
+    check(in_fit == {"velo_fwdgrad": {W_SPLINE: num_steps}},
+          f"spline stage 2 launched {in_fit}")
+    check(in_eval == {"velo_fwd": {W_SPLINE: 1}},
+          f"spline stage-2 evaluation launched {in_eval}")
+    add(in_fit), add(in_eval)
+    period = vfit.period_hours()
+    omega = vfit.speed_fit.means_array
+    print(f"[variants] spline stage 2: omega {float(omega.squeeze()):.6g}, "
+          f"period_hours (transit time over the domain) {period[0]:.6g}")
+    check(period.shape == (1,) and np.isfinite(period).all() and period[0] > 0,
+          f"period_hours {period}")
+    check("phi_xy" not in vfit.posterior, "spline velocity posterior has phi_xy")
+    vfit.posterior = None
+    sps2 = _steady_state(torch, vfit.svi, vfit.state, vfit.metaparams.data,
+                         "variants spline-2")
+    del vfit, vmp, adata, t, W
+    torch.cuda.empty_cache()
+
+    # (b) the wrapped stage 1 on the main path's draw
+    adata, genes, cells, angles = _make_adata(torch, seed, device)
+    t0 = time.perf_counter()
+    mp = vt.preprocess_for_phase_estimation(
+        adata, vt.Cycle.trivial_prior(genes, harmonics=H),
+        vt.Phases.from_angles(angles, concentration=1.0, cell_names=cells),
+        n_harmonics=H, with_delta_nu=False, phi_parametrization="wrapped",
+        use_fused_nb=True, device=device)
+    took("preprocess_for_phase_estimation (wrapped)", t0)
+    fit = vt.PhaseFitModel(mp, num_samples=2, n_per_bin=2)
+    in_fit, in_eval, peak3 = _counted_fit(torch, K, fit, num_steps, seed,
+                                          "wrapped stage 1")
+    check(in_fit == {"phase_fwdgrad": {NH: num_steps}},
+          f"wrapped stage 1 launched {in_fit}")
+    check(in_eval == {"phase_fwd": {NH: 1}}, f"wrapped evaluation launched {in_eval}")
+    add(in_fit), add(in_eval)
+    check("phi_locs" in fit.params and "phi_xy" not in fit.posterior,
+          "wrapped guide family")
+    check(fit.phase_fit.shape == (2, NC)
+          and np.isfinite(fit.phase_fit.phi_xy.values).all(), "bad wrapped Phases")
+    sps3 = _steady_state(torch, fit.svi, fit.state, mp.data, "variants wrapped")
+    del fit, mp
+    torch.cuda.empty_cache()
+
+    # (c) LBA: the analytic mixture, then the enumerated form at its params
+    t0 = time.perf_counter()
+    mp = vt.preprocess_for_phase_estimation(
+        adata, vt.Cycle.trivial_prior(genes, harmonics=H),
+        vt.Phases.from_angles(angles, concentration=1.0, cell_names=cells),
+        n_harmonics=H, with_delta_nu=False, gene_selection_model="lba",
+        device=device)
+    took("preprocess_for_phase_estimation (lba)", t0)
+    del adata
+    check(mp.model_fn is P.phase_model_lba, "lba model")
+    fit = vt.PhaseFitModel(mp, num_samples=2, n_per_bin=2)
+    in_fit, in_eval, peak4 = _counted_fit(torch, K, fit, lba_steps, seed,
+                                          "lba (Trace_ELBO)")
+    check(not in_fit and not in_eval, f"the LBA path launched {in_fit} {in_eval}")
+    check(fit.periodic.shape == (NG,) and np.isfinite(fit.periodic).all(),
+          "LBA periodic membership")
+    sps4 = _steady_state(torch, fit.svi, fit.state, mp.data, "variants lba")
+    values = []
+    K.reset_launch_counts()
+    for model, loss, name in ((P.phase_model_lba, Trace_ELBO(), "analytic"),
+                              (P.phase_model_lba_enum, TraceEnum_ELBO(),
+                               "enumerated")):
+        svi = SVI(model, P.phase_guide_lba, None, loss)
+        svi.constraints = fit.svi.constraints
+        params = {k: v.detach().clone().requires_grad_(True)
+                  for k, v in fit.state.params.items()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        value = svi.loss_fn(params, 11, mp.data)
+        value.backward()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        values.append((float(value.detach()),
+                       {k: v.grad for k, v in params.items()}))
+        print(f"[variants] lba {name} form at the fitted params: loss "
+              f"{values[-1][0]:.9g}, loss and gradients {dt * 1e3:.1f} ms, peak "
+              f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        del value, params, svi
+    check(sum(K.LAUNCHES.values()) == 0, "the LBA evaluations launched a kernel")
+    (la, ga), (le, ge) = values
+    rel = abs(le - la) / abs(la)
+    grel = {k: _rel(ge[k], ga[k]) for k in ga}
+    print(f"[variants] lba enumerated vs analytic: loss rel {rel:.3e} (gate "
+          f"1e-5); gradients max|a-b|/max|a| "
+          + ", ".join(f"{k} {v:.2e}" for k, v in grel.items()))
+    check(rel < 1e-5, f"enumerated LBA loss {le} vs analytic {la}")
+    del fit, mp, values
+    torch.cuda.empty_cache()
+    print(f"[variants] steps/s (host clock): spline stage 1 {sps1:.3f}, spline "
+          f"stage 2 {sps2:.3f}, wrapped {sps3:.3f}, lba {sps4:.3f}; peak device "
+          f"memory of the fits {peak1 / 2**30:.2f} / {peak2 / 2**30:.2f} / "
+          f"{peak3 / 2**30:.2f} / {peak4 / 2**30:.2f} GiB; on {card}")
+    print(f"[variants] launches by width over the variant fits: {launches}")
+    return launches, errs, timing
+
+
 def profile_steps(torch, svi, state, data, tag, n=5):
     """Device time by kernel over a few SVI steps (torch.profiler); only
     device-side kernel events are summed (an op row and the kernel it
@@ -1271,6 +1611,9 @@ def main(argv=None):
     torch.cuda.empty_cache()
     phase_quickstart(torch, args.seed, smi)
     torch.cuda.empty_cache()
+    variant_launches, variant_errs, variant_timing = phase_variants(
+        torch, args.seed, smi)
+    torch.cuda.empty_cache()
 
     print("kernels: " + ", ".join(f"{k} ({v} launches)" for k, v in sorted(launches.items())))
     base = "velocycle_tpu/ops/nb_kernels.py"
@@ -1289,6 +1632,13 @@ def main(argv=None):
             "replaces": replaces, "launches": launches[k],
             "max_abs_err": errs[k][0], "loss_rel_err": errs[k][1],
             **timing[k],
+            # the [variants] fits' launches by basis width; at 11 columns
+            # the parity, kernel and plain ms and bound of the spline path
+            "variant_launches": {str(w): n for w, n in
+                                 sorted(variant_launches[k].items())},
+            **({f"w{W_SPLINE}": {"max_abs_err": variant_errs[k][0],
+                                 **variant_timing[k]}}
+               if k in variant_timing else {}),
         })
     # the ladder's launches come from its own entry point, run_ladder
     for rung, line in LADDER_REPLACES.items():

@@ -617,3 +617,146 @@ def test_native_ingest_builds_on_the_card_machine():
                   dtype=np.float32)
     np.testing.assert_array_equal(native.csr_to_dense(m, transpose=True),
                                   m.toarray().T)
+
+
+# ---------------------------------------------------------------------------
+# the model variants: the spline basis (11 columns), wrapped phases, LBA
+# ---------------------------------------------------------------------------
+
+def _spline_adata(Ng=64, Nc=3000, seed=0):
+    """Example 04's draw at a small size: pseudotime t ~ U(0, 1), S and U
+    Poisson from the kinetic ElogU of an 11-column spline field."""
+    import pandas as pd
+
+    import velocycle_tpu_torch as T
+    from velocycle_tpu_torch.ops.splines import spline_basis_auto
+
+    rng = np.random.default_rng(seed)
+    t = np.sort(rng.uniform(0, 1, Nc)).astype(np.float32)
+    W = rng.normal(0, 0.5, (Ng, 11)).astype(np.float32)
+    W[:, 0] += 2.0
+    B = spline_basis_auto(torch.as_tensor(t), domain=(0.0, 1.0)).numpy()
+    dB = spline_basis_auto(torch.as_tensor(t), der=1, domain=(0.0, 1.0)).numpy()
+    ElogS = W @ B.T
+    kin = (W @ dB.T) * 0.5 + np.exp(rng.normal(0, 0.3, Ng))[:, None]
+    ElogU = -2.0 + np.log(np.maximum(kin, 0) + 1e-5) + ElogS
+    S = rng.poisson(np.exp(ElogS)).astype(np.float32)
+    U = rng.poisson(np.exp(ElogU)).astype(np.float32)
+    cells = [f"c{i}" for i in range(Nc)]
+    adata = T.AnnDataLite(
+        X=S.T.copy(), layers={"spliced": S.T.copy(), "unspliced": U.T.copy()},
+        obs=pd.DataFrame(index=cells),
+        var=pd.DataFrame(index=[f"g{i:03d}" for i in range(Ng)]))
+    phases = T.Phases.from_angles(np.clip(t + rng.normal(0, 0.05, Nc), 0, 1),
+                                  cell_names=cells)
+    return adata, phases
+
+
+def _fused_and_plain(fit_cls, mp, steps, **kw):
+    """(fused fit, {kernel: {width: launches}} of its steps, plain fit)
+    with the same seed."""
+    K.reset_launch_counts()
+    fused = fit_cls(mp, get_posterior=False, **kw).fit(num_steps=steps)
+    widths = {k: dict(v) for k, v in K.LAUNCH_WIDTHS.items() if v}
+    plain_mp = dataclasses.replace(mp, data=mp.data.replace(use_fused_nb=False))
+    plain = fit_cls(plain_mp, get_posterior=False, **kw).fit(num_steps=steps)
+    return fused, widths, plain
+
+
+@pytest.mark.parametrize("Nb,width", [(0, 11), (2, 16)], ids=["11", "11+2"])
+def test_spline_fused_fits_match_plain_on_the_card(Nb, width):
+    """The default spline basis (11 columns) through both stages' kernels:
+    at width 11, and with two delta_nu batches folded into basis columns
+    (13, run at 16).  Stage 1 leaves phi free (its gradient comes back
+    through dzeta); stage 2 is conditioned on stage 1's phi and nu.  Three
+    steps each: the losses equal the plain path's at rtol 5e-4."""
+    dev = _cuda_or_skip()
+    import velocycle_tpu_torch as T
+
+    adata, phases = _spline_adata()
+    genes = list(adata.var.index)
+    design = None
+    if Nb:
+        design = (np.arange(adata.shape[0])[:, None] % Nb
+                  == np.arange(Nb)[None, :]).astype(np.int64)
+    mp = T.preprocess_for_phase_estimation(
+        adata, T.Cycle.spline_prior(genes, n_basis=10, stds=3.0), phases,
+        basis_kind="spline", spline_domain=(0.0, 1.0), use_fused_nb=True,
+        with_delta_nu=bool(Nb), design_mtx=design, device=dev)
+    fit, widths, plain = _fused_and_plain(T.PhaseFitModel, mp, 3)
+    assert widths == {"phase_fwdgrad": {width: 3}}
+    np.testing.assert_allclose(fit.losses, plain.losses, rtol=5e-4)
+    phi = fit.params["phi_locs"]
+    assert ((phi > 0) & (phi < 1)).all()
+
+    speed = T.AngularSpeed.from_array([[0.0]], [[1.0]], num_coeffs=1)
+    vmp = T.preprocess_for_velocity_estimation(
+        adata, fit.cycle_fit, phases, speed, basis_kind="spline",
+        spline_domain=(0.0, 1.0), model_type="fourier", use_fused_nb=True,
+        with_delta_nu=bool(Nb), batch_design_mtx=design, device=dev)
+    cond = {"phi": phi, "nu": fit.params["nu_locs"]}
+    vfit, vwidths, vplain = _fused_and_plain(T.VelocityFitModel, vmp, 3,
+                                             condition_on=cond)
+    assert vwidths == {"velo_fwdgrad": {width: 3}}
+    np.testing.assert_allclose(vfit.losses, vplain.losses, rtol=5e-4)
+    assert np.isfinite(vfit.period_hours()).all()
+
+
+def test_wrapped_fused_fit_matches_plain_on_the_card():
+    dev = _cuda_or_skip()
+    import velocycle_tpu_torch as T
+
+    adata = T.simulate_data(Nc=600, Ng=40, seed=1)
+    cycle = T.Cycle.trivial_prior(list(adata.var.index), harmonics=2)
+    phases = T.Phases.from_angles(adata.obs["simulated_phis"].values, 2.0,
+                                  list(adata.obs.index))
+    mp = T.preprocess_for_phase_estimation(
+        adata, cycle, phases, n_harmonics=2, with_delta_nu=False,
+        phi_parametrization="wrapped", use_fused_nb=True, device=dev)
+    fit, widths, plain = _fused_and_plain(T.PhaseFitModel, mp, 25)
+    assert widths == {"phase_fwdgrad": {5: 25}}
+    assert np.isfinite(fit.losses).all()
+    assert fit.losses[-5:].mean() < fit.losses[:5].mean()
+    np.testing.assert_allclose(fit.losses, plain.losses, rtol=5e-4)
+    assert np.isfinite(fit.phase_fit.phi_xy.values).all()
+
+
+def test_lba_enumerated_form_matches_the_analytic_form_on_the_card():
+    """tests/test_enum.py's fixture (12 genes x 50 cells, first harmonic)
+    on the card, at the point a 20-step fit reaches: the loss of
+    phase_model_lba_enum under TraceEnum_ELBO equals phase_model_lba's
+    under Trace_ELBO (rtol 1e-5) and so does every param gradient (rtol
+    1e-4, atol 1e-5), as there; neither launches a kernel."""
+    dev = _cuda_or_skip()
+    import velocycle_tpu_torch as T
+    from velocycle_tpu_torch.infer import SVI, Trace_ELBO, TraceEnum_ELBO
+    from velocycle_tpu_torch.models import phase as P
+
+    adata = T.simulate_data(Nc=50, Ng=12, seed=17)
+    rng = np.random.default_rng(0)
+    nu = adata.uns["simulated_nu"]
+    cycle = T.Cycle.from_array((nu + rng.normal(0, 0.2, nu.shape)).T,
+                               np.full((3, 12), 0.5), list(adata.var.index))
+    phases = T.Phases.from_angles(adata.obs["simulated_phis"].values, 2.0,
+                                  list(adata.obs.index))
+    mp = T.preprocess_for_phase_estimation(
+        adata, cycle, phases, n_harmonics=1, with_delta_nu=False,
+        gene_selection_model="lba", device=dev)
+    K.reset_launch_counts()
+    fit = T.PhaseFitModel(mp, get_posterior=False).fit(num_steps=20)
+    out = []
+    for model, loss in ((P.phase_model_lba, Trace_ELBO()),
+                        (P.phase_model_lba_enum, TraceEnum_ELBO())):
+        svi = SVI(model, P.phase_guide_lba, None, loss)
+        svi.constraints = fit.svi.constraints
+        params = {k: v.detach().clone().requires_grad_(True)
+                  for k, v in fit.state.params.items()}
+        value = svi.loss_fn(params, 5, mp.data)
+        value.backward()
+        out.append((float(value.detach()),
+                    {k: v.grad.cpu().numpy() for k, v in params.items()}))
+    assert sum(K.LAUNCHES.values()) == 0
+    (la, ga), (le, ge) = out
+    assert np.isclose(le, la, rtol=1e-5), (la, le)
+    for k in ga:
+        np.testing.assert_allclose(ge[k], ga[k], rtol=1e-4, atol=1e-5, err_msg=k)

@@ -75,6 +75,18 @@ class Cycle(FourierTable):
             gene_names,
         )
 
+    @classmethod
+    def spline_prior(cls, gene_names, n_basis=10, means=0.0, stds=1.0):
+        """Flat prior for a B-spline expression basis: ``n_basis + 1``
+        coefficient rows (leading constant column)."""
+        k = n_basis + 1
+        n = len(gene_names)
+        return cls._table_from_arrays(
+            np.broadcast_to(means, (k, n)).copy(),
+            np.broadcast_to(stds, (k, n)).copy(),
+            gene_names,
+        )
+
     # -- circle-symmetry operations ---------------------------------------
     def shift_zero(self, gene=None, phase=None):
         """Rotate the manifold so ``gene``'s first-harmonic peak (or the

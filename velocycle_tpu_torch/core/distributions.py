@@ -25,6 +25,12 @@ __all__ = [
     "NegativeBinomial",
     "Delta",
     "LowRankMultivariateNormal",
+    "Beta",
+    "Bernoulli",
+    "Uniform",
+    "VonMises",
+    "log_i0",
+    "log_i1",
     "generator",
 ]
 
@@ -282,3 +288,141 @@ class LowRankMultivariateNormal(Distribution):
             torch.diagonal(L, dim1=-2, dim2=-1)
         ).sum(-1)
         return -0.5 * (mahal + logdet + d * _LOG_2PI)
+
+
+class Beta(Distribution):
+    def __init__(self, concentration1, concentration0):
+        self.concentration1, self.concentration0 = _promote(
+            concentration1, concentration0
+        )
+
+    @property
+    def batch_shape(self):
+        return tuple(torch.broadcast_shapes(
+            self.concentration1.shape, self.concentration0.shape
+        ))
+
+    def sample(self, key, sample_shape=()):
+        shape = tuple(sample_shape) + self.batch_shape
+        g = generator(key, self.concentration1.device)
+        x = torch._standard_gamma(
+            self.concentration1.expand(shape).contiguous(), generator=g)
+        y = torch._standard_gamma(
+            self.concentration0.expand(shape).contiguous(), generator=g)
+        return x / (x + y)
+
+    def log_prob(self, value):
+        c1, c0 = self.concentration1, self.concentration0
+        # log B(c1, c0) in float64: the float32 lgamma sum cancels
+        a, b = c1.double(), c0.double()
+        betaln = (torch.lgamma(a) + torch.lgamma(b)
+                  - torch.lgamma(a + b)).to(c1.dtype)
+        return (
+            (c1 - 1.0) * torch.log(value)
+            + (c0 - 1.0) * torch.log1p(-value)
+            - betaln
+        )
+
+
+class Bernoulli(Distribution):
+    def __init__(self, probs):
+        (self.probs,) = _promote(probs)
+
+    @property
+    def batch_shape(self):
+        return tuple(self.probs.shape)
+
+    def sample(self, key, sample_shape=()):
+        shape = tuple(sample_shape) + self.batch_shape
+        p = self.probs.expand(shape).contiguous()
+        return torch.bernoulli(p, generator=generator(key, p.device))
+
+    def log_prob(self, value):
+        p = torch.clamp(self.probs, 1e-7, 1.0 - 1e-7)
+        return value * torch.log(p) + (1.0 - value) * torch.log1p(-p)
+
+    def enumerate_support(self):
+        """Support values stacked on a new leading axis, for parallel
+        enumeration: shape (2,) + batch_shape."""
+        zero = torch.zeros(self.batch_shape, dtype=self.probs.dtype,
+                           device=self.probs.device)
+        return torch.stack([zero, zero + 1.0], dim=0)
+
+
+class Uniform(Distribution):
+    def __init__(self, low, high):
+        self.low, self.high = _promote(low, high)
+
+    @property
+    def batch_shape(self):
+        return tuple(torch.broadcast_shapes(self.low.shape, self.high.shape))
+
+    def sample(self, key, sample_shape=()):
+        shape = tuple(sample_shape) + self.batch_shape
+        u = torch.rand(shape, generator=generator(key, self.low.device),
+                       device=self.low.device, dtype=self.low.dtype)
+        return self.low + (self.high - self.low) * u
+
+    def log_prob(self, value):
+        inside = (value >= self.low) & (value <= self.high)
+        lp = -torch.log(self.high - self.low)
+        return torch.where(inside, lp, torch.full_like(lp, -math.inf))
+
+
+def log_i0(x):
+    """log of the modified Bessel function I0, numerically stable."""
+    return torch.log(torch.special.i0e(x)) + torch.abs(x)
+
+
+def log_i1(x):
+    return torch.log(torch.special.i1e(x)) + torch.abs(x)
+
+
+class VonMises(Distribution):
+    """Circular distribution on S^1: the prior of the wrapped phase
+    parametrization."""
+
+    def __init__(self, loc, concentration):
+        self.loc, self.concentration = _promote(loc, concentration)
+
+    @property
+    def batch_shape(self):
+        return tuple(torch.broadcast_shapes(
+            self.loc.shape, self.concentration.shape
+        ))
+
+    def log_prob(self, value):
+        return (
+            self.concentration * torch.cos(value - self.loc)
+            - _LOG_2PI
+            - log_i0(self.concentration)
+        )
+
+    def sample(self, key, sample_shape=()):
+        """Best-Fisher (1979) rejection sampling with the JAX package's
+        fixed budget of 16 proposals per draw; a draw none of them accepts
+        returns ``loc`` (probability below 1e-6 per draw)."""
+        shape = tuple(sample_shape) + self.batch_shape
+        kappa = self.concentration.expand(shape)
+        loc = self.loc.expand(shape)
+        g = generator(key, loc.device)
+        kw = dict(generator=g, device=loc.device, dtype=loc.dtype)
+
+        tau = 1.0 + torch.sqrt(1.0 + 4.0 * kappa**2)
+        rho = (tau - torch.sqrt(2.0 * tau)) / (2.0 * kappa + 1e-12)
+        r = (1.0 + rho**2) / (2.0 * rho + 1e-12)
+
+        found = torch.zeros(shape, dtype=torch.bool, device=loc.device)
+        out = torch.zeros(shape, **{k: kw[k] for k in ("device", "dtype")})
+        for _ in range(16):
+            u1, u2, u3 = (torch.rand(shape, **kw) for _ in range(3))
+            z = torch.cos(math.pi * u1)
+            f = (1.0 + r * z) / (r + z)
+            c = kappa * (r - f)
+            accept = (c * (2.0 - c) - u2 > 0) | (
+                torch.log(c / torch.clamp(u2, min=1e-12)) + 1.0 - c >= 0
+            )
+            theta = torch.sign(u3 - 0.5) * torch.arccos(torch.clamp(f, -1.0, 1.0))
+            out = torch.where(accept & ~found, theta, out)
+            found = found | accept
+        return torch.remainder(out + loc + math.pi, 2.0 * math.pi) - math.pi

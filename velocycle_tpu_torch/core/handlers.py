@@ -1,8 +1,8 @@
 """Effect handlers: the probabilistic-program transforms of the model DSL.
 
 Port of `velocycle_tpu/core/handlers.py` (sample/param/factor/
-deterministic/plate, the trace, seed, substitute, condition, replay and
-block handlers, and `check_plate_shapes`).  A model is a plain Python function; interpreting it under
+deterministic/plate, the trace, seed, substitute, condition, replay, block
+and enum handlers, and `check_plate_shapes`).  A model is a plain Python function; interpreting it under
 a handler stack yields a trace of torch tensors, and autograd records the
 computation as it runs.
 
@@ -30,6 +30,7 @@ __all__ = [
     "condition",
     "replay",
     "block",
+    "enum",
     "Trace",
     "fold_in",
     "site_seed",
@@ -259,6 +260,53 @@ class block(Messenger):
     def process_message(self, msg):
         if msg["name"] in self.hide:
             msg["hidden"] = True
+
+
+class enum(Messenger):
+    """Parallel enumeration of marked discrete sites.
+
+    A sample site declared with ``infer={"enumerate": "parallel"}`` whose
+    value is not already fixed (replay/condition/substitute) takes its
+    whole support stacked on a NEW leading axis instead of a draw: the
+    j-th enumerated site (in trace order) takes shape ``(K_j,) + (1,)*j +
+    batch_shape``, so successive sites broadcast into a joint ``(K_{n-1},
+    ..., K_0)`` prefix right-aligned against the model's batch dims.
+    `infer.TraceEnum_ELBO` then sums the discrete variables out of the
+    model log-joint exactly.
+    """
+
+    def __enter__(self):
+        super().__enter__()
+        self.count = 0
+        self._batch_ndim = None
+        return self
+
+    def process_message(self, msg):
+        if (
+            msg["type"] != "sample"
+            or msg["is_observed"]
+            or msg["value"] is not None
+            or msg.get("infer", {}).get("enumerate") != "parallel"
+        ):
+            return
+        support = msg["fn"].enumerate_support()  # (K,) + batch_shape
+        K = support.shape[0]
+        batch = tuple(support.shape[1:])
+        # the (1,)*count prefix forms a correct joint block only when every
+        # enumerated site has one batch ndim: differing ndims would collide
+        # enum axes with batch axes, so refuse them
+        if self._batch_ndim is None:
+            self._batch_ndim = len(batch)
+        elif len(batch) != self._batch_ndim:
+            raise ValueError(
+                f"enumerated site {msg['name']!r} has batch ndim "
+                f"{len(batch)} but an earlier enumerated site had "
+                f"{self._batch_ndim}; give all enumerated sites the same "
+                "batch ndim (broadcast their distribution parameters)"
+            )
+        msg["value"] = support.reshape((K,) + (1,) * self.count + batch)
+        msg["infer"]["_enumerated"] = True
+        self.count += 1
 
 
 class plate(Messenger):

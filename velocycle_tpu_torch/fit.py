@@ -31,12 +31,22 @@ def _np(x):
 
 
 def _phases_from_params(p, mp):
-    """Posterior Phases from ``phixy_locs``, or the prior unchanged when
-    phi_xy was conditioned."""
+    """Posterior Phases from whichever phi parametrization the fit used:
+    ``phixy_locs`` (Fourier, "xy"), ``phi_locs`` (wrapped or spline), or
+    the prior unchanged when phi was conditioned."""
     cells = mp.phase_prior.phi_xy.columns
     if "phixy_locs" in p:
         return Phases.from_array(p["phixy_locs"].T, cell_names=cells)
+    if "phi_locs" in p:
+        return Phases.from_angles(np.asarray(p["phi_locs"]).reshape(-1),
+                                  cell_names=cells)
     return mp.phase_prior.copy()
+
+
+def _has_phi_xy(mp):
+    """Whether the models sample the phi_xy site: the Fourier basis with
+    the "xy" parametrization."""
+    return mp.basis_kind == "fourier" and mp.phi_parametrization != "wrapped"
 
 
 class _FitModel:
@@ -247,17 +257,23 @@ class PhaseFitModel(_FitModel):
         self.phis_fit = phases.phi_xy_array.T
         self.disp = p.get("shape_inv_locs")
         self.delta_nus = p.get("delta_nu_locs")
+        if mp.gene_selection_model == "lba":
+            self.periodic_logits = p.get("logit_locs")
         # reference-compatible aliases
         self.cycle_pyro = cycle
         self.phase_pyro = phases
 
     def _posterior_sites(self):
         mp = self.metaparams
-        rs = ["nu", "phi_xy", "phi", "zeta"]
+        rs = ["nu", "phi", "zeta"]
+        if _has_phi_xy(mp):
+            rs.insert(1, "phi_xy")
         if mp.noisemodel == "NegativeBinomial":
             rs.append("shape_inv")
         if mp.with_delta_nu and "delta_nu" not in self.condition_on:
             rs.append("delta_nu")
+        if mp.gene_selection_model == "lba":
+            rs += ["periodic", "periodic_prob"]
         return [s for s in rs if s not in self.condition_on]
 
     @torch.no_grad()
@@ -275,6 +291,8 @@ class PhaseFitModel(_FitModel):
         cf = data.count_factor
         out["ElogS"] = _np(base + cf[None, :])
         out["ElogS2"] = _np(base + cf.mean())
+        if data.gene_selection_model == "lba" and "periodic" in out:
+            self.periodic = out["periodic"].mean(0)
         return out
 
     def polar_plot(self, **kwargs):
@@ -341,10 +359,12 @@ class VelocityFitModel(_FitModel):
     def _posterior_sites(self):
         mp = self.metaparams
         rs = [
-            "log_gamma", "log_beta", "nu_omega", "gamma", "nu", "phi_xy",
+            "log_gamma", "log_beta", "nu_omega", "gamma", "nu",
             "phi", "zeta", "zeta_dphi", "zeta_omega", "omega",
             "ElogS", "ElogU",
         ]
+        if _has_phi_xy(mp):
+            rs.insert(5, "phi_xy")
         if mp.noisemodel == "NegativeBinomial":
             rs.append("shape_inv")
         if mp.with_delta_nu and "delta_nu" not in self.condition_on:
@@ -355,9 +375,16 @@ class VelocityFitModel(_FitModel):
 
     def period_hours(self, n_grid=1000):
         """Cell-cycle period per condition: the trapezoid integral of
-        1/omega over the circle on an ``n_grid`` grid (the statistic the
-        reference tutorials compute as ``trapz(1/omega)``)."""
-        grid = np.linspace(0, 2 * np.pi, n_grid, endpoint=False)
+        1/omega over the manifold on an ``n_grid`` grid (the statistic the
+        reference tutorials compute as ``trapz(1/omega)``): over the circle,
+        or over the spline domain, ends included (a transit time in domain
+        units)."""
+        mp = self.metaparams
+        if mp.basis_kind == "fourier":
+            grid = np.linspace(0, 2 * np.pi, n_grid, endpoint=False)
+        else:
+            lo, hi = mp.spline_domain
+            grid = np.linspace(lo, hi, n_grid)
         zeta_w = _np(omega_basis(
             self.metaparams.data, torch.as_tensor(grid, dtype=torch.float32)
         ))

@@ -51,6 +51,7 @@ class PhaseData(_DeviceData):
     sigma_gc: torch.Tensor      # scalar Lognormal noise scale
     beta0: torch.Tensor         # LBA Beta prior
     beta1: torch.Tensor
+    # (Nc,) spline basis: the latent coordinate's prior location
     phi_prior: Optional[torch.Tensor] = None
     # precomputed sum(lgamma(S+1)): the fused kernels skip that term
     lgamma_k_sum: Optional[torch.Tensor] = None
@@ -63,7 +64,14 @@ class PhaseData(_DeviceData):
     with_delta_nu: bool = True
     gene_selection_model: str = "all"
     basis_kind: str = "fourier"
+    # "xy" (phi = atan2 of a Normal 2-vector) or "wrapped" (phi on S^1
+    # proper, VonMises prior); any other value acts as "xy"
     phi_parametrization: str = "xy"
+    # spline basis (basis_kind == "spline"): spline_n_basis + 1 columns
+    # (leading constant) over spline_domain
+    spline_n_basis: int = 10
+    spline_degree: int = 3
+    spline_domain: tuple = (0.0, 6.283185307179586)
     # fused CUDA NB likelihood (ops/nb_kernels.py); NegativeBinomial only
     use_fused_nb: bool = False
     # compile the dispersion gradient in; `fit.py` sets False when
@@ -125,7 +133,11 @@ class VelocityData(_DeviceData):
     model_type: str = "lrmn"
     rho_rank: int = 5
     basis_kind: str = "fourier"
+    # see PhaseData.phi_parametrization and the spline fields
     phi_parametrization: str = "xy"
+    spline_n_basis: int = 10
+    spline_degree: int = 3
+    spline_domain: tuple = (0.0, 6.283185307179586)
     # fused CUDA S+U NB likelihood (ops/nb_kernels.py); NegativeBinomial only
     use_fused_nb: bool = False
     # see PhaseData.disp_grad

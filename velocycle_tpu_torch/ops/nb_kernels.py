@@ -59,6 +59,7 @@ from .special import (
 __all__ = [
     "KERNEL_WIDTHS",
     "LAUNCHES",
+    "LAUNCH_WIDTHS",
     "Layout",
     "MAX_WIDTH",
     "PHASE_MODES",
@@ -86,15 +87,23 @@ __all__ = [
     "widen_inputs",
 ]
 
-# kernel launches on the card, by kernel; chip_smoke.py resets these just
-# before it drives each stage of the main path and reads them just after
+# kernel launches on the card, by kernel, and by kernel and instantiated
+# basis width (`kernel_width`); chip_smoke.py resets these just before it
+# drives each stage of the main path and reads them just after
 LAUNCHES = {"phase_fwd": 0, "phase_fwdgrad": 0, "velo_fwd": 0,
             "velo_fwdgrad": 0}
+LAUNCH_WIDTHS = {k: {} for k in LAUNCHES}
 
 
 def reset_launch_counts():
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+        LAUNCH_WIDTHS[k].clear()
+
+
+def _count_launch(name, width):
+    LAUNCHES[name] += 1
+    LAUNCH_WIDTHS[name][width] = LAUNCH_WIDTHS[name].get(width, 0) + 1
 
 
 # ---------------------------------------------------------------------------
@@ -634,7 +643,7 @@ def _phase_call(name, S, nu, zeta, cf, r, delta_nu, Db, lgamma_k_sum,
     loss_part, gene_part, dzeta, dcf = _phase_launch(
         mode, S, nu_k, zeta_k, cf, r, dnu_k, Db_k,
         skip_k=lgamma_k_sum is not None, want_disp=bool(want_disp))
-    LAUNCHES[name] += 1
+    _count_launch(name, width)
     loss = _finish_loss(loss_part.sum(), lgamma_k_sum)
     # fixed-order reduction over the cell tiles (no float atomics)
     gene = None if gene_part is None else gene_part.sum(0)
@@ -715,7 +724,7 @@ def _velo_call(name, S, U, params, delta_nu, Db, lgamma_k_sum,
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(*args, *tail, stream)
     _raise_on(rc, name)
-    LAUNCHES[name] += 1
+    _count_launch(name, width)
     loss = _finish_loss(loss_part.sum(), lgamma_k_sum)
     # fixed-order reduction over the cell tiles (no float atomics)
     gene = None if gene_part is None else gene_part.sum(0)

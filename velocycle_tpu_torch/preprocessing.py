@@ -1,6 +1,7 @@
 """Preprocessing: AnnData + prior containers -> device-ready metaparameters.
 
-Port of `velocycle_tpu/preprocessing.py` (Fourier basis).  All host work
+Port of `velocycle_tpu/preprocessing.py` (Fourier and spline bases, both
+phase parametrizations, both gene-selection models).  All host work
 (gene filtering, densification through the native ingest, design matrices,
 size factors, the int16 count compaction and the f64 ``sum(lgamma(K+1))``
 constant) is numpy and produces the same arrays as the JAX package; the
@@ -83,20 +84,47 @@ def make_design_matrix(adata, ids="batch"):
     return (values[:, None] == categories[None, :]).astype(np.int64)
 
 
-def _basis_config(basis_kind, cycle_obj, n_harmonics):
-    """Static basis fields; validates the Cycle prior's coefficient count
-    against the Fourier basis (``2*n_harmonics + 1``)."""
-    if basis_kind != "fourier":
-        raise NotImplementedError(
-            f"{basis_kind=}: the port has the Fourier basis only"
-        )
+def _basis_config(basis_kind, cycle_obj, phase_obj, n_harmonics,
+                  spline_degree, spline_domain):
+    """Static basis fields (and the spline path's phi prior) of
+    `PhaseData`/`VelocityData`.
+
+    Validates the Cycle prior's coefficient count against the basis:
+    ``2*n_harmonics + 1`` (fourier) or ``spline_n_basis + 1`` (spline, with
+    ``spline_n_basis`` read from the prior).  The spline domain defaults to
+    the range of the prior's phases.
+    """
     n_coeffs = cycle_obj.means_array.shape[1]
-    if n_coeffs != 2 * n_harmonics + 1:
+    if basis_kind == "fourier":
+        if n_coeffs != 2 * n_harmonics + 1:
+            raise ValueError(
+                f"Cycle prior has {n_coeffs} coefficient rows but "
+                f"n_harmonics={n_harmonics} needs {2 * n_harmonics + 1}"
+            )
+        return {"basis_kind": "fourier"}
+    if basis_kind != "spline":
         raise ValueError(
-            f"Cycle prior has {n_coeffs} coefficient rows but "
-            f"n_harmonics={n_harmonics} needs {2 * n_harmonics + 1}"
+            f"{basis_kind=} is not valid; use 'fourier' or 'spline'"
         )
-    return {"basis_kind": "fourier"}
+    spline_n_basis = n_coeffs - 1
+    if spline_n_basis <= spline_degree:
+        raise ValueError(
+            f"spline basis needs > degree+2 = {spline_degree + 2} Cycle "
+            f"coefficient rows (constant + n_basis), got {n_coeffs}"
+        )
+    phis = np.asarray(phase_obj.phis, np.float32).reshape(-1)
+    if spline_domain is None:
+        spline_domain = (float(phis.min()), float(phis.max()))
+    lo, hi = float(spline_domain[0]), float(spline_domain[1])
+    if not hi > lo:
+        raise ValueError(f"empty spline domain {spline_domain}")
+    return {
+        "basis_kind": "spline",
+        "spline_n_basis": spline_n_basis,
+        "spline_degree": int(spline_degree),
+        "spline_domain": (lo, hi),
+        "phi_prior": phis,
+    }
 
 
 def normalize_total(adata):
@@ -179,22 +207,29 @@ def preprocess_for_phase_estimation(
     beta1: float = 0.90,
     basis_kind: str = "fourier",
     phi_parametrization: str = "xy",
+    spline_degree: int = 3,
+    spline_domain=None,
     use_fused_nb: bool = False,
     device=None,
 ):
     """Assemble `Metapars` for manifold learning; ``.data`` is a
-    `PhaseData` on ``device``."""
-    from .models.phase import phase_guide, phase_model
+    `PhaseData` on ``device``.
+
+    ``gene_selection_model`` picks the model and guide: "all"
+    (`phase_model`/`phase_guide`) or "lba" (`phase_model_lba`/
+    `phase_guide_lba`, a per-gene periodic-or-flat mixture).
+    ``basis_kind="spline"`` puts the model on an interval with a B-spline
+    basis: the Cycle prior then carries ``n_basis + 1`` coefficient rows
+    (`Cycle.spline_prior`), phi ~ Uniform(``spline_domain``), whose default
+    is the range of ``phase_obj``'s angles, and the guide starts at those
+    angles.  ``phi_parametrization="wrapped"`` puts phi on S^1 with a
+    VonMises prior at the prior's angles; any other value acts as "xy".
+    """
+    from .models.phase import (
+        phase_guide, phase_guide_lba, phase_model, phase_model_lba,
+    )
 
     dev = resolve_device(device)
-    if gene_selection_model != "all":
-        raise NotImplementedError(
-            f"{gene_selection_model=}: the port has the 'all' model only"
-        )
-    if phi_parametrization != "xy":
-        raise NotImplementedError(
-            f"{phi_parametrization=}: the port has the 'xy' parametrization only"
-        )
     S, U = _extract_counts(adata, normalize)
     s_umi = _dense(adata.layers["spliced"]).sum(1).astype(np.float32)
     count_factor = np.log(s_umi / s_umi.mean())
@@ -206,11 +241,22 @@ def preprocess_for_phase_estimation(
         design_mtx = np.ones((adata.shape[0], 1), dtype=np.int64)
     design_mtx = np.asarray(design_mtx)
 
+    if gene_selection_model == "all":
+        model_fn, guide_fn = phase_model, phase_guide
+    elif gene_selection_model == "lba":
+        model_fn, guide_fn = phase_model_lba, phase_guide_lba
+    else:
+        raise ValueError(
+            f"{gene_selection_model=} is not a valid model; use 'all'|'lba'"
+        )
+
     Ng, Nc, Nb = len(cycle_obj), len(phase_obj), design_mtx.shape[-1]
     sd_dnu_arr = np.broadcast_to(
         np.asarray(sd_dnu, np.float32), (Nb,)
     ).reshape(Nb, 1)
-    basis_cfg = _basis_config(basis_kind, cycle_obj, n_harmonics)
+    basis_cfg = _basis_config(basis_kind, cycle_obj, phase_obj, n_harmonics,
+                              spline_degree, spline_domain)
+    phi_prior = basis_cfg.pop("phi_prior", None)
     arrays = dict(
         S=_compact_counts(use_fused_nb, S.T),
         logS=np.asarray(adata.layers["logS"], np.float32).T,
@@ -227,6 +273,7 @@ def preprocess_for_phase_estimation(
         beta0=np.float32(beta0),
         beta1=np.float32(beta1),
         lgamma_k_sum=_lgamma_k_sum(use_fused_nb, S),
+        phi_prior=phi_prior,
     )
     data = PhaseData(
         **{k: _to_device(v, dev) for k, v in arrays.items()},
@@ -243,8 +290,8 @@ def preprocess_for_phase_estimation(
     )
     return Metapars(
         data=data,
-        model_fn=phase_model,
-        guide_fn=phase_guide,
+        model_fn=model_fn,
+        guide_fn=guide_fn,
         cycle_prior=cycle_obj,
         phase_prior=phase_obj,
         condition=list((condition_on or {}).keys()),
@@ -282,6 +329,8 @@ def preprocess_for_velocity_estimation(
     rho_rank: int = 5,
     basis_kind: str = "fourier",
     phi_parametrization: str = "xy",
+    spline_degree: int = 3,
+    spline_domain=None,
     use_fused_nb: bool = False,
     device=None,
 ):
@@ -289,19 +338,19 @@ def preprocess_for_velocity_estimation(
     `VelocityData` on ``device``.  Genes are filtered against the Cycle
     (`filter_shared_genes` with ``behavior``); ``model_type`` selects the
     LRMN guide ("lrmn") or the mean-field guide ("fourier", "meanfield",
-    "all")."""
+    "all").  ``basis_kind``, ``phi_parametrization``, ``spline_degree`` and
+    ``spline_domain`` as in `preprocess_for_phase_estimation`; on the
+    spline basis the AngularSpeed prior's coefficient count is the speed
+    basis size (1: a constant speed; else constant + an (Nhw-1)-function
+    spline)."""
     from .models.velocity import (
         velocity_guide, velocity_guide_lrmn, velocity_model,
     )
 
     dev = resolve_device(device)
-    if phi_parametrization != "xy":
-        raise NotImplementedError(
-            f"{phi_parametrization=}: the port has the 'xy' parametrization only"
-        )
     if omega_n_harmonics is None:
         omega_n_harmonics = speed_obj.harmonics
-    if speed_obj.harmonics != omega_n_harmonics:
+    if basis_kind == "fourier" and speed_obj.harmonics != omega_n_harmonics:
         raise ValueError(
             f"speed prior has {speed_obj.harmonics} harmonics but "
             f"omega_n_harmonics={omega_n_harmonics}"
@@ -314,7 +363,18 @@ def preprocess_for_velocity_estimation(
         raise ValueError(
             f"{model_type=} is not valid; use 'lrmn' or 'fourier'"
         )
-    basis_cfg = _basis_config(basis_kind, cycle_obj, n_harmonics)
+    basis_cfg = _basis_config(basis_kind, cycle_obj, phase_obj, n_harmonics,
+                              spline_degree, spline_domain)
+    phi_prior = basis_cfg.pop("phi_prior", None)
+    if basis_kind == "fourier":
+        Nhw = 2 * omega_n_harmonics + 1
+    else:
+        Nhw = speed_obj.means_array.shape[1]
+        if Nhw != 1 and Nhw - 1 <= spline_degree:
+            raise ValueError(
+                f"speed spline needs 1 or > degree+2 coefficient rows, "
+                f"got {Nhw} (degree {spline_degree})"
+            )
     cycle_obj, adata = filter_shared_genes(
         cycle_obj, adata, filter_type=behavior
     )
@@ -365,6 +425,7 @@ def preprocess_for_velocity_estimation(
         rho_std=np.float32(rho_std),
         rho_scale=np.float32(rho_scale),
         lgamma_k_sum=_lgamma_k_sum(use_fused_nb, S, U),
+        phi_prior=phi_prior,
     )
     data = VelocityData(
         **{k: _to_device(v, dev) for k, v in arrays.items()},
@@ -372,7 +433,7 @@ def preprocess_for_velocity_estimation(
         Nc=Nc,
         Nb=Nb,
         Nx=Nx,
-        Nhw=2 * omega_n_harmonics + 1,
+        Nhw=Nhw,
         num_harmonics_S=n_harmonics,
         omega_harmonics=omega_n_harmonics,
         noisemodel=noisemodel,
