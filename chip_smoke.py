@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch + CUDA port (`velocycle_tpu_torch`).
 
-    python3 chip_smoke.py [--seed 0] [--digest | --kernels]
+    python3 chip_smoke.py [--seed 0] [--digest | --kernels | --mcmc]
 
 Run from the root of a checkout, on a machine with one CUDA card.  Phases,
 in order; any failure exits non-zero and prints no result line:
@@ -74,7 +74,36 @@ in order; any failure exits non-zero and prints no result line:
      mixture, then the enumerated form under TraceEnum_ELBO at the fitted
      params (losses equal to rtol 1e-5, no kernel launch).  Losses finite
      and falling, steps/s, device profiles and peak memory printed;
-  9. print the kernel table as one JSON line, the nvidia-smi line, and
+  9. [mcmc]: NUTS over the phase model at the JAX package's MCMC design
+     points (bench.py), the chains batched through ONE phase_fwdgrad launch
+     per leapfrog step.  First, before phases 6-8 (which run after it), the
+     chain-batched launch held against its plain version and against K
+     single launches ([parity]: (a)'s shape at K = 64 with zeta batched,
+     (b)'s at K = 256 with nu and r batched, full width at K = 4, and K = 1
+     bit-identical to the unbatched launch) and timed beside K single
+     launches and its bound ([timing]), with [variants]' 11-column kernels
+     timed too: no other process shares the card while a kernel is timed.
+     Then runs (a) and (b), host-bound, each in a process of its own
+     (spawned after phase 6, whose stages run alone; stopped in every
+     case) beside phases 7-8, their output printed when they end; so the
+     runs' rates and phases 7-8's are not taken alone (``--mcmc``: build,
+     then this phase alone, the runs in turn in one process).  (a)
+     `nuts_phi_wrapped`: 2,000 cells x 50 genes, an 800-step phase fit, then
+     MCMCFitModel on the wrapped phases with the genes conditioned (400-step
+     SVI warm start, the Hessian diagonal through the plain path), 64
+     chains x (400 warmup + 150 draws), max_depth 6; gates: phi in [-pi,
+     pi), accept > 0.6, circular correlation with the SVI phases > 0.95,
+     max split R-hat < 1.05.  (b) `nuts`: 500 x 50, phases conditioned, a
+     500-step SVI warm start, nu and shape_inv sampled in the whitened
+     coordinates of the Fisher blocks and the Hessian diagonal, 256 chains
+     x (400 + 100), max_depth 6; gates: accept > 0.3, finite draws,
+     posterior-mean nu against the SVI locs corr > 0.95, and MCMC's warning
+     that it samples shape_inv through the fused path; its R-hat is printed
+     as the known fault of ROADMAP.md section 3, not gated.  Each run:
+     launches by chain count (exactly one per batched potential
+     evaluation), evaluations per iteration, wall time, split R-hat and
+     ESS, a device profile over four transitions, peak memory;
+ 10. print the kernel table as one JSON line, the nvidia-smi line, and
      last {"ok": true, "device": {...}}.
 
 The configuration is the repository's Stereo-seq-class fit (bench.py
@@ -92,6 +121,7 @@ import subprocess
 import sys
 import time
 import types
+import warnings
 
 NG, NC, H = 2048, 102_400, 2
 NH = 2 * H + 1
@@ -1315,9 +1345,10 @@ def _variant_kernels(torch, seed, card):
 def phase_variants(torch, seed, card, num_steps=50, lba_steps=20,
                    device="cuda"):
     """[variants]: the model variants at full width through the public entry
-    points, each fit's kernel launches counted by width.  Returns
-    ({kernel: {width: launches}} over the variant fits, the 11-column
-    kernels' parity and timing)."""
+    points, each fit's kernel launches counted by width.  Returns {kernel:
+    {width: launches}} over the variant fits (the 11-column kernels' parity
+    and timing is `_variant_kernels`, run before the [mcmc] processes
+    start)."""
     import numpy as np
 
     import velocycle_tpu_torch as vt
@@ -1325,7 +1356,6 @@ def phase_variants(torch, seed, card, num_steps=50, lba_steps=20,
     from velocycle_tpu_torch.models import phase as P
     from velocycle_tpu_torch.ops import nb_kernels as K
 
-    errs, timing = _variant_kernels(torch, seed, card)
     launches = {k: {} for k in K.LAUNCHES}
 
     def add(counts):
@@ -1494,20 +1524,229 @@ def phase_variants(torch, seed, card, num_steps=50, lba_steps=20,
           f"memory of the fits {peak1 / 2**30:.2f} / {peak2 / 2**30:.2f} / "
           f"{peak3 / 2**30:.2f} / {peak4 / 2**30:.2f} GiB; on {card}")
     print(f"[variants] launches by width over the variant fits: {launches}")
-    return launches, errs, timing
+    return launches
 
 
-def profile_steps(torch, svi, state, data, tag, n=5):
-    """Device time by kernel over a few SVI steps (torch.profiler); only
-    device-side kernel events are summed (an op row and the kernel it
-    launches report the same device time)."""
+# ---------------------------------------------------------------------------
+# [mcmc]: NUTS over the phase model, the chains batched through one
+# phase_fwdgrad launch per leapfrog step
+# ---------------------------------------------------------------------------
+
+# the JAX package's MCMC design points (bench.py): (a) `nuts_phi_wrapped`
+# (bench.py:264-333), the wrapped phases sampled with the genes conditioned;
+# (b) `nuts` (bench.py:163-262), nu and shape_inv sampled with the phases
+# conditioned.  Nh = 3 (n_harmonics=1) in both.
+MCMC_A = dict(Nc=2000, Ng=50, sim_seed=17, chains=64, warmup=400, samples=150,
+              svi_fit=800, svi_warm=400, max_depth=6, init_jitter=1.0)
+MCMC_B = dict(Nc=500, Ng=50, sim_seed=13, chains=256, warmup=400, samples=100,
+              svi_fit=500, max_depth=6, init_jitter=2.0)
+MCMC_NH = 3
+
+
+def _chain_inputs(torch, Ng, Nc, K, seed, batched, nh=MCMC_NH):
+    """make_inputs' operands with a leading chain axis K on those named in
+    ``batched`` (of "nu", "zeta", "cf", "r"): seeded perturbations per
+    chain.  Returns (S, nu, zeta, cf, r) and the unbatched originals."""
+    S, nu, zeta, cf, r, _, _ = make_inputs(torch, Ng, Nc, seed, nh=nh)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed + 5)
+    out = {"nu": nu, "zeta": zeta, "cf": cf, "r": r}
+    for name in batched:
+        x = out[name][None].repeat((K,) + (1,) * out[name].dim())
+        x = x + 0.05 * torch.randn(x.shape, generator=g, device="cuda")
+        out[name] = x.abs() + 0.05 if name == "r" else x
+    return S, out["nu"], out["zeta"], out["cf"], out["r"]
+
+
+def _chain(t, c, base_dim):
+    return t[c] if t.dim() > base_dim else t
+
+
+def _batched_parity_case(torch, tag, Ng, Nc, K, batched, seed, want_disp,
+                         nh=MCMC_NH, plain_batched=True):
+    """The chain-batched phase_fwdgrad against its plain version (batched,
+    or chain by chain where a batched plain call would not fit) and
+    against K unbatched launches.  Returns (max abs error, max loss rel
+    error) over the chains and both references."""
+    from velocycle_tpu_torch.ops import nb_kernels as K_
+
+    S, nu, zeta, cf, r = _chain_inputs(torch, Ng, Nc, K, seed, batched, nh)
+    lgk = lgamma_k_sum(torch, S)
+    args = (S, nu, zeta, cf, r, None, None, lgk)
+    K_.reset_launch_counts()
+    kl, kg = K_.phase_fwdgrad(*args, want_disp=want_disp)
+    check(K_.LAUNCH_CHAINS["phase_fwdgrad"] == {K: 1},
+          f"{tag}: {K_.LAUNCH_CHAINS['phase_fwdgrad']} launches, want one "
+          f"of {K} chains")
+    if plain_batched:
+        pl, pg = K_.phase_fwdgrad_plain(*args, want_disp=want_disp)
+    worst, lrel_max, oks = 0.0, 0.0, []
+    dims = (2, 2, 1, 1)
+    for c in range(K):
+        one = [_chain(t, c, d) for t, d in zip((nu, zeta, cf, r), dims)]
+        sl, sg = K_.phase_fwdgrad(S, *one, None, None, lgk,
+                                  want_disp=want_disp)
+        if plain_batched:
+            refs = [(pl[c], [None if x is None else x[c] for x in pg])]
+        else:
+            refs = [K_.phase_fwdgrad_plain(S, *one, None, None, lgk,
+                                           want_disp=want_disp)]
+        refs.append((sl, sg))
+        for ref_l, ref_g in refs:
+            lrel = abs(float(kl[c]) - float(ref_l)) / max(abs(float(ref_l)), 1.0)
+            lrel_max = max(lrel_max, lrel)
+            oks.append(lrel < LOSS_RTOL)
+            for name, a, b in zip(PHASE_GRADS, kg, ref_g):
+                if b is None:
+                    continue
+                worst = max(worst, float((a[c] - b).abs().max()))
+                if float(b.abs().max()) == 0.0:
+                    oks.append(float(a[c].abs().max()) == 0.0)
+                else:
+                    oks.append(_rel(a[c], b) < GRAD_RTOL)
+        if K == 1:   # the batched launch at K = 1 is the unbatched one
+            same = torch.equal(kl[0], sl) and all(
+                (a is None and b is None) or torch.equal(a[0], b)
+                for a, b in zip(kg, sg))
+            print(f"[parity] {tag}: K = 1 batched vs unbatched launch "
+                  f"bit-identical: {same}")
+            oks.append(same)
+    print(f"[parity] {tag} ({'+'.join(batched)} batched, disp_grad="
+          f"{want_disp}): max abs err {worst:.3e}, loss rel {lrel_max:.2e} "
+          f"against the plain version and {K} single launches: "
+          f"{'ok' if all(oks) else 'FAIL'}")
+    check(all(oks), f"{tag}: the chain-batched kernel disagrees")
+    return worst, lrel_max
+
+
+def mcmc_kernel_parity(torch, seed):
+    """[parity] of the chain-batched phase_fwdgrad at the [mcmc] shapes and
+    at full width."""
+    a, b = MCMC_A, MCMC_B
+    out = {}
+    out["a"] = _batched_parity_case(
+        torch, f"(a) {a['Ng']}x{a['Nc']} K={a['chains']}", a["Ng"], a["Nc"],
+        a["chains"], ("zeta",), seed, want_disp=False)
+    out["b"] = _batched_parity_case(
+        torch, f"(b) {b['Ng']}x{b['Nc']} K={b['chains']}", b["Ng"], b["Nc"],
+        b["chains"], ("nu", "r"), seed, want_disp=True)
+    out["full"] = _batched_parity_case(
+        torch, f"full {NG}x{NC} K=4", NG, NC, 4, ("nu", "r"), seed,
+        want_disp=True, nh=NH, plain_batched=False)
+    out["k1"] = _batched_parity_case(
+        torch, f"full {NG}x{NC} K=1", NG, NC, 1, ("nu", "zeta"), seed,
+        want_disp=True, nh=NH, plain_batched=False)
+    torch.cuda.empty_cache()
+    worst = max(v[0] for v in out.values())
+    lrel = max(v[1] for v in out.values())
+    return {"max_abs_err": worst, "loss_rel_err": lrel}
+
+
+def _fwdgrad_ops(torch, S, nh, want_disp):
+    """FP32 operations of one phase_fwdgrad over these counts at nh basis
+    columns (OPS at Nh = 5 less OPS_PER_COLUMN per missing column; without
+    the dispersion gradient, less dlp_da + g_r and its cell sum)."""
+    lg, dg, share = _ratio_ops(torch, [S], want_disp)
+    per = (OPS["common"] + OPS["fwdgrad"] - (0 if want_disp else 7)
+           - (NH - nh) * (OPS_PER_COLUMN["common"] + OPS_PER_COLUMN["fwdgrad"]))
+    return per * S.numel() + lg + dg, share
+
+
+def mcmc_kernel_timing(torch, seed, card):
+    """[timing]: one chain-batched launch against K unbatched launches at
+    (a)'s and (b)'s shapes, each beside its bound (bytes: the counts once,
+    every chain's operands and gradients; operations: K times one chain's).
+    No PyTorch call computes this function: no library column."""
+    from velocycle_tpu_torch.ops import nb_kernels as K_
+    from velocycle_tpu_torch.tools import kernel_profile as TP
+
+    out = {}
+    for tag, cfg, batched, wd in (("a", MCMC_A, ("zeta",), False),
+                                  ("b", MCMC_B, ("nu", "r"), True)):
+        Ng, Nc, Kc = cfg["Ng"], cfg["Nc"], cfg["chains"]
+        S, nu, zeta, cf, r = _chain_inputs(torch, Ng, Nc, Kc, seed, batched)
+        lgk = lgamma_k_sum(torch, S)
+        dims = (2, 2, 1, 1)
+        ops, share = _fwdgrad_ops(torch, S, MCMC_NH, wd)
+        ops *= Kc
+        grads = Kc * (Ng * MCMC_NH + Nc * MCMC_NH + Nc + Ng)
+        nbytes = (S.numel() * S.element_size()
+                  + 4 * sum(t.numel() for t in (nu, zeta, cf, r)) + 4 * grads
+                  + 4 * Kc)
+        ops_one = [[_chain(t, c, d) for t, d in zip((nu, zeta, cf, r), dims)]
+                   for c in range(Kc)]
+
+        def batched_call():
+            return K_.phase_fwdgrad(S, nu, zeta, cf, r, None, None, lgk,
+                                    want_disp=wd)
+
+        def single_calls():
+            return [K_.phase_fwdgrad(S, *o, None, None, lgk, want_disp=wd)
+                    for o in ops_one]
+
+        def plain_call():
+            return K_.phase_fwdgrad_plain(S, nu, zeta, cf, r, None, None, lgk,
+                                          want_disp=wd)
+
+        s1 = TP.event_ms(single_calls, reps=3)
+        b1 = TP.event_ms(batched_call, reps=20, warmup=2)
+        b2 = TP.event_ms(batched_call, reps=20, warmup=2)
+        s2 = TP.event_ms(single_calls, reps=3)
+        p1 = TP.event_ms(plain_call, reps=3)
+        bound, bound_by = TP.bound_ms(nbytes, ops)
+        ms = (b1 + b2) / 2
+        single = (s1 + s2) / 2
+        print(f"[timing] phase_fwdgrad over {Kc} chains @ {Ng}x{Nc} int16, "
+              f"Nh={MCMC_NH}, disp_grad={wd} on {card}: one batched launch "
+              f"{b1:.4f} / {b2:.4f} ms, {Kc} single launches {s1:.3f} / "
+              f"{s2:.3f} ms ({single / ms:.1f}x), plain batched {p1:.3f} ms, "
+              f"bound {bound:.4f} ms by {bound_by} ({nbytes / 1e6:.3f} MB, "
+              f"{ops / 1e9:.3f} GFLOP, {share:.3f} of counts >= 2), "
+              f"{bound / ms:.1%} of bound; library_ms: none")
+        out[tag] = {"chains": Kc, "shape": [Ng, Nc], "ms": ms,
+                    "single_launches_ms": single, "plain_ms": p1,
+                    "bound_ms": bound, "bound_by": bound_by,
+                    "library_ms": None}
+        del S, nu, zeta, cf, r, ops_one
+        torch.cuda.empty_cache()
+    return out
+
+
+class _EvalCounter:
+    """Counts the sampler's batched potential evaluations (each is one
+    value-and-gradient of all chains) while it is entered."""
+
+    def __enter__(self):
+        from velocycle_tpu_torch.infer import mcmc as TM
+
+        self.mod, self.orig, self.calls = TM, TM._batched_value_and_grad, 0
+
+        def counted(potential_fn):
+            vg = self.orig(potential_fn)
+
+            def value_and_grad(q):
+                self.calls += 1
+                return vg(q)
+
+            return value_and_grad
+
+        TM._batched_value_and_grad = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._batched_value_and_grad = self.orig
+
+
+def _device_profile(torch, fn, tag, n, unit):
+    """Device time by kernel over ``n`` units of ``fn()`` (torch.profiler):
+    wall, device-busy share, launches per unit and the top kernels; only
+    device-side kernel events are summed."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        state, chunk = svi.update_chunk(state, n, data)
-        chunk.cpu()
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rows = []
@@ -1521,15 +1760,372 @@ def profile_steps(torch, svi, state, data, tag, n=5):
             rows.append((dt, e.key, e.count))
     if not rows:
         print(f"[{tag}] profile: no device time in the trace: not measured")
-        return
+        return None
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows) / 1e6
     launches = sum(r[2] for r in rows) / n
-    print(f"[{tag}] profile, {n} steps: wall {wall * 1e3:.2f} ms (profiler on), device "
-          f"kernels busy {busy * 1e3:.2f} ms ({busy / wall:.1%}), "
-          f"{launches:.0f} kernel launches per step")
+    print(f"[{tag}] profile, {n} {unit}s: wall {wall * 1e3:.2f} ms (profiler "
+          f"on), device kernels busy {busy * 1e3:.2f} ms ({busy / wall:.1%}), "
+          f"{launches:.0f} kernel launches per {unit}")
     for dt, key, count in rows[:6]:
-        print(f"[{tag}]   {dt / 1e3 / n:8.3f} ms/step  x{count / n:<5.1f} {key[:90]}")
+        print(f"[{tag}]   {dt / 1e3 / n:8.3f} ms/{unit}  x{count / n:<7.1f} "
+              f"{key[:90]}")
+    return busy / wall
+
+
+def _mcmc_sim(torch, cfg, seed):
+    """bench.py's `_sim` draw (the port's simulate_data, one harmonic)."""
+    import numpy as np
+
+    from velocycle_tpu_torch import Cycle, Phases, simulate_data
+
+    adata = simulate_data(Nc=cfg["Nc"], Ng=cfg["Ng"], omegas_to_test=(0.4,),
+                          seed=cfg["sim_seed"] + seed)
+    cycle = Cycle.trivial_prior(list(adata.var.index), harmonics=1)
+    phases = Phases.from_angles(np.asarray(adata.obs["simulated_phis"].values),
+                                cell_names=list(adata.obs.index))
+    return adata, cycle, phases
+
+
+def _eval_ms(torch, info, q, n=20):
+    """Host-clock ms of one batched value-and-gradient of the potential at
+    the chains' states q (the rest of a leapfrog is the sampler's own
+    bookkeeping)."""
+    from velocycle_tpu_torch.infer import mcmc as TM
+
+    vg = TM._batched_value_and_grad(info.potential_fn)
+    vg(q)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        vg(q)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def _mcmc_report(tag, K_, counter, iters, dt, chains, samples, card):
+    """Print and check one run's launches: exactly one chain-batched
+    phase_fwdgrad launch per batched potential evaluation."""
+    by_k = dict(K_.LAUNCH_CHAINS["phase_fwdgrad"])
+    batched = by_k.get(chains, 0)
+    print(f"[mcmc] {tag}: phase_fwdgrad launches by chain count {by_k}, "
+          f"phase_fwd {K_.LAUNCHES['phase_fwd']}; {counter.calls} batched "
+          f"potential evaluations over {iters} iterations "
+          f"({counter.calls / iters:.1f} per iteration); wall {dt:.1f} s, "
+          f"{chains * samples / dt:.1f} samples/s on {card}")
+    check(batched == counter.calls and batched > 0,
+          f"{tag}: {batched} launches of {chains} chains for "
+          f"{counter.calls} batched evaluations")
+    return by_k
+
+
+# (a)'s convergence gate (the JAX package's bench row reads 1.016,
+# docs/phase_sampling.md)
+MCMC_A_MAX_RHAT = 1.05
+
+
+def mcmc_wrapped(torch, seed, card, cfg=MCMC_A, device="cuda"):
+    """(a) `nuts_phi_wrapped`: an 800-step phase fit locates the genes; the
+    wrapped phases are sampled with the genes conditioned, through
+    MCMCFitModel on the fused data (the warm start takes its Hessian
+    diagonal on the same counts through the plain path)."""
+    import numpy as np
+
+    from velocycle_tpu_torch import (
+        MCMCFitModel, PhaseFitModel, preprocess_for_phase_estimation,
+    )
+    from velocycle_tpu_torch.ops import nb_kernels as K_
+    from velocycle_tpu_torch.ops.circular import circular_corrcoef
+
+    t0 = time.perf_counter()
+    adata, cycle, phases = _mcmc_sim(torch, cfg, seed)
+    kw = dict(n_harmonics=1, with_delta_nu=False, device=device)
+    mp = preprocess_for_phase_estimation(adata, cycle, phases,
+                                         use_fused_nb=True, **kw)
+    mp_w = preprocess_for_phase_estimation(
+        adata, cycle, phases, use_fused_nb=True, phi_parametrization="wrapped",
+        **kw)
+    check(mp_w.data.S.dtype == torch.int16, "(a): counts not int16")
+    svi = PhaseFitModel(mp, get_posterior=False)
+    svi.fit(num_steps=cfg["svi_fit"], seed=seed + 2)
+    svi_phis = np.arctan2(svi.params["phixy_locs"][:, 1],
+                          svi.params["phixy_locs"][:, 0])
+    cond = {"nu": svi.params["nu_locs"],
+            "shape_inv": svi.params["shape_inv_locs"]}
+    torch.cuda.synchronize()
+    print(f"[mcmc] (a) set-up: simulate, preprocess x2, {cfg['svi_fit']}-step "
+          f"phase fit: {time.perf_counter() - t0:.1f} s on {card}")
+
+    fm = MCMCFitModel(
+        mp_w, condition_on=cond, num_chains=cfg["chains"],
+        num_warmup=cfg["warmup"], num_samples=cfg["samples"],
+        svi_steps=cfg["svi_warm"], block_sites=(), max_depth=cfg["max_depth"],
+        init_jitter=cfg["init_jitter"],
+    )
+    torch.cuda.reset_peak_memory_stats()
+    K_.reset_launch_counts()
+    with _EvalCounter() as counter:
+        t0 = time.perf_counter()
+        fm.run(seed + 9)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    iters = cfg["warmup"] + cfg["samples"]
+    by_k = _mcmc_report("(a) nuts_phi_wrapped", K_, counter, iters, dt,
+                        cfg["chains"], cfg["samples"], card)
+    # single launches: the SVI warm start's steps, and one per init_model
+    # on the fused data (its baseline, traced with gradients)
+    check(by_k.get(1, 0) >= cfg["svi_warm"],
+          f"(a): {by_k.get(1, 0)} single launches in a {cfg['svi_warm']}-step "
+          f"SVI warm start")
+    d = fm.diagnostics
+    phi = fm.posterior["phi"]
+    cc = float(circular_corrcoef(torch.as_tensor(fm.phase_fit.phis),
+                                 torch.as_tensor(svi_phis)))
+    print(f"[mcmc] (a): accept {d['accept_rate']:.4f}, max split R-hat "
+          f"{d['max_split_rhat']:.4f}, min ESS {d['min_ess']:.1f}, median ESS "
+          f"{d['median_ess']:.1f} of {cfg['chains'] * cfg['samples']} draws, "
+          f"circular corr of posterior-mean phases with the SVI phases "
+          f"{cc:.4f}; peak device memory {peak / 2**30:.3f} GiB on {card}")
+    check(phi.shape == (cfg["chains"] * cfg["samples"], cfg["Nc"])
+          and ((phi >= -np.pi) & (phi < np.pi)).all(), "(a): phi outside [-pi, pi)")
+    check(d["accept_rate"] > 0.6, f"(a): accept rate {d['accept_rate']}")
+    check(cc > 0.95, f"(a): circular correlation {cc}")
+    check(d["max_split_rhat"] < MCMC_A_MAX_RHAT,
+          f"(a): max split R-hat {d['max_split_rhat']} (gate "
+          f"{MCMC_A_MAX_RHAT})")
+    info = fm.mcmc.model_info
+    q = fm.mcmc._samples_u[:, -1].contiguous()
+    busy = _device_profile(torch, lambda: _nuts_transitions(info, q, cfg),
+                           "mcmc", 4, "NUTS transition")
+    ev = _eval_ms(torch, info, q)
+    print(f"[mcmc] (a): per leapfrog {dt / counter.calls * 1e3:.2f} ms of "
+          f"wall (run incl. warm start), of it {ev:.2f} ms one batched "
+          f"evaluation alone (host clock) on {card}")
+    return {"launches": by_k, "evals": counter.calls, "iters": iters,
+            "wall_s": dt, "samples_per_s": cfg["chains"] * cfg["samples"] / dt,
+            "accept": d["accept_rate"], "max_split_rhat": d["max_split_rhat"],
+            "min_ess": d["min_ess"], "median_ess": d["median_ess"],
+            "circ_corr": cc, "peak_gib": peak / 2**30, "busy": busy}
+
+
+def _nuts_transitions(info, q, cfg):
+    """Four NUTS transitions of the chains at q, the shortest run of the
+    sampler (three one-step warmup windows and one draw), for the profile."""
+    from velocycle_tpu_torch.infer import mcmc as TM
+
+    TM.nuts(info._replace(init_u=q), list(range(q.shape[0])), num_warmup=0,
+            num_samples=1, max_depth=cfg["max_depth"], adapt_mass=False)
+
+
+def mcmc_genes(torch, seed, card, cfg=MCMC_B, device="cuda"):
+    """(b) `nuts`: the phases conditioned on the prior; a 500-step SVI warm
+    start, then nu and shape_inv sampled through MCMC on the fused data in
+    the whitened coordinates of the analytic Fisher blocks for nu and the
+    Hessian diagonal for shape_inv (both on the same counts through the
+    plain path), as bench.py builds them."""
+    import numpy as np
+
+    from velocycle_tpu_torch import PhaseFitModel, preprocess_for_phase_estimation
+    from velocycle_tpu_torch.core import handlers
+    from velocycle_tpu_torch.infer import MCMC
+    from velocycle_tpu_torch.infer import mcmc as TM
+    from velocycle_tpu_torch.models.basis import expression_basis
+    from velocycle_tpu_torch.ops import nb_kernels as K_
+
+    t0 = time.perf_counter()
+    adata, cycle, phases = _mcmc_sim(torch, cfg, seed)
+    kw = dict(n_harmonics=1, with_delta_nu=False, device=device)
+    mp = preprocess_for_phase_estimation(adata, cycle, phases,
+                                         use_fused_nb=True, **kw)
+    plain = preprocess_for_phase_estimation(adata, cycle, phases,
+                                            use_fused_nb=False, **kw)
+    cond = {"phi_xy": mp.data.phixy_prior}
+    fm = PhaseFitModel(mp, condition_on=cond, get_posterior=False)
+    fm.fit(num_steps=cfg["svi_fit"], seed=seed + 2)
+    init_values = {"nu": fm.params["nu_locs"],
+                   "shape_inv": fm.params["shape_inv_locs"]}
+    # Fisher blocks of the NB GLM in each gene's harmonic block (bench.py)
+    pxy = mp.data.phixy_prior.cpu().numpy()
+    zeta = expression_basis(mp.data, torch.atan2(mp.data.phixy_prior[:, 1],
+                                                 mp.data.phixy_prior[:, 0]))
+    zeta = zeta.cpu().numpy().astype(np.float64)
+    elog = fm.params["nu_locs"] @ zeta.T + mp.data.count_factor.cpu().numpy()[None]
+    mu = np.exp(elog)
+    r_hat = fm.params["shape_inv_locs"]
+    w = mu * r_hat[:, None] / (mu + r_hat[:, None])
+    F = np.einsum("gc,ci,cj->gij", w, zeta, zeta)
+    sd_nu = mp.data.sd_nu.cpu().numpy()
+    F += np.apply_along_axis(np.diag, -1, 1.0 / np.maximum(sd_nu ** 2, 1e-12))
+    # shape_inv's Hessian diagonal: HVP probes through the plain path
+    model_p = handlers.condition(plain.model_fn, data=cond)
+    info0 = TM.init_model(model_p, plain.data, init_values=init_values)
+    sizes = {n: meta[1] for n, meta in info0.site_meta.items()}
+    dim = sum(sizes.values())
+    grad = torch.func.grad(info0.potential_fn)
+    u0 = info0.init_u
+    with torch.no_grad():
+        hdiag = torch.func.vmap(
+            lambda v: torch.sum(v * torch.func.jvp(grad, (u0,), (v,))[1]),
+            chunk_size=64)(torch.eye(dim, device=device)).cpu().numpy()
+    i0 = sizes["nu"]
+    pre = {"nu": np.linalg.inv(F),
+           "shape_inv": 1.0 / np.maximum(hdiag[i0:i0 + sizes["shape_inv"]], 1.0)}
+    torch.cuda.synchronize()
+    print(f"[mcmc] (b) set-up: simulate, preprocess x2, {cfg['svi_fit']}-step "
+          f"SVI, Fisher blocks and {dim} Hessian probes: "
+          f"{time.perf_counter() - t0:.1f} s on {card}")
+
+    model = handlers.condition(mp.model_fn, data=cond)
+    m = MCMC(model, kernel="nuts", num_warmup=cfg["warmup"],
+             num_samples=cfg["samples"], num_chains=cfg["chains"],
+             max_depth=cfg["max_depth"], init_values=init_values,
+             preconditioner=pre, init_jitter=cfg["init_jitter"])
+    torch.cuda.reset_peak_memory_stats()
+    K_.reset_launch_counts()
+    with _EvalCounter() as counter, warnings.catch_warnings(
+            record=True) as seen:
+        warnings.simplefilter("always")
+        t0 = time.perf_counter()
+        m.run(seed, mp.data)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    # the open fault of ROADMAP.md section 3: the user is told
+    check(any("use_fused_nb=False" in str(w.message) for w in seen),
+          "(b): MCMC sampled shape_inv through the fused path without "
+          "warning")
+    peak = torch.cuda.max_memory_allocated()
+    iters = cfg["warmup"] + cfg["samples"]
+    by_k = _mcmc_report("(b) nuts", K_, counter, iters, dt, cfg["chains"],
+                        cfg["samples"], card)
+    check(set(by_k) <= {1, cfg["chains"]} and by_k.get(1, 0) <= 1,
+          f"(b): launches {by_k} (one single launch at most: the baseline)")
+    summ = m.summary()
+    ess = np.concatenate([v["ess"].reshape(-1) for v in summ.values()])
+    rhat = np.concatenate([v["rhat"].reshape(-1) for v in summ.values()])
+    print("[mcmc] (b): max split R-hat by site "
+          + ", ".join(f"{k} {np.nanmax(v['rhat']):.4f} (median "
+                      f"{np.nanmedian(v['rhat']):.4f})" for k, v in summ.items()))
+    s = m.get_samples()
+    nu_mean = s["nu"].mean(0)
+    corr = float(np.corrcoef(nu_mean.ravel(), fm.params["nu_locs"].ravel())[0, 1])
+    acc = m.accept_rate()
+    print(f"[mcmc] (b): accept {acc:.4f}, max split R-hat {np.nanmax(rhat):.4f}, "
+          f"min ESS {np.nanmin(ess):.1f}, median ESS {np.nanmedian(ess):.1f} of "
+          f"{cfg['chains'] * cfg['samples']} draws, corr of posterior-mean nu "
+          f"with the SVI locs {corr:.5f}; peak device memory "
+          f"{peak / 2**30:.3f} GiB on {card}")
+    check(acc > 0.3, f"(b): accept rate {acc}")
+    check(all(np.isfinite(v).all() for v in s.values()), "(b): non-finite draws")
+    check(corr > 0.95, f"(b): nu correlation {corr}")
+    print(f"[mcmc] (b): KNOWN FAULT, R-hat not gated: max split R-hat "
+          f"{np.nanmax(rhat):.4f} (past ~1.05 the chains have not converged):"
+          f" the fused NB element loses float32 precision at small shape_inv "
+          f"(ROADMAP.md section 3) and MCMC warned; sample dispersions with "
+          f"use_fused_nb=False until it is repaired")
+    q = m._samples_u[:, -1].contiguous()
+    busy = _device_profile(
+        torch, lambda: _nuts_transitions(m.model_info, q, cfg), "mcmc", 4,
+        "NUTS transition")
+    ev = _eval_ms(torch, m.model_info, q)
+    print(f"[mcmc] (b): per leapfrog {dt / counter.calls * 1e3:.2f} ms of "
+          f"wall, of it {ev:.2f} ms one batched evaluation alone (host "
+          f"clock) on {card}")
+    return {"launches": by_k, "evals": counter.calls, "iters": iters,
+            "wall_s": dt, "samples_per_s": cfg["chains"] * cfg["samples"] / dt,
+            "accept": acc, "max_split_rhat": float(np.nanmax(rhat)),
+            "min_ess": float(np.nanmin(ess)),
+            "median_ess": float(np.nanmedian(ess)), "nu_corr": corr,
+            "peak_gib": peak / 2**30, "busy": busy}
+
+
+def mcmc_kernels(torch, seed, card):
+    """[mcmc]'s [parity] and [timing] of the chain-batched launch, in the
+    main process before the runs start (so that no other process shares the
+    card while it is timed)."""
+    t0 = time.perf_counter()
+    parity = mcmc_kernel_parity(torch, seed)
+    timing = mcmc_kernel_timing(torch, seed, card)
+    print(f"[mcmc] batched kernel parity and timing: "
+          f"{time.perf_counter() - t0:.1f} s")
+    return parity, timing
+
+
+# the sampler is host-bound (PERF.md section 5): each run has a process of
+# its own, on the card beside [quickstart] and [variants], so that the
+# script takes the longest of them and not their sum (in turn it ran past
+# the time limit on a slow host); ``--mcmc`` runs them alone, in turn
+MCMC_RUNS = {"a": ("mcmc_wrapped", MCMC_A), "b": ("mcmc_genes", MCMC_B)}
+
+
+def _mcmc_child(tag, seed, card, cfg, device):
+    """Run ``tag`` of [mcmc] in this (spawned) process: (ok, its result or
+    the failure with its traceback, what it printed)."""
+    import contextlib
+    import io
+    import traceback
+
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            t0 = time.perf_counter()
+            res = globals()[MCMC_RUNS[tag][0]](torch, seed, card, cfg=cfg,
+                                               device=device)
+            print(f"[mcmc] run ({tag}) in all: {time.perf_counter() - t0:.1f} "
+                  f"s (its own process)")
+        return True, res, out.getvalue()
+    except (Exception, SystemExit):     # reported to the main process
+        return False, traceback.format_exc(), out.getvalue()
+
+
+def start_mcmc_runs(seed, card, device="cuda", cfgs=None):
+    """Start runs (a) and (b) in two spawned processes; returns (pool,
+    {tag: pending result}) for `finish_mcmc_runs`."""
+    import multiprocessing
+
+    pool = multiprocessing.get_context("spawn").Pool(len(MCMC_RUNS))
+    pending = {tag: pool.apply_async(
+        _mcmc_child, (tag, seed, card, (cfgs or {}).get(tag, cfg), device))
+        for tag, (_, cfg) in MCMC_RUNS.items()}
+    return pool, pending
+
+
+def finish_mcmc_runs(pool, pending, timeout=1100):
+    """Wait for the runs, print what each printed, fail on a failed one;
+    the processes are stopped in every case.  Returns {tag: result}."""
+    try:
+        runs = {}
+        for tag, res in pending.items():
+            ok, out, text = res.get(timeout=timeout)
+            print(text, end="")
+            check(ok, f"[mcmc] run ({tag}) failed:\n{out}")
+            runs[tag] = out
+        return runs
+    finally:
+        pool.terminate()
+        pool.join()
+
+
+def mcmc_row(parity, timing, runs):
+    """phase_fwdgrad's row additions from [mcmc]."""
+    launches = {}
+    for r in runs.values():
+        for k, n in r["launches"].items():
+            launches[str(k)] = launches.get(str(k), 0) + n
+    return {"mcmc_launches_by_chains": launches,
+            "batched_parity": parity, "batched_timing": timing,
+            "mcmc_runs": {k: {kk: vv for kk, vv in v.items() if kk != "launches"}
+                          for k, v in runs.items()}}
+
+
+def profile_steps(torch, svi, state, data, tag, n=5):
+    """Device time by kernel over a few SVI steps (`_device_profile`)."""
+    _device_profile(torch, lambda: svi.update_chunk(state, n, data)[1].cpu(),
+                    tag, n, "step")
 
 
 def phase_digest(torch, seed):
@@ -1555,6 +2151,34 @@ def phase_digest(torch, seed):
               f"sha256 {h.hexdigest()}")
 
 
+def _stages(torch, seed):
+    """Both stages at full width, alone on the host and the card.  Returns
+    (launches by kernel from the stage that drives it, (stage 1 steps/s,
+    peak, stage 2 steps/s, peak))."""
+    adata, genes, cells, angles = _make_adata(torch, seed, "cuda")
+    launches, steps_per_s, peak, stage1 = phase_main_path(
+        torch, seed, adata, genes, cells, angles)
+    torch.cuda.empty_cache()
+    vlaunches, vsteps_per_s, vpeak = velocity_main_path(
+        torch, seed, adata, stage1)
+    launches.update(velo_fwd=vlaunches["velo_fwd"],
+                    velo_fwdgrad=vlaunches["velo_fwdgrad"])
+    del adata, stage1
+    torch.cuda.empty_cache()
+    return launches, (steps_per_s, peak, vsteps_per_s, vpeak)
+
+
+def mcmc_in_turn(torch, seed, card, device="cuda"):
+    """``--mcmc``: [mcmc]'s runs one after the other in this process, with
+    nothing else on the host or the card (the runs' own numbers)."""
+    for tag, (fn, cfg) in MCMC_RUNS.items():
+        t0 = time.perf_counter()
+        globals()[fn](torch, seed, card, cfg=cfg, device=device)
+        print(f"[mcmc] run ({tag}) in all: {time.perf_counter() - t0:.1f} s "
+              f"(alone, in turn)")
+        torch.cuda.empty_cache()
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1563,6 +2187,10 @@ def main(argv=None):
     ap.add_argument("--kernels", action="store_true",
                     help="build, then time the four main-path kernels and "
                          "stop (no result line): for comparing layouts")
+    ap.add_argument("--mcmc", action="store_true",
+                    help="build, then [mcmc] alone: the chain-batched "
+                         "kernel's parity and timing, and runs (a) and (b) "
+                         "in turn in this process (no result line)")
     args = ap.parse_args(argv)
 
     import torch
@@ -1590,6 +2218,10 @@ def main(argv=None):
         phase_timing(torch, args.seed, smi)
         velo_timing(torch, args.seed, smi)
         return 0
+    if args.mcmc:
+        mcmc_kernels(torch, args.seed, smi)
+        mcmc_in_turn(torch, args.seed, smi)
+        return 0
     phase_digest(torch, args.seed)
     errs = phase_parity(torch, args.seed)
     timing = phase_timing(torch, args.seed, smi)
@@ -1598,22 +2230,24 @@ def main(argv=None):
     ladder_errs, ladder_timing, ladder_launches = phase_ladder(
         torch, args.seed, smi)
     torch.cuda.empty_cache()
-    adata, genes, cells, angles = _make_adata(torch, args.seed, "cuda")
-    launches, steps_per_s, peak, stage1 = phase_main_path(
-        torch, args.seed, adata, genes, cells, angles)
+    # every kernel timing before the [mcmc] processes share the card
+    variant_errs, variant_timing = _variant_kernels(torch, args.seed, smi)
+    mcmc_parity, mcmc_timing = mcmc_kernels(torch, args.seed, smi)
     torch.cuda.empty_cache()
-    vlaunches, vsteps_per_s, vpeak = velocity_main_path(
-        torch, args.seed, adata, stage1)
-    # each kernel's launches from the stage that drives it
-    launches.update(velo_fwd=vlaunches["velo_fwd"],
-                    velo_fwdgrad=vlaunches["velo_fwdgrad"])
-    del adata, stage1
+    launches, rates = _stages(torch, args.seed)
+    # the [mcmc] runs, host-bound, beside [quickstart] and [variants]
+    pool, pending = start_mcmc_runs(args.seed, smi)
+    try:
+        phase_quickstart(torch, args.seed, smi)
+        torch.cuda.empty_cache()
+        variant_launches = phase_variants(torch, args.seed, smi)
+        mcmc = mcmc_row(mcmc_parity, mcmc_timing,
+                        finish_mcmc_runs(pool, pending))
+    finally:
+        pool.terminate()
+        pool.join()
     torch.cuda.empty_cache()
-    phase_quickstart(torch, args.seed, smi)
-    torch.cuda.empty_cache()
-    variant_launches, variant_errs, variant_timing = phase_variants(
-        torch, args.seed, smi)
-    torch.cuda.empty_cache()
+    steps_per_s, peak, vsteps_per_s, vpeak = rates
 
     print("kernels: " + ", ".join(f"{k} ({v} launches)" for k, v in sorted(launches.items())))
     base = "velocycle_tpu/ops/nb_kernels.py"
@@ -1639,6 +2273,9 @@ def main(argv=None):
             **({f"w{W_SPLINE}": {"max_abs_err": variant_errs[k][0],
                                  **variant_timing[k]}}
                if k in variant_timing else {}),
+            # [mcmc]: launches by chain count, the chain-batched launch's
+            # parity and timing, and the runs' numbers
+            **(mcmc if k == "phase_fwdgrad" else {}),
         })
     # the ladder's launches come from its own entry point, run_ladder
     for rung, line in LADDER_REPLACES.items():

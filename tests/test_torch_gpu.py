@@ -181,6 +181,96 @@ def test_cuda_kernel_is_bit_reproducible_and_counts_launches():
             assert torch.equal(x, y)
 
 
+# the chain-batched phase_fwdgrad: which of (nu, zeta, cf, r) carry the
+# chain axis, every mix
+_MIXES = [tuple(bool(m >> i & 1) for i in range(4)) for m in range(16)]
+
+
+def _chain_operands(t, K, mix, seed, dnu_batched=False):
+    """The unbatched operands t = [S, nu, zeta, cf, r, dnu, Db] with the
+    chain axis K added (seeded perturbations per chain) to each operand
+    ``mix`` (and delta_nu) names."""
+    g = torch.Generator(device=t[1].device).manual_seed(seed)
+    out = list(t)
+    flags = list(mix) + [dnu_batched and t[5] is not None]
+    for i, on in zip((1, 2, 3, 4, 5), flags):
+        if on:
+            x = t[i][None].repeat((K,) + (1,) * t[i].dim())
+            x = x + 0.05 * torch.randn(x.shape, generator=g, device=x.device)
+            out[i] = x.abs() + 0.05 if i == 4 else x
+    return out
+
+
+@pytest.mark.parametrize("int16", [True, False], ids=["i16", "f32"])
+@pytest.mark.parametrize("Nh,Nb", [(3, 0), (3, 2), (5, 0), (11, 0)])
+@pytest.mark.parametrize("chains", [1, 3, 64])
+def test_cuda_chain_batched_fwdgrad_matches_plain_and_single_launches(
+        chains, Nh, Nb, int16):
+    """ONE launch over K chains, for every batched/shared mix of (nu, zeta,
+    cf, r) (delta_nu batched with them where there is one), disp_grad both
+    ways: each chain's loss and gradients agree with the chain-batched plain
+    version and with K single-chain launches at the suite tolerances (loss
+    rel 1e-5, gradients 1e-4); at K = 1 the batched launch gives the
+    unbatched launch's bits."""
+    dev = _cuda_or_skip()
+    args = _inputs(37, 300, Nh=Nh, seed=Nh + Nb, Nb=Nb)
+    if int16:
+        args[0] = args[0].astype(np.int16)
+    t = [torch.as_tensor(a, device=dev) for a in args]
+    if not Nb:
+        t += [None, None]
+    lgk = np.float32(sps.gammaln(args[0].astype(np.float64) + 1.0).sum())
+    for m, mix in enumerate(_MIXES):
+        if not any(mix):
+            continue
+        b = _chain_operands(t, chains, mix, seed=m, dnu_batched=m % 2 == 1)
+        for want_disp in (True, False):
+            K.reset_launch_counts()
+            kl, kg = K.phase_fwdgrad(*b, lgk, want_disp=want_disp)
+            assert K.LAUNCHES["phase_fwdgrad"] == 1
+            assert K.LAUNCH_CHAINS["phase_fwdgrad"] == {chains: 1}
+            pl, pg = K.phase_fwdgrad_plain(*b, lgk, want_disp=want_disp)
+            assert kl.shape == (chains,)
+            for c in range(chains):
+                one = [x if x is None or x.dim() == y.dim() or i == 0
+                       else x[c] for i, (x, y) in enumerate(zip(b, t))]
+                sl, sg = K.phase_fwdgrad(*one, lgk, want_disp=want_disp)
+                for ref_l, ref_g in ((pl[c], [None if x is None else x[c]
+                                              for x in pg]), (sl, sg)):
+                    assert (abs(float(kl[c]) - float(ref_l))
+                            / max(abs(float(ref_l)), 1.0) < 1e-5)
+                    for name, a, r in zip(("dnu", "dzeta", "dcf", "ddisp",
+                                           "ddnu"), kg, ref_g):
+                        if r is None:
+                            assert a is None
+                        elif not want_disp and name == "ddisp":
+                            assert float(a[c].abs().max()) == 0.0
+                        else:
+                            assert _max_rel(a[c], r) < 1e-4, (name, c, mix)
+                if chains == 1:   # the same bits as the unbatched launch
+                    assert torch.equal(kl[0], sl)
+                    for a, r in zip(kg, sg):
+                        assert (a is None) == (r is None)
+                        if a is not None:
+                            assert torch.equal(a[0], r)
+
+
+def test_cuda_chain_batched_plan_splits_chains_evenly():
+    """K chains multiply the units; the grid still holds the card, and the
+    per-chain loss pieces and the cell pieces cover every chain."""
+    _cuda_or_skip()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for Ng, Nc, chains in ((50, 2000, 64), (50, 500, 256), (2048, 102_400, 4)):
+        p = K.phase_plan("fwdgrad", True, Ng, Nc, Nh=3, want_disp=False,
+                         chains=chains)
+        units = chains * -(-Ng // _GC) * -(-Nc // _TILE)
+        assert p.grid == min(units, sms * p.blocks_per_sm)
+        assert 1 <= p.loss_pieces <= p.grid
+        assert p.pieces >= 1
+    with pytest.raises(RuntimeError):   # K > 1 is for fwdgrad only
+        K.phase_plan("fwd", True, 50, 500, Nh=3, chains=2)
+
+
 def test_cuda_wrappers_refuse_what_the_kernels_cannot_take():
     dev = _cuda_or_skip()
     t = [torch.as_tensor(a, device=dev) for a in _inputs(8, 16)]
@@ -760,3 +850,71 @@ def test_lba_enumerated_form_matches_the_analytic_form_on_the_card():
     assert np.isclose(le, la, rtol=1e-5), (la, le)
     for k in ga:
         np.testing.assert_allclose(ge[k], ga[k], rtol=1e-4, atol=1e-5, err_msg=k)
+
+
+# ---------------------------------------------------------------------------
+# MCMC with the chains batched through the kernel
+# ---------------------------------------------------------------------------
+
+def test_fused_nuts_matches_plain_on_the_card():
+    """tests/test_fused_models.py:115-139 on the card: NUTS on the phase
+    model with phi_xy conditioned, 2 chains, through the chain-batched
+    kernel (one launch of 2 chains per batched evaluation) and through the
+    plain path; healthy mixing on both (accept > 0.3) and posterior means
+    of nu that agree (corr > 0.95)."""
+    dev = _cuda_or_skip()
+    import velocycle_tpu_torch as T
+    from velocycle_tpu_torch.core import handlers
+    from velocycle_tpu_torch.infer import MCMC
+
+    adata = T.simulate_data(Nc=80, Ng=16, omegas_to_test=(0.4,), seed=9)
+    cycle = T.Cycle.trivial_prior(list(adata.var.index), harmonics=2)
+    phases = T.Phases.from_angles(np.asarray(adata.obs["simulated_phis"]),
+                                  cell_names=list(adata.obs.index))
+    means = {}
+    for fused in (False, True):
+        mp = T.preprocess_for_phase_estimation(
+            adata, cycle, phases, n_harmonics=2, with_delta_nu=False,
+            use_fused_nb=fused, device=dev)
+        model = handlers.condition(mp.model_fn,
+                                   data={"phi_xy": mp.data.phixy_prior})
+        m = MCMC(model, kernel="nuts", num_warmup=150, num_samples=120,
+                 num_chains=2, max_depth=6)
+        K.reset_launch_counts()
+        m.run(0, mp.data)
+        chains = dict(K.LAUNCH_CHAINS["phase_fwdgrad"])
+        if fused:   # init_model's baseline, then the chains' evaluations
+            assert chains[1] == 1 and set(chains) == {1, 2}
+            assert chains[2] > 150
+        else:
+            assert chains == {}
+        assert m.accept_rate() > 0.3
+        means[fused] = m.get_samples()["nu"].mean(0)
+    r = np.corrcoef(means[True].ravel(), means[False].ravel())[0, 1]
+    assert r > 0.95, r
+
+
+def test_fused_velocity_mcmc_on_the_card_is_not_ported():
+    """The velocity kernel takes one parameter set per launch: MCMC over
+    fused velocity data raises, naming the ROADMAP entry, and does not
+    fall back to the plain path."""
+    dev = _cuda_or_skip()
+    import velocycle_tpu_torch as T
+    from velocycle_tpu_torch.infer import MCMC
+
+    adata = T.simulate_data(Nc=40, Ng=8, seed=3)
+    genes = list(adata.var.index)
+    mp = T.preprocess_for_velocity_estimation(
+        adata, T.Cycle.trivial_prior(genes, harmonics=1),
+        T.Phases.from_angles(np.asarray(adata.obs["simulated_phis"]),
+                             cell_names=list(adata.obs.index)),
+        T.AngularSpeed.trivial_prior(["c0"], harmonics=1, means=0.2,
+                                     stds=0.5),
+        n_harmonics=1, omega_n_harmonics=1, with_delta_nu=False,
+        model_type="fourier", use_fused_nb=True, device=dev)
+    K.reset_launch_counts()
+    with pytest.raises(NotImplementedError, match="item 6a"):
+        MCMC(mp.model_fn, num_warmup=2, num_samples=1,
+             num_chains=2).run(0, mp.data)
+    # init_model's single baseline launch, and no launch for the chains
+    assert K.LAUNCH_CHAINS["velo_fwdgrad"] == {1: 1}

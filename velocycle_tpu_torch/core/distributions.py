@@ -46,13 +46,22 @@ def generator(seed: int, device) -> torch.Generator:
 
 def _promote(*xs):
     device = next((x.device for x in xs if isinstance(x, torch.Tensor)), None)
-    return [torch.as_tensor(x, dtype=torch.float32, device=device) for x in xs]
+    return [x if isinstance(x, torch.Tensor) and x.dtype == torch.float32
+            and x.device == device
+            else torch.as_tensor(x, dtype=torch.float32, device=device)
+            for x in xs]
 
 
 class Distribution:
-    """Base class: batch_shape/event_shape bookkeeping + to_event."""
+    """Base class: batch_shape/event_shape bookkeeping + to_event.
+
+    ``support`` names the support (`constraints.biject_to` maps it to the
+    MCMC backend's bijection) and ``has_rsample`` says whether draws are
+    reparameterized, as in the JAX package."""
 
     event_shape: tuple = ()
+    support = "real"
+    has_rsample = True
 
     @property
     def batch_shape(self):
@@ -101,6 +110,10 @@ class Independent(Distribution):
             return self
         return Independent(self.base, self.ndims + n)
 
+    @property
+    def support(self):
+        return self.base.support
+
 
 class Normal(Distribution):
     def __init__(self, loc, scale):
@@ -123,6 +136,8 @@ class Normal(Distribution):
 
 class Gamma(Distribution):
     """Gamma(concentration, rate)."""
+
+    support = "positive"
 
     def __init__(self, concentration, rate):
         self.concentration, self.rate = _promote(concentration, rate)
@@ -150,6 +165,8 @@ class Gamma(Distribution):
 
 
 class Poisson(Distribution):
+    has_rsample = False
+
     def __init__(self, rate):
         (self.rate,) = _promote(rate)
 
@@ -170,6 +187,8 @@ class Poisson(Distribution):
 class GammaPoisson(Distribution):
     """Gamma-Poisson compound (== NegativeBinomial), pyro's
     ``GammaPoisson(concentration, rate)`` parameterization."""
+
+    has_rsample = False
 
     def __init__(self, concentration, rate):
         self.concentration, self.rate = _promote(concentration, rate)
@@ -291,6 +310,8 @@ class LowRankMultivariateNormal(Distribution):
 
 
 class Beta(Distribution):
+    support = "unit_interval"
+
     def __init__(self, concentration1, concentration0):
         self.concentration1, self.concentration0 = _promote(
             concentration1, concentration0
@@ -325,6 +346,8 @@ class Beta(Distribution):
 
 
 class Bernoulli(Distribution):
+    has_rsample = False
+
     def __init__(self, probs):
         (self.probs,) = _promote(probs)
 
@@ -354,6 +377,10 @@ class Uniform(Distribution):
         self.low, self.high = _promote(low, high)
 
     @property
+    def support(self):
+        return ("interval", self.low, self.high)
+
+    @property
     def batch_shape(self):
         return tuple(torch.broadcast_shapes(self.low.shape, self.high.shape))
 
@@ -381,6 +408,9 @@ def log_i1(x):
 class VonMises(Distribution):
     """Circular distribution on S^1: the prior of the wrapped phase
     parametrization."""
+
+    has_rsample = False
+    support = "circular"
 
     def __init__(self, loc, concentration):
         self.loc, self.concentration = _promote(loc, concentration)

@@ -23,7 +23,8 @@
 // what the layout does about both: an even split over a persistent grid,
 // and the counts staged ahead of the arithmetic in a cp.async ring.
 // Gene-indexed sums go to per-cell-tile partials and the loss to per-CTA
-// doubles, summed by the caller in a fixed order; the cell gradients to
+// doubles (per chain and CTA in a chain-batched launch: phase_kernel.cuh
+// `ChainStrides`), summed by the caller in a fixed order; the cell gradients to
 // per-CTA pieces that cell_sum_kernel adds in CTA order: no float atomics,
 // repeats are bit-identical.
 //
@@ -54,20 +55,22 @@ struct Args {
   const float* Db;    // (Nb, Nc) or null
   int Ng, Nc, Nh, Nb, n_rep;
   bool skip_k, want_disp;
-  double* loss_part;  // (grid,)
-  float* gene_part;   // (n_tiles, Ng, NV) or null
-  float* cell_piece;  // (pieces, Nh + 1, Nc) or null
-  float* dzeta;       // (Nc, Nh) or null
-  float* dcf;         // (Nc,) or null
+  ChainStrides cs;    // the chain batch: K, loss pieces, parameter strides
+  double* loss_part;  // (K, loss_pieces)
+  float* gene_part;   // (K, n_tiles, Ng, NV) or null
+  float* cell_piece;  // (pieces, Nh + 1, K * Nc) or null
+  float* dzeta;       // (K, Nc, Nh) or null
+  float* dcf;         // (K, Nc) or null
   cudaStream_t stream;
 };
 
 // How one call is laid out on the card.
 struct Plan {
-  int grid;           // CTAs: loss_part entries
+  int grid;           // CTAs
   int pieces;         // most cell-gradient pieces of one tile (0: none)
   int blocks_per_sm;  // resident CTAs per SM (occupancy)
   int dyn_smem;       // dynamic shared memory per CTA, bytes (the ring)
+  int loss_pieces;    // most CTAs that carry units of one chain
 };
 
 template <typename TK, int NH, int CUT, bool WANT_DISP, bool HAS_DNU, bool SKIP_K>
@@ -110,14 +113,20 @@ struct Inst {
     if (p.blocks_per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
     const int n_chunks = (a.Ng + kGeneChunk - 1) / kGeneChunk;
     const int tiles = (a.Nc + kCellsPerTile - 1) / kCellsPerTile;
-    const long long U = static_cast<long long>(tiles) * n_chunks;
+    const long long UC = static_cast<long long>(tiles) * n_chunks;
+    const long long U = UC * a.cs.K;
     const long long slots = static_cast<long long>(sms) * p.blocks_per_sm;
     p.grid = static_cast<int>(U < slots ? U : slots);
     p.dyn_smem = kRingBytes;
     p.pieces = 0;
+    p.loss_pieces = 0;
+    for (int c = 0; c < a.cs.K; ++c) {
+      const int n = unit_owner((c + 1) * UC - 1, U, p.grid) - unit_owner(c * UC, U, p.grid) + 1;
+      if (n > p.loss_pieces) p.loss_pieces = n;
+    }
     if (Flags<CUT>::cell_grads) {
-      for (int t = 0; t < tiles; ++t) {
-        const long long first = static_cast<long long>(t) * n_chunks;
+      for (long long t = 0; t < static_cast<long long>(tiles) * a.cs.K; ++t) {
+        const long long first = t * n_chunks;
         const int n = unit_owner(first + n_chunks - 1, U, p.grid) -
                       unit_owner(first, U, p.grid) + 1;
         if (n > p.pieces) p.pieces = n;
@@ -130,11 +139,12 @@ struct Inst {
     phase_kernel<TK, NH, CUT, WANT_DISP, HAS_DNU, SKIP_K>
         <<<p.grid, kThreads, p.dyn_smem, a.stream>>>(
         static_cast<const TK*>(a.S), a.nu, a.zeta, a.cf, a.disp, a.dnu, a.Db, a.Ng, a.Nc,
-        a.Nb, a.n_rep, a.loss_part, a.gene_part, a.cell_piece);
+        a.Nb, a.n_rep, a.cs, a.loss_part, a.gene_part, a.cell_piece);
     int rc = static_cast<int>(cudaGetLastError());
     if (rc != 0 || !Flags<CUT>::cell_grads) return rc;
-    cell_sum_kernel<NH><<<(a.Nc + 255) / 256, 256, 0, a.stream>>>(
-        a.cell_piece, a.Ng, a.Nc, p.grid, a.dzeta, a.dcf);
+    const long long KNc = static_cast<long long>(a.cs.K) * a.Nc;
+    cell_sum_kernel<NH><<<static_cast<int>((KNc + 255) / 256), 256, 0, a.stream>>>(
+        a.cell_piece, a.Ng, a.Nc, a.cs.K, p.grid, a.dzeta, a.dcf);
     return static_cast<int>(cudaGetLastError());
   }
 };
@@ -201,7 +211,7 @@ int pick_nh(const Args& a, const Op& op) {
 template <class Op>
 int dispatch(const Args& a, bool counts_int16, const Op& op) {
   if (a.mode < 0 || a.mode >= kNumCuts || a.Ng < 1 || a.Nc < 1 || a.Nb < 0 ||
-      a.Nb > kMaxNb)
+      a.Nb > kMaxNb || a.cs.K < 1 || (a.cs.K > 1 && a.mode != FWDGRAD))
     return static_cast<int>(cudaErrorInvalidValue);
   return counts_int16 ? pick_nh<int16_t>(a, op) : pick_nh<float>(a, op);
 }
@@ -220,7 +230,7 @@ struct RunOp {
     const int rc = K::plan(a, p);
     if (rc != 0) return rc;
     // the caller's buffers were sized from vct_phase_plan
-    if (p.grid != grid || p.pieces > pieces ||
+    if (p.grid != grid || p.pieces > pieces || p.loss_pieces != a.cs.loss_pieces ||
         (Flags<K::kCut>::cell_grads && (a.cell_piece == nullptr || a.dzeta == nullptr)))
       return static_cast<int>(cudaErrorInvalidValue);
     return K::run(a, p);
@@ -240,36 +250,46 @@ int vct_phase_layout(int* out, int n) {
   return i;
 }
 
-// The plan of one call: out = {grid, pieces, blocks_per_sm, dyn_smem}.  The
-// caller sizes loss_part (grid,) and, for the cell-gradient modes,
-// cell_piece (pieces, Nh + 1, Nc) from it.
-int vct_phase_plan(int mode, int counts_int16, int Ng, int Nc, int Nh, int Nb, int skip_k,
-                   int want_disp, int* out) {
-  const Args a{mode, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-               Ng, Nc, Nh, Nb, 0, skip_k != 0, want_disp != 0};
+// The plan of one call over K chains (K = 1: unbatched; K > 1 only for
+// FWDGRAD): out = {grid, pieces, blocks_per_sm, dyn_smem, loss_pieces}.
+// The caller sizes loss_part (K, loss_pieces) and, for the cell-gradient
+// modes, cell_piece (pieces, Nh + 1, K * Nc) from it.
+int vct_phase_plan(int mode, int counts_int16, int Ng, int Nc, int Nh, int Nb, int K,
+                   int skip_k, int want_disp, int* out) {
+  Args a{mode, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+         Ng, Nc, Nh, Nb, 0, skip_k != 0, want_disp != 0};
+  a.cs.K = K;
   Plan p{};
   const int rc = dispatch(a, counts_int16 != 0, PlanOp{a, p});
   out[0] = p.grid;
   out[1] = p.pieces;
   out[2] = p.blocks_per_sm;
   out[3] = p.dyn_smem;
+  out[4] = p.loss_pieces;
   return rc;
 }
 
-// One launch of `mode` (a Cut) with the grid and pieces of its plan:
-// loss_part (grid,) doubles; the gradient modes gene_part (n_tiles, Ng,
-// NV); FWDGRAD and V_NODIG dzeta (Nc, Nh) and dcf (Nc,), through the
-// cell_piece (pieces, Nh + 1, Nc) scratch.  Pointers a mode does not read or
-// write may be null.  Returns the CUDA error of the launches, or
-// cudaErrorInvalidValue for arguments or buffers the plan does not match.
+// One launch of `mode` (a Cut) over K chains with the grid, pieces and loss
+// pieces of its plan: loss_part (K, loss_pieces) doubles, zero where a chain
+// has fewer pieces; the gradient modes gene_part (K, n_tiles, Ng, NV);
+// FWDGRAD and V_NODIG dzeta (K, Nc, Nh) and dcf (K, Nc), through the
+// cell_piece (pieces, Nh + 1, K * Nc) scratch.  Chain c reads nu + c *
+// st_nu, zeta + c * st_zeta, cf + c * st_cf, disp + c * st_disp and dnu + c
+// * st_dnu (strides in floats, 0 for an operand the chains share); S and Db
+// are shared.  Pointers a mode does not read or write may be null.  Returns
+// the CUDA error of the launches, or cudaErrorInvalidValue for arguments or
+// buffers the plan does not match.
 int vct_phase_run(int mode, const void* S, int counts_int16, const float* nu,
                   const float* zeta, const float* cf, const float* disp, const float* dnu,
-                  const float* Db, int Ng, int Nc, int Nh, int Nb, int skip_k, int want_disp,
-                  int n_rep, int grid, int pieces, double* loss_part, float* gene_part,
-                  float* cell_piece, float* dzeta, float* dcf, void* stream) {
+                  const float* Db, int Ng, int Nc, int Nh, int Nb, int K, long long st_nu,
+                  long long st_zeta, long long st_cf, long long st_disp, long long st_dnu,
+                  int skip_k, int want_disp, int n_rep, int grid, int pieces, int loss_pieces,
+                  double* loss_part, float* gene_part, float* cell_piece, float* dzeta,
+                  float* dcf, void* stream) {
   const Args a{mode, S, nu, zeta, cf, disp, dnu, Db, Ng, Nc, Nh, Nb, n_rep,
-               skip_k != 0, want_disp != 0, loss_part, gene_part, cell_piece, dzeta, dcf,
-               static_cast<cudaStream_t>(stream)};
+               skip_k != 0, want_disp != 0,
+               ChainStrides{K, loss_pieces, st_nu, st_zeta, st_cf, st_disp, st_dnu},
+               loss_part, gene_part, cell_piece, dzeta, dcf, static_cast<cudaStream_t>(stream)};
   (void)cudaGetLastError();
   return dispatch(a, counts_int16 != 0, RunOp{a, grid, pieces});
 }

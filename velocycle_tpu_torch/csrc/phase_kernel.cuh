@@ -17,6 +17,15 @@
 // element chains; on the H100 that beat one cell per thread with more
 // warps resident (PERF.md, the layout sweep).
 //
+// Chains.  A launch may carry K parameter sets over the same counts (the
+// chains of an MCMC batch: `ChainStrides`).  The units are then chain-major,
+// K x tiles x chunks, and the persistent grid splits all of them evenly, so
+// a CTA's run may cross from one chain into the next.  Gene partials and
+// cell-gradient pieces are indexed by the tile counted over all chains, and
+// the loss goes to per-(chain, CTA) doubles, flushed when the run crosses a
+// chain boundary.  At K = 1 every index and every sum is the unbatched
+// launch's: the same bits.
+//
 // Counts reach the arithmetic through a ring of kStages shared-memory
 // stages: while unit i is computed, units i+1 .. i+kStages-1 are in flight
 // as 16-byte `cp.async` copies (neighbouring threads on neighbouring
@@ -106,14 +115,24 @@ __host__ __device__ constexpr int stage_bytes() {
          (kGeneChunk * (NH + 1 + (HAS_DNU ? kMaxNb : 0)) * 4 + 15) / 16 * 16;
 }
 
+// The chain batch of one launch: K parameter sets over the same counts.
+// Each parameter operand's stride between chains in floats, 0 where the
+// chains share it; the counts and Db are shared by every chain.  K = 1 is
+// the unbatched launch.
+struct ChainStrides {
+  int K;
+  int loss_pieces;        // loss_part entries per chain (vct_phase_plan)
+  long long nu, zeta, cf, disp, dnu;
+};
+
 template <typename TK, int NH, int CUT, bool WANT_DISP, bool HAS_DNU, bool SKIP_K>
 __global__ void __launch_bounds__(kThreads, kMinBlocksPerSm)
 phase_kernel(const TK* __restrict__ S, const float* __restrict__ nu,
              const float* __restrict__ zeta, const float* __restrict__ cf,
              const float* __restrict__ disp, const float* __restrict__ dnu,
              const float* __restrict__ Db, int Ng, int Nc, int Nb, int n_rep,
-             double* __restrict__ loss_part, float* __restrict__ gene_part,
-             float* __restrict__ cell_piece) {
+             ChainStrides cs, double* __restrict__ loss_part,
+             float* __restrict__ gene_part, float* __restrict__ cell_piece) {
   using F = Flags<CUT>;
   constexpr int NB_SLOTS = HAS_DNU ? kMaxNb : 1;
   constexpr int NVC = F::nv(NH) + (HAS_DNU ? kMaxNb : 0);  // values reduced per gene
@@ -136,8 +155,9 @@ phase_kernel(const TK* __restrict__ S, const float* __restrict__ nu,
   const int nb = HAS_DNU ? Nb : 0;
   const int NV = F::nv(NH) + nb;
   const int n_chunks = (Ng + kGeneChunk - 1) / kGeneChunk;
-  const long long U =
-      static_cast<long long>((Nc + kCellsPerTile - 1) / kCellsPerTile) * n_chunks;
+  const int tiles = (Nc + kCellsPerTile - 1) / kCellsPerTile;
+  const long long UC = static_cast<long long>(tiles) * n_chunks;  // units of one chain
+  const long long U = UC * cs.K;
   const long long u0 = static_cast<long long>(blockIdx.x) * U / gridDim.x;
   const long long u1 = static_cast<long long>(blockIdx.x + 1) * U / gridDim.x;
   const char* s_begin = reinterpret_cast<const char*>(S);
@@ -147,8 +167,10 @@ phase_kernel(const TK* __restrict__ S, const float* __restrict__ nu,
   // start the copies of unit u into ring stage `slot`
   auto issue = [&](long long u, int slot) {
     unsigned char* st = ring + slot * STAGE;
-    const int t = static_cast<int>(u / n_chunks);
-    const int g0 = static_cast<int>(u - static_cast<long long>(t) * n_chunks) * kGeneChunk;
+    const int gt = static_cast<int>(u / n_chunks);
+    const int ch = gt / tiles;
+    const int t = gt - ch * tiles;
+    const int g0 = static_cast<int>(u - static_cast<long long>(gt) * n_chunks) * kGeneChunk;
     const int gn = min(kGeneChunk, Ng - g0);
     if constexpr (F::reads_s) {
       constexpr int Q = ROW / 16;
@@ -172,22 +194,26 @@ phase_kernel(const TK* __restrict__ S, const float* __restrict__ nu,
       }
     }
     float* prm = reinterpret_cast<float*>(st + PRM);
+    const float* nu_c = nu + ch * cs.nu;
     for (int i = tid; i < gn * NH; i += kThreads)
-      cp_async4(prm + i, nu + static_cast<size_t>(g0) * NH + i);
+      cp_async4(prm + i, nu_c + static_cast<size_t>(g0) * NH + i);
     // each dispersion is copied by the thread that turns it into columns
-    if (F::cols && tid < gn) cp_async4(prm + PRM_DISP + tid, disp + g0 + tid);
+    if (F::cols && tid < gn) cp_async4(prm + PRM_DISP + tid, disp + ch * cs.disp + g0 + tid);
     if (HAS_DNU) {
+      const float* dnu_c = dnu + ch * cs.dnu;
       for (int i = tid; i < gn * nb; i += kThreads) {
         const int b = i / gn;
         const int g = i - b * gn;
-        cp_async4(prm + PRM_DNU + b * kGeneChunk + g, dnu + static_cast<size_t>(b) * Ng + g0 + g);
+        cp_async4(prm + PRM_DNU + b * kGeneChunk + g, dnu_c + static_cast<size_t>(b) * Ng + g0 + g);
       }
     }
   };
 
   // this thread's cells of the current tile (i * kThreads + tid): registers
-  // for the tile's units
+  // for the tile's units.  `tile` counts the tiles of all chains (chain *
+  // tiles + tile of the chain); cell[] is the cell within the chain
   constexpr int C = kCellsPerThread;
+  const size_t KNc = static_cast<size_t>(cs.K) * Nc;
   int tile = -1;
   int cell[C];
   bool valid[C];
@@ -207,18 +233,39 @@ phase_kernel(const TK* __restrict__ S, const float* __restrict__ nu,
     for (int b = 0; b < NB_SLOTS; ++b) db[i][b] = 0.0f;
   }
 
-  // this CTA's piece of a tile's cell gradients, in CTA order
-  auto flush = [&](int t) {
+  // this CTA's piece of a tile's cell gradients, in CTA order; the pieces
+  // are (pieces, NH + 1, K * Nc), the chains' cells side by side
+  auto flush = [&](int gt) {
     const int k = static_cast<int>(blockIdx.x) -
-                  unit_owner(static_cast<long long>(t) * n_chunks, U, gridDim.x);
+                  unit_owner(static_cast<long long>(gt) * n_chunks, U, gridDim.x);
+    const size_t c0 = static_cast<size_t>(gt / tiles) * Nc;
 #pragma unroll
     for (int i = 0; i < C; ++i) {
       if (!valid[i]) continue;
-      float* out = cell_piece + static_cast<size_t>(k) * (NH + 1) * Nc + cell[i];
+      float* out = cell_piece + static_cast<size_t>(k) * (NH + 1) * KNc + c0 + cell[i];
 #pragma unroll
-      for (int h = 0; h < NH; ++h) out[static_cast<size_t>(h) * Nc] = dz[i][h];
-      out[static_cast<size_t>(NH) * Nc] = dc[i];
+      for (int h = 0; h < NH; ++h) out[static_cast<size_t>(h) * KNc] = dz[i][h];
+      out[static_cast<size_t>(NH) * KNc] = dc[i];
     }
+  };
+
+  // this CTA's piece of a chain's loss: loss_part is (K, loss_pieces), a
+  // chain's pieces in the order of the CTAs that carry its units
+  int chain = static_cast<int>(u0 / UC);
+  double loss = 0.0;
+  auto flush_loss = [&]() {
+    loss = warp_sum(loss);
+    if (lane == 0) s_loss[warp] = loss;
+    __syncthreads();
+    if (tid == 0) {
+      double s = 0.0;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) s += s_loss[w];
+      const int k = static_cast<int>(blockIdx.x) - unit_owner(chain * UC, U, gridDim.x);
+      loss_part[static_cast<size_t>(chain) * cs.loss_pieces + k] = s;
+    }
+    __syncthreads();
+    loss = 0.0;
   };
 
 #pragma unroll
@@ -227,8 +274,11 @@ phase_kernel(const TK* __restrict__ S, const float* __restrict__ nu,
     cp_async_commit();
   }
 
-  double loss = 0.0;
   for (long long u = u0; u < u1; ++u) {
+    if (u / UC != chain) {  // uniform over the CTA: the next chain's units
+      flush_loss();
+      chain = static_cast<int>(u / UC);
+    }
     const int iu = static_cast<int>(u - u0);
     const int slot = iu % kStages;
     // refill the stage that unit u - 1 used (every thread left it at the
@@ -237,27 +287,30 @@ phase_kernel(const TK* __restrict__ S, const float* __restrict__ nu,
     cp_async_commit();
     cp_async_wait<kStages - 1>();
 
-    const int t = static_cast<int>(u / n_chunks);
-    const int g0 = static_cast<int>(u - static_cast<long long>(t) * n_chunks) * kGeneChunk;
+    const int gt = static_cast<int>(u / n_chunks);
+    const int t = gt - chain * tiles;
+    const int g0 = static_cast<int>(u - static_cast<long long>(gt) * n_chunks) * kGeneChunk;
     const int gn = min(kGeneChunk, Ng - g0);
     const unsigned char* st = ring + slot * STAGE;
     const float* prm = reinterpret_cast<const float*>(st + PRM);
     if (F::cols && tid < gn) s_cols[tid] = gene_cols(prm[PRM_DISP + tid]);
     __syncthreads();  // the stage and the columns are in place for every thread
 
-    if (t != tile) {
+    if (gt != tile) {
       if (F::cell_grads && tile >= 0) flush(tile);
-      tile = t;
+      tile = gt;
+      const float* zeta_c = zeta + chain * cs.zeta;
+      const float* cf_c = cf + chain * cs.cf;
 #pragma unroll
       for (int i = 0; i < C; ++i) {
         cell[i] = t * kCellsPerTile + i * kThreads + tid;
         valid[i] = cell[i] < Nc;
 #pragma unroll
         for (int h = 0; h < NH; ++h) {
-          z[i][h] = (F::elog && valid[i]) ? zeta[static_cast<size_t>(cell[i]) * NH + h] : 0.0f;
+          z[i][h] = (F::elog && valid[i]) ? zeta_c[static_cast<size_t>(cell[i]) * NH + h] : 0.0f;
           dz[i][h] = 0.0f;
         }
-        cfv[i] = (F::has_cf && valid[i]) ? cf[cell[i]] : 0.0f;
+        cfv[i] = (F::has_cf && valid[i]) ? cf_c[cell[i]] : 0.0f;
         dc[i] = 0.0f;
 #pragma unroll
         for (int b = 0; b < NB_SLOTS; ++b)
@@ -356,42 +409,36 @@ phase_kernel(const TK* __restrict__ S, const float* __restrict__ nu,
         float s = 0.0f;
 #pragma unroll
         for (int w = 0; w < kWarps; ++w) s += s_red[gl][vi][w];
-        gene_part[(static_cast<size_t>(t) * Ng + g0 + gl) * NV + vi] = s;
+        gene_part[(static_cast<size_t>(gt) * Ng + g0 + gl) * NV + vi] = s;
       }
     }
   }
   if (F::cell_grads && tile >= 0) flush(tile);
   cp_async_wait<0>();
-
-  loss = warp_sum(loss);
-  if (lane == 0) s_loss[warp] = loss;
-  __syncthreads();
-  if (tid == 0) {
-    double s = 0.0;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) s += s_loss[w];
-    loss_part[blockIdx.x] = s;
-  }
+  flush_loss();
 }
 
-// dzeta (Nc, NH) and dcf (Nc,) from the pieces (pieces, NH + 1, Nc): each
-// tile's pieces added in the order of the CTAs that wrote them.
+// dzeta (K, Nc, NH) and dcf (K, Nc) from the pieces (pieces, NH + 1, K * Nc):
+// each tile's pieces added in the order of the CTAs that wrote them.
 template <int NH>
-__global__ void cell_sum_kernel(const float* __restrict__ cell_piece, int Ng, int Nc, int grid,
-                                float* __restrict__ dzeta, float* __restrict__ dcf) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= Nc) return;
+__global__ void cell_sum_kernel(const float* __restrict__ cell_piece, int Ng, int Nc, int K,
+                                int grid, float* __restrict__ dzeta, float* __restrict__ dcf) {
+  const long long KNc = static_cast<long long>(K) * Nc;
+  const long long v = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (v >= KNc) return;
+  const int ch = static_cast<int>(v / Nc);
+  const int c = static_cast<int>(v - static_cast<long long>(ch) * Nc);
   const int n_chunks = (Ng + kGeneChunk - 1) / kGeneChunk;
-  const long long U =
-      static_cast<long long>((Nc + kCellsPerTile - 1) / kCellsPerTile) * n_chunks;
-  const long long first = static_cast<long long>(c / kCellsPerTile) * n_chunks;
+  const int tiles = (Nc + kCellsPerTile - 1) / kCellsPerTile;
+  const long long U = static_cast<long long>(K) * tiles * n_chunks;
+  const long long first = (static_cast<long long>(ch) * tiles + c / kCellsPerTile) * n_chunks;
   const int n = unit_owner(first + n_chunks - 1, U, grid) - unit_owner(first, U, grid) + 1;
 #pragma unroll
   for (int h = 0; h <= NH; ++h) {
-    float s = cell_piece[static_cast<size_t>(h) * Nc + c];
-    for (int k = 1; k < n; ++k) s += cell_piece[(static_cast<size_t>(k) * (NH + 1) + h) * Nc + c];
-    if (h < NH) dzeta[static_cast<size_t>(c) * NH + h] = s;
-    else dcf[c] = s;
+    float s = cell_piece[static_cast<size_t>(h) * KNc + v];
+    for (int k = 1; k < n; ++k) s += cell_piece[(static_cast<size_t>(k) * (NH + 1) + h) * KNc + v];
+    if (h < NH) dzeta[static_cast<size_t>(v) * NH + h] = s;
+    else dcf[v] = s;
   }
 }
 

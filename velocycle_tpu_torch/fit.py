@@ -56,7 +56,8 @@ class _FitModel:
                  get_posterior=True, num_samples=500, n_per_bin=500):
         device = metaparams.data.device
         self.condition = {
-            k: torch.as_tensor(np.asarray(v), dtype=torch.float32,
+            k: torch.as_tensor(v if isinstance(v, torch.Tensor)
+                               else np.asarray(v), dtype=torch.float32,
                                device=device)
             for k, v in (condition_on or {}).items()
         }

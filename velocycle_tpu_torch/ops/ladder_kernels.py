@@ -137,7 +137,8 @@ def ladder_run(rung, S, nu, zeta=None, cf=None, r=None, n_rep=0):
     out = K._phase_launch(mode, S, nu, zeta, cf, r, skip_k=True,
                           want_disp=want_disp, n_rep=n_rep)
     LAUNCHES[rung] += 1
-    return LadderOut(*out)
+    # one parameter set: drop the chain axis of one
+    return LadderOut(*(None if t is None else t[0] for t in out))
 
 
 def _loss(out):

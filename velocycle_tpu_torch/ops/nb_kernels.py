@@ -59,6 +59,7 @@ from .special import (
 __all__ = [
     "KERNEL_WIDTHS",
     "LAUNCHES",
+    "LAUNCH_CHAINS",
     "LAUNCH_WIDTHS",
     "Layout",
     "MAX_WIDTH",
@@ -87,23 +88,27 @@ __all__ = [
     "widen_inputs",
 ]
 
-# kernel launches on the card, by kernel, and by kernel and instantiated
-# basis width (`kernel_width`); chip_smoke.py resets these just before it
-# drives each stage of the main path and reads them just after
+# kernel launches on the card, by kernel, by kernel and instantiated basis
+# width (`kernel_width`), and by kernel and chain count K (a chain-batched
+# launch counts once, under its K); chip_smoke.py resets these just before
+# it drives each stage of the main path and reads them just after
 LAUNCHES = {"phase_fwd": 0, "phase_fwdgrad": 0, "velo_fwd": 0,
             "velo_fwdgrad": 0}
 LAUNCH_WIDTHS = {k: {} for k in LAUNCHES}
+LAUNCH_CHAINS = {k: {} for k in LAUNCHES}
 
 
 def reset_launch_counts():
     for k in LAUNCHES:
         LAUNCHES[k] = 0
         LAUNCH_WIDTHS[k].clear()
+        LAUNCH_CHAINS[k].clear()
 
 
-def _count_launch(name, width):
+def _count_launch(name, width, chains):
     LAUNCHES[name] += 1
     LAUNCH_WIDTHS[name][width] = LAUNCH_WIDTHS[name].get(width, 0) + 1
+    LAUNCH_CHAINS[name][chains] = LAUNCH_CHAINS[name].get(chains, 0) + 1
 
 
 # ---------------------------------------------------------------------------
@@ -132,9 +137,11 @@ def nbsu_loglik_reference(S, U, nu, zeta, zeta_dphi, count_factor, omega,
 
 
 def _phase_elog(nu, zeta, cf, delta_nu, Db):
-    elog = nu @ zeta.T + cf[None, :]
+    """ElogS (..., Ng, Nc); the parameters may carry a leading chain axis
+    each (`phase_fwdgrad_plain`)."""
+    elog = nu @ zeta.transpose(-1, -2) + cf[..., None, :]
     if delta_nu is not None:
-        elog = elog + delta_nu.T @ Db
+        elog = elog + delta_nu.transpose(-1, -2) @ Db
     return elog
 
 
@@ -211,19 +218,25 @@ def phase_fwdgrad_plain(S, nu, zeta, cf, r, delta_nu=None, Db=None,
                         lgamma_k_sum=None, want_disp=True):
     """Plain version of ``phase_fwdgrad``: (loss, (dnu, dzeta, dcf, ddisp,
     ddelta_nu)); ddisp is exactly zero when ``want_disp`` is False and
-    ddelta_nu is None without delta_nu."""
+    ddelta_nu is None without delta_nu.
+
+    Chain-batched like the kernel: any of nu, zeta, cf, r and delta_nu may
+    carry a leading chain axis K (the others are shared by the chains), and
+    then the loss is (K,) and every gradient has the leading K."""
     elog = _phase_elog(nu, zeta, cf, delta_nu, Db)
-    a = 1.0 / r[:, None]
+    a = 1.0 / r[..., None]
     lp, g_elog, g_r = _nb_lp_and_grads(
-        S.float(), a, torch.log(r)[:, None], elog,
+        S.float(), a, torch.log(r)[..., None], elog,
         lgamma_k_sum is not None, want_r=want_disp,
     )
-    loss = _finish_loss(lp.sum(dtype=torch.float64), lgamma_k_sum)
+    loss = _finish_loss(lp.sum((-2, -1), dtype=torch.float64), lgamma_k_sum)
     dnu = g_elog @ zeta
-    dzeta = g_elog.T @ nu
-    dcf = g_elog.sum(0)
-    ddisp = g_r.sum(1) if want_disp else torch.zeros_like(r)
-    ddnu = (g_elog @ Db.T).T if delta_nu is not None else None
+    dzeta = g_elog.transpose(-1, -2) @ nu
+    dcf = g_elog.sum(-2)
+    ddisp = g_r.sum(-1) if want_disp else torch.zeros(
+        g_elog.shape[:-1], dtype=r.dtype, device=r.device)
+    ddnu = ((g_elog @ Db.T).transpose(-1, -2) if delta_nu is not None
+            else None)
     return loss, (dnu, dzeta, dcf, ddisp, ddnu)
 
 
@@ -319,35 +332,43 @@ def widen_inputs(nu, zetas, delta_nu, Db, width, fold):
     values; then zero columns up to ``width``, which add exact zeros to
     every dot product.  Returns (nu', [zetas'], delta_nu or None (folded),
     Db or None); the inputs themselves when nothing changes."""
-    Nh = nu.shape[1]
+    Nh = nu.shape[-1]
     if width == Nh and not fold:
         return nu, list(zetas), delta_nu, Db
-    Nb = delta_nu.shape[0] if fold else 0
+    Nb = delta_nu.shape[-2] if fold else 0
     pad = width - Nh - Nb
-    cols_nu = [nu] + ([delta_nu.T] if fold else [])
+    cols_nu = [nu] + ([delta_nu.transpose(-1, -2)] if fold else [])
     out = []
     for i, z in enumerate(zetas):
         cols = [z]
         if fold:
-            cols.append(Db.T if i == 0 else z.new_zeros(z.shape[0], Nb))
+            cols.append(Db.T if i == 0 else z.new_zeros(z.shape[-2], Nb))
         out.append(cols)
     if pad:
-        cols_nu.append(nu.new_zeros(nu.shape[0], pad))
+        cols_nu.append(nu.new_zeros(nu.shape[-2], pad))
         for cols, z in zip(out, zetas):
-            cols.append(z.new_zeros(z.shape[0], pad))
-    nu_w = torch.cat(cols_nu, 1).contiguous()
-    zetas_w = [torch.cat(cols, 1).contiguous() for cols in out]
+            cols.append(z.new_zeros(z.shape[-2], pad))
+    nu_w = _cat_columns(cols_nu)
+    zetas_w = [_cat_columns(cols) for cols in out]
     return nu_w, zetas_w, (None if fold else delta_nu), (None if fold else Db)
+
+
+def _cat_columns(cols):
+    """Concatenate along the last axis, each piece broadcast to the leading
+    (chain) axis of any that has one."""
+    lead = max((c.shape[:-2] for c in cols), key=len)
+    return torch.cat([c.expand(lead + c.shape[-2:]) for c in cols],
+                     -1).contiguous()
 
 
 def narrow_grads(dnu, dzetas, ddnu, Nh, Nb, fold):
     """The gradients of `widen_inputs`'s inputs from those of its outputs:
-    dnu[:, :Nh] and each dzeta[:, :Nh]; with ``fold`` ddelta_nu is
-    dnu[:, Nh:Nh + Nb]^T.  The padded columns' gradients are dropped."""
+    dnu[..., :Nh] and each dzeta[..., :Nh]; with ``fold`` ddelta_nu is
+    dnu[..., Nh:Nh + Nb]^T.  The padded columns' gradients are dropped."""
     if fold:
-        ddnu = dnu[:, Nh:Nh + Nb].T.contiguous()
-    return (dnu[:, :Nh].contiguous(), [d[:, :Nh].contiguous() for d in dzetas],
-            ddnu)
+        ddnu = dnu[..., Nh:Nh + Nb].transpose(-1, -2).contiguous()
+    return (dnu[..., :Nh].contiguous(),
+            [d[..., :Nh].contiguous() for d in dzetas], ddnu)
 
 
 # ---------------------------------------------------------------------------
@@ -357,6 +378,7 @@ def narrow_grads(dnu, dzetas, ddnu, Nh, Nb, fold):
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 
 # the `Cut` order of csrc/phase_kernel.cuh: the modes of vct_phase_run.  fwd
 # and fwdgrad are phase_fwd / phase_fwdgrad; the rest are the roofline
@@ -389,10 +411,11 @@ class Layout(NamedTuple):
 class Plan(NamedTuple):
     """How one call of a kernel is laid out on the card (vct_phase_plan,
     vct_velo_plan)."""
-    grid: int               # CTAs, one loss partial each
+    grid: int               # CTAs
     pieces: int             # cell-gradient pieces per cell (0: none)
     blocks_per_sm: int      # resident CTAs per SM
     dyn_smem: int           # dynamic shared memory per CTA, bytes
+    loss_pieces: int        # loss partials per chain (velocity: the grid)
 
 
 def _read_layout(header):
@@ -447,12 +470,14 @@ def _phase_lib():
     """The loaded library of csrc/nb_phase.cu, typed and checked."""
     return _typed_lib("nb_phase", "vct_phase", phase_layout(), {
         "vct_phase_layout": [_P, _I],
-        # mode, int16 flag, Ng, Nc, Nh, Nb, skip_k, want_disp, out
-        "vct_phase_plan": [_I] * 8 + [_P],
+        # mode, int16 flag, Ng, Nc, Nh, Nb, K, skip_k, want_disp, out
+        "vct_phase_plan": [_I] * 9 + [_P],
         # mode, S, int16 flag, nu, zeta, cf, disp, dnu, Db, Ng, Nc, Nh, Nb,
-        # skip_k, want_disp, n_rep, grid, pieces, loss_part, gene_part,
+        # K, the strides of nu, zeta, cf, disp, dnu, skip_k, want_disp,
+        # n_rep, grid, pieces, loss_pieces, loss_part, gene_part,
         # cell_piece, dzeta, dcf, stream
-        "vct_phase_run": [_I, _P, _I] + [_P] * 6 + [_I] * 9 + [_P] * 6,
+        "vct_phase_run": ([_I, _P, _I] + [_P] * 6 + [_I] * 5 + [_L] * 5
+                          + [_I] * 6 + [_P] * 6),
     })
 
 
@@ -480,22 +505,24 @@ def _device_index(device):
 
 @functools.lru_cache(maxsize=256)
 def _plan(lib_fn, device_index, args):
-    lib = _phase_lib() if lib_fn == "vct_phase_plan" else _velo_lib()
-    out = (ctypes.c_int * 4)()
+    phase = lib_fn == "vct_phase_plan"
+    lib = _phase_lib() if phase else _velo_lib()
+    out = (ctypes.c_int * 5)()
     with torch.cuda.device(device_index):
         rc = getattr(lib, lib_fn)(*args, out)
     _raise_on(rc, f"{lib_fn} {args}")
-    return Plan(*out)
+    return Plan(*out[:4], out[4] if phase else out[0])
 
 
 def phase_plan(mode, int16, Ng, Nc, Nh=5, Nb=0, skip_k=True, want_disp=True,
-               device=None):
+               device=None, chains=1):
     """The `Plan` of one call of the phase kernel in ``mode``
     (`PHASE_MODES`) on ``device`` (default: the current card), for int16
-    or float32 counts, at an instantiated width Nh."""
+    or float32 counts, at an instantiated width Nh, over ``chains``
+    parameter sets (more than one for fwdgrad only)."""
     return _plan("vct_phase_plan", _device_index(device), (
         PHASE_MODES.index(mode), int(bool(int16)), Ng, Nc, Nh, Nb,
-        int(bool(skip_k)), int(bool(want_disp))))
+        int(chains), int(bool(skip_k)), int(bool(want_disp))))
 
 
 def velo_plan(cut, s_int16, u_int16, Ng, Nc, Nh=5, Nb=0, skip_k=True,
@@ -508,39 +535,57 @@ def velo_plan(cut, s_int16, u_int16, Ng, Nc, Nh=5, Nb=0, skip_k=True,
         Nh, Nb, int(bool(skip_k)), int(bool(want_disp))))
 
 
+def _chain_stride(t, base_dim):
+    """Floats between two chains' copies of a parameter operand: its size
+    per chain when it carries the leading chain axis, else 0 (shared)."""
+    if t is None or t.dim() == base_dim:
+        return 0
+    return t[0].numel()
+
+
 def _phase_launch(mode, S, nu, zeta, cf, r, delta_nu=None, Db=None,
-                  skip_k=True, want_disp=False, n_rep=0):
+                  skip_k=True, want_disp=False, n_rep=0, chains=1):
     """One launch of csrc/nb_phase.cu in ``mode`` (`PHASE_MODES`) on checked
     CUDA tensors at an instantiated width; inputs the mode does not read may
-    be None.  Returns (loss partials (grid,) float64, gene partials
-    (n_tiles, Ng, NV) or None, dzeta (Nc, Nh) or None, dcf (Nc,) or None)."""
+    be None.  With ``chains`` = K > 1 (fwdgrad only) each of nu, zeta, cf, r
+    and delta_nu either carries a leading axis K or is shared by the chains.
+    Returns (loss partials (K, loss_pieces) float64, gene partials (K,
+    n_tiles, Ng, NV) or None, dzeta (K, Nc, Nh) or None, dcf (K, Nc) or
+    None)."""
     lib = _phase_lib()
-    Ng, Nh = nu.shape
-    Nc = zeta.shape[0] if S is None else S.shape[1]
-    Nb = 0 if delta_nu is None else delta_nu.shape[0]
+    Ng, Nh = nu.shape[-2:]
+    Nc = zeta.shape[-2] if S is None else S.shape[1]
+    Nb = 0 if delta_nu is None else delta_nu.shape[-2]
     int16 = S is not None and S.dtype == torch.int16
+    K = int(chains)
     dev = nu.device
-    plan = phase_plan(mode, int16, Ng, Nc, Nh, Nb, skip_k, want_disp, dev)
+    plan = phase_plan(mode, int16, Ng, Nc, Nh, Nb, skip_k, want_disp, dev,
+                      chains=K)
     f32 = dict(dtype=torch.float32, device=dev)
-    loss_part = torch.empty(plan.grid, dtype=torch.float64, device=dev)
+    # zeros: a chain with fewer loss pieces than the most leaves the rest
+    loss_part = torch.zeros((K, plan.loss_pieces), dtype=torch.float64,
+                            device=dev)
     gene_part = cell_piece = dzeta = dcf = None
     if mode in _PHASE_GENE_EXTRA:
         tiles = -(-Nc // lib.layout.cells_per_tile)
         gene_part = torch.empty(
-            (tiles, Ng, Nh + _PHASE_GENE_EXTRA[mode] + Nb), **f32)
+            (K, tiles, Ng, Nh + _PHASE_GENE_EXTRA[mode] + Nb), **f32)
     if mode in _PHASE_CELL_GRADS:
-        dzeta = torch.empty((Nc, Nh), **f32)
-        dcf = torch.empty(Nc, **f32)
+        dzeta = torch.empty((K, Nc, Nh), **f32)
+        dcf = torch.empty((K, Nc), **f32)
         if plan.pieces:
-            cell_piece = torch.empty((plan.pieces, Nh + 1, Nc), **f32)
+            cell_piece = torch.empty((plan.pieces, Nh + 1, K * Nc), **f32)
+    strides = [_chain_stride(t, d) for t, d in
+               ((nu, 2), (zeta, 2), (cf, 1), (r, 1), (delta_nu, 2))]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.vct_phase_run(
             PHASE_MODES.index(mode), _ptr(S), int(int16), _ptr(nu),
             _ptr(zeta), _ptr(cf), _ptr(r), _ptr(delta_nu), _ptr(Db), Ng, Nc,
-            Nh, Nb, int(skip_k), int(want_disp), int(n_rep), plan.grid,
-            plan.pieces, loss_part.data_ptr(), _ptr(gene_part),
-            _ptr(cell_piece), _ptr(dzeta), _ptr(dcf), stream,
+            Nh, Nb, K, *strides, int(skip_k), int(want_disp), int(n_rep),
+            plan.grid, plan.pieces, plan.loss_pieces, loss_part.data_ptr(),
+            _ptr(gene_part), _ptr(cell_piece), _ptr(dzeta), _ptr(dcf),
+            stream,
         )
     _raise_on(rc, f"phase {mode}")
     return loss_part, gene_part, dzeta, dcf
@@ -552,15 +597,23 @@ _SHAPES = {"nu": "gh", "zeta": "ch", "zeta_dphi": "ch", "count_factor": "c",
            "dispersion": "g"}
 
 
-def _check_inputs(counts, params, delta_nu, Db, max_nb=None):
+# the operands the phase kernels take per chain in a chain-batched call
+# (`phase_fwdgrad`); the counts and Db are shared by every chain
+_CHAIN_OPERANDS = ("nu", "zeta", "count_factor", "dispersion", "delta_nu")
+
+
+def _check_inputs(counts, params, delta_nu, Db, max_nb=None, chains=False,
+                  device=True):
     """Shapes always; device, dtype, contiguity and the basis width for the
-    kernels.
+    kernels (``device=False``: shapes only).
 
     counts: [(name, (Ng, Nc) tensor)], or empty for a kernel that reads no
     count matrix (Ng and Nc then come from nu and zeta), each int16 or
     float32 on its own; params: {name: tensor}, names from `_SHAPES`;
     max_nb: the most delta_nu batches the kernels take as such, for the
-    width check of `kernel_width` (None: no width check)."""
+    width check of `kernel_width` (None: no width check); ``chains``: the
+    `_CHAIN_OPERANDS` may each carry a leading chain axis K.  Returns K, or
+    None when no operand carries one."""
     if counts:
         S = counts[0][1]
         if S.dim() != 2:
@@ -568,7 +621,7 @@ def _check_inputs(counts, params, delta_nu, Db, max_nb=None):
         Ng, Nc = S.shape
     else:
         S = params["nu"]
-        Ng, Nc = S.shape[0], params["zeta"].shape[0]
+        Ng, Nc = S.shape[-2], params["zeta"].shape[-2]
     Nh = params["nu"].shape[-1]
     dims = {"g": Ng, "c": Nc, "h": Nh}
     want = {name: tuple(dims[d] for d in _SHAPES[name]) for name in params}
@@ -580,16 +633,26 @@ def _check_inputs(counts, params, delta_nu, Db, max_nb=None):
         raise ValueError("delta_nu and Db must be given together")
     Nb = 0
     if delta_nu is not None:
-        Nb = delta_nu.shape[0]
+        Nb = delta_nu.shape[-2]
         want.update(delta_nu=(Nb, Ng), Db=(Nb, Nc))
         got.update(delta_nu=delta_nu, Db=Db)
+    K = None
     for name, t in got.items():
-        if tuple(t.shape) != want[name]:
+        shape = tuple(t.shape)
+        if chains and name in _CHAIN_OPERANDS and len(shape) == len(want[name]) + 1:
+            if K not in (None, shape[0]) or shape[0] < 1:
+                raise ValueError(f"{name} has {shape[0]} chains, another "
+                                 f"operand {K}")
+            K, shape = shape[0], shape[1:]
+        if shape != want[name]:
             raise ValueError(
-                f"{name} must have shape {want[name]}, got {tuple(t.shape)}"
+                f"{name} must have shape {want[name]}"
+                + (" (with a leading chain axis or without)"
+                   if chains and name in _CHAIN_OPERANDS else "")
+                + f", got {tuple(t.shape)}"
             )
-    if S.device.type != "cuda":
-        return
+    if not device or S.device.type != "cuda":
+        return K
     for name, t in counts:
         if t.dtype not in (torch.int16, torch.float32):
             raise TypeError(f"{name} must be int16 or float32, got {t.dtype}")
@@ -604,6 +667,7 @@ def _check_inputs(counts, params, delta_nu, Db, max_nb=None):
             raise TypeError(f"{name} must be float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    return K
 
 
 def _ptr(t):
@@ -615,15 +679,16 @@ def _raise_on(rc, name):
         raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
 
 
-def _on_card(name, counts, params, delta_nu, Db, max_nb):
+def _on_card(name, counts, params, delta_nu, Db, max_nb, chains=False):
     """Check a kernel call and choose its width: (width, fold) of
-    `kernel_width`; raises for CPU tensors."""
-    _check_inputs(counts, params, delta_nu, Db, max_nb)
+    `kernel_width` and the chain count of `_check_inputs`; raises for CPU
+    tensors."""
+    K = _check_inputs(counts, params, delta_nu, Db, max_nb, chains)
     ref = counts[0][1]
     if ref.device.type != "cuda":
         raise ValueError(f"{name} launches a CUDA kernel; got CPU tensors")
-    Nb = 0 if delta_nu is None else delta_nu.shape[0]
-    return kernel_width(params["nu"].shape[1], Nb, max_nb)
+    Nb = 0 if delta_nu is None else delta_nu.shape[-2]
+    return (*kernel_width(params["nu"].shape[-1], Nb, max_nb), K)
 
 
 def _phase_params(nu, zeta, cf, r):
@@ -633,22 +698,29 @@ def _phase_params(nu, zeta, cf, r):
 def _phase_call(name, S, nu, zeta, cf, r, delta_nu, Db, lgamma_k_sum,
                 want_disp=False):
     """Check, widen where the shape needs it, launch and count one phase
-    kernel.  Returns (loss, gene partials summed over the cell tiles or
-    None, dzeta or None, dcf or None, (Nh, Nb, fold, kernel delta_nu))."""
-    width, fold = _on_card(name, [("S", S)], _phase_params(nu, zeta, cf, r),
-                           delta_nu, Db, phase_layout().max_nb)
+    kernel (phase_fwdgrad over a chain batch where operands carry a leading
+    chain axis).  Returns (loss, gene partials summed over the cell tiles or
+    None, dzeta or None, dcf or None, (Nh, Nb, fold, kernel delta_nu)), each
+    with the leading chain axis in a chain-batched call."""
+    grad = name == "phase_fwdgrad"
+    width, fold, K = _on_card(name, [("S", S)], _phase_params(nu, zeta, cf, r),
+                              delta_nu, Db, phase_layout().max_nb, chains=grad)
     nu_k, (zeta_k,), dnu_k, Db_k = widen_inputs(nu, [zeta], delta_nu, Db,
                                                 width, fold)
-    mode = "fwdgrad" if name == "phase_fwdgrad" else "fwd"
     loss_part, gene_part, dzeta, dcf = _phase_launch(
-        mode, S, nu_k, zeta_k, cf, r, dnu_k, Db_k,
-        skip_k=lgamma_k_sum is not None, want_disp=bool(want_disp))
-    _count_launch(name, width)
-    loss = _finish_loss(loss_part.sum(), lgamma_k_sum)
-    # fixed-order reduction over the cell tiles (no float atomics)
-    gene = None if gene_part is None else gene_part.sum(0)
-    Nb = 0 if delta_nu is None else delta_nu.shape[0]
-    return loss, gene, dzeta, dcf, (nu.shape[1], Nb, fold, dnu_k)
+        "fwdgrad" if grad else "fwd", S, nu_k, zeta_k, cf, r, dnu_k, Db_k,
+        skip_k=lgamma_k_sum is not None, want_disp=bool(want_disp),
+        chains=K or 1)
+    _count_launch(name, width, K or 1)
+    # fixed-order reductions over each chain's loss pieces and cell tiles
+    # (no float atomics)
+    loss = _finish_loss(loss_part.sum(-1), lgamma_k_sum)
+    gene = None if gene_part is None else gene_part.sum(1)
+    if K is None:   # unbatched: drop the chain axis of one
+        loss, gene, dzeta, dcf = (None if t is None else t[0]
+                                  for t in (loss, gene, dzeta, dcf))
+    Nb = 0 if delta_nu is None else delta_nu.shape[-2]
+    return loss, gene, dzeta, dcf, (nu.shape[-1], Nb, fold, dnu_k)
 
 
 def phase_fwd(S, nu, zeta, cf, r, delta_nu=None, Db=None, lgamma_k_sum=None):
@@ -661,15 +733,22 @@ def phase_fwdgrad(S, nu, zeta, cf, r, delta_nu=None, Db=None,
                   lgamma_k_sum=None, want_disp=True):
     """Loss and every gradient of the fused phase NB likelihood on the card:
     (loss, (dnu, dzeta, dcf, ddisp, ddelta_nu)), as `phase_fwdgrad_plain`.
-    The kernel's gene partials hold [dnu (width), ddisp, ddelta_nu (Nb)]."""
+    The kernel's gene partials hold [dnu (width), ddisp, ddelta_nu (Nb)].
+
+    Chain-batched as `phase_fwdgrad_plain`: where any of nu, zeta, cf, r and
+    delta_nu carries a leading chain axis K, ONE launch computes all K
+    chains (the operands without the axis shared by them) and the loss is
+    (K,) and every gradient (K, ...); counted once in LAUNCHES and under K
+    in LAUNCH_CHAINS."""
     loss, gene, dzeta, dcf, (Nh, Nb, fold, dnu_k) = _phase_call(
         "phase_fwdgrad", S, nu, zeta, cf, r, delta_nu, Db, lgamma_k_sum,
         want_disp)
-    W = dzeta.shape[1]
-    ddnu = gene[:, W + 1:].T.contiguous() if dnu_k is not None else None
-    dnu, (dzeta,), ddnu = narrow_grads(gene[:, :W], [dzeta], ddnu, Nh, Nb,
+    W = dzeta.shape[-1]
+    ddnu = (gene[..., W + 1:].transpose(-1, -2).contiguous()
+            if dnu_k is not None else None)
+    dnu, (dzeta,), ddnu = narrow_grads(gene[..., :W], [dzeta], ddnu, Nh, Nb,
                                        fold)
-    return loss, (dnu, dzeta, dcf, gene[:, W].contiguous(), ddnu)
+    return loss, (dnu, dzeta, dcf, gene[..., W].contiguous(), ddnu)
 
 
 def _velo_params(nu, zeta, zeta_dphi, cf, omega, log_beta, log_gamma, r):
@@ -685,8 +764,8 @@ def _velo_call(name, S, U, params, delta_nu, Db, lgamma_k_sum,
     partials summed over the cell tiles (Ng, W + 3 + Nb) or None, [dzeta,
     dzeta_dphi, dcf, domega] at width W or [], (Nh, Nb, fold, kernel
     delta_nu))."""
-    width, fold = _on_card(name, [("S", S), ("U", U)], params, delta_nu, Db,
-                           velo_layout().max_nb)
+    width, fold, _ = _on_card(name, [("S", S), ("U", U)], params, delta_nu,
+                              Db, velo_layout().max_nb)
     nu, (zeta, zdphi), dnu_k, Db_k = widen_inputs(
         params["nu"], [params["zeta"], params["zeta_dphi"]], delta_nu, Db,
         width, fold)
@@ -724,7 +803,7 @@ def _velo_call(name, S, U, params, delta_nu, Db, lgamma_k_sum,
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(*args, *tail, stream)
     _raise_on(rc, name)
-    _count_launch(name, width)
+    _count_launch(name, width, 1)
     loss = _finish_loss(loss_part.sum(), lgamma_k_sum)
     # fixed-order reduction over the cell tiles (no float atomics)
     gene = None if gene_part is None else gene_part.sum(0)
@@ -767,41 +846,153 @@ def velo_fwdgrad(S, U, nu, zeta, zeta_dphi, cf, omega, log_beta, log_gamma,
 # autograd bindings
 # ---------------------------------------------------------------------------
 
+_NO_SECOND_DERIVATIVE = (
+    "the fused NB likelihood has no second derivative: its backward scales "
+    "gradients the kernel computed in the forward pass.  Take Hessians, "
+    "Hessian-vector products and forward-mode derivatives through the plain "
+    "model path (use_fused_nb=False)")
+
+# the chain batch of the velocity kernel is not ported
+_VELO_CHAINS = (
+    "velo_fwdgrad takes one parameter set per launch: the chain-batched "
+    "velocity kernel, and with it MCMC over fused velocity data on the card, "
+    "is ROADMAP.md queue 1 item 6a (not ported); sample the velocity model "
+    "with use_fused_nb=False")
+
+
+def _velo_fwdgrad_chains(S, U, *params, lgamma_k_sum=None, want_disp=True):
+    raise NotImplementedError(_VELO_CHAINS)
+
+
+def _velo_fwdgrad_plain_chains(S, U, *params, lgamma_k_sum=None,
+                               want_disp=True):
+    """`velo_fwdgrad_plain` over a chain batch (the CPU path): each operand
+    with a leading chain axis mapped over it."""
+    dims = tuple(0 if t is not None and t.dim() > d else None
+                 for t, d in zip(params, _VELO_OPERAND_DIMS))
+
+    def one_chain(*p):
+        loss, grads = velo_fwdgrad_plain(S, U, *p, lgamma_k_sum=lgamma_k_sum,
+                                         want_disp=want_disp)
+        return loss, [d for d in grads if d is not None]
+
+    loss, grads = torch.func.vmap(one_chain, in_dims=dims)(*params)
+    grads = iter(grads)
+    # ddelta_nu, the last gradient, is None without delta_nu
+    return loss, tuple(next(grads) if i < 8 or params[8] is not None else None
+                       for i in range(9))
+
+
+# the ranks of the velocity kernels' operands after S and U: nu, zeta,
+# zeta_dphi, cf, omega, log_beta, log_gamma, r, delta_nu, Db
+_VELO_OPERAND_DIMS = (2, 2, 2, 1, 1, 1, 1, 1, 2, 2)
+
+
+class _NoSecondDerivative(torch.autograd.Function):
+    """The identity on a gradient of the fused likelihood, tied to the
+    likelihood's inputs so that differentiating it (double backward, or a
+    forward-mode derivative of the gradient) raises instead of silently
+    dropping the likelihood's curvature."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(grad, *inputs):
+        return grad.view_as(grad)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, g):
+        raise RuntimeError(_NO_SECOND_DERIVATIVE)
+
+    @staticmethod
+    def jvp(ctx, *tangents):
+        raise RuntimeError(_NO_SECOND_DERIVATIVE)
+
+
 class _FusedNBLogLik(torch.autograd.Function):
     """One fwd+grad pass in forward; backward scales the saved gradients.
 
     ``fwdgrad(*inputs, want_disp=...)`` returns (loss, grads) with one
-    gradient (or None) per differentiable input; ``n_data`` leading inputs
-    are data (counts) and take no gradient."""
+    gradient per differentiable input but the last (Db), None where that
+    input is None; ``n_data`` leading inputs are data (counts) and take no
+    gradient.  The gradients leave `forward` as outputs marked
+    non-differentiable, so that under `torch.func.vmap` they are batched
+    like the loss; the `vmap` rule makes ONE chain-batched call for the
+    whole batch (`phase_fwdgrad` over its chain axis).  The likelihood has
+    no second derivative: differentiating its gradient raises, and so does
+    a forward-mode derivative."""
 
     @staticmethod
-    def forward(ctx, fwdgrad, n_data, lgamma_k_sum, disp_grad, *inputs):
+    def forward(fwdgrad, n_data, lgamma_k_sum, disp_grad, *inputs):
         loss, grads = fwdgrad(*inputs, lgamma_k_sum=lgamma_k_sum,
                               want_disp=disp_grad)
-        ctx.grads = grads
-        ctx.n_data = n_data
-        return loss
+        return (loss, *(d for d in grads if d is not None))
 
     @staticmethod
-    def backward(ctx, g):
-        need = ctx.needs_input_grad[4 + ctx.n_data:]
+    def setup_context(ctx, inputs, output):
+        grads = output[1:]
+        ctx.mark_non_differentiable(*grads)
+        ctx.n_data = inputs[1]
+        ctx.n_inputs = len(inputs) - 4
+        ctx.save_for_backward(*inputs[4:], *grads)
+
+    @staticmethod
+    def backward(ctx, g, *_):
+        saved = ctx.saved_tensors
+        diff = saved[ctx.n_data:ctx.n_inputs]
+        grads = iter(saved[ctx.n_inputs:])
+        live = [t for t in diff if t is not None]
         out = [None] * (4 + ctx.n_data)
-        for d, needed in zip(ctx.grads, need):
-            out.append(g * d if (d is not None and needed) else None)
-        out += [None] * (len(need) - len(ctx.grads))   # Db
+        for i, t in enumerate(diff):
+            if t is None or i == len(diff) - 1:   # absent, or Db
+                out.append(None)
+                continue
+            d = next(grads)
+            # g is (K,) over a chain batch, d (K, ...)
+            gd = g.reshape(g.shape + (1,) * (d.dim() - g.dim())) * d
+            out.append(_NoSecondDerivative.apply(gd, *live)
+                       if ctx.needs_input_grad[4 + ctx.n_data + i] else None)
         return tuple(out)
+
+    @staticmethod
+    def jvp(ctx, *tangents):
+        raise RuntimeError(_NO_SECOND_DERIVATIVE)
+
+    @staticmethod
+    def vmap(info, in_dims, fwdgrad, n_data, lgamma_k_sum, disp_grad,
+             *inputs):
+        dims = in_dims[4:]
+        if (in_dims[2] is not None or dims[-1] is not None
+                or any(d is not None for d in dims[:n_data])):
+            raise ValueError("a chain batch shares the counts, lgamma_k_sum "
+                             "and Db; only the parameters may be batched")
+        moved = [t if d is None else t.movedim(d, 0).contiguous()
+                 for t, d in zip(inputs, dims)]
+        # the chain-batched call, itself differentiable by the autograd
+        # outside the vmap
+        out = _FusedNBLogLik.apply(_CHAINS[fwdgrad], n_data, lgamma_k_sum,
+                                   disp_grad, *moved)
+        return out, (0,) * len(out)
 
 
 def _fused(kernels, plains, n_data, inputs, lgamma_k_sum, disp_grad):
     """The loss through the (loss-only, fwd+grad) kernel pair on CUDA
     tensors or its plain pair on CPU tensors; the fwd+grad one when a
-    differentiable input needs a gradient."""
+    differentiable input needs a gradient, and under `torch.func.vmap`
+    (a batched input reports no ``requires_grad`` whatever it wraps, and
+    only the fwd+grad binding has the chain-batched call, its `vmap`
+    rule)."""
     fwd, fwdgrad = kernels if inputs[0].device.type == "cuda" else plains
-    if torch.is_grad_enabled() and any(
-        t is not None and t.requires_grad for t in inputs[n_data:]
+    params = [t for t in inputs[n_data:] if t is not None]
+    if any(torch._C._functorch.is_batchedtensor(t) for t in params) or (
+        torch.is_grad_enabled() and any(t.requires_grad for t in params)
     ):
         return _FusedNBLogLik.apply(fwdgrad, n_data, lgamma_k_sum,
-                                    bool(disp_grad), *inputs)
+                                    bool(disp_grad), *inputs)[0]
     return fwd(*inputs, lgamma_k_sum=lgamma_k_sum)
 
 
@@ -833,7 +1024,7 @@ def nb_loglik_fused(S, nu, zeta, count_factor, dispersion,
     """
     _check_inputs([("S", S)], _phase_params(nu, zeta, count_factor,
                                             dispersion), delta_nu, Db,
-                  phase_layout().max_nb)
+                  device=False)
     return _fused(
         (phase_fwd, phase_fwdgrad), (phase_fwd_plain, phase_fwdgrad_plain), 1,
         (S, nu, zeta, count_factor, dispersion, delta_nu, Db),
@@ -856,9 +1047,17 @@ def nbsu_loglik_fused(S, U, nu, zeta, zeta_dphi, count_factor, omega,
     """
     params = _velo_params(nu, zeta, zeta_dphi, count_factor, omega,
                           log_beta, log_gamma, dispersion)
-    _check_inputs([("S", S), ("U", U)], params, delta_nu, Db,
-                  velo_layout().max_nb)
+    _check_inputs([("S", S), ("U", U)], params, delta_nu, Db, device=False)
     return _fused(
         (velo_fwd, velo_fwdgrad), (velo_fwd_plain, velo_fwdgrad_plain), 2,
         (S, U, *params.values(), delta_nu, Db), lgamma_k_sum, disp_grad,
     )
+
+
+# each fwd+grad function's call over a chain batch, for `_FusedNBLogLik.vmap`
+_CHAINS = {
+    phase_fwdgrad: phase_fwdgrad,
+    phase_fwdgrad_plain: phase_fwdgrad_plain,
+    velo_fwdgrad: _velo_fwdgrad_chains,
+    velo_fwdgrad_plain: _velo_fwdgrad_plain_chains,
+}
