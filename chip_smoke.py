@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch + CUDA port (`velocycle_tpu_torch`).
 
-    python3 chip_smoke.py [--seed 0] [--digest | --kernels | --mcmc]
+    python3 chip_smoke.py [--seed 0] [--digest | --kernels | --mcmc | --smc]
 
 Run from the root of a checkout, on a machine with one CUDA card.  Phases,
 in order; any failure exits non-zero and prints no result line:
@@ -97,13 +97,32 @@ in order; any failure exits non-zero and prints no result line:
      500-step SVI warm start, nu and shape_inv sampled in the whitened
      coordinates of the Fisher blocks and the Hessian diagonal, 256 chains
      x (400 + 100), max_depth 6; gates: accept > 0.3, finite draws,
-     posterior-mean nu against the SVI locs corr > 0.95, and MCMC's warning
-     that it samples shape_inv through the fused path; its R-hat is printed
-     as the known fault of ROADMAP.md section 3, not gated.  Each run:
+     posterior-mean nu against the SVI locs corr > 0.95, max split R-hat
+     < 1.05.  Each run:
      launches by chain count (exactly one per batched potential
      evaluation), evaluations per iteration, wall time, split R-hat and
      ESS, a device profile over four transitions, peak memory;
- 10. print the kernel table as one JSON line, the nvidia-smi line, and
+ 10. [smc]: tempered SMC over the phase model at the JAX package's SMC
+     design points (bench.py `_smc_row`), the particles batched through
+     ONE phase_fwd launch per stage (its log-likelihood over the particles)
+     and ONE phase_fwdgrad launch per leapfrog of the HMC moves.  First,
+     beside [mcmc]'s, the chain-batched phase_fwd held against its plain
+     version and K single launches (K = 256 at (a)'s and (b)'s shapes, full
+     width at K = 4, K = 1 bit-identical) and timed beside K single launches
+     and its bound.  Then, alone after the [mcmc] processes end,
+     SMCFitModel on fused int16 counts, phases conditioned, 256 particles,
+     2 moves of 8 leapfrogs per stage: (a) `smc`, prior tempering, 20 genes
+     x 200 cells, target_ess 0.35, max_stages 60; (b) `smc_bridged`, the
+     variational bridge after an 800-step SVI warm start, 50 x 500; then at
+     16 x 60 (tests/test_fit_mcmc.py's fixture) the bridge against prior
+     tempering.  Gates: beta reaches 1 on an increasing schedule, finite
+     logZ and posterior, (b) fewer stages than (a), at 16 x 60 logZ within
+     2 nats and posterior-mean nu within 0.2, and exactly one K = 256
+     phase_fwd per stage and one K = 256 phase_fwdgrad per batched
+     potential evaluation.  Each run: stages, particle-moves/s, wall time,
+     host time per evaluation, a device profile over one stage, peak
+     memory (``--smc``: build, then this phase alone);
+ 11. print the kernel table as one JSON line, the nvidia-smi line, and
      last {"ok": true, "device": {...}}.
 
 The configuration is the repository's Stereo-seq-class fit (bench.py
@@ -121,7 +140,6 @@ import subprocess
 import sys
 import time
 import types
-import warnings
 
 NG, NC, H = 2048, 102_400, 2
 NH = 2 * H + 1
@@ -132,32 +150,36 @@ VELO_GRAD_RTOL = 5e-4   # max|a-b| / max|a|, tests/test_nb_kernels.py:199
 
 # FP32 operations per count-matrix element, counted from csrc/phase_kernel.cuh
 # with Nh = 5 and no delta_nu (a transcendental or a division counts 1):
-#   common: ElogS dot + cf 11, log_b 1, count convert 1, a+k 1, lp 4, loss 1
-#   fwdgrad: softplus + sigmoid 10, g_sig + g_elog 2, dlp_da + g_r 6,
-#            dcf + ddisp 2, dzeta + dnu accumulation 20
-#   fwd: softplus 6
+#   common: ElogS dot + cf 11, log_b 1, count convert 1, lp 4, loss 1
+#   fwdgrad: softplus + log sigmoid + sigmoid and its complement 13,
+#            g_elog 3, dlp_da + g_r 5, dcf + ddisp 2, dzeta + dnu
+#            accumulation 20
+#   fwd: softplus + log sigmoid 7
 #   lgamma ratio: Stirling difference 22 (needed where k >= 2), small-k sum
 #                 5 (where k < 2), branch select 2
 #   digamma ratio (fwdgrad): Stirling 10, small-k 3, select 1
 OPS = {
-    "common": 19,
-    "fwdgrad": 40,
-    "fwd": 6,
+    "common": 18,
+    "fwdgrad": 43,
+    "fwd": 7,
     "lg_stir": 22, "lg_small": 5, "lg_sel": 2,
     "dg_stir": 10, "dg_small": 3, "dg_sel": 1,
 }
+# the operations of dlp_da + g_r and its cell sum, which disp_grad=False
+# compiles out
+OPS_DISP = 6
 # FP32 operations per (S, U) element pair, counted from csrc/nb_velo.cu with
 # Nh = 5 and no delta_nu; the NB terms as in OPS, once for S and once for U:
 #   common: 2 count converts, ElogS dot + cf 11, dEs 10, x 2, xr 2,
-#           ElogU log + 2 adds 3, 2 x (log_b 1, a+k 1, lp 4), lp sum + loss 2
-#   fwdgrad: 2 x (softplus + sigmoid 10, g_sig + g_elog 2), g_e 1,
-#            relu gate + 1/xr 4, g_x * omega 1, dcf 1, domega 2, dzeta 10,
-#            dzeta_dphi 10, dnu terms 15, -gU 1, the sums over cells of the
-#            7 gene-indexed values 7
-#   disp (disp_grad only): 2 x (dlp_da + g_r 6), g_r sum 1, its cell sum 1
-#   fwd: 2 x softplus 6
+#           ElogU log + 2 adds 3, 2 x (log_b 1, lp 4), lp sum + loss 2
+#   fwdgrad: 2 x (softplus + log sigmoid + sigmoid and its complement 13,
+#            g_elog 3), g_e 1, relu gate + 1/xr 4, g_x * omega 1, dcf 1,
+#            domega 2, dzeta 10, dzeta_dphi 10, dnu terms 15, -gU 1, the
+#            sums over cells of the 7 gene-indexed values 7
+#   disp (disp_grad only): 2 x (dlp_da + g_r 5), g_r sum 1, its cell sum 1
+#   fwd: 2 x softplus + log sigmoid 7
 #   lgamma / digamma ratio: per count as in OPS, over S and U
-OPS_VELO = {"common": 45, "fwdgrad": 76, "disp": 14, "fwd": 12}
+OPS_VELO = {"common": 43, "fwdgrad": 84, "disp": 12, "fwd": 14}
 # each basis column past Nh = 5 adds, per element: phase common 2 (the
 # ElogS dot), phase fwdgrad 4 (dzeta and dnu); velocity common 4 (the
 # ElogS and dEs dots), velocity fwdgrad 7 (dzeta 2, dzeta_dphi 2, dnu 3)
@@ -1563,40 +1585,48 @@ def _chain(t, c, base_dim):
 
 
 def _batched_parity_case(torch, tag, Ng, Nc, K, batched, seed, want_disp,
-                         nh=MCMC_NH, plain_batched=True):
-    """The chain-batched phase_fwdgrad against its plain version (batched,
-    or chain by chain where a batched plain call would not fit) and
-    against K unbatched launches.  Returns (max abs error, max loss rel
-    error) over the chains and both references."""
+                         nh=MCMC_NH, plain_batched=True, mode="fwdgrad"):
+    """The chain-batched phase_fwdgrad (or, ``mode="fwd"``, phase_fwd)
+    against its plain version (batched, or chain by chain where a batched
+    plain call would not fit) and against K unbatched launches.  Returns
+    (max abs error, max loss rel error) over the chains and both
+    references."""
     from velocycle_tpu_torch.ops import nb_kernels as K_
+
+    grad = mode == "fwdgrad"
+    name = f"phase_{mode}"
+    kern = getattr(K_, name)
+    plain = getattr(K_, f"{name}_plain")
+    kw = {"want_disp": want_disp} if grad else {}
+
+    def split(out):   # (loss, grads) either way
+        return out if grad else (out, ())
 
     S, nu, zeta, cf, r = _chain_inputs(torch, Ng, Nc, K, seed, batched, nh)
     lgk = lgamma_k_sum(torch, S)
     args = (S, nu, zeta, cf, r, None, None, lgk)
     K_.reset_launch_counts()
-    kl, kg = K_.phase_fwdgrad(*args, want_disp=want_disp)
-    check(K_.LAUNCH_CHAINS["phase_fwdgrad"] == {K: 1},
-          f"{tag}: {K_.LAUNCH_CHAINS['phase_fwdgrad']} launches, want one "
-          f"of {K} chains")
+    kl, kg = split(kern(*args, **kw))
+    check(K_.LAUNCH_CHAINS[name] == {K: 1},
+          f"{tag}: {K_.LAUNCH_CHAINS[name]} launches, want one of {K} chains")
     if plain_batched:
-        pl, pg = K_.phase_fwdgrad_plain(*args, want_disp=want_disp)
+        pl, pg = split(plain(*args, **kw))
     worst, lrel_max, oks = 0.0, 0.0, []
     dims = (2, 2, 1, 1)
     for c in range(K):
         one = [_chain(t, c, d) for t, d in zip((nu, zeta, cf, r), dims)]
-        sl, sg = K_.phase_fwdgrad(S, *one, None, None, lgk,
-                                  want_disp=want_disp)
+        sl, sg = split(kern(S, *one, None, None, lgk, **kw))
         if plain_batched:
             refs = [(pl[c], [None if x is None else x[c] for x in pg])]
         else:
-            refs = [K_.phase_fwdgrad_plain(S, *one, None, None, lgk,
-                                           want_disp=want_disp)]
+            refs = [split(plain(S, *one, None, None, lgk, **kw))]
         refs.append((sl, sg))
         for ref_l, ref_g in refs:
             lrel = abs(float(kl[c]) - float(ref_l)) / max(abs(float(ref_l)), 1.0)
             lrel_max = max(lrel_max, lrel)
+            worst = max(worst, abs(float(kl[c]) - float(ref_l)) if not grad else 0.0)
             oks.append(lrel < LOSS_RTOL)
-            for name, a, b in zip(PHASE_GRADS, kg, ref_g):
+            for gname, a, b in zip(PHASE_GRADS, kg, ref_g):
                 if b is None:
                     continue
                 worst = max(worst, float((a[c] - b).abs().max()))
@@ -1611,11 +1641,11 @@ def _batched_parity_case(torch, tag, Ng, Nc, K, batched, seed, want_disp,
             print(f"[parity] {tag}: K = 1 batched vs unbatched launch "
                   f"bit-identical: {same}")
             oks.append(same)
-    print(f"[parity] {tag} ({'+'.join(batched)} batched, disp_grad="
-          f"{want_disp}): max abs err {worst:.3e}, loss rel {lrel_max:.2e} "
-          f"against the plain version and {K} single launches: "
-          f"{'ok' if all(oks) else 'FAIL'}")
-    check(all(oks), f"{tag}: the chain-batched kernel disagrees")
+    what = f"disp_grad={want_disp}" if grad else "loss only"
+    print(f"[parity] {name} {tag} ({'+'.join(batched)} batched, {what}): max "
+          f"abs err {worst:.3e}, loss rel {lrel_max:.2e} against the plain "
+          f"version and {K} single launches: {'ok' if all(oks) else 'FAIL'}")
+    check(all(oks), f"{name} {tag}: the chain-batched kernel disagrees")
     return worst, lrel_max
 
 
@@ -1647,79 +1677,124 @@ def _fwdgrad_ops(torch, S, nh, want_disp):
     columns (OPS at Nh = 5 less OPS_PER_COLUMN per missing column; without
     the dispersion gradient, less dlp_da + g_r and its cell sum)."""
     lg, dg, share = _ratio_ops(torch, [S], want_disp)
-    per = (OPS["common"] + OPS["fwdgrad"] - (0 if want_disp else 7)
+    per = (OPS["common"] + OPS["fwdgrad"] - (0 if want_disp else OPS_DISP)
            - (NH - nh) * (OPS_PER_COLUMN["common"] + OPS_PER_COLUMN["fwdgrad"]))
     return per * S.numel() + lg + dg, share
 
 
-def mcmc_kernel_timing(torch, seed, card):
-    """[timing]: one chain-batched launch against K unbatched launches at
-    (a)'s and (b)'s shapes, each beside its bound (bytes: the counts once,
-    every chain's operands and gradients; operations: K times one chain's).
-    No PyTorch call computes this function: no library column."""
+def _kernel_device_ms(torch, fn, n=20):
+    """Device time per call of ``fn`` spent in the port's own kernels (the
+    events named vct::..., torch.profiler over ``n`` calls): at small
+    shapes, where CUDA events around back-to-back calls time the wrapper's
+    host work, the kernels' own time.  None when the trace holds none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and "vct::" in e.key:
+            dt = getattr(e, "self_device_time_total", None)
+            total += e.self_cuda_time_total if dt is None else dt
+    return total / n / 1e3 if total else None
+
+
+def _batched_timing(torch, seed, card, cfg, batched, mode, wd=False,
+                    nh=MCMC_NH):
+    """One chain-batched launch of phase_``mode`` against K unbatched
+    launches at ``cfg``'s shape, each beside its bound (bytes: the counts
+    once, every chain's operands and results; operations: K times one
+    chain's) and the batched plain version.  No PyTorch call computes this
+    function: no library column."""
     from velocycle_tpu_torch.ops import nb_kernels as K_
     from velocycle_tpu_torch.tools import kernel_profile as TP
 
-    out = {}
-    for tag, cfg, batched, wd in (("a", MCMC_A, ("zeta",), False),
-                                  ("b", MCMC_B, ("nu", "r"), True)):
-        Ng, Nc, Kc = cfg["Ng"], cfg["Nc"], cfg["chains"]
-        S, nu, zeta, cf, r = _chain_inputs(torch, Ng, Nc, Kc, seed, batched)
-        lgk = lgamma_k_sum(torch, S)
-        dims = (2, 2, 1, 1)
-        ops, share = _fwdgrad_ops(torch, S, MCMC_NH, wd)
-        ops *= Kc
-        grads = Kc * (Ng * MCMC_NH + Nc * MCMC_NH + Nc + Ng)
-        nbytes = (S.numel() * S.element_size()
-                  + 4 * sum(t.numel() for t in (nu, zeta, cf, r)) + 4 * grads
-                  + 4 * Kc)
-        ops_one = [[_chain(t, c, d) for t, d in zip((nu, zeta, cf, r), dims)]
-                   for c in range(Kc)]
+    grad = mode == "fwdgrad"
+    name = f"phase_{mode}"
+    kern = getattr(K_, name)
+    plain = getattr(K_, f"{name}_plain")
+    kw = {"want_disp": wd} if grad else {}
+    Ng, Nc, Kc = cfg["Ng"], cfg["Nc"], cfg["chains"]
+    S, nu, zeta, cf, r = _chain_inputs(torch, Ng, Nc, Kc, seed, batched, nh)
+    lgk = lgamma_k_sum(torch, S)
+    dims = (2, 2, 1, 1)
+    if grad:
+        ops, share = _fwdgrad_ops(torch, S, nh, wd)
+        outs = Kc * (Ng * nh + Nc * nh + Nc + Ng)
+    else:
+        lg, _, share = _ratio_ops(torch, [S], False)
+        ops = ((OPS["common"] + OPS["fwd"]
+                - (NH - nh) * OPS_PER_COLUMN["common"]) * S.numel() + lg)
+        outs = 0
+    ops *= Kc
+    nbytes = (S.numel() * S.element_size()
+              + 4 * sum(t.numel() for t in (nu, zeta, cf, r)) + 4 * outs
+              + 4 * Kc)
+    ops_one = [[_chain(t, c, d) for t, d in zip((nu, zeta, cf, r), dims)]
+               for c in range(Kc)]
 
-        def batched_call():
-            return K_.phase_fwdgrad(S, nu, zeta, cf, r, None, None, lgk,
-                                    want_disp=wd)
+    def batched_call():
+        return kern(S, nu, zeta, cf, r, None, None, lgk, **kw)
 
-        def single_calls():
-            return [K_.phase_fwdgrad(S, *o, None, None, lgk, want_disp=wd)
-                    for o in ops_one]
+    def single_calls():
+        return [kern(S, *o, None, None, lgk, **kw) for o in ops_one]
 
-        def plain_call():
-            return K_.phase_fwdgrad_plain(S, nu, zeta, cf, r, None, None, lgk,
-                                          want_disp=wd)
+    def plain_call():
+        return plain(S, nu, zeta, cf, r, None, None, lgk, **kw)
 
-        s1 = TP.event_ms(single_calls, reps=3)
-        b1 = TP.event_ms(batched_call, reps=20, warmup=2)
-        b2 = TP.event_ms(batched_call, reps=20, warmup=2)
-        s2 = TP.event_ms(single_calls, reps=3)
-        p1 = TP.event_ms(plain_call, reps=3)
-        bound, bound_by = TP.bound_ms(nbytes, ops)
-        ms = (b1 + b2) / 2
-        single = (s1 + s2) / 2
-        print(f"[timing] phase_fwdgrad over {Kc} chains @ {Ng}x{Nc} int16, "
-              f"Nh={MCMC_NH}, disp_grad={wd} on {card}: one batched launch "
-              f"{b1:.4f} / {b2:.4f} ms, {Kc} single launches {s1:.3f} / "
-              f"{s2:.3f} ms ({single / ms:.1f}x), plain batched {p1:.3f} ms, "
-              f"bound {bound:.4f} ms by {bound_by} ({nbytes / 1e6:.3f} MB, "
-              f"{ops / 1e9:.3f} GFLOP, {share:.3f} of counts >= 2), "
-              f"{bound / ms:.1%} of bound; library_ms: none")
-        out[tag] = {"chains": Kc, "shape": [Ng, Nc], "ms": ms,
-                    "single_launches_ms": single, "plain_ms": p1,
-                    "bound_ms": bound, "bound_by": bound_by,
-                    "library_ms": None}
-        del S, nu, zeta, cf, r, ops_one
-        torch.cuda.empty_cache()
-    return out
+    s1 = TP.event_ms(single_calls, reps=3)
+    b1 = TP.event_ms(batched_call, reps=20, warmup=2)
+    b2 = TP.event_ms(batched_call, reps=20, warmup=2)
+    s2 = TP.event_ms(single_calls, reps=3)
+    p1 = TP.event_ms(plain_call, reps=3)
+    dev_ms = _kernel_device_ms(torch, batched_call)
+    bound, bound_by = TP.bound_ms(nbytes, ops)
+    ms = (b1 + b2) / 2
+    single = (s1 + s2) / 2
+    what = f"disp_grad={wd}" if grad else "loss only"
+    dev_note = ("not measured (no device time in the trace)" if dev_ms is None
+                else f"{dev_ms:.4f} ms, {bound / dev_ms:.1%} of bound")
+    print(f"[timing] {name} over {Kc} chains @ {Ng}x{Nc} int16, Nh={nh}, "
+          f"{what} on {card}: one batched launch {b1:.4f} / {b2:.4f} ms, "
+          f"{Kc} single launches {s1:.3f} / {s2:.3f} ms "
+          f"({single / ms:.1f}x), plain batched {p1:.3f} ms, bound "
+          f"{bound:.4f} ms by {bound_by} ({nbytes / 1e6:.3f} MB, "
+          f"{ops / 1e9:.3f} GFLOP, {share:.3f} of counts >= 2), "
+          f"{bound / ms:.1%} of bound; its kernels' device time per launch "
+          f"(torch.profiler) {dev_note}; library_ms: none")
+    del S, nu, zeta, cf, r, ops_one
+    torch.cuda.empty_cache()
+    return {"chains": Kc, "shape": [Ng, Nc], "ms": ms, "device_ms": dev_ms,
+            "single_launches_ms": single, "plain_ms": p1, "bound_ms": bound,
+            "bound_by": bound_by, "library_ms": None}
+
+
+def mcmc_kernel_timing(torch, seed, card):
+    """[timing] of the chain-batched phase_fwdgrad at [mcmc]'s shapes."""
+    return {tag: _batched_timing(torch, seed, card, cfg, batched, "fwdgrad",
+                                 wd)
+            for tag, cfg, batched, wd in (("a", MCMC_A, ("zeta",), False),
+                                          ("b", MCMC_B, ("nu", "r"), True))}
 
 
 class _EvalCounter:
     """Counts the sampler's batched potential evaluations (each is one
-    value-and-gradient of all chains) while it is entered."""
+    value-and-gradient of all chains or particles) while it is entered;
+    ``module``: the sampler's module, `infer.mcmc` by default."""
+
+    def __init__(self, module=None):
+        self.module = module
 
     def __enter__(self):
         from velocycle_tpu_torch.infer import mcmc as TM
 
-        self.mod, self.orig, self.calls = TM, TM._batched_value_and_grad, 0
+        mod = self.module or TM
+        self.mod, self.orig, self.calls = mod, mod._batched_value_and_grad, 0
 
         def counted(potential_fn):
             vg = self.orig(potential_fn)
@@ -1730,7 +1805,7 @@ class _EvalCounter:
 
             return value_and_grad
 
-        TM._batched_value_and_grad = counted
+        mod._batched_value_and_grad = counted
         return self
 
     def __exit__(self, *exc):
@@ -1819,9 +1894,9 @@ def _mcmc_report(tag, K_, counter, iters, dt, chains, samples, card):
     return by_k
 
 
-# (a)'s convergence gate (the JAX package's bench row reads 1.016,
-# docs/phase_sampling.md)
-MCMC_A_MAX_RHAT = 1.05
+# the runs' convergence gate (the JAX package's bench row for (a) reads
+# 1.016, docs/phase_sampling.md; (b) on the plain path 1.026, PERF.md)
+MCMC_MAX_RHAT = 1.05
 
 
 def mcmc_wrapped(torch, seed, card, cfg=MCMC_A, device="cuda"):
@@ -1891,9 +1966,9 @@ def mcmc_wrapped(torch, seed, card, cfg=MCMC_A, device="cuda"):
           and ((phi >= -np.pi) & (phi < np.pi)).all(), "(a): phi outside [-pi, pi)")
     check(d["accept_rate"] > 0.6, f"(a): accept rate {d['accept_rate']}")
     check(cc > 0.95, f"(a): circular correlation {cc}")
-    check(d["max_split_rhat"] < MCMC_A_MAX_RHAT,
+    check(d["max_split_rhat"] < MCMC_MAX_RHAT,
           f"(a): max split R-hat {d['max_split_rhat']} (gate "
-          f"{MCMC_A_MAX_RHAT})")
+          f"{MCMC_MAX_RHAT})")
     info = fm.mcmc.model_info
     q = fm.mcmc._samples_u[:, -1].contiguous()
     busy = _device_profile(torch, lambda: _nuts_transitions(info, q, cfg),
@@ -1983,17 +2058,11 @@ def mcmc_genes(torch, seed, card, cfg=MCMC_B, device="cuda"):
              preconditioner=pre, init_jitter=cfg["init_jitter"])
     torch.cuda.reset_peak_memory_stats()
     K_.reset_launch_counts()
-    with _EvalCounter() as counter, warnings.catch_warnings(
-            record=True) as seen:
-        warnings.simplefilter("always")
+    with _EvalCounter() as counter:
         t0 = time.perf_counter()
         m.run(seed, mp.data)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-    # the open fault of ROADMAP.md section 3: the user is told
-    check(any("use_fused_nb=False" in str(w.message) for w in seen),
-          "(b): MCMC sampled shape_inv through the fused path without "
-          "warning")
     peak = torch.cuda.max_memory_allocated()
     iters = cfg["warmup"] + cfg["samples"]
     by_k = _mcmc_report("(b) nuts", K_, counter, iters, dt, cfg["chains"],
@@ -2018,11 +2087,8 @@ def mcmc_genes(torch, seed, card, cfg=MCMC_B, device="cuda"):
     check(acc > 0.3, f"(b): accept rate {acc}")
     check(all(np.isfinite(v).all() for v in s.values()), "(b): non-finite draws")
     check(corr > 0.95, f"(b): nu correlation {corr}")
-    print(f"[mcmc] (b): KNOWN FAULT, R-hat not gated: max split R-hat "
-          f"{np.nanmax(rhat):.4f} (past ~1.05 the chains have not converged):"
-          f" the fused NB element loses float32 precision at small shape_inv "
-          f"(ROADMAP.md section 3) and MCMC warned; sample dispersions with "
-          f"use_fused_nb=False until it is repaired")
+    check(np.nanmax(rhat) < MCMC_MAX_RHAT,
+          f"(b): max split R-hat {np.nanmax(rhat)} (gate {MCMC_MAX_RHAT})")
     q = m._samples_u[:, -1].contiguous()
     busy = _device_profile(
         torch, lambda: _nuts_transitions(m.model_info, q, cfg), "mcmc", 4,
@@ -2122,6 +2188,222 @@ def mcmc_row(parity, timing, runs):
                           for k, v in runs.items()}}
 
 
+# ---------------------------------------------------------------------------
+# [smc]: tempered SMC over the phase model, the particles as one chain batch
+# ---------------------------------------------------------------------------
+
+# the JAX package's SMC design points (bench.py `_smc_row`): (a) prior
+# tempering at 20 x 200, (b) the variational bridge at 50 x 500; both
+# one harmonic, phases conditioned, fused int16 counts
+SMC_A = dict(Nc=200, Ng=20, sim_seed=14, chains=256, num_moves=2,
+             target_ess=0.35, max_stages=60, svi_steps=0)
+SMC_B = dict(Nc=500, Ng=50, sim_seed=13, chains=256, num_moves=2,
+             target_ess=0.5, max_stages=60, svi_steps=800)
+# tests/test_fit_mcmc.py's fixture (16 x 60) for the bridge-vs-prior gate
+SMC_CHECK = dict(Nc=60, Ng=16, sim_seed=5, chains=256, num_moves=2,
+                 target_ess=0.5)
+SMC_LEAPFROG = 8        # infer.smc's hmc_leapfrog default
+
+
+def smc_kernels(torch, seed, card):
+    """[smc]'s [parity] and [timing] of the chain-batched phase_fwd (each
+    stage's likelihood over the particles), before any fit: at (a)'s and
+    (b)'s shapes with nu and r batched (K = 256), at full width (K = 4),
+    and K = 1 bit-identical to the unbatched launch."""
+    t0 = time.perf_counter()
+    parity = {}
+    for tag, cfg in (("a", SMC_A), ("b", SMC_B)):
+        parity[tag] = _batched_parity_case(
+            torch, f"(smc {tag}) {cfg['Ng']}x{cfg['Nc']} K={cfg['chains']}",
+            cfg["Ng"], cfg["Nc"], cfg["chains"], ("nu", "r"), seed,
+            want_disp=False, mode="fwd")
+    parity["full"] = _batched_parity_case(
+        torch, f"full {NG}x{NC} K=4", NG, NC, 4, ("nu", "r"), seed,
+        want_disp=False, nh=NH, plain_batched=False, mode="fwd")
+    parity["k1"] = _batched_parity_case(
+        torch, f"full {NG}x{NC} K=1", NG, NC, 1, ("nu", "zeta"), seed,
+        want_disp=False, nh=NH, plain_batched=False, mode="fwd")
+    torch.cuda.empty_cache()
+    timing = {tag: _batched_timing(torch, seed, card, cfg, ("nu", "r"), "fwd")
+              for tag, cfg in (("a", SMC_A), ("b", SMC_B))}
+    print(f"[smc] batched kernel parity and timing: "
+          f"{time.perf_counter() - t0:.1f} s")
+    return ({"max_abs_err": max(v[0] for v in parity.values()),
+             "loss_rel_err": max(v[1] for v in parity.values())}, timing)
+
+
+def _smc_data(torch, cfg, seed, device):
+    """bench.py's `_sim` draw (a), (b), or tests/test_fit_mcmc.py's fixture
+    (the check), preprocessed for the fused kernels."""
+    import numpy as np
+
+    from velocycle_tpu_torch import (
+        Cycle, Phases, preprocess_for_phase_estimation, simulate_data,
+    )
+
+    if cfg is SMC_CHECK:
+        adata = simulate_data(Nc=cfg["Nc"], Ng=cfg["Ng"], seed=cfg["sim_seed"])
+        rng = np.random.default_rng(0)
+        nu = adata.uns["simulated_nu"]
+        cycle = Cycle.from_array((nu + rng.normal(0, 0.2, nu.shape)).T,
+                                 np.full((3, cfg["Ng"]), 0.5),
+                                 list(adata.var.index))
+        phases = Phases.from_angles(adata.obs["simulated_phis"].values, 2.0,
+                                    list(adata.obs.index))
+    else:
+        adata, cycle, phases = _mcmc_sim(torch, cfg, seed)
+    mp = preprocess_for_phase_estimation(
+        adata, cycle, phases, n_harmonics=1, with_delta_nu=False,
+        use_fused_nb=True, device=device)
+    check(mp.data.S.dtype == torch.int16, "[smc]: counts not int16")
+    return mp
+
+
+def smc_run(torch, seed, card, tag, cfg, mp, svi_steps, max_stages,
+            target_ess, run_seed, device="cuda"):
+    """One SMCFitModel run on ``mp`` (phases conditioned), its launches
+    counted: exactly one chain-batched phase_fwd per stage (its
+    log-likelihood or log ratio over the particles), one chain-batched
+    phase_fwdgrad per batched potential evaluation (1 + num_moves x
+    leapfrog per stage) and, in prior tempering, one single phase_fwd in
+    all (the prior draws compute no likelihood).  Returns its numbers and the fit."""
+    import numpy as np
+
+    from velocycle_tpu_torch import SMCFitModel
+    from velocycle_tpu_torch.infer import smc as TS
+    from velocycle_tpu_torch.ops import nb_kernels as K_
+
+    n, moves = cfg["chains"], cfg["num_moves"]
+    fm = SMCFitModel(mp, condition_on={"phi_xy": mp.data.phixy_prior},
+                     num_particles=n, num_moves=moves, target_ess=target_ess,
+                     max_stages=max_stages, svi_steps=svi_steps)
+    torch.cuda.reset_peak_memory_stats()
+    K_.reset_launch_counts()
+    with _EvalCounter(TS) as counter:
+        t0 = time.perf_counter()
+        fm.run(run_seed)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    sched = fm.temperature_schedule
+    stages = len(sched)
+    fwd_k = dict(K_.LAUNCH_CHAINS["phase_fwd"])
+    grad_k = dict(K_.LAUNCH_CHAINS["phase_fwdgrad"])
+    per_stage = 1 + moves * SMC_LEAPFROG
+    print(f"[smc] {tag}: {stages} stages, beta {', '.join(f'{b:.4g}' for b in sched)}; "
+          f"logZ {fm.log_evidence:.3f}; phase_fwd launches by chain count "
+          f"{fwd_k}, phase_fwdgrad {grad_k}, {counter.calls} batched "
+          f"potential evaluations; wall {dt:.2f} s, "
+          f"{n * stages * moves / dt:.1f} particle-moves/s, peak device "
+          f"memory {peak / 2**30:.3f} GiB on {card}")
+    check(fwd_k.get(n, 0) == stages,
+          f"{tag}: {fwd_k.get(n, 0)} phase_fwd launches of {n} chains for "
+          f"{stages} stages")
+    check(grad_k.get(n, 0) == counter.calls == stages * per_stage,
+          f"{tag}: {grad_k.get(n, 0)} phase_fwdgrad launches of {n} chains "
+          f"for {counter.calls} batched evaluations ({per_stage} per stage)")
+    check(set(fwd_k) <= {1, n} and set(grad_k) <= {1, n},
+          f"{tag}: launches by chain count {fwd_k}, {grad_k}")
+    # prior tempering: the one single launch is init_model's first trace;
+    # the prior draws stop short of the likelihood
+    check(svi_steps or fwd_k.get(1, 0) == 1,
+          f"{tag}: {fwd_k.get(1, 0)} single phase_fwd launches, not 1")
+    check(sched[-1] == 1.0 and bool((np.diff(sched) > 0).all()),
+          f"{tag}: temperature schedule {sched}")
+    check(np.isfinite(fm.log_evidence), f"{tag}: log evidence {fm.log_evidence}")
+    check(all(np.isfinite(v).all() for v in fm.posterior.values()),
+          f"{tag}: non-finite posterior")
+    return fm, {"stages": stages, "log_evidence": fm.log_evidence,
+                "wall_s": dt, "particle_moves_per_s": n * stages * moves / dt,
+                "evals": counter.calls,
+                "launches": {"phase_fwd": fwd_k, "phase_fwdgrad": grad_k},
+                "peak_gib": peak / 2**30}
+
+
+def _smc_host_and_device(torch, fm, tag, card):
+    """Host ms of one batched value-and-gradient of the tempered potential
+    (beta = 1) at the final particles, and a device profile over one stage
+    (from beta = 0.5) on them."""
+    from velocycle_tpu_torch.infer import mcmc as TM
+
+    smc = fm.smc
+    q = smc.particles
+    vg = TM._batched_value_and_grad(smc.potential_at(1.0))
+    vg(q)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        vg(q)
+    torch.cuda.synchronize()
+    ev = (time.perf_counter() - t0) / 20 * 1e3
+    rng = TM._ChainRNG(range(q.shape[0]), q.device)
+    gen = torch.Generator().manual_seed(0)
+    busy = _device_profile(torch, lambda: smc.stage(q, 0.5, rng, gen), "smc",
+                           1, "stage")
+    print(f"[smc] {tag}: {ev:.2f} ms of host clock per batched potential "
+          f"evaluation on {card}")
+    return {"eval_ms": ev, "busy": busy}
+
+
+def phase_smc(torch, seed, card, device="cuda"):
+    """[smc]: (a) `smc`, prior tempering at 20 x 200 (target_ess 0.35); (b)
+    `smc_bridged`, the variational bridge at 50 x 500 after an 800-step SVI
+    warm start; then at 16 x 60 the bridge against prior tempering: logZ
+    within 2 nats and posterior-mean nu within 0.2 (tests/test_fit_mcmc.py
+    `test_bridged_smc_matches_prior_tempering_logz`).  (b) takes fewer
+    stages than (a)."""
+    import numpy as np
+
+    out = {}
+    for tag, cfg in (("a", SMC_A), ("b", SMC_B)):
+        t0 = time.perf_counter()
+        mp = _smc_data(torch, cfg, seed, device)
+        name = "smc" if tag == "a" else "smc_bridged"
+        fm, res = smc_run(torch, seed, card, f"({tag}) {name}", cfg, mp,
+                          cfg["svi_steps"], cfg["max_stages"],
+                          cfg["target_ess"], seed + 3, device)
+        res.update(_smc_host_and_device(torch, fm, f"({tag})", card))
+        print(f"[smc] ({tag}) in all, data included: "
+              f"{time.perf_counter() - t0:.1f} s")
+        out[tag] = res
+        torch.cuda.empty_cache()
+    check(out["b"]["stages"] < out["a"]["stages"],
+          f"[smc]: the bridge took {out['b']['stages']} stages, prior "
+          f"tempering {out['a']['stages']}")
+    t0 = time.perf_counter()
+    mp = _smc_data(torch, SMC_CHECK, seed, device)
+    prior, rp = smc_run(torch, seed, card, "(check) prior", SMC_CHECK, mp, 0,
+                        200, SMC_CHECK["target_ess"], 1, device)
+    bridged, rb = smc_run(torch, seed, card, "(check) bridged", SMC_CHECK, mp,
+                          800, 60, SMC_CHECK["target_ess"], 2, device)
+    dz = rb["log_evidence"] - rp["log_evidence"]
+    dnu = float(np.abs(bridged.posterior["nu"].mean(0)
+                       - prior.posterior["nu"].mean(0)).max())
+    print(f"[smc] (check) {SMC_CHECK['Ng']}x{SMC_CHECK['Nc']}: bridged - prior "
+          f"logZ {dz:.3f} nats (gate 2), posterior-mean nu max diff {dnu:.4f} "
+          f"(gate 0.2), stages {rb['stages']} vs {rp['stages']}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    check(abs(dz) < 2.0, f"[smc] check: logZ differ by {dz}")
+    check(dnu < 0.2, f"[smc] check: nu means differ by {dnu}")
+    check(rb["stages"] < rp["stages"], "[smc] check: the bridge took more stages")
+    out["check"] = {"dlogZ": dz, "dnu": dnu, "prior": rp, "bridged": rb}
+    return out
+
+
+def smc_row(parity, timing, runs):
+    """phase_fwd's row additions from [smc] (row 1'' of PERF.md)."""
+    launches = {}
+    for r in (runs["a"], runs["b"], runs["check"]["prior"],
+              runs["check"]["bridged"]):
+        for k, n in r["launches"]["phase_fwd"].items():
+            launches[str(k)] = launches.get(str(k), 0) + n
+    return {"smc_launches_by_chains": launches,
+            "batched_parity": parity, "batched_timing": timing,
+            "smc_runs": {k: {kk: vv for kk, vv in v.items() if kk != "launches"}
+                         for k, v in runs.items() if k != "check"},
+            "smc_check": {k: runs["check"][k] for k in ("dlogZ", "dnu")}}
+
+
 def profile_steps(torch, svi, state, data, tag, n=5):
     """Device time by kernel over a few SVI steps (`_device_profile`)."""
     _device_profile(torch, lambda: svi.update_chunk(state, n, data)[1].cpu(),
@@ -2191,6 +2473,10 @@ def main(argv=None):
                     help="build, then [mcmc] alone: the chain-batched "
                          "kernel's parity and timing, and runs (a) and (b) "
                          "in turn in this process (no result line)")
+    ap.add_argument("--smc", action="store_true",
+                    help="build, then [smc] alone: the chain-batched "
+                         "phase_fwd's parity and timing, runs (a) and (b) "
+                         "and the bridge-vs-prior check (no result line)")
     args = ap.parse_args(argv)
 
     import torch
@@ -2222,6 +2508,10 @@ def main(argv=None):
         mcmc_kernels(torch, args.seed, smi)
         mcmc_in_turn(torch, args.seed, smi)
         return 0
+    if args.smc:
+        smc_kernels(torch, args.seed, smi)
+        phase_smc(torch, args.seed, smi)
+        return 0
     phase_digest(torch, args.seed)
     errs = phase_parity(torch, args.seed)
     timing = phase_timing(torch, args.seed, smi)
@@ -2233,6 +2523,7 @@ def main(argv=None):
     # every kernel timing before the [mcmc] processes share the card
     variant_errs, variant_timing = _variant_kernels(torch, args.seed, smi)
     mcmc_parity, mcmc_timing = mcmc_kernels(torch, args.seed, smi)
+    smc_parity, smc_timing = smc_kernels(torch, args.seed, smi)
     torch.cuda.empty_cache()
     launches, rates = _stages(torch, args.seed)
     # the [mcmc] runs, host-bound, beside [quickstart] and [variants]
@@ -2246,6 +2537,9 @@ def main(argv=None):
     finally:
         pool.terminate()
         pool.join()
+    torch.cuda.empty_cache()
+    # [smc] alone on the host and the card, after the [mcmc] processes
+    smc = smc_row(smc_parity, smc_timing, phase_smc(torch, args.seed, smi))
     torch.cuda.empty_cache()
     steps_per_s, peak, vsteps_per_s, vpeak = rates
 
@@ -2276,6 +2570,8 @@ def main(argv=None):
             # [mcmc]: launches by chain count, the chain-batched launch's
             # parity and timing, and the runs' numbers
             **(mcmc if k == "phase_fwdgrad" else {}),
+            # [smc]: the chain-batched phase_fwd (row 1'')
+            **(smc if k == "phase_fwd" else {}),
         })
     # the ladder's launches come from its own entry point, run_ladder
     for rung, line in LADDER_REPLACES.items():

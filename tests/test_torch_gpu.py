@@ -255,6 +255,93 @@ def test_cuda_chain_batched_fwdgrad_matches_plain_and_single_launches(
                             assert torch.equal(a[0], r)
 
 
+@pytest.mark.parametrize("int16", [True, False], ids=["i16", "f32"])
+@pytest.mark.parametrize("Nh,Nb", [(3, 0), (3, 2), (5, 0), (11, 0)])
+@pytest.mark.parametrize("chains", [1, 3, 64, 256])
+def test_cuda_chain_batched_fwd_matches_plain_and_single_launches(
+        chains, Nh, Nb, int16):
+    """The loss-only kernel over K chains in ONE launch, for every
+    batched/shared mix of (nu, zeta, cf, r) (delta_nu batched with them
+    where there is one): each chain's loss agrees with the chain-batched
+    plain version and with K single launches (loss rel 1e-5); at K = 1 the
+    batched launch gives the unbatched launch's bits."""
+    dev = _cuda_or_skip()
+    args = _inputs(37, 300, Nh=Nh, seed=Nh + Nb + 1, Nb=Nb)
+    if int16:
+        args[0] = args[0].astype(np.int16)
+    t = [torch.as_tensor(a, device=dev) for a in args]
+    if not Nb:
+        t += [None, None]
+    lgk = np.float32(sps.gammaln(args[0].astype(np.float64) + 1.0).sum())
+    for m, mix in enumerate(_MIXES):
+        if not any(mix):
+            continue
+        b = _chain_operands(t, chains, mix, seed=m, dnu_batched=m % 2 == 1)
+        K.reset_launch_counts()
+        kl = K.phase_fwd(*b, lgk)
+        assert K.LAUNCH_CHAINS["phase_fwd"] == {chains: 1}
+        assert kl.shape == (chains,)
+        pl = K.phase_fwd_plain(*b, lgk)
+        sl = torch.stack([K.phase_fwd(*[
+            x if x is None or x.dim() == y.dim() or i == 0 else x[c]
+            for i, (x, y) in enumerate(zip(b, t))], lgk)
+            for c in range(chains)])
+        for ref in (pl, sl):
+            rel = (kl - ref).abs() / ref.abs().clamp(min=1.0)
+            assert float(rel.max()) < 1e-5, mix
+        if chains == 1:   # the same bits as the unbatched launch
+            assert torch.equal(kl, sl)
+
+
+@pytest.mark.parametrize("shape_inv", [1e-5, 1e-4, 1e-3, 1e-2])
+@pytest.mark.parametrize("stage", ["phase", "velo"])
+def test_cuda_kernels_match_float64_at_small_dispersion(stage, shape_inv):
+    """The repaired NB element on the card: each fused likelihood (the
+    fwd+grad kernel, and the loss-only kernel) and its dispersion gradient,
+    every gene's shape_inv spread over a factor 1.8 around ``shape_inv``,
+    against the plain reference in float64 on the CPU: loss within 5e-4
+    nats, dispersion gradient max|a-b|/max|b| 3e-3 (the CPU tests' bounds,
+    tests/test_torch_mcmc.py SMALL_R_*)."""
+    dev = _cuda_or_skip()
+    Ng, Nc = 12, 40
+    args = _inputs(Ng, Nc, Nh=3, seed=21)
+    rng = np.random.default_rng(22)
+    r = (shape_inv * np.exp(np.linspace(-0.3, 0.3, Ng))).astype(np.float32)
+    cpu = [torch.as_tensor(a) for a in args[:4]]
+    cpu[0] = cpu[0].to(torch.int16)
+    if stage == "phase":
+        fused, ref = K.nb_loglik_fused, K.nb_loglik_reference
+        counts = cpu[:1]
+        params = cpu[1:4]
+    else:
+        U = torch.as_tensor(rng.poisson(2, (Ng, Nc)).astype(np.int16))
+        zdphi = torch.as_tensor(rng.normal(0, 0.7, (Nc, 3)).astype(np.float32))
+        omega = torch.as_tensor(rng.normal(0.5, 0.1, Nc).astype(np.float32))
+        lb = torch.as_tensor(rng.normal(0, 0.3, Ng).astype(np.float32))
+        lg = torch.as_tensor(rng.normal(-1, 0.3, Ng).astype(np.float32))
+        fused, ref = K.nbsu_loglik_fused, K.nbsu_loglik_reference
+        counts = [cpu[0], U]
+        params = [cpu[1], cpu[2], zdphi, cpu[3], omega, lb, lg]
+    lgk = np.float32(sum(float(sps.gammaln(c.double().numpy() + 1.0).sum())
+                         for c in counts))
+    r64 = torch.as_tensor(r).double().requires_grad_(True)
+    want = ref(*[c.double() for c in counts], *[p.double() for p in params],
+               r64)
+    (g64,) = torch.autograd.grad(want, r64)
+    on_card = [x.to(dev) for x in (*counts, *params)]
+    rc = torch.as_tensor(r, device=dev).requires_grad_(True)
+    K.reset_launch_counts()
+    loss = fused(*on_card, rc, lgamma_k_sum=lgk)
+    (g,) = torch.autograd.grad(loss, rc)
+    with torch.no_grad():
+        loss_only = fused(*on_card, rc, lgamma_k_sum=lgk)
+    name = "phase" if stage == "phase" else "velo"
+    assert K.LAUNCHES[f"{name}_fwdgrad"] == 1 and K.LAUNCHES[f"{name}_fwd"] == 1
+    for got in (loss, loss_only):
+        assert abs(float(got) - float(want)) < 5e-4, (float(got), float(want))
+    assert _max_rel(g.double().cpu(), g64) < 3e-3
+
+
 def test_cuda_chain_batched_plan_splits_chains_evenly():
     """K chains multiply the units; the grid still holds the card, and the
     per-chain loss pieces and the cell pieces cover every chain."""
@@ -267,8 +354,11 @@ def test_cuda_chain_batched_plan_splits_chains_evenly():
         assert p.grid == min(units, sms * p.blocks_per_sm)
         assert 1 <= p.loss_pieces <= p.grid
         assert p.pieces >= 1
-    with pytest.raises(RuntimeError):   # K > 1 is for fwdgrad only
-        K.phase_plan("fwd", True, 50, 500, Nh=3, chains=2)
+        f = K.phase_plan("fwd", True, Ng, Nc, Nh=3, chains=chains)
+        assert f.grid == min(units, sms * f.blocks_per_sm)
+        assert 1 <= f.loss_pieces <= f.grid and f.pieces == 0
+    with pytest.raises(RuntimeError):   # K > 1 is for fwd and fwdgrad only
+        K.phase_plan("stream", True, 50, 500, Nh=5, chains=2)
 
 
 def test_cuda_wrappers_refuse_what_the_kernels_cannot_take():
@@ -918,3 +1008,29 @@ def test_fused_velocity_mcmc_on_the_card_is_not_ported():
              num_chains=2).run(0, mp.data)
     # init_model's single baseline launch, and no launch for the chains
     assert K.LAUNCH_CHAINS["velo_fwdgrad"] == {1: 1}
+
+
+def test_fused_velocity_smc_on_the_card_is_not_ported():
+    """SMC over fused velocity data: its first stage's log-likelihood over
+    the particles raises on the card, naming the ROADMAP entry (the
+    loss-only velocity kernel has no chain batch), and does not fall back
+    to the plain path."""
+    dev = _cuda_or_skip()
+    import velocycle_tpu_torch as T
+
+    adata = T.simulate_data(Nc=40, Ng=8, seed=3)
+    genes = list(adata.var.index)
+    mp = T.preprocess_for_velocity_estimation(
+        adata, T.Cycle.trivial_prior(genes, harmonics=1),
+        T.Phases.from_angles(np.asarray(adata.obs["simulated_phis"]),
+                             cell_names=list(adata.obs.index)),
+        T.AngularSpeed.trivial_prior(["c0"], harmonics=1, means=0.2,
+                                     stds=0.5),
+        n_harmonics=1, omega_n_harmonics=1, with_delta_nu=False,
+        model_type="fourier", use_fused_nb=True, device=dev)
+    K.reset_launch_counts()
+    with pytest.raises(NotImplementedError, match="item 6a"):
+        T.SMCFitModel(mp, num_particles=4, max_stages=2).run(0)
+    # single launches only: the baselines and the prior draws
+    assert set(K.LAUNCH_CHAINS["velo_fwd"]) == {1}
+    assert set(K.LAUNCH_CHAINS["velo_fwdgrad"]) <= {1}

@@ -228,11 +228,11 @@ def test_ladder_work_counts_bytes_and_operations():
     lg = 22 * n_ge2 + 5 * (N - n_ge2) + 2 * N
     dg = 10 * n_ge2 + 3 * (N - n_ge2) + 1 * N
     nbytes, ops = TP.work("v_full", S, nu, zeta, cf, r)
-    assert ops == 59 * N + lg + dg
+    assert ops == 61 * N + lg + dg
     assert nbytes == (2 * N + 4 * (8 * 5 + 600 * 5 + 600 + 8) + 4
                       + 4 * 8 * 6 + 4 * 600 * 6)
-    assert TP.work("v_nocell", S, nu, zeta, cf, r)[1] == 48 * N + lg + dg
-    assert TP.work("v_nodig", S, nu, zeta, cf, r)[1] == 53 * N + lg
+    assert TP.work("v_nocell", S, nu, zeta, cf, r)[1] == 50 * N + lg + dg
+    assert TP.work("v_nodig", S, nu, zeta, cf, r)[1] == 56 * N + lg
     assert TP.work("vpu_only", S, nu, zeta, cf, r)[0] == 4 * (40 + 3000 + 8) + 4
     ms, by = TP.bound_ms(3.35e9, 0)
     assert (ms, by) == (1.0, "bytes")

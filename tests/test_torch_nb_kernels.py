@@ -125,6 +125,83 @@ def test_tile_math_twin_matches_jax_elementwise():
                                    rtol=1e-5, atol=1e-5)
 
 
+# the small-dispersion grid: shape_inv in [1e-5, 1e-1] (41 values, log
+# spaced), counts 0..200, log-means -2..5.5 (7 values)
+def _small_r_grid():
+    r = np.logspace(-5, -1, 41)
+    R, Kc, E = np.meshgrid(r, np.arange(201), np.linspace(-2, 5.5, 7),
+                           indexing="ij")
+    return R.astype(np.float32), Kc.astype(np.float32), E.astype(np.float32)
+
+
+def _nb_element_f64(r, k, elog):
+    """(lp, d lp/d elog, d lp/d r) in float64 at the float32 inputs, the
+    lgamma and digamma ratios as exact sums over the count."""
+    a = 1.0 / r.astype(np.float64)
+    mu = np.exp(elog.astype(np.float64))
+    k = k.astype(np.float64)
+    lgr = np.zeros(r.shape)
+    dgr = np.zeros(r.shape)
+    for j in range(int(k.max())):
+        lgr += np.where(k > j, np.log(a + j), 0.0)
+        dgr += np.where(k > j, 1.0 / (a + j), 0.0)
+    log_sig = -np.log1p(mu / a)                    # log(a / (a + mu))
+    lp = lgr - sps.gammaln(k + 1) + a * log_sig + k * (np.log(mu) - np.log(a + mu))
+    g_elog = a * (k - mu) / (a + mu)
+    g_r = -a * a * (dgr + log_sig + (mu - k) / (a + mu))
+    return lp, g_elog, g_r
+
+
+def _element_error(name, got, want):
+    """lp: max abs error (nats); g_elog: max |err| / (|want| + 1); g_r: the
+    largest over shape_inv of max|err| / max|want| over its (count,
+    log-mean) points."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    err = np.abs(got - want)
+    if name == "g_elog":
+        return float((err / (np.abs(want) + 1.0)).max())
+    if name == "g_r":
+        n = want.shape[0]
+        return float((err.reshape(n, -1).max(1)
+                      / np.abs(want).reshape(n, -1).max(1)).max())
+    return float(err.max())
+
+
+# the repaired twins' tolerances on the grid (measured: lp 4.6e-4, the
+# O(k log a) float32 rounding of lgr and k * softplus at k = 200; g_elog
+# 2.9e-5; g_r 1.7e-4), each at least 10x below the JAX package's fused
+# form's error on the same grid (measured: 0.157, 3.7e-3, 0.30)
+SMALL_R_TOL = {"lp_fwd": 1e-3, "lp": 1e-3, "g_elog": 1e-4, "g_r": 5e-4}
+
+
+@pytest.mark.parametrize("name", sorted(SMALL_R_TOL))
+def test_repaired_element_matches_float64_at_small_dispersion(name):
+    """The NB element of both kernel pairs (`_nb_lp`, `_nb_lp_and_grads`,
+    the kernels' arithmetic in csrc/nb_common.cuh) against float64 over
+    shape_inv in [1e-5, 1e-1] and counts 0-200: within SMALL_R_TOL, and
+    at least 10x closer than the JAX package's fused form
+    (`velocycle_tpu/ops/nb_kernels.py`, whose ``a * log_b - (a + k) *
+    softplus(log_b)`` cancels where a = 1/r is large) on the same grid."""
+    R, Kc, E = _small_r_grid()
+    a = (1.0 / R).astype(np.float32)
+    log_r = np.log(R).astype(np.float32)
+    want = dict(zip(("lp", "g_elog", "g_r"), _nb_element_f64(R, Kc, E)))
+    want["lp_fwd"] = want["lp"]
+    t = [torch.as_tensor(x) for x in (Kc, a, log_r, E)]
+    j = [jnp.asarray(x) for x in (Kc, a, log_r, E)]
+    if name == "lp_fwd":
+        got = TK._nb_lp(t[0], t[3], t[1], t[2])
+        jax_got = JK._nb_lp(j[0], j[3], j[1], j[2])
+    else:
+        i = ("lp", "g_elog", "g_r").index(name)
+        got = TK._nb_lp_and_grads(*t, False)[i]
+        jax_got = JK._nb_lp_and_grads(*j, False)[i]
+    port = _element_error(name, got, want[name])
+    jax_err = _element_error(name, jax_got, want[name])
+    assert port < SMALL_R_TOL[name], (name, port)
+    assert jax_err >= 10 * SMALL_R_TOL[name], (name, jax_err)
+
+
 def test_disp_grad_false_zero_dispersion_rest_unchanged():
     args = _inputs(Ng=40, Nc=200, seed=13)
     l_on, g_on = _torch_value_and_grads(args, disp_grad=True)

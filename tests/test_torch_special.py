@@ -41,11 +41,16 @@ def _t(x):
     return torch.as_tensor(x)
 
 
+# name: (inputs, the JAX twin's outputs, the port's same outputs).  The
+# JAX package's softplus and softplus_sigmoid are held against the halves
+# of the port's softplus_log_sigmoid, which replaced them in the NB element
 CASES = {
-    "lgamma_pos": (lambda: (_x_pos(),), lambda f, x: [f(x)]),
-    "softplus": (lambda: (_x_real(),), lambda f, x: [f(x)]),
-    "softplus_sigmoid": (lambda: (_x_real(),), lambda f, x: list(f(x))),
-    "lgamma_digamma_ratio": (_grid, lambda f, k, a: list(f(k, a))),
+    "lgamma_pos": (lambda: (_x_pos(),), lambda f, x: [f(x)], None),
+    "softplus": (lambda: (_x_real(),), lambda f, x: [f(x)],
+                 lambda x: [tsp.softplus_log_sigmoid(x)[0]]),
+    "softplus_sigmoid": (lambda: (_x_real(),), lambda f, x: list(f(x)),
+                         lambda x: list(tsp.softplus_log_sigmoid(x)[::2])),
+    "lgamma_digamma_ratio": (_grid, lambda f, k, a: list(f(k, a)), None),
 }
 
 
@@ -53,9 +58,10 @@ CASES = {
 def test_matches_jax_twin(name):
     """Same formulas in the same order: f32 agreement at 1e-6 (relative,
     with an absolute floor of 1e-6 for values near zero)."""
-    make, call = CASES[name]
+    make, call, port = CASES[name]
     inputs = make()
-    got = call(getattr(tsp, name), *[_t(x) for x in inputs])
+    got = (port(*[_t(x) for x in inputs]) if port is not None
+           else call(getattr(tsp, name), *[_t(x) for x in inputs]))
     want = call(getattr(jsp_special, name), *[jnp.asarray(x) for x in inputs])
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-6,
@@ -69,13 +75,20 @@ def test_lgamma_pos_and_softplus_vs_scipy():
     assert np.max(np.abs(lg - ss.gammaln(x64)) / (np.abs(ss.gammaln(x64)) + 1.0)) < 5e-4
     y = _x_real()
     y64 = y.astype(np.float64)
-    np.testing.assert_allclose(tsp.softplus(_t(y)).numpy(),
-                               np.logaddexp(0.0, y64), rtol=1e-5, atol=1e-6)
-    sp, sig = tsp.softplus_sigmoid(_t(y))
+    sp, log_sig, sig, sig_c = tsp.softplus_log_sigmoid(_t(y))
     np.testing.assert_allclose(sp.numpy(), np.logaddexp(0.0, y64),
                                rtol=1e-6, atol=1e-6)
     np.testing.assert_allclose(sig.numpy(), 1.0 / (1.0 + np.exp(-y64)),
                                rtol=1e-6, atol=1e-7)
+    # log sigmoid and 1 - sigmoid keep their RELATIVE precision where they
+    # are tiny (x large), which the differences x - softplus and 1 - sigmoid
+    # would not
+    np.testing.assert_allclose(log_sig.numpy(), -np.logaddexp(0.0, -y64),
+                               rtol=1e-6, atol=0)
+    np.testing.assert_allclose(sig_c.numpy(), 1.0 / (1.0 + np.exp(y64)),
+                               rtol=1e-6, atol=0)
+    sp2, log_sig2 = tsp.softplus_log_sigmoid(_t(y), with_sigmoid=False)
+    assert torch.equal(sp2, sp) and torch.equal(log_sig2, log_sig)
 
 
 def test_lgamma_digamma_ratio_vs_scipy():

@@ -4,8 +4,10 @@ Same two-stage workflow as the JAX package, module for module: host
 containers and preprocessing build a `PhaseData` or `VelocityData` of
 device tensors, the phase and velocity models and guides run under the
 effect-handler DSL, and `PhaseFitModel` then `VelocityFitModel` (conditioned
-on the phase fit) fit them with SVI, and `MCMCFitModel` samples their
-posteriors with NUTS or HMC (`infer.mcmc`), the chains as one batch.  The fused Negative-Binomial
+on the phase fit) fit them with SVI, `MCMCFitModel` samples their
+posteriors with NUTS or HMC (`infer.mcmc`), the chains as one batch, and
+`SMCFitModel` with tempered SMC (`infer.smc`), the particles as one batch,
+with the model evidence.  The fused Negative-Binomial
 likelihoods of both stages run as hand-written CUDA kernels for Hopper
 (`ops/nb_kernels.py`, `csrc/`).
 
@@ -26,7 +28,7 @@ from .anndata_lite import AnnDataLite, read_h5ad, write_h5ad  # noqa: F401
 from .containers import AngularSpeed, Cycle, FourierTable, Phases  # noqa: F401
 from .device import resolve_device  # noqa: F401
 from .fit import PhaseFitModel, VelocityFitModel  # noqa: F401
-from .fit_mcmc import MCMCFitModel  # noqa: F401
+from .fit_mcmc import MCMCFitModel, SMCFitModel  # noqa: F401
 from .models.metapars import Metapars, PhaseData, VelocityData  # noqa: F401
 from .preprocessing import (  # noqa: F401
     filter_shared_genes,
@@ -47,6 +49,7 @@ __all__ = [
     "PhaseData",
     "PhaseFitModel",
     "Phases",
+    "SMCFitModel",
     "VelocityData",
     "VelocityFitModel",
     "filter_shared_genes",

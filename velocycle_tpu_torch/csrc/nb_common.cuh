@@ -102,39 +102,56 @@ __device__ __forceinline__ float lgamma_pos(float x) {
   return 0.9189385332046727f + (z + 0.5f) * logf(t) - t + logf(series);
 }
 
-// NB log-pmf as the loss-only kernels evaluate it, at log_b = -log r - elog
-// (threshold-2 ratio lgamma, softplus through logf(1 + e)).
+// softplus(log_b) and log sigmoid(log_b) = log_b - softplus(log_b), sharing
+// one exp and one log1p.  The log sigmoid is min(log_b, 0) - log1p(e), not
+// the difference, which cancels where log_b is large: at small dispersion
+// (a = 1/r large) the NB element weights it by a.
+__device__ __forceinline__ void softplus_log_sigmoid(float log_b, float e, float& sp,
+                                                     float& log_sig) {
+  const float l1 = log1pf(e);
+  sp = fmaxf(log_b, 0.0f) + l1;
+  log_sig = fminf(log_b, 0.0f) - l1;
+}
+
+// NB log-pmf as the loss-only kernels evaluate it, at log_b = -log r - elog:
+// lgr + a * log sigmoid(log_b) - k * softplus(log_b) (threshold-2 ratio
+// lgamma), free of the cancellation of a * log_b - (a + k) * softplus(log_b).
 template <bool SKIP_K>
 __device__ __forceinline__ float nb_lp(float k, float log_b, const GeneCols& c) {
   float lgr, unused;
   lgamma_digamma_ratio<false>(k, c, lgr, unused);
-  const float sp = fmaxf(log_b, 0.0f) + logf(1.0f + expf(-fabsf(log_b)));
-  float lp = lgr + c.a * log_b - (c.a + k) * sp;
+  float sp, log_sig;
+  softplus_log_sigmoid(log_b, expf(-fabsf(log_b)), sp, log_sig);
+  float lp = lgr + c.a * log_sig - k * sp;
   if (!SKIP_K) lp -= lgamma_pos(k + 1.0f);
   return lp;
 }
 
 // (log-pmf, d lp/d elog, d lp/d r) as the fwd+grad kernels evaluate them:
-// softplus and sigmoid share one exp; g_r is 0 unless WANT_DISP, which
-// compiles the digamma chain in.
+// softplus, log sigmoid, sigmoid and 1 - sigmoid share one exp; d lp/d elog
+// is k * sig - a * (1 - sig), not (a + k) * sig - a, and d lp/d a at fixed
+// log_b is dgr + log sigmoid(log_b): no term cancels at small dispersion.
+// g_r is 0 unless WANT_DISP, which compiles the digamma chain in.
 template <bool WANT_DISP, bool SKIP_K>
 __device__ __forceinline__ void nb_lp_grads(float k, float log_b, const GeneCols& c,
                                             float& lp, float& g_elog, float& g_r) {
   const float e = expf(-fabsf(log_b));
   const float d = 1.0f / (1.0f + e);
-  const float sp = fmaxf(log_b, 0.0f) + log1pf(e);
-  const float sig = log_b >= 0.0f ? d : e * d;
+  float sp, log_sig;
+  softplus_log_sigmoid(log_b, e, sp, log_sig);
+  const float ed = e * d;
+  const bool pos = log_b >= 0.0f;
+  const float sig = pos ? d : ed;
+  const float sig_c = pos ? ed : d;
   float lgr, dgr = 0.0f;
   lgamma_digamma_ratio<WANT_DISP>(k, c, lgr, dgr);
-  const float a_k = c.a + k;
-  lp = lgr + c.a * log_b - a_k * sp;
+  lp = lgr + c.a * log_sig - k * sp;
   if (!SKIP_K) lp -= lgamma_pos(k + 1.0f);
-  const float g_sig = a_k * sig;
-  g_elog = g_sig - c.a;
+  g_elog = k * sig - c.a * sig_c;
   g_r = 0.0f;
   if (WANT_DISP) {
-    const float dlp_da = dgr + log_b - sp;
-    g_r = (dlp_da * (-c.a) + (g_sig - c.a)) * c.a;
+    const float dlp_da = dgr + log_sig;
+    g_r = (dlp_da * (-c.a) + g_elog) * c.a;
   }
 }
 

@@ -211,7 +211,7 @@ int pick_nh(const Args& a, const Op& op) {
 template <class Op>
 int dispatch(const Args& a, bool counts_int16, const Op& op) {
   if (a.mode < 0 || a.mode >= kNumCuts || a.Ng < 1 || a.Nc < 1 || a.Nb < 0 ||
-      a.Nb > kMaxNb || a.cs.K < 1 || (a.cs.K > 1 && a.mode != FWDGRAD))
+      a.Nb > kMaxNb || a.cs.K < 1 || (a.cs.K > 1 && a.mode != FWD && a.mode != FWDGRAD))
     return static_cast<int>(cudaErrorInvalidValue);
   return counts_int16 ? pick_nh<int16_t>(a, op) : pick_nh<float>(a, op);
 }
@@ -251,7 +251,8 @@ int vct_phase_layout(int* out, int n) {
 }
 
 // The plan of one call over K chains (K = 1: unbatched; K > 1 only for
-// FWDGRAD): out = {grid, pieces, blocks_per_sm, dyn_smem, loss_pieces}.
+// FWD and FWDGRAD): out = {grid, pieces, blocks_per_sm, dyn_smem,
+// loss_pieces}.
 // The caller sizes loss_part (K, loss_pieces) and, for the cell-gradient
 // modes, cell_piece (pieces, Nh + 1, K * Nc) from it.
 int vct_phase_plan(int mode, int counts_int16, int Ng, int Nc, int Nh, int Nb, int K,

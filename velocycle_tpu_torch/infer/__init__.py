@@ -3,3 +3,4 @@ from .svi import SVI, init_params  # noqa: F401
 from .optim import ClippedAdam, clipped_adam  # noqa: F401
 from .predictive import Predictive  # noqa: F401
 from .mcmc import MCMC, hmc, init_model, nuts  # noqa: F401
+from .smc import SMC, BridgedSMC  # noqa: F401

@@ -34,7 +34,6 @@ from __future__ import annotations
 
 import contextlib
 import math
-import warnings
 from typing import NamedTuple
 
 import numpy as np
@@ -45,16 +44,6 @@ from ..core import handlers
 
 __all__ = ["init_model", "hmc", "nuts", "MCMC", "effective_sample_size",
            "block_precondition"]
-
-
-# the open fault of ROADMAP.md section 3, until the fused NB element is
-# repaired
-_FUSED_DISPERSION = (
-    "sampling the NB dispersion (shape_inv) through the fused likelihood: "
-    "its float32 dispersion term cancels at small dispersion (ROADMAP.md "
-    "section 3), so the chains may not mix (split R-hat far above 1 on the "
-    "card); sample dispersions on the plain path (use_fused_nb=False) or "
-    "condition shape_inv")
 
 
 @contextlib.contextmanager
@@ -92,6 +81,10 @@ class ModelInfo(NamedTuple):
     #                               an ABSOLUTE log density is needed)
     log_det_scale: float = 0.0    # log |det d(original u)/d(these coords)|
     #                               (block_precondition sets it)
+    log_parts: callable = None    # (flat_u, prior=True, lik=True) ->
+    #                               (log prior + log|J|, log lik), each less
+    #                               its baseline, from ONE trace
+    log_lik_offset: float = 0.0   # the observed sites' share of log_offset
 
 
 def _split(flat_u, site_meta):
@@ -177,7 +170,7 @@ def init_model(model, *args, seed=0, init_strategy="prior", init_values=None,
     # point, so the potential skips them.
     baselines = {}
     constant = set()
-    log_offset = 0.0
+    log_offset = log_lik_offset = 0.0
     if subtract_baseline:
         with torch.enable_grad(), _full_fp32():
             values0 = unflatten(init_u.detach().requires_grad_(True))
@@ -191,37 +184,55 @@ def init_model(model, *args, seed=0, init_strategy="prior", init_values=None,
                 lp0 = lp0.detach()
                 baselines[name] = lp0
                 # exact constant, accumulated in f64 on the host
-                log_offset += float(np.sum(
-                    lp0.cpu().numpy().astype(np.float64)))
+                c0 = float(np.sum(lp0.cpu().numpy().astype(np.float64)))
+                log_offset += c0
+                if site["is_observed"]:
+                    log_lik_offset += c0
     # constraints whose log-det is identically zero (real, circular)
     zero_det = {name for name, (_, _, c) in site_meta.items()
                 if type(c).log_abs_det_jacobian is C.Constraint.log_abs_det_jacobian}
 
-    def potential_fn(flat_u):
+    def terms(flat_u, prior, lik):
+        """(the latent sites' log-prob, the observed sites', log|J|) at
+        ``flat_u``, each site less its baseline, from ONE trace of the
+        model; a part not asked for is 0 and its terms are not computed."""
         with _full_fp32():
             values = {}
             log_det = 0.0
             for name, u, constraint in _split(flat_u, site_meta):
                 values[name] = constraint.forward(u)
-                if name not in zero_det:
+                if prior and name not in zero_det:
                     log_det = log_det + constraint.log_abs_det_jacobian(
                         u).sum()
             sub = handlers.substitute(model, data=values)
             tr = handlers.trace(handlers.seed(sub, 0)).get_trace(
                 *args, **kwargs)
-            logp = 0.0
+            lat = obs = 0.0
             for name, site in _latent_sites(tr):
-                if name in constant:
+                observed = site["is_observed"]
+                if name in constant or not (lik if observed else prior):
                     continue
                 lp = site["fn"].log_prob(site["value"])
                 b = baselines.get(name)
                 if b is not None:
                     lp = lp - b  # same trace, same shapes by construction
-                logp = logp + lp.sum()
-            return -(logp + log_det)
+                if observed:
+                    obs = obs + lp.sum()
+                else:
+                    lat = lat + lp.sum()
+            return lat, obs, log_det
+
+    def log_parts(flat_u, prior=True, lik=True):
+        """(log prior + log|J|, log lik) at ``flat_u`` from ONE trace."""
+        lat, obs, log_det = terms(flat_u, prior, lik)
+        return lat + log_det, obs
+
+    def potential_fn(flat_u):
+        lat, obs, log_det = terms(flat_u, True, True)
+        return -((lat + obs) + log_det)
 
     return ModelInfo(potential_fn, unflatten, init_u, site_meta, wrap_fn,
-                     log_offset)
+                     log_offset, 0.0, log_parts, log_lik_offset)
 
 
 def block_precondition(info: ModelInfo, blocks):
@@ -313,6 +324,8 @@ def block_precondition(info: ModelInfo, blocks):
         wrap_fn=wrap_fn if has_circ else None,
         log_offset=info.log_offset,
         log_det_scale=info.log_det_scale + log_det_scale,
+        log_parts=lambda v, **kw: info.log_parts(transform(v), **kw),
+        log_lik_offset=info.log_lik_offset,
     )
 
 
@@ -877,12 +890,6 @@ class MCMC:
         if not reusable:
             info = init_model(self.model, *args, seed=k_init,
                               init_values=self.init_values, **kwargs)
-            if "shape_inv" in info.site_meta and any(
-                getattr(a, "use_fused_nb", False)
-                for a in (*args, *kwargs.values())
-            ):
-                warnings.warn(_FUSED_DISPERSION, RuntimeWarning,
-                              stacklevel=2)
             if self.preconditioner is not None:
                 info = block_precondition(info, self.preconditioner)
             inv_mass0 = None

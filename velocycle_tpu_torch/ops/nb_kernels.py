@@ -52,9 +52,7 @@ import torch
 
 from . import cuda_build
 from .likelihoods import nb_logpmf
-from .special import (
-    lgamma_digamma_ratio, lgamma_pos, softplus, softplus_sigmoid,
-)
+from .special import lgamma_digamma_ratio, lgamma_pos, softplus_log_sigmoid
 
 __all__ = [
     "KERNEL_WIDTHS",
@@ -168,10 +166,14 @@ def _velo_elogs(nu, zeta, zeta_dphi, cf, omega, log_beta, log_gamma,
 
 def _nb_lp(k, elog, a, log_r, skip_lgamma_k=False):
     """NB log-pmf as the loss-only kernel computes it (threshold-2 ratio
-    lgamma, softplus)."""
+    lgamma): lgr + a * log sigmoid(log_b) - k * softplus(log_b), with
+    log_b = log(a / mu).  The a-weighted term is the log sigmoid itself, not
+    ``a * log_b - a * softplus(log_b)``, whose two halves cancel where a =
+    1/r is large (small dispersion)."""
     log_b = -log_r - elog
     lgr, _ = lgamma_digamma_ratio(k, a)
-    lp = lgr + a * log_b - (a + k) * softplus(log_b)
+    sp, log_sig = softplus_log_sigmoid(log_b, with_sigmoid=False)
+    lp = lgr + a * log_sig - k * sp
     if not skip_lgamma_k:
         lp = lp - lgamma_pos(k + 1.0)
     return lp
@@ -179,20 +181,23 @@ def _nb_lp(k, elog, a, log_r, skip_lgamma_k=False):
 
 def _nb_lp_and_grads(k, a, log_r, elog, skip_k, want_r=True):
     """(log-pmf, d lp/d elog, d lp/d r) as the fwd+grad kernel computes
-    them; ``want_r=False`` returns ``None`` for the dispersion term."""
+    them; ``want_r=False`` returns ``None`` for the dispersion term.
+
+    Free of the small-dispersion cancellations: the log-pmf as in `_nb_lp`,
+    d lp/d elog = k * sigmoid(log_b) - a * (1 - sigmoid(log_b)) (not
+    ``(a + k) * sigmoid - a``), and d lp/d a at fixed log_b = dgr + log
+    sigmoid(log_b)."""
     log_b = -log_r - elog
-    sp, sig = softplus_sigmoid(log_b)
+    sp, log_sig, sig, sig_c = softplus_log_sigmoid(log_b)
     lgr, dgr = lgamma_digamma_ratio(k, a)
-    a_k = a + k
-    lp = lgr + a * log_b - a_k * sp
+    lp = lgr + a * log_sig - k * sp
     if not skip_k:
         lp = lp - lgamma_pos(k + 1.0)
-    g_sig = a_k * sig
-    g_elog = g_sig - a
+    g_elog = k * sig - a * sig_c
     if not want_r:
         return lp, g_elog, None
-    dlp_da = dgr + log_b - sp
-    g_r = (dlp_da * (-a) + (g_sig - a)) * a
+    dlp_da = dgr + log_sig
+    g_r = (dlp_da * (-a) + g_elog) * a
     return lp, g_elog, g_r
 
 
@@ -206,12 +211,13 @@ def _finish_loss(total64, lgamma_k_sum):
 
 def phase_fwd_plain(S, nu, zeta, cf, r, delta_nu=None, Db=None,
                     lgamma_k_sum=None):
-    """Plain version of ``phase_fwd``: the loss."""
+    """Plain version of ``phase_fwd``: the loss; (K,) over a chain batch,
+    as `phase_fwdgrad_plain`."""
     elog = _phase_elog(nu, zeta, cf, delta_nu, Db)
-    a = 1.0 / r[:, None]
-    lp = _nb_lp(S.float(), elog, a, torch.log(r)[:, None],
+    a = 1.0 / r[..., None]
+    lp = _nb_lp(S.float(), elog, a, torch.log(r)[..., None],
                 skip_lgamma_k=lgamma_k_sum is not None)
-    return _finish_loss(lp.sum(dtype=torch.float64), lgamma_k_sum)
+    return _finish_loss(lp.sum((-2, -1), dtype=torch.float64), lgamma_k_sum)
 
 
 def phase_fwdgrad_plain(S, nu, zeta, cf, r, delta_nu=None, Db=None,
@@ -519,7 +525,7 @@ def phase_plan(mode, int16, Ng, Nc, Nh=5, Nb=0, skip_k=True, want_disp=True,
     """The `Plan` of one call of the phase kernel in ``mode``
     (`PHASE_MODES`) on ``device`` (default: the current card), for int16
     or float32 counts, at an instantiated width Nh, over ``chains``
-    parameter sets (more than one for fwdgrad only)."""
+    parameter sets (more than one for fwd and fwdgrad only)."""
     return _plan("vct_phase_plan", _device_index(device), (
         PHASE_MODES.index(mode), int(bool(int16)), Ng, Nc, Nh, Nb,
         int(chains), int(bool(skip_k)), int(bool(want_disp))))
@@ -547,7 +553,8 @@ def _phase_launch(mode, S, nu, zeta, cf, r, delta_nu=None, Db=None,
                   skip_k=True, want_disp=False, n_rep=0, chains=1):
     """One launch of csrc/nb_phase.cu in ``mode`` (`PHASE_MODES`) on checked
     CUDA tensors at an instantiated width; inputs the mode does not read may
-    be None.  With ``chains`` = K > 1 (fwdgrad only) each of nu, zeta, cf, r
+    be None.  With ``chains`` = K > 1 (fwd and fwdgrad only) each of nu,
+    zeta, cf, r
     and delta_nu either carries a leading axis K or is shared by the chains.
     Returns (loss partials (K, loss_pieces) float64, gene partials (K,
     n_tiles, Ng, NV) or None, dzeta (K, Nc, Nh) or None, dcf (K, Nc) or
@@ -598,7 +605,7 @@ _SHAPES = {"nu": "gh", "zeta": "ch", "zeta_dphi": "ch", "count_factor": "c",
 
 
 # the operands the phase kernels take per chain in a chain-batched call
-# (`phase_fwdgrad`); the counts and Db are shared by every chain
+# (`phase_fwd`, `phase_fwdgrad`); the counts and Db are shared by every chain
 _CHAIN_OPERANDS = ("nu", "zeta", "count_factor", "dispersion", "delta_nu")
 
 
@@ -698,13 +705,13 @@ def _phase_params(nu, zeta, cf, r):
 def _phase_call(name, S, nu, zeta, cf, r, delta_nu, Db, lgamma_k_sum,
                 want_disp=False):
     """Check, widen where the shape needs it, launch and count one phase
-    kernel (phase_fwdgrad over a chain batch where operands carry a leading
-    chain axis).  Returns (loss, gene partials summed over the cell tiles or
-    None, dzeta or None, dcf or None, (Nh, Nb, fold, kernel delta_nu)), each
-    with the leading chain axis in a chain-batched call."""
+    kernel (over a chain batch where operands carry a leading chain axis).
+    Returns (loss, gene partials summed over the cell tiles or None, dzeta
+    or None, dcf or None, (Nh, Nb, fold, kernel delta_nu)), each with the
+    leading chain axis in a chain-batched call."""
     grad = name == "phase_fwdgrad"
     width, fold, K = _on_card(name, [("S", S)], _phase_params(nu, zeta, cf, r),
-                              delta_nu, Db, phase_layout().max_nb, chains=grad)
+                              delta_nu, Db, phase_layout().max_nb, chains=True)
     nu_k, (zeta_k,), dnu_k, Db_k = widen_inputs(nu, [zeta], delta_nu, Db,
                                                 width, fold)
     loss_part, gene_part, dzeta, dcf = _phase_launch(
@@ -724,7 +731,11 @@ def _phase_call(name, S, nu, zeta, cf, r, delta_nu, Db, lgamma_k_sum,
 
 
 def phase_fwd(S, nu, zeta, cf, r, delta_nu=None, Db=None, lgamma_k_sum=None):
-    """Loss of the fused phase NB likelihood on the card (CUDA tensors)."""
+    """Loss of the fused phase NB likelihood on the card (CUDA tensors).
+
+    Chain-batched as `phase_fwdgrad`: where any of nu, zeta, cf, r and
+    delta_nu carries a leading chain axis K, ONE launch computes the K
+    losses (K,); counted once in LAUNCHES and under K in LAUNCH_CHAINS."""
     return _phase_call("phase_fwd", S, nu, zeta, cf, r, delta_nu, Db,
                        lgamma_k_sum)[0]
 
@@ -852,35 +863,44 @@ _NO_SECOND_DERIVATIVE = (
     "Hessian-vector products and forward-mode derivatives through the plain "
     "model path (use_fused_nb=False)")
 
-# the chain batch of the velocity kernel is not ported
+# the chain batch of the velocity kernels is not ported
 _VELO_CHAINS = (
-    "velo_fwdgrad takes one parameter set per launch: the chain-batched "
-    "velocity kernel, and with it MCMC over fused velocity data on the card, "
-    "is ROADMAP.md queue 1 item 6a (not ported); sample the velocity model "
-    "with use_fused_nb=False")
+    "the velocity kernels take one parameter set per launch: the "
+    "chain-batched velo_fwdgrad / velo_fwd, and with them MCMC and SMC over "
+    "fused velocity data on the card, are ROADMAP.md queue 1 item 6a (not "
+    "ported); sample the velocity model with use_fused_nb=False")
 
 
-def _velo_fwdgrad_chains(S, U, *params, lgamma_k_sum=None, want_disp=True):
+def _velo_chains(S, U, *params, lgamma_k_sum=None, want_disp=True):
     raise NotImplementedError(_VELO_CHAINS)
 
 
-def _velo_fwdgrad_plain_chains(S, U, *params, lgamma_k_sum=None,
-                               want_disp=True):
-    """`velo_fwdgrad_plain` over a chain batch (the CPU path): each operand
-    with a leading chain axis mapped over it."""
-    dims = tuple(0 if t is not None and t.dim() > d else None
-                 for t, d in zip(params, _VELO_OPERAND_DIMS))
+def _velo_plain_chains(plain):
+    """``plain`` (`velo_fwd_plain` or `velo_fwdgrad_plain`) over a chain
+    batch (the CPU path): each operand with a leading chain axis mapped
+    over it."""
 
-    def one_chain(*p):
-        loss, grads = velo_fwdgrad_plain(S, U, *p, lgamma_k_sum=lgamma_k_sum,
-                                         want_disp=want_disp)
-        return loss, [d for d in grads if d is not None]
+    def over_chains(S, U, *params, lgamma_k_sum=None, **kw):
+        dims = tuple(0 if t is not None and t.dim() > d else None
+                     for t, d in zip(params, _VELO_OPERAND_DIMS))
 
-    loss, grads = torch.func.vmap(one_chain, in_dims=dims)(*params)
-    grads = iter(grads)
-    # ddelta_nu, the last gradient, is None without delta_nu
-    return loss, tuple(next(grads) if i < 8 or params[8] is not None else None
-                       for i in range(9))
+        def one_chain(*p):
+            out = plain(S, U, *p, lgamma_k_sum=lgamma_k_sum, **kw)
+            if isinstance(out, torch.Tensor):
+                return out
+            loss, grads = out
+            return loss, [d for d in grads if d is not None]
+
+        out = torch.func.vmap(one_chain, in_dims=dims)(*params)
+        if isinstance(out, torch.Tensor):
+            return out
+        loss, grads = out
+        grads = iter(grads)
+        # ddelta_nu, the last gradient, is None without delta_nu
+        return loss, tuple(next(grads) if i < 8 or params[8] is not None
+                           else None for i in range(9))
+
+    return over_chains
 
 
 # the ranks of the velocity kernels' operands after S and U: nu, zeta,
@@ -965,13 +985,7 @@ class _FusedNBLogLik(torch.autograd.Function):
     @staticmethod
     def vmap(info, in_dims, fwdgrad, n_data, lgamma_k_sum, disp_grad,
              *inputs):
-        dims = in_dims[4:]
-        if (in_dims[2] is not None or dims[-1] is not None
-                or any(d is not None for d in dims[:n_data])):
-            raise ValueError("a chain batch shares the counts, lgamma_k_sum "
-                             "and Db; only the parameters may be batched")
-        moved = [t if d is None else t.movedim(d, 0).contiguous()
-                 for t, d in zip(inputs, dims)]
+        moved = _chain_major(in_dims[2], in_dims[4:], n_data, inputs)
         # the chain-batched call, itself differentiable by the autograd
         # outside the vmap
         out = _FusedNBLogLik.apply(_CHAINS[fwdgrad], n_data, lgamma_k_sum,
@@ -979,20 +993,61 @@ class _FusedNBLogLik(torch.autograd.Function):
         return out, (0,) * len(out)
 
 
+class _FusedNBLoss(torch.autograd.Function):
+    """The loss-only kernel under `torch.func.vmap`: its `vmap` rule makes
+    ONE chain-batched call for the whole batch (`phase_fwd` over its chain
+    axis).  `_fused` sends a batched call here only with gradients
+    disabled, so it has no backward."""
+
+    @staticmethod
+    def forward(fwd, n_data, lgamma_k_sum, *inputs):
+        return fwd(*inputs, lgamma_k_sum=lgamma_k_sum)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, g):
+        raise RuntimeError("the loss-only fused likelihood has no gradient: "
+                           "evaluate it with gradients enabled")
+
+    @staticmethod
+    def vmap(info, in_dims, fwd, n_data, lgamma_k_sum, *inputs):
+        moved = _chain_major(in_dims[2], in_dims[3:], n_data, inputs)
+        return _FusedNBLoss.apply(_CHAINS[fwd], n_data, lgamma_k_sum,
+                                  *moved), 0
+
+
+def _chain_major(lgk_dim, dims, n_data, inputs):
+    """The inputs of one chain-batched call: each batched parameter with its
+    chain axis moved to the front.  The counts, lgamma_k_sum and Db (the
+    last input) are shared by the chains and must not be batched."""
+    if (lgk_dim is not None or dims[-1] is not None
+            or any(d is not None for d in dims[:n_data])):
+        raise ValueError("a chain batch shares the counts, lgamma_k_sum "
+                         "and Db; only the parameters may be batched")
+    return [t if d is None else t.movedim(d, 0).contiguous()
+            for t, d in zip(inputs, dims)]
+
+
 def _fused(kernels, plains, n_data, inputs, lgamma_k_sum, disp_grad):
     """The loss through the (loss-only, fwd+grad) kernel pair on CUDA
-    tensors or its plain pair on CPU tensors; the fwd+grad one when a
+    tensors or its plain pair on CPU tensors: the fwd+grad one when a
     differentiable input needs a gradient, and under `torch.func.vmap`
-    (a batched input reports no ``requires_grad`` whatever it wraps, and
-    only the fwd+grad binding has the chain-batched call, its `vmap`
-    rule)."""
+    with gradients enabled (a batched input reports no ``requires_grad``
+    whatever it wraps); the loss-only one otherwise, under `vmap` through
+    `_FusedNBLoss` (each binding's `vmap` rule makes the one chain-batched
+    call)."""
     fwd, fwdgrad = kernels if inputs[0].device.type == "cuda" else plains
     params = [t for t in inputs[n_data:] if t is not None]
-    if any(torch._C._functorch.is_batchedtensor(t) for t in params) or (
-        torch.is_grad_enabled() and any(t.requires_grad for t in params)
-    ):
+    batched = any(torch._C._functorch.is_batchedtensor(t) for t in params)
+    if torch.is_grad_enabled() and (
+            batched or any(t.requires_grad for t in params)):
         return _FusedNBLogLik.apply(fwdgrad, n_data, lgamma_k_sum,
                                     bool(disp_grad), *inputs)[0]
+    if batched:
+        return _FusedNBLoss.apply(fwd, n_data, lgamma_k_sum, *inputs)
     return fwd(*inputs, lgamma_k_sum=lgamma_k_sum)
 
 
@@ -1054,10 +1109,16 @@ def nbsu_loglik_fused(S, U, nu, zeta, zeta_dphi, count_factor, omega,
     )
 
 
-# each fwd+grad function's call over a chain batch, for `_FusedNBLogLik.vmap`
+# each kernel function's call over a chain batch, for the `vmap` rules of
+# `_FusedNBLogLik` and `_FusedNBLoss` (the phase pair and its plain versions
+# take the chain axis themselves)
 _CHAINS = {
+    phase_fwd: phase_fwd,
     phase_fwdgrad: phase_fwdgrad,
+    phase_fwd_plain: phase_fwd_plain,
     phase_fwdgrad_plain: phase_fwdgrad_plain,
-    velo_fwdgrad: _velo_fwdgrad_chains,
-    velo_fwdgrad_plain: _velo_fwdgrad_plain_chains,
+    velo_fwd: _velo_chains,
+    velo_fwdgrad: _velo_chains,
+    velo_fwd_plain: _velo_plain_chains(velo_fwd_plain),
+    velo_fwdgrad_plain: _velo_plain_chains(velo_fwdgrad_plain),
 }

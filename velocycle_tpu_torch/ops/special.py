@@ -7,7 +7,10 @@ the same formulas in torch, in the same operation order, so the CPU tests
 and the kernels' on-card comparisons hold one arithmetic.
 
   * `lgamma_pos`: Lanczos (g=7, n=9), for lgamma(k+1).
-  * `softplus`, `softplus_sigmoid`: overflow-safe, sharing one exp.
+  * `softplus_log_sigmoid`: softplus, log sigmoid, sigmoid and its
+    complement, overflow-safe, sharing one exp, and free of the
+    cancellation of ``x - softplus(x)`` and ``1 - sigmoid(x)`` at large x
+    (the NB element at small dispersion).
   * `lgamma_digamma_ratio`: (lgamma(k+a) - lgamma(a), digamma(k+a) -
     digamma(a)) with exact masked sums for k < 2 and shared Stirling
     differences at arguments >= a+2.  Its digamma half truncates to about
@@ -18,7 +21,7 @@ from __future__ import annotations
 import torch
 
 __all__ = [
-    "lgamma_pos", "softplus", "softplus_sigmoid", "lgamma_digamma_ratio",
+    "lgamma_pos", "softplus_log_sigmoid", "lgamma_digamma_ratio",
 ]
 
 _LANCZOS_G = 7.0
@@ -46,18 +49,24 @@ def lgamma_pos(x):
     return _HALF_LOG_2PI + (z + 0.5) * torch.log(t) - t + torch.log(series)
 
 
-def softplus(x):
-    """log(1 + exp(x)), safe for large |x|."""
-    return torch.clamp(x, min=0.0) + torch.log(1.0 + torch.exp(-torch.abs(x)))
+def softplus_log_sigmoid(x, with_sigmoid=True):
+    """(softplus(x), log sigmoid(x), sigmoid(x), 1 - sigmoid(x)) sharing one
+    exp, one log1p and one reciprocal; ``with_sigmoid=False`` returns the
+    first two only.
 
-
-def softplus_sigmoid(x):
-    """(softplus(x), sigmoid(x)) sharing one exp and one reciprocal."""
+    log sigmoid(x) = x - softplus(x) is taken as min(x, 0) - log1p(exp(-|x|))
+    and 1 - sigmoid(x) as sigmoid(-x): both keep their float32 precision
+    where x is large, when the differences would cancel."""
     e = torch.exp(-torch.abs(x))
+    l1 = torch.log1p(e)
+    sp = torch.clamp(x, min=0.0) + l1
+    log_sig = torch.clamp(x, max=0.0) - l1
+    if not with_sigmoid:
+        return sp, log_sig
     d = 1.0 / (1.0 + e)
-    sp = torch.clamp(x, min=0.0) + torch.log1p(e)
-    sig = torch.where(x >= 0.0, d, e * d)
-    return sp, sig
+    ed = e * d
+    pos = x >= 0.0
+    return sp, log_sig, torch.where(pos, d, ed), torch.where(pos, ed, d)
 
 
 def lgamma_digamma_ratio(k, a):

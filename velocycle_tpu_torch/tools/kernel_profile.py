@@ -41,16 +41,18 @@ ROWS = ("stream", "matmul", "logpmf", "fwdgrad", "vpu_only", "v_full",
 # a division counts 1), besides the lgamma / digamma ratios below:
 #   stream    count convert 1, sum 1
 #   matmul    count convert 1, ElogS dot 10, product 1, sum 1
-#   logpmf    convert 1, dot 10, log_b 1, a+k 1, lp 4, softplus 6, sum 1
-#   fwdgrad   logpmf's 18 besides softplus, softplus + sigmoid 10,
-#             g_sig + g_elog 2, dnu accumulation 10
-#   v_full    fwdgrad + cf 1, dlp_da + g_r 6, ddisp 1, dzeta 10, dcf 1
+#   logpmf    convert 1, dot 10, log_b 1, lp 4, softplus + log sigmoid 7,
+#             sum 1
+#   fwdgrad   logpmf's 17 besides softplus + log sigmoid, softplus + log
+#             sigmoid + sigmoid and its complement 13, g_elog 3, dnu
+#             accumulation 10
+#   v_full    fwdgrad + cf 1, dlp_da + g_r 5, ddisp 1, dzeta 10, dcf 1
 #   v_nodig   v_full without dlp_da + g_r (its sum of g_elog replaces ddisp)
 #   v_nocell  v_full without dzeta and dcf
-#   vpu_only  dot 10, floor(3 |elog|) 3, log_b 1, a+k 1, lp 4, softplus 6,
-#             sum 1 (on its synthetic counts)
-ELEMENT_OPS = {"stream": 2, "matmul": 13, "logpmf": 24, "fwdgrad": 40,
-               "v_full": 59, "v_nodig": 53, "v_nocell": 48, "vpu_only": 26}
+#   vpu_only  dot 10, floor(3 |elog|) 3, log_b 1, lp 4, softplus + log
+#             sigmoid 7, sum 1 (on its synthetic counts)
+ELEMENT_OPS = {"stream": 2, "matmul": 13, "logpmf": 24, "fwdgrad": 43,
+               "v_full": 61, "v_nodig": 56, "v_nocell": 50, "vpu_only": 26}
 # lgamma ratio: Stirling difference 22 where k >= 2, small-k sum 5 where
 # k < 2, branch select 2; digamma ratio (v_full, v_nocell): 10, 3, 1
 LGAMMA_OPS = (22, 5, 2)
