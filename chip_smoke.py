@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch + CUDA port (`velocycle_tpu_torch`).
 
-    python3 chip_smoke.py [--seed 0] [--digest | --kernels | --mcmc | --smc]
+    python3 chip_smoke.py [--seed 0] [--digest | --kernels | --mcmc | --smc |
+                           --minibatch]
 
 Run from the root of a checkout, on a machine with one CUDA card.  Phases,
 in order; any failure exits non-zero and prints no result line:
@@ -11,8 +12,8 @@ in order; any failure exits non-zero and prints no result line:
      source, started together) and print ptxas' registers / static shared
      memory / spills beside each main-path and ladder instantiation's
      dynamic shared memory;
-  3. print a digest of phase_fwdgrad's and phase_fwd's full-width results
-     (``--digest`` prints it alone, with any checkout's package: equal
+  3. print a digest of each of the four kernels' full-width results
+     (``--digest`` prints them alone, with any checkout's package: equal
      digests mean bit-identical results), then hold each kernel against
      its plain torch version on the card: at full width (2048 genes x
      102,400 cells, Nh=5, int16 counts), at ragged shapes, with delta_nu
@@ -46,6 +47,19 @@ in order; any failure exits non-zero and prints no result line:
        use_fused_nb=True) -> VelocityFitModel conditioned on stage 1's nu,
        phi_xy and shape_inv, num_samples=2 -> fit(num_steps=50) -> one
        loss-only evaluation;
+     after each stage, [minibatch] on its preprocessed data (no second
+     preprocessing): MinibatchSVI with 8 blocks of 12,800 cells.  Stage 1:
+     the block objective (at the guide's draws, the mean of the scaled
+     block losses against the full-batch loss, rel 1e-5, on the fused
+     kernels), the on-device fit (2 epochs, falling epoch means, exactly
+     one phase_fwdgrad per step), the streamed fit from pinned host int16
+     blocks for one epoch against fit(shuffle=False) (losses and params
+     rtol 1e-6; the device memory it needs below what full-batch SVI
+     steps need: the data and their peak above it),
+     steps/s, launches per step, busy share, and the host-to-device
+     copies' overlap with kernels under torch.profiler.  Stage 2: the block
+     objective (``--minibatch``: build, then both stages preprocessed and
+     this phase alone);
   7. [quickstart]: the README quick start and example 06's gauge fixes at
      full width through the port's public API: the counts (the main path's
      draw, 1,918 cycling genes and 130 fillers, a three-class phase label)
@@ -98,7 +112,18 @@ in order; any failure exits non-zero and prints no result line:
      coordinates of the Fisher blocks and the Hessian diagonal, 256 chains
      x (400 + 100), max_depth 6; gates: accept > 0.3, finite draws,
      posterior-mean nu against the SVI locs corr > 0.95, max split R-hat
-     < 1.05.  Each run:
+     < 1.05.  (c) velocity NUTS on fused int16 counts (50 x 500, the
+     Fourier model, Nh = 3, phi_xy and shape_inv conditioned so that
+     velo_fwdgrad runs without the dispersion gradient; MCMCFitModel with
+     a 500-step SVI warm start, 64 chains x (200 + 100), max_depth 5; in a
+     third process); gates: finite draws, accept > 0.5, exactly one K = 64
+     velo_fwdgrad per batched evaluation (R-hat printed, no gate: the
+     kinetic scale ridge).  Before the runs, [velo chains]: the
+     chain-batched velo_fwdgrad and velo_fwd held against their plain
+     versions mapped over the chains and K single launches (K = 1, 4, 64,
+     256, the dispersion gradient both ways, full width at K = 4, 11
+     columns, delta_nu; K = 1 bit-identical) and timed (rows 3'' and 4'').
+     Each run:
      launches by chain count (exactly one per batched potential
      evaluation), evaluations per iteration, wall time, split R-hat and
      ESS, a device profile over four transitions, peak memory;
@@ -119,7 +144,10 @@ in order; any failure exits non-zero and prints no result line:
      logZ and posterior, (b) fewer stages than (a), at 16 x 60 logZ within
      2 nats and posterior-mean nu within 0.2, and exactly one K = 256
      phase_fwd per stage and one K = 256 phase_fwdgrad per batched
-     potential evaluation.  Each run: stages, particle-moves/s, wall time,
+     potential evaluation; then (c) velocity prior tempering at 20 x 200
+     (phases conditioned, shape_inv free), one K = 256 velo_fwd per stage
+     and one velo_fwdgrad per batched evaluation.  Each run: stages,
+     particle-moves/s, wall time,
      host time per evaluation, a device profile over one stage, peak
      memory (``--smc``: build, then this phase alone);
  11. print the kernel table as one JSON line, the nvidia-smi line, and
@@ -152,22 +180,21 @@ VELO_GRAD_RTOL = 5e-4   # max|a-b| / max|a|, tests/test_nb_kernels.py:199
 # with Nh = 5 and no delta_nu (a transcendental or a division counts 1):
 #   common: ElogS dot + cf 11, log_b 1, count convert 1, lp 4, loss 1
 #   fwdgrad: softplus + log sigmoid + sigmoid and its complement 13,
-#            g_elog 3, dlp_da + g_r 5, dcf + ddisp 2, dzeta + dnu
-#            accumulation 20
+#            g_elog 3, dcf + ddisp 2, dzeta + dnu accumulation 20
 #   fwd: softplus + log sigmoid 7
 #   lgamma ratio: Stirling difference 22 (needed where k >= 2), small-k sum
 #                 5 (where k < 2), branch select 2
-#   digamma ratio (fwdgrad): Stirling 10, small-k 3, select 1
+#   the dispersion gradient g_r (disp_grad only): per element on the
+#                 branch its gene and its inputs take,
+#                 tools/kernel_profile.py DISP_OPS (_disp_ops)
 OPS = {
     "common": 18,
-    "fwdgrad": 43,
+    "fwdgrad": 38,
     "fwd": 7,
     "lg_stir": 22, "lg_small": 5, "lg_sel": 2,
-    "dg_stir": 10, "dg_small": 3, "dg_sel": 1,
 }
-# the operations of dlp_da + g_r and its cell sum, which disp_grad=False
-# compiles out
-OPS_DISP = 6
+# the cell sum of g_r, which disp_grad=False compiles out with g_r
+OPS_DISP = 1
 # FP32 operations per (S, U) element pair, counted from csrc/nb_velo.cu with
 # Nh = 5 and no delta_nu; the NB terms as in OPS, once for S and once for U:
 #   common: 2 count converts, ElogS dot + cf 11, dEs 10, x 2, xr 2,
@@ -176,10 +203,11 @@ OPS_DISP = 6
 #            g_elog 3), g_e 1, relu gate + 1/xr 4, g_x * omega 1, dcf 1,
 #            domega 2, dzeta 10, dzeta_dphi 10, dnu terms 15, -gU 1, the
 #            sums over cells of the 7 gene-indexed values 7
-#   disp (disp_grad only): 2 x (dlp_da + g_r 5), g_r sum 1, its cell sum 1
+#   disp (disp_grad only): g_r sum 1, its cell sum 1 (and g_r of S and of
+#         U as in OPS)
 #   fwd: 2 x softplus + log sigmoid 7
-#   lgamma / digamma ratio: per count as in OPS, over S and U
-OPS_VELO = {"common": 43, "fwdgrad": 84, "disp": 12, "fwd": 14}
+#   lgamma ratio: per count as in OPS, over S and U
+OPS_VELO = {"common": 43, "fwdgrad": 84, "disp": 2, "fwd": 14}
 # each basis column past Nh = 5 adds, per element: phase common 2 (the
 # ElogS dot), phase fwdgrad 4 (dzeta and dnu); velocity common 4 (the
 # ElogS and dEs dots), velocity fwdgrad 7 (dzeta 2, dzeta_dphi 2, dnu 3)
@@ -552,6 +580,8 @@ def _time_pair(torch, name, kern, plain, nbytes, nops, card, note,
 
     lib_ms = []
     p1 = TP.event_ms(plain, reps=3)
+    # the plain version's temporaries leave the allocator's cache full
+    torch.cuda.empty_cache()
     k1 = TP.event_ms(kern, reps=20, warmup=2)
     if library is not None:
         lib_ms.append(TP.event_ms(library[1], reps=20, warmup=2))
@@ -576,14 +606,29 @@ def _time_pair(torch, name, kern, plain, nbytes, nops, card, note,
             "library_ms": sum(lib_ms) / len(lib_ms) if lib_ms else None}
 
 
-def _ratio_ops(torch, counts, want_digamma):
-    """lgamma (and digamma) ratio operations over these counts."""
+def _ratio_ops(torch, counts):
+    """(lgamma ratio operations over these counts, share of counts >= 2)."""
     N = sum(K.numel() for K in counts)
     n_ge2 = sum(int((K >= 2).sum()) for K in counts)
     n_lt2 = N - n_ge2
     lg = OPS["lg_stir"] * n_ge2 + OPS["lg_small"] * n_lt2 + OPS["lg_sel"] * N
-    dg = OPS["dg_stir"] * n_ge2 + OPS["dg_small"] * n_lt2 + OPS["dg_sel"] * N
-    return lg, (dg if want_digamma else 0), n_ge2 / N
+    return lg, n_ge2 / N
+
+
+def _disp_ops(torch, kind, counts, params, dnu=None, Db=None):
+    """Operations of the dispersion gradient over these counts (S, or S and
+    U) at one chain's parameters (``kind``'s call order, r last): each
+    element on the branch its gene and its inputs take
+    (kernel_profile.disp_ops at the log-means the plain version forms)."""
+    from velocycle_tpu_torch.ops import nb_kernels as K
+    from velocycle_tpu_torch.tools import kernel_profile as TP
+
+    if kind == "phase":
+        nu, zeta, cf, _ = params
+        elogs = [K._phase_elog(nu, zeta, cf, dnu, Db)]
+    else:
+        elogs = K._velo_elogs(*params[:-1], dnu, Db)[:2]
+    return sum(TP.disp_ops(k, e, params[-1]) for k, e in zip(counts, elogs))
 
 
 def phase_timing(torch, seed, card):
@@ -594,7 +639,8 @@ def phase_timing(torch, seed, card):
     S, nu, zeta, cf, r, dnu, Db = make_inputs(torch, NG, NC, seed)
     lgk = lgamma_k_sum(torch, S)
     N = S.numel()
-    lg, dg, share = _ratio_ops(torch, [S], True)
+    lg, share = _ratio_ops(torch, [S])
+    dg = _disp_ops(torch, "phase", [S], [nu, zeta, cf, r])
     params = 4 * (nu.numel() + zeta.numel() + cf.numel() + r.numel())
     in_bytes = S.numel() * S.element_size() + params
     note = f"{share:.3f} of counts >= 2"
@@ -626,7 +672,7 @@ def velo_timing(torch, seed, card):
     S, U = args[:2]
     lgk = lgamma_k_sum(torch, S, U)
     N = S.numel()
-    lg, _, share = _ratio_ops(torch, [S, U], False)
+    lg, share = _ratio_ops(torch, [S, U])
     params = 4 * sum(t.numel() for t in args[2:])
     in_bytes = 2 * S.numel() * S.element_size() + params
     note = f"{share:.3f} of S and U counts >= 2"
@@ -895,7 +941,8 @@ def phase_main_path(torch, seed, adata, genes, cells, angles, num_steps=50,
     steps_per_s = _steady_state(torch, fit.svi, fit.state, data, "main")
     # what stage 2 needs; the fit's device tensors go with it
     stage1 = types.SimpleNamespace(cycle_fit=fit.cycle_fit,
-                                   phase_fit=fit.phase_fit, params=fit.params)
+                                   phase_fit=fit.phase_fit, params=fit.params,
+                                   mp=mp)
     return launches, steps_per_s, peak, stage1
 
 
@@ -987,7 +1034,7 @@ def velocity_main_path(torch, seed, adata, stage1, num_steps=50,
     del post
     fit.posterior = None
     steps_per_s = _steady_state(torch, fit.svi, fit.state, data, "velo")
-    return launches, steps_per_s, peak
+    return launches, steps_per_s, peak, mp
 
 
 def _write_counts(adata, layers, directory):
@@ -1334,7 +1381,8 @@ def _variant_kernels(torch, seed, card):
     timing = {}
     S, nu, zeta, cf, r, _, _ = make_inputs(torch, NG, NC, seed, nh=W_SPLINE)
     lgk = lgamma_k_sum(torch, S)
-    lg, dg, share = _ratio_ops(torch, [S], True)
+    lg, share = _ratio_ops(torch, [S])
+    dg = _disp_ops(torch, "phase", [S], [nu, zeta, cf, r])
     params = 4 * (nu.numel() + zeta.numel() + cf.numel() + r.numel())
     ops = (OPS["common"] + OPS["fwdgrad"] + extra * (
         OPS_PER_COLUMN["common"] + OPS_PER_COLUMN["fwdgrad"])) * S.numel()
@@ -1348,7 +1396,8 @@ def _variant_kernels(torch, seed, card):
     args = make_velo_inputs(torch, NG, NC, seed, nh=W_SPLINE)[:10]
     S, U = args[:2]
     lgk = lgamma_k_sum(torch, S, U)
-    lg, dg, share = _ratio_ops(torch, [S, U], True)
+    lg, share = _ratio_ops(torch, [S, U])
+    dg = _disp_ops(torch, "velo", [S, U], args[2:])
     params = 4 * sum(t.numel() for t in args[2:])
     ops = (OPS_VELO["common"] + OPS_VELO["fwdgrad"] + OPS_VELO["disp"]
            + extra * (OPS_PER_COLUMN["velo_common"]
@@ -1564,76 +1613,112 @@ MCMC_B = dict(Nc=500, Ng=50, sim_seed=13, chains=256, warmup=400, samples=100,
               svi_fit=500, max_depth=6, init_jitter=2.0)
 MCMC_NH = 3
 
+# the fused velocity samplers' shapes: [mcmc] (c) (bench.py's `nuts` draw,
+# 50 x 500, 64 chains) and [smc] (c) (20 x 200, 256 particles), Nh = 3
+VELO_MCMC = dict(Nc=500, Ng=50, sim_seed=13, chains=64, warmup=200,
+                 samples=100, svi_fit=500, max_depth=5, init_jitter=1.0)
+VELO_SMC = dict(Nc=200, Ng=20, sim_seed=14, chains=256, num_moves=2,
+                target_ess=0.35, max_stages=60, svi_steps=0)
 
-def _chain_inputs(torch, Ng, Nc, K, seed, batched, nh=MCMC_NH):
-    """make_inputs' operands with a leading chain axis K on those named in
-    ``batched`` (of "nu", "zeta", "cf", "r"): seeded perturbations per
-    chain.  Returns (S, nu, zeta, cf, r) and the unbatched originals."""
-    S, nu, zeta, cf, r, _, _ = make_inputs(torch, Ng, Nc, seed, nh=nh)
+
+# the chain operands of each kernel pair after the counts, in call order
+# (delta_nu, "dnu", then Db follow), each with its rank unbatched
+CHAIN_OPERANDS = {
+    "phase": (("nu", 2), ("zeta", 2), ("cf", 1), ("r", 1)),
+    "velo": (("nu", 2), ("zeta", 2), ("zdphi", 2), ("cf", 1), ("omega", 1),
+             ("lbeta", 1), ("lgamma", 1), ("r", 1)),
+}
+
+
+def _chain_inputs(torch, Ng, Nc, K, seed, batched, nh=MCMC_NH, kind="phase",
+                  Nb=0):
+    """make_inputs' (``kind="velo"``: make_velo_inputs') operands with a
+    leading chain axis K on those named in ``batched`` (of
+    CHAIN_OPERANDS[kind] and "dnu"): seeded perturbations per chain.
+    Returns (counts, the parameters in call order with delta_nu last (None
+    without Nb), Db)."""
+    if kind == "velo":
+        *vals, dnu, Db = make_velo_inputs(torch, Ng, Nc, seed, Nb=Nb, nh=nh)
+        counts, vals = vals[:2], vals[2:]
+    else:
+        S, *vals, dnu, Db = make_inputs(torch, Ng, Nc, seed, Nb=Nb, nh=nh)
+        counts = [S]
+    names = [n for n, _ in CHAIN_OPERANDS[kind]] + ["dnu"]
+    out = dict(zip(names, vals + [dnu]))
     g = torch.Generator(device="cuda")
     g.manual_seed(seed + 5)
-    out = {"nu": nu, "zeta": zeta, "cf": cf, "r": r}
     for name in batched:
         x = out[name][None].repeat((K,) + (1,) * out[name].dim())
         x = x + 0.05 * torch.randn(x.shape, generator=g, device="cuda")
         out[name] = x.abs() + 0.05 if name == "r" else x
-    return S, out["nu"], out["zeta"], out["cf"], out["r"]
+    return counts, [out[n] for n in names], Db
 
 
 def _chain(t, c, base_dim):
+    if t is None:
+        return None
     return t[c] if t.dim() > base_dim else t
 
 
 def _batched_parity_case(torch, tag, Ng, Nc, K, batched, seed, want_disp,
-                         nh=MCMC_NH, plain_batched=True, mode="fwdgrad"):
-    """The chain-batched phase_fwdgrad (or, ``mode="fwd"``, phase_fwd)
-    against its plain version (batched, or chain by chain where a batched
-    plain call would not fit) and against K unbatched launches.  Returns
-    (max abs error, max loss rel error) over the chains and both
-    references."""
+                         nh=MCMC_NH, plain_batched=True, mode="fwdgrad",
+                         kind="phase", Nb=0):
+    """The chain-batched ``kind``_fwdgrad (or, ``mode="fwd"``, _fwd, of the
+    phase or velocity pair) against its plain version (over the chain
+    batch, or chain by chain where a batched plain call would not fit) and
+    against K unbatched launches.  Returns (max abs error, max loss rel
+    error) over the chains and both references."""
     from velocycle_tpu_torch.ops import nb_kernels as K_
 
     grad = mode == "fwdgrad"
-    name = f"phase_{mode}"
+    name = f"{kind}_{mode}"
     kern = getattr(K_, name)
-    plain = getattr(K_, f"{name}_plain")
+    plain_one = getattr(K_, f"{name}_plain")
+    plain_chains = K_._CHAINS[plain_one]
+    grad_names = PHASE_GRADS if kind == "phase" else VELO_GRADS
+    rtol = GRAD_RTOL if kind == "phase" else VELO_GRAD_RTOL
     kw = {"want_disp": want_disp} if grad else {}
 
     def split(out):   # (loss, grads) either way
         return out if grad else (out, ())
 
-    S, nu, zeta, cf, r = _chain_inputs(torch, Ng, Nc, K, seed, batched, nh)
-    lgk = lgamma_k_sum(torch, S)
-    args = (S, nu, zeta, cf, r, None, None, lgk)
+    counts, params, Db = _chain_inputs(torch, Ng, Nc, K, seed, batched, nh,
+                                       kind, Nb)
+    dims = [d for _, d in CHAIN_OPERANDS[kind]] + [2]
+    lgk = lgamma_k_sum(torch, *counts)
+
+    def call(fn, ps):
+        return split(fn(*counts, *ps, Db, lgamma_k_sum=lgk, **kw))
+
     K_.reset_launch_counts()
-    kl, kg = split(kern(*args, **kw))
+    kl, kg = call(kern, params)
     check(K_.LAUNCH_CHAINS[name] == {K: 1},
           f"{tag}: {K_.LAUNCH_CHAINS[name]} launches, want one of {K} chains")
     if plain_batched:
-        pl, pg = split(plain(*args, **kw))
+        pl, pg = call(plain_chains, params)
     worst, lrel_max, oks = 0.0, 0.0, []
-    dims = (2, 2, 1, 1)
     for c in range(K):
-        one = [_chain(t, c, d) for t, d in zip((nu, zeta, cf, r), dims)]
-        sl, sg = split(kern(S, *one, None, None, lgk, **kw))
+        one = [_chain(t, c, d) for t, d in zip(params, dims)]
+        sl, sg = call(kern, one)
         if plain_batched:
             refs = [(pl[c], [None if x is None else x[c] for x in pg])]
         else:
-            refs = [split(plain(S, *one, None, None, lgk, **kw))]
+            refs = [call(plain_one, one)]
         refs.append((sl, sg))
         for ref_l, ref_g in refs:
             lrel = abs(float(kl[c]) - float(ref_l)) / max(abs(float(ref_l)), 1.0)
             lrel_max = max(lrel_max, lrel)
             worst = max(worst, abs(float(kl[c]) - float(ref_l)) if not grad else 0.0)
             oks.append(lrel < LOSS_RTOL)
-            for gname, a, b in zip(PHASE_GRADS, kg, ref_g):
+            for gname, a, b in zip(grad_names, kg, ref_g):
                 if b is None:
+                    oks.append(a is None)
                     continue
                 worst = max(worst, float((a[c] - b).abs().max()))
                 if float(b.abs().max()) == 0.0:
                     oks.append(float(a[c].abs().max()) == 0.0)
                 else:
-                    oks.append(_rel(a[c], b) < GRAD_RTOL)
+                    oks.append(_rel(a[c], b) < rtol)
         if K == 1:   # the batched launch at K = 1 is the unbatched one
             same = torch.equal(kl[0], sl) and all(
                 (a is None and b is None) or torch.equal(a[0], b)
@@ -1672,16 +1757,6 @@ def mcmc_kernel_parity(torch, seed):
     return {"max_abs_err": worst, "loss_rel_err": lrel}
 
 
-def _fwdgrad_ops(torch, S, nh, want_disp):
-    """FP32 operations of one phase_fwdgrad over these counts at nh basis
-    columns (OPS at Nh = 5 less OPS_PER_COLUMN per missing column; without
-    the dispersion gradient, less dlp_da + g_r and its cell sum)."""
-    lg, dg, share = _ratio_ops(torch, [S], want_disp)
-    per = (OPS["common"] + OPS["fwdgrad"] - (0 if want_disp else OPS_DISP)
-           - (NH - nh) * (OPS_PER_COLUMN["common"] + OPS_PER_COLUMN["fwdgrad"]))
-    return per * S.numel() + lg + dg, share
-
-
 def _kernel_device_ms(torch, fn, n=20):
     """Device time per call of ``fn`` spent in the port's own kernels (the
     events named vct::..., torch.profiler over ``n`` calls): at small
@@ -1704,48 +1779,75 @@ def _kernel_device_ms(torch, fn, n=20):
     return total / n / 1e3 if total else None
 
 
+def _batched_ops(torch, kind, mode, counts, chains, Db, nh, wd):
+    """(FP32 operations of ``kind``_``mode`` over these counts at nh basis
+    columns for every chain of ``chains`` (each its parameters in call
+    order, delta_nu last), share of counts >= 2): OPS / OPS_VELO at Nh = 5
+    less OPS_PER_COLUMN per missing column; with the dispersion gradient,
+    its operations counted chain by chain on each element's branch."""
+    grad = mode == "fwdgrad"
+    lg, share = _ratio_ops(torch, counts)
+    N = counts[0].numel()
+    if kind == "phase":
+        cols = OPS_PER_COLUMN["common"] + (
+            OPS_PER_COLUMN["fwdgrad"] if grad else 0)
+        per = (OPS["common"] - (NH - nh) * cols
+               + (OPS["fwdgrad"] - (0 if wd else OPS_DISP) if grad
+                  else OPS["fwd"]))
+    else:
+        cols = OPS_PER_COLUMN["velo_common"] + (
+            OPS_PER_COLUMN["velo_fwdgrad"] if grad else 0)
+        per = (OPS_VELO["common"] - (NH - nh) * cols
+               + (OPS_VELO["fwdgrad"] + (OPS_VELO["disp"] if wd else 0)
+                  if grad else OPS_VELO["fwd"]))
+    ops = len(chains) * (per * N + lg)
+    if grad and wd:
+        ops += sum(_disp_ops(torch, kind, counts, o[:-1], o[-1], Db)
+                   for o in chains)
+    return ops, share
+
+
 def _batched_timing(torch, seed, card, cfg, batched, mode, wd=False,
-                    nh=MCMC_NH):
-    """One chain-batched launch of phase_``mode`` against K unbatched
+                    nh=MCMC_NH, kind="phase"):
+    """One chain-batched launch of ``kind``_``mode`` against K unbatched
     launches at ``cfg``'s shape, each beside its bound (bytes: the counts
-    once, every chain's operands and results; operations: K times one
+    once, every chain's operands and results; operations: every
     chain's) and the batched plain version.  No PyTorch call computes this
     function: no library column."""
     from velocycle_tpu_torch.ops import nb_kernels as K_
     from velocycle_tpu_torch.tools import kernel_profile as TP
 
     grad = mode == "fwdgrad"
-    name = f"phase_{mode}"
+    name = f"{kind}_{mode}"
     kern = getattr(K_, name)
-    plain = getattr(K_, f"{name}_plain")
+    plain = K_._CHAINS[getattr(K_, f"{name}_plain")]
     kw = {"want_disp": wd} if grad else {}
     Ng, Nc, Kc = cfg["Ng"], cfg["Nc"], cfg["chains"]
-    S, nu, zeta, cf, r = _chain_inputs(torch, Ng, Nc, Kc, seed, batched, nh)
-    lgk = lgamma_k_sum(torch, S)
-    dims = (2, 2, 1, 1)
-    if grad:
-        ops, share = _fwdgrad_ops(torch, S, nh, wd)
-        outs = Kc * (Ng * nh + Nc * nh + Nc + Ng)
-    else:
-        lg, _, share = _ratio_ops(torch, [S], False)
-        ops = ((OPS["common"] + OPS["fwd"]
-                - (NH - nh) * OPS_PER_COLUMN["common"]) * S.numel() + lg)
-        outs = 0
-    ops *= Kc
-    nbytes = (S.numel() * S.element_size()
-              + 4 * sum(t.numel() for t in (nu, zeta, cf, r)) + 4 * outs
-              + 4 * Kc)
-    ops_one = [[_chain(t, c, d) for t, d in zip((nu, zeta, cf, r), dims)]
+    counts, params, Db = _chain_inputs(torch, Ng, Nc, Kc, seed, batched, nh,
+                                       kind)
+    lgk = lgamma_k_sum(torch, *counts)
+    dims = [d for _, d in CHAIN_OPERANDS[kind]] + [2]
+    # the gradients: one per operand (the velocity pair's log_gamma
+    # included), each the operand's unbatched size
+    outs = Kc * sum(Ng * nh if d == 2 and n == "nu" else
+                    Nc * nh if d == 2 else (Ng if n in ("r", "lbeta", "lgamma")
+                                            else Nc)
+                    for n, d in CHAIN_OPERANDS[kind]) if grad else 0
+    nbytes = (sum(S.numel() * S.element_size() for S in counts)
+              + 4 * sum(t.numel() for t in params if t is not None)
+              + 4 * outs + 4 * Kc)
+    ops_one = [[_chain(t, c, d) for t, d in zip(params, dims)]
                for c in range(Kc)]
+    ops, share = _batched_ops(torch, kind, mode, counts, ops_one, Db, nh, wd)
 
     def batched_call():
-        return kern(S, nu, zeta, cf, r, None, None, lgk, **kw)
+        return kern(*counts, *params, Db, lgamma_k_sum=lgk, **kw)
 
     def single_calls():
-        return [kern(S, *o, None, None, lgk, **kw) for o in ops_one]
+        return [kern(*counts, *o, Db, lgamma_k_sum=lgk, **kw) for o in ops_one]
 
     def plain_call():
-        return plain(S, nu, zeta, cf, r, None, None, lgk, **kw)
+        return plain(*counts, *params, Db, lgamma_k_sum=lgk, **kw)
 
     s1 = TP.event_ms(single_calls, reps=3)
     b1 = TP.event_ms(batched_call, reps=20, warmup=2)
@@ -1767,7 +1869,7 @@ def _batched_timing(torch, seed, card, cfg, batched, mode, wd=False,
           f"{ops / 1e9:.3f} GFLOP, {share:.3f} of counts >= 2), "
           f"{bound / ms:.1%} of bound; its kernels' device time per launch "
           f"(torch.profiler) {dev_note}; library_ms: none")
-    del S, nu, zeta, cf, r, ops_one
+    del counts, params, ops_one
     torch.cuda.empty_cache()
     return {"chains": Kc, "shape": [Ng, Nc], "ms": ms, "device_ms": dev_ms,
             "single_launches_ms": single, "plain_ms": p1, "bound_ms": bound,
@@ -1878,13 +1980,14 @@ def _eval_ms(torch, info, q, n=20):
     return (time.perf_counter() - t0) / n * 1e3
 
 
-def _mcmc_report(tag, K_, counter, iters, dt, chains, samples, card):
+def _mcmc_report(tag, K_, counter, iters, dt, chains, samples, card,
+                 kind="phase"):
     """Print and check one run's launches: exactly one chain-batched
-    phase_fwdgrad launch per batched potential evaluation."""
-    by_k = dict(K_.LAUNCH_CHAINS["phase_fwdgrad"])
+    ``kind``_fwdgrad launch per batched potential evaluation."""
+    by_k = dict(K_.LAUNCH_CHAINS[f"{kind}_fwdgrad"])
     batched = by_k.get(chains, 0)
-    print(f"[mcmc] {tag}: phase_fwdgrad launches by chain count {by_k}, "
-          f"phase_fwd {K_.LAUNCHES['phase_fwd']}; {counter.calls} batched "
+    print(f"[mcmc] {tag}: {kind}_fwdgrad launches by chain count {by_k}, "
+          f"{kind}_fwd {K_.LAUNCHES[f'{kind}_fwd']}; {counter.calls} batched "
           f"potential evaluations over {iters} iterations "
           f"({counter.calls / iters:.1f} per iteration); wall {dt:.1f} s, "
           f"{chains * samples / dt:.1f} samples/s on {card}")
@@ -1982,6 +2085,97 @@ def mcmc_wrapped(torch, seed, card, cfg=MCMC_A, device="cuda"):
             "accept": d["accept_rate"], "max_split_rhat": d["max_split_rhat"],
             "min_ess": d["min_ess"], "median_ess": d["median_ess"],
             "circ_corr": cc, "peak_gib": peak / 2**30, "busy": busy}
+
+
+def _velo_sim(torch, cfg, seed, device):
+    """bench.py's `_sim` draw of ``cfg``'s size, preprocessed for the fused
+    velocity kernels: the Fourier model, one harmonic (Nh = 3) and one for
+    the angular speed, int16 S and U."""
+    from velocycle_tpu_torch import (
+        AngularSpeed, preprocess_for_velocity_estimation,
+    )
+
+    adata, cycle, phases = _mcmc_sim(torch, cfg, seed)
+    speed = AngularSpeed.trivial_prior(["c0"], harmonics=1, means=0.2,
+                                       stds=0.5)
+    mp = preprocess_for_velocity_estimation(
+        adata, cycle, phases, speed, n_harmonics=1, omega_n_harmonics=1,
+        with_delta_nu=False, model_type="fourier", use_fused_nb=True,
+        device=device)
+    check(mp.data.S.dtype == torch.int16 and mp.data.U.dtype == torch.int16,
+          "velocity counts not int16")
+    return adata, mp
+
+
+def mcmc_velocity(torch, seed, card, cfg=VELO_MCMC, device="cuda"):
+    """(c) velocity NUTS on fused int16 counts: bench.py's `nuts` draw (50
+    x 500), phi_xy and shape_inv conditioned (the simulated dispersions),
+    so velo_fwdgrad runs without the dispersion gradient; MCMCFitModel with
+    a 500-step SVI warm start, 64 chains x (200 warmup + 100 draws),
+    max_depth 5.  Gates: finite draws, accept > 0.5, exactly one K = 64
+    velo_fwdgrad per batched potential evaluation besides the single
+    launches of the warm start and the baselines.  Split R-hat and ESS are
+    printed without a gate: the (beta, gamma, omega) scale ridge is bounded
+    by the priors alone."""
+    import numpy as np
+
+    from velocycle_tpu_torch import MCMCFitModel
+    from velocycle_tpu_torch.ops import nb_kernels as K_
+
+    t0 = time.perf_counter()
+    adata, mp = _velo_sim(torch, cfg, seed, device)
+    cond = {"phi_xy": mp.data.phixy_prior,
+            "shape_inv": np.asarray(adata.var["simulated_shape_inv"],
+                                    np.float32)}
+    fm = MCMCFitModel(mp, condition_on=cond, num_chains=cfg["chains"],
+                      num_warmup=cfg["warmup"], num_samples=cfg["samples"],
+                      svi_steps=cfg["svi_fit"], max_depth=cfg["max_depth"],
+                      init_jitter=cfg["init_jitter"])
+    check(not fm.metaparams.data.disp_grad, "(c): the dispersion gradient on")
+    print(f"[mcmc] (c) set-up: simulate, preprocess: "
+          f"{time.perf_counter() - t0:.1f} s on {card}")
+    torch.cuda.reset_peak_memory_stats()
+    K_.reset_launch_counts()
+    with _EvalCounter() as counter:
+        t0 = time.perf_counter()
+        fm.run(seed + 11)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    iters = cfg["warmup"] + cfg["samples"]
+    by_k = _mcmc_report("(c) velocity nuts", K_, counter, iters, dt,
+                        cfg["chains"], cfg["samples"], card, kind="velo")
+    check(set(by_k) <= {1, cfg["chains"]}
+          and by_k.get(1, 0) >= cfg["svi_fit"],
+          f"(c): launches by chain count {by_k}")
+    check(K_.LAUNCH_CHAINS["phase_fwdgrad"] == {}, "(c): a phase launch")
+    d = fm.diagnostics
+    summ = fm.summary
+    print("[mcmc] (c): max split R-hat by site (no gate) "
+          + ", ".join(f"{k} {np.nanmax(v['rhat']):.4f} (median "
+                      f"{np.nanmedian(v['rhat']):.4f})" for k, v in summ.items()))
+    draws = fm.mcmc.get_samples()
+    print(f"[mcmc] (c): accept {d['accept_rate']:.4f}, max split R-hat "
+          f"{d['max_split_rhat']:.4f}, min ESS {d['min_ess']:.1f}, median ESS "
+          f"{d['median_ess']:.1f} of {cfg['chains'] * cfg['samples']} draws; "
+          f"peak device memory {peak / 2**30:.3f} GiB on {card}")
+    check(all(np.isfinite(v).all() for v in draws.values()),
+          "(c): non-finite draws")
+    check(d["accept_rate"] > 0.5, f"(c): accept rate {d['accept_rate']}")
+    info = fm.mcmc.model_info
+    q = fm.mcmc._samples_u[:, -1].contiguous()
+    busy = _device_profile(torch, lambda: _nuts_transitions(info, q, cfg),
+                           "mcmc", 4, "NUTS transition")
+    ev = _eval_ms(torch, info, q)
+    print(f"[mcmc] (c): per leapfrog {dt / counter.calls * 1e3:.2f} ms of "
+          f"wall (run incl. warm start), of it {ev:.2f} ms one batched "
+          f"evaluation alone (host clock) on {card}")
+    return {"launches": by_k, "evals": counter.calls, "iters": iters,
+            "wall_s": dt, "samples_per_s": cfg["chains"] * cfg["samples"] / dt,
+            "accept": d["accept_rate"], "max_split_rhat": d["max_split_rhat"],
+            "min_ess": d["min_ess"], "median_ess": d["median_ess"],
+            "peak_gib": peak / 2**30, "busy": busy,
+            "leapfrog_ms": dt / counter.calls * 1e3, "eval_ms": ev}
 
 
 def _nuts_transitions(info, q, cfg):
@@ -2117,11 +2311,74 @@ def mcmc_kernels(torch, seed, card):
     return parity, timing
 
 
+def velo_chain_kernels(torch, seed, card):
+    """[parity] and [timing] of the chain-batched velocity pair (rows 3''
+    and 4''), before any fit: K in {1, 4, 64, 256} with the dispersion
+    gradient on and off at [mcmc] (c)'s and [smc] (c)'s shapes, full width
+    at K = 4, the spline basis' 11 columns, delta_nu, and K = 1
+    bit-identical to the unbatched launch; then one batched launch timed
+    against K single launches, the batched plain version and the bound."""
+    t0 = time.perf_counter()
+    m, q = VELO_MCMC, VELO_SMC
+    genes = ("nu", "lbeta", "lgamma", "r")
+    cells = ("zeta", "zdphi", "cf", "omega")
+    cases = []
+    for mode in ("fwdgrad", "fwd"):
+        wds = (True, False) if mode == "fwdgrad" else (False,)
+        for wd in wds:
+            cases += [
+                (f"(mcmc c) {m['Ng']}x{m['Nc']} K={m['chains']}", m["Ng"],
+                 m["Nc"], m["chains"], ("nu", "lbeta", "lgamma"), wd, mode,
+                 {}),
+                (f"(smc c) {q['Ng']}x{q['Nc']} K={q['chains']}", q["Ng"],
+                 q["Nc"], q["chains"], genes, wd, mode, {}),
+                (f"{m['Ng']}x{m['Nc']} K=4", m["Ng"], m["Nc"], 4,
+                 genes + cells, wd, mode, {}),
+                (f"full {NG}x{NC} K=1", NG, NC, 1, ("nu", "zeta"), wd, mode,
+                 dict(nh=NH, plain_batched=False)),
+            ]
+        cases += [
+            (f"full {NG}x{NC} K=4", NG, NC, 4, ("nu", "r", "omega"), True,
+             mode, dict(nh=NH, plain_batched=False)),
+            (f"Nh={W_SPLINE} 257x3001 K=4", 257, 3001, 4, genes + ("zeta",),
+             True, mode, dict(nh=W_SPLINE)),
+            ("delta_nu Nb=2 257x3001 K=4", 257, 3001, 4, ("nu", "dnu"), True,
+             mode, dict(Nb=2)),
+        ]
+    parity = {}
+    for tag, Ng, Nc, Kc, batched, wd, mode, kw in cases:
+        parity[(mode, tag, wd)] = _batched_parity_case(
+            torch, tag, Ng, Nc, Kc, batched, seed, wd, mode=mode, kind="velo",
+            **kw)
+        torch.cuda.empty_cache()
+    timing = {
+        "velo_fwdgrad": {
+            "mcmc_c": _batched_timing(torch, seed, card, m,
+                                      ("nu", "lbeta", "lgamma"), "fwdgrad",
+                                      False, kind="velo"),
+            "smc_c": _batched_timing(torch, seed, card, q, genes, "fwdgrad",
+                                     True, kind="velo")},
+        "velo_fwd": {"smc_c": _batched_timing(torch, seed, card, q, genes,
+                                              "fwd", kind="velo")},
+    }
+    print(f"[velo chains] batched kernel parity and timing: "
+          f"{time.perf_counter() - t0:.1f} s")
+    out = {}
+    for name in ("velo_fwdgrad", "velo_fwd"):
+        errs = [v for (mode, _, _), v in parity.items()
+                if name == f"velo_{mode}"]
+        out[name] = {"batched_parity": {"max_abs_err": max(e[0] for e in errs),
+                                        "loss_rel_err": max(e[1] for e in errs)},
+                     "batched_timing": timing[name]}
+    return out
+
+
 # the sampler is host-bound (PERF.md section 5): each run has a process of
 # its own, on the card beside [quickstart] and [variants], so that the
 # script takes the longest of them and not their sum (in turn it ran past
 # the time limit on a slow host); ``--mcmc`` runs them alone, in turn
-MCMC_RUNS = {"a": ("mcmc_wrapped", MCMC_A), "b": ("mcmc_genes", MCMC_B)}
+MCMC_RUNS = {"a": ("mcmc_wrapped", MCMC_A), "b": ("mcmc_genes", MCMC_B),
+             "c": ("mcmc_velocity", VELO_MCMC)}
 
 
 def _mcmc_child(tag, seed, card, cfg, device):
@@ -2176,16 +2433,41 @@ def finish_mcmc_runs(pool, pending, timeout=1100):
         pool.join()
 
 
+def _add_launches(total, by_k):
+    for k, n in by_k.items():
+        total[str(k)] = total.get(str(k), 0) + n
+    return total
+
+
+def _strip(run):
+    return {k: v for k, v in run.items() if k != "launches"}
+
+
 def mcmc_row(parity, timing, runs):
-    """phase_fwdgrad's row additions from [mcmc]."""
+    """phase_fwdgrad's row additions from [mcmc]'s phase runs (a), (b)."""
     launches = {}
-    for r in runs.values():
-        for k, n in r["launches"].items():
-            launches[str(k)] = launches.get(str(k), 0) + n
+    for tag in ("a", "b"):
+        _add_launches(launches, runs[tag]["launches"])
     return {"mcmc_launches_by_chains": launches,
             "batched_parity": parity, "batched_timing": timing,
-            "mcmc_runs": {k: {kk: vv for kk, vv in v.items() if kk != "launches"}
-                          for k, v in runs.items()}}
+            "mcmc_runs": {k: _strip(runs[k]) for k in ("a", "b")}}
+
+
+def velo_rows(chain_kernels, mcmc_run, smc_run_):
+    """velo_fwdgrad's and velo_fwd's row additions (rows 4'' and 3''): the
+    chain-batched pair's parity and timing, and [mcmc] (c)'s and [smc]
+    (c)'s launches by chain count and numbers."""
+    grad = _add_launches({}, mcmc_run["launches"])
+    _add_launches(grad, smc_run_["launches"]["velo_fwdgrad"])
+    return {
+        "velo_fwdgrad": {**chain_kernels["velo_fwdgrad"],
+                         "chain_launches_by_chains": grad,
+                         "mcmc_runs": {"c": _strip(mcmc_run)},
+                         "smc_runs": {"c": _strip(smc_run_)}},
+        "velo_fwd": {**chain_kernels["velo_fwd"],
+                     "chain_launches_by_chains": _add_launches(
+                         {}, smc_run_["launches"]["velo_fwd"])},
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -2260,13 +2542,14 @@ def _smc_data(torch, cfg, seed, device):
 
 
 def smc_run(torch, seed, card, tag, cfg, mp, svi_steps, max_stages,
-            target_ess, run_seed, device="cuda"):
+            target_ess, run_seed, device="cuda", kind="phase"):
     """One SMCFitModel run on ``mp`` (phases conditioned), its launches
-    counted: exactly one chain-batched phase_fwd per stage (its
+    counted: exactly one chain-batched ``kind``_fwd per stage (its
     log-likelihood or log ratio over the particles), one chain-batched
-    phase_fwdgrad per batched potential evaluation (1 + num_moves x
-    leapfrog per stage) and, in prior tempering, one single phase_fwd in
-    all (the prior draws compute no likelihood).  Returns its numbers and the fit."""
+    ``kind``_fwdgrad per batched potential evaluation (1 + num_moves x
+    leapfrog per stage) and, in prior tempering, one single ``kind``_fwd in
+    all (the prior draws compute no likelihood).  Returns its numbers and
+    the fit."""
     import numpy as np
 
     from velocycle_tpu_torch import SMCFitModel
@@ -2287,27 +2570,27 @@ def smc_run(torch, seed, card, tag, cfg, mp, svi_steps, max_stages,
     peak = torch.cuda.max_memory_allocated()
     sched = fm.temperature_schedule
     stages = len(sched)
-    fwd_k = dict(K_.LAUNCH_CHAINS["phase_fwd"])
-    grad_k = dict(K_.LAUNCH_CHAINS["phase_fwdgrad"])
+    fwd_k = dict(K_.LAUNCH_CHAINS[f"{kind}_fwd"])
+    grad_k = dict(K_.LAUNCH_CHAINS[f"{kind}_fwdgrad"])
     per_stage = 1 + moves * SMC_LEAPFROG
     print(f"[smc] {tag}: {stages} stages, beta {', '.join(f'{b:.4g}' for b in sched)}; "
-          f"logZ {fm.log_evidence:.3f}; phase_fwd launches by chain count "
-          f"{fwd_k}, phase_fwdgrad {grad_k}, {counter.calls} batched "
+          f"logZ {fm.log_evidence:.3f}; {kind}_fwd launches by chain count "
+          f"{fwd_k}, {kind}_fwdgrad {grad_k}, {counter.calls} batched "
           f"potential evaluations; wall {dt:.2f} s, "
           f"{n * stages * moves / dt:.1f} particle-moves/s, peak device "
           f"memory {peak / 2**30:.3f} GiB on {card}")
     check(fwd_k.get(n, 0) == stages,
-          f"{tag}: {fwd_k.get(n, 0)} phase_fwd launches of {n} chains for "
+          f"{tag}: {fwd_k.get(n, 0)} {kind}_fwd launches of {n} chains for "
           f"{stages} stages")
     check(grad_k.get(n, 0) == counter.calls == stages * per_stage,
-          f"{tag}: {grad_k.get(n, 0)} phase_fwdgrad launches of {n} chains "
+          f"{tag}: {grad_k.get(n, 0)} {kind}_fwdgrad launches of {n} chains "
           f"for {counter.calls} batched evaluations ({per_stage} per stage)")
     check(set(fwd_k) <= {1, n} and set(grad_k) <= {1, n},
           f"{tag}: launches by chain count {fwd_k}, {grad_k}")
     # prior tempering: the one single launch is init_model's first trace;
     # the prior draws stop short of the likelihood
     check(svi_steps or fwd_k.get(1, 0) == 1,
-          f"{tag}: {fwd_k.get(1, 0)} single phase_fwd launches, not 1")
+          f"{tag}: {fwd_k.get(1, 0)} single {kind}_fwd launches, not 1")
     check(sched[-1] == 1.0 and bool((np.diff(sched) > 0).all()),
           f"{tag}: temperature schedule {sched}")
     check(np.isfinite(fm.log_evidence), f"{tag}: log evidence {fm.log_evidence}")
@@ -2316,7 +2599,7 @@ def smc_run(torch, seed, card, tag, cfg, mp, svi_steps, max_stages,
     return fm, {"stages": stages, "log_evidence": fm.log_evidence,
                 "wall_s": dt, "particle_moves_per_s": n * stages * moves / dt,
                 "evals": counter.calls,
-                "launches": {"phase_fwd": fwd_k, "phase_fwdgrad": grad_k},
+                "launches": {f"{kind}_fwd": fwd_k, f"{kind}_fwdgrad": grad_k},
                 "peak_gib": peak / 2**30}
 
 
@@ -2370,6 +2653,7 @@ def phase_smc(torch, seed, card, device="cuda"):
     check(out["b"]["stages"] < out["a"]["stages"],
           f"[smc]: the bridge took {out['b']['stages']} stages, prior "
           f"tempering {out['a']['stages']}")
+    out["c"] = smc_velocity(torch, seed, card, device)
     t0 = time.perf_counter()
     mp = _smc_data(torch, SMC_CHECK, seed, device)
     prior, rp = smc_run(torch, seed, card, "(check) prior", SMC_CHECK, mp, 0,
@@ -2390,17 +2674,33 @@ def phase_smc(torch, seed, card, device="cuda"):
     return out
 
 
+def smc_velocity(torch, seed, card, device="cuda"):
+    """[smc] (c): velocity prior tempering on fused int16 counts, 20 x 200,
+    256 particles, the phases conditioned and shape_inv free (velo_fwdgrad
+    with the dispersion gradient), max_stages 60: one K = 256 velo_fwd per
+    stage, one K = 256 velo_fwdgrad per batched evaluation."""
+    t0 = time.perf_counter()
+    cfg = VELO_SMC
+    _, mp = _velo_sim(torch, cfg, seed, device)
+    check(mp.data.disp_grad, "(c): the dispersion gradient off")
+    fm, res = smc_run(torch, seed, card, "(c) velocity smc", cfg, mp,
+                      cfg["svi_steps"], cfg["max_stages"], cfg["target_ess"],
+                      seed + 5, device, kind="velo")
+    res.update(_smc_host_and_device(torch, fm, "(c)", card))
+    print(f"[smc] (c) in all, data included: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    return res
+
+
 def smc_row(parity, timing, runs):
     """phase_fwd's row additions from [smc] (row 1'' of PERF.md)."""
     launches = {}
     for r in (runs["a"], runs["b"], runs["check"]["prior"],
               runs["check"]["bridged"]):
-        for k, n in r["launches"]["phase_fwd"].items():
-            launches[str(k)] = launches.get(str(k), 0) + n
+        _add_launches(launches, r["launches"]["phase_fwd"])
     return {"smc_launches_by_chains": launches,
             "batched_parity": parity, "batched_timing": timing,
-            "smc_runs": {k: {kk: vv for kk, vv in v.items() if kk != "launches"}
-                         for k, v in runs.items() if k != "check"},
+            "smc_runs": {k: _strip(runs[k]) for k in ("a", "b")},
             "smc_check": {k: runs["check"][k] for k in ("dlogZ", "dnu")}}
 
 
@@ -2410,10 +2710,12 @@ def profile_steps(torch, svi, state, data, tag, n=5):
                     tag, n, "step")
 
 
-def phase_digest(torch, seed):
-    """sha256 of phase_fwdgrad's and phase_fwd's outputs on the main path's
-    full-width inputs: equal digests from two checkouts mean bit-identical
-    results.  Uses only what every version of the port has."""
+def kernel_digest(torch, seed):
+    """sha256 of phase_fwdgrad's, phase_fwd's, velo_fwdgrad's and
+    velo_fwd's outputs on the main path's full-width inputs (the
+    dispersion gradient on): equal digests from two checkouts mean
+    bit-identical results.  Uses only the public kernel functions, whose
+    signatures every version of the port shares."""
     import hashlib
 
     from velocycle_tpu_torch.ops import nb_kernels as K
@@ -2424,30 +2726,329 @@ def phase_digest(torch, seed):
                                   want_disp=True)
     outs = {"phase_fwdgrad": [loss, *(g for g in grads if g is not None)],
             "phase_fwd": [K.phase_fwd(S, nu, zeta, cf, r, None, None, lgk)]}
+    del S, nu, zeta, cf, r, loss, grads
+    args = make_velo_inputs(torch, NG, NC, seed)[:10]
+    lgk = lgamma_k_sum(torch, *args[:2])
+    loss, grads = K.velo_fwdgrad(*args, None, None, lgk, want_disp=True)
+    outs["velo_fwdgrad"] = [loss, *(g for g in grads if g is not None)]
+    outs["velo_fwd"] = [K.velo_fwd(*args, None, None, lgk)]
     for name, tensors in outs.items():
         h = hashlib.sha256()
         for t in tensors:
             h.update(t.detach().contiguous().cpu().numpy().tobytes())
-        what = "loss and gradients" if len(tensors) > 1 else "loss"
+        what = ("loss and gradients, disp_grad on" if len(tensors) > 1
+                else "loss")
         print(f"[digest] {name} @ {NG}x{NC} int16 ({what}): "
               f"sha256 {h.hexdigest()}")
+    del args, outs
+    torch.cuda.empty_cache()
 
 
-def _stages(torch, seed):
-    """Both stages at full width, alone on the host and the card.  Returns
-    (launches by kernel from the stage that drives it, (stage 1 steps/s,
-    peak, stage 2 steps/s, peak))."""
+def _stages(torch, seed, card):
+    """Both stages at full width, alone on the host and the card, each
+    followed by [minibatch] on its preprocessed data.  Returns (launches by
+    kernel from the stage that drives it, (stage 1 steps/s, peak, stage 2
+    steps/s, peak), [minibatch]'s numbers)."""
     adata, genes, cells, angles = _make_adata(torch, seed, "cuda")
     launches, steps_per_s, peak, stage1 = phase_main_path(
         torch, seed, adata, genes, cells, angles)
     torch.cuda.empty_cache()
-    vlaunches, vsteps_per_s, vpeak = velocity_main_path(
+    mb = minibatch_phase_stage(torch, seed, card, stage1.mp)
+    stage1.mp = None
+    torch.cuda.empty_cache()
+    vlaunches, vsteps_per_s, vpeak, vmp = velocity_main_path(
         torch, seed, adata, stage1)
     launches.update(velo_fwd=vlaunches["velo_fwd"],
                     velo_fwdgrad=vlaunches["velo_fwdgrad"])
-    del adata, stage1
+    mb["velocity_block_objective_rel"] = _block_objective(
+        torch, seed, vmp, "velocity")
+    del adata, stage1, vmp
     torch.cuda.empty_cache()
-    return launches, (steps_per_s, peak, vsteps_per_s, vpeak)
+    return launches, (steps_per_s, peak, vsteps_per_s, vpeak), mb
+
+
+# ---------------------------------------------------------------------------
+# [minibatch]: MinibatchSVI at full width on the [main] draw
+# ---------------------------------------------------------------------------
+
+MB_BLOCKS = 8           # B = 12,800 cells per block at full width
+MB_EPOCHS = 2
+MB_FULL_STEPS = 5       # the full-batch SVI steps whose peak memory is the reference
+
+
+def _block_objective(torch, seed, mp, stage):
+    """At the guide's draws on the full data, substituted into model and
+    guide: the mean of the num_blocks scaled block losses against the
+    full-batch loss, on the fused kernels (loss-only launches).  Returns
+    the relative difference (gate 1e-5)."""
+    from velocycle_tpu_torch.core import handlers
+    from velocycle_tpu_torch.infer import Trace_ELBO
+    from velocycle_tpu_torch.infer.minibatch import LOCAL_SITES, split_cells
+    from velocycle_tpu_torch.ops import nb_kernels as K_
+
+    data = mp.data
+    with torch.no_grad():
+        tr = handlers.trace(handlers.seed(mp.guide_fn, seed + 21)).get_trace(data)
+        vals = {n: site["value"] for n, site in tr.items()
+                if site["type"] == "sample"}
+        K_.reset_launch_counts()
+        full = float(Trace_ELBO().loss(
+            0, handlers.substitute(mp.model_fn, data=vals),
+            handlers.substitute(mp.guide_fn, data=vals), data))
+        blocks = split_cells(data, MB_BLOCKS)
+        B = blocks[0].Nc
+        total = 0.0
+        for i, blk in enumerate(blocks):
+            v = dict(vals)
+            v["phi_xy"] = vals["phi_xy"][i * B:(i + 1) * B]
+
+            def scaled(fn):
+                return handlers.scale(handlers.substitute(fn, data=v),
+                                      scale_factor=float(MB_BLOCKS),
+                                      site_filter=LOCAL_SITES.__contains__)
+
+            total += float(Trace_ELBO().loss(0, scaled(mp.model_fn),
+                                             scaled(mp.guide_fn), blk))
+        fwd = "phase_fwd" if stage == "phase" else "velo_fwd"
+        launched = K_.LAUNCHES[fwd]
+    del blocks
+    torch.cuda.empty_cache()
+    mean = total / MB_BLOCKS
+    rel = abs(mean - full) / abs(full)
+    print(f"[minibatch] {stage} block objective: mean of {MB_BLOCKS} scaled "
+          f"block losses {mean:.9g} vs full batch {full:.9g}, rel {rel:.2e} "
+          f"(gate 1e-5), {launched} {fwd} launches ({MB_BLOCKS} blocks of "
+          f"{B} cells and the full batch)")
+    check(rel < 1e-5, f"[minibatch] {stage} block objective rel {rel}")
+    check(launched == MB_BLOCKS + 1, f"[minibatch] {launched} {fwd} launches")
+    return rel
+
+
+def _copy_overlap(torch, fn):
+    """Run ``fn`` under torch.profiler: (its result, host-to-device copy
+    device ms in all, the share of it that overlaps kernels of the other
+    stream, copies counted, device busy share of the kernels over the
+    wall)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    copies, kernels = [], []
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        iv = (e.time_range.start, e.time_range.end)
+        if "HtoD" in e.name:
+            copies.append(iv)
+        elif not e.name.startswith(("Memcpy", "Memset")):
+            kernels.append(iv)
+    merged = []
+    for a, b in sorted(kernels):
+        if merged and a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    copy_us = sum(b - a for a, b in copies)
+    over = sum(max(0.0, min(b, mb) - max(a, ma))
+               for a, b in copies for ma, mb in merged)
+    busy = sum(b - a for a, b in merged) / 1e6 / wall
+    return (out, copy_us / 1e3, (over / copy_us if copy_us else None),
+            len(copies), busy)
+
+
+def minibatch_phase_stage(torch, seed, card, mp, device="cuda"):
+    """[minibatch] on stage 1's preprocessed full-width data: the block
+    objective (gate rel 1e-5); the on-device `fit`, MB_EPOCHS epochs of
+    MB_BLOCKS blocks (falling epoch-mean losses, exactly one phase_fwdgrad
+    per step, each over B = Nc / MB_BLOCKS cells); `fit_streamed` for one
+    epoch from pinned host int16 blocks against `fit(shuffle=False)` for one
+    epoch (losses and params rtol 1e-6), the device memory it needs (its
+    peak above what was resident before it) below what full-batch SVI
+    steps need (the data on the card and their peak above it); steps/s, launches per step, the device busy share
+    and the copies' overlap with compute under torch.profiler."""
+    import numpy as np
+
+    from velocycle_tpu_torch.infer import (
+        SVI, MinibatchSVI, Trace_ELBO, clipped_adam, init_template,
+        iter_host_blocks, split_cells,
+    )
+    from velocycle_tpu_torch.ops import nb_kernels as K_
+
+    t0 = time.perf_counter()
+    data = mp.data
+    out = {"phase_block_objective_rel": _block_objective(torch, seed, mp,
+                                                         "phase")}
+    B = data.Nc // MB_BLOCKS
+    steps = MB_EPOCHS * MB_BLOCKS
+
+    # the full-batch reference: SVI steps alone (no posterior draws)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    svi = SVI(mp.model_fn, mp.guide_fn, clipped_adam(), Trace_ELBO())
+    svi.run(seed, MB_FULL_STEPS, data)
+    torch.cuda.synchronize()
+    full_peak = torch.cuda.max_memory_allocated() - base
+    del svi
+    torch.cuda.empty_cache()
+    from velocycle_tpu_torch.models.metapars import PHASE_TENSOR_FIELDS
+
+    data_bytes = sum(t.numel() * t.element_size()
+                     for t in (getattr(data, f) for f in PHASE_TENSOR_FIELDS)
+                     if isinstance(t, torch.Tensor) and t.is_cuda)
+    full_need = data_bytes + full_peak
+    print(f"[minibatch] full-batch SVI, {MB_FULL_STEPS} steps incl. init: "
+          f"peak device memory above the resident data "
+          f"{full_peak / 2**30:.3f} GiB; with the data it needs resident "
+          f"({data_bytes / 2**30:.3f} GiB) {full_need / 2**30:.3f} GiB")
+
+    # the on-device fit
+    mb = MinibatchSVI(mp.model_fn, mp.guide_fn, num_blocks=MB_BLOCKS)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    K_.reset_launch_counts()
+    t1 = time.perf_counter()
+    state, losses = mb.fit(seed, data, num_epochs=MB_EPOCHS)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t1
+    fit_peak = torch.cuda.max_memory_allocated() - base
+    launched = dict(K_.LAUNCH_CHAINS["phase_fwdgrad"])
+    means = losses.reshape(MB_EPOCHS, MB_BLOCKS).mean(1)
+    print(f"[minibatch] fit: {steps} steps ({MB_EPOCHS} epochs of "
+          f"{MB_BLOCKS} blocks of {B} cells) in {dt:.2f} s incl. init and the "
+          f"split, epoch-mean losses {', '.join(f'{m:.6g}' for m in means)}; "
+          f"phase_fwdgrad launches by chain count {launched}; peak device "
+          f"memory above the resident data {fit_peak / 2**30:.3f} GiB")
+    check(np.isfinite(losses).all() and bool((np.diff(means) < 0).all()),
+          f"[minibatch] epoch-mean losses {means}")
+    check(launched == {1: steps} and K_.LAUNCHES["phase_fwd"] == 0,
+          f"[minibatch] {launched} phase_fwdgrad launches in {steps} steps")
+    # steady state: one epoch of block steps (host clock), then its profile
+    blocks = split_cells(data, MB_BLOCKS)
+
+    def epoch():
+        nonlocal state
+        for i in range(MB_BLOCKS):
+            state, loss = mb.update_block(state, i, blocks[i])
+        return loss
+
+    epoch()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    epoch().cpu()
+    ms = (time.perf_counter() - t1) / MB_BLOCKS * 1e3
+    K_.reset_launch_counts()
+    busy = _device_profile(torch, lambda: epoch().cpu(), "minibatch",
+                           MB_BLOCKS, "step")
+    per_step = K_.LAUNCHES["phase_fwdgrad"] / MB_BLOCKS
+    print(f"[minibatch] steady state: {1e3 / ms:.2f} steps/s ({ms:.2f} ms "
+          f"per step, host clock, {MB_BLOCKS} steps), {per_step:.0f} "
+          f"phase_fwdgrad per step, on {card}")
+    del blocks, state, mb
+    torch.cuda.empty_cache()
+
+    # the streamed fit against fit(shuffle=False), one epoch each
+    S = data.S.cpu().numpy()
+    cf = data.count_factor.cpu().numpy()
+    pp = data.phixy_prior.cpu().numpy()
+    Db = data.Db.cpu().numpy()
+
+    def factory():
+        return iter_host_blocks(S, cf, pp, data, MB_BLOCKS, Db=Db)
+
+    t1 = time.perf_counter()
+    for _ in factory():     # the host's share: slices and lgamma sums
+        pass
+    prep_ms = (time.perf_counter() - t1) / MB_BLOCKS * 1e3
+    ref = MinibatchSVI(mp.model_fn, mp.guide_fn, num_blocks=MB_BLOCKS)
+    s_ref, l_ref = ref.fit(seed + 1, data, num_epochs=1, shuffle=False)
+    first = next(iter(factory()))[1]
+    tmpl = init_template(first, data.Nc, pp, count_factor=cf, Db=Db)
+    check(tmpl.S.untyped_storage().nbytes() <= 4,
+          "[minibatch] the template holds counts")
+    st = MinibatchSVI(mp.model_fn, mp.guide_fn, num_blocks=MB_BLOCKS)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    K_.reset_launch_counts()
+    t1 = time.perf_counter()
+    (s_st, l_st), copy_ms, overlap, n_copies, sbusy = _copy_overlap(
+        torch, lambda: st.fit_streamed(seed + 1, tmpl, factory, num_epochs=1))
+    dts = time.perf_counter() - t1
+    st_peak = torch.cuda.max_memory_allocated() - base
+    l_rel = float(np.abs(l_st - l_ref).max() / np.abs(l_ref).max())
+    pr, ps = ref.get_params(s_ref), st.get_params(s_st)
+    p_rel = max(float(((pr[k] - ps[k]).abs() / (pr[k].abs() + 1e-30)).max())
+                for k in pr)
+    print(f"[minibatch] fit_streamed, 1 epoch from pinned host int16 blocks "
+          f"({S.nbytes / MB_BLOCKS / 2**20:.1f} MiB of counts each), under "
+          f"torch.profiler: {dts:.2f} s incl. init and the host blocks ({prep_ms:.1f} ms each to slice "
+          f"and sum lgamma in float64, scipy); against fit(shuffle=False): "
+          f"losses rel {l_rel:.2e}, params rel {p_rel:.2e} (gate 1e-6); "
+          f"{K_.LAUNCHES['phase_fwdgrad']} phase_fwdgrad launches; peak "
+          f"device memory above the resident data {st_peak / 2**30:.3f} GiB, "
+          f"all it needs (full-batch SVI steps need {full_need / 2**30:.3f} "
+          f"GiB: the data {data_bytes / 2**30:.3f} and "
+          f"{full_peak / 2**30:.3f} above it; the on-device minibatch fit "
+          f"the data and {fit_peak / 2**30:.3f} above it, the split's copy "
+          f"of every cell field included)")
+    check(l_rel < 1e-6 and p_rel < 1e-6,
+          f"[minibatch] streamed vs on-device: losses {l_rel}, params {p_rel}")
+    check(K_.LAUNCHES["phase_fwdgrad"] == MB_BLOCKS,
+          "[minibatch] streamed launches")
+    check(st_peak < full_need, f"[minibatch] streamed peak {st_peak} >= "
+          f"full-batch SVI steps' need {full_need}")
+    print(f"[minibatch] the streamed epoch's trace: {n_copies} "
+          f"host-to-device copies, {copy_ms / MB_BLOCKS:.3f} ms of copy per "
+          f"block, "
+          + ("overlap not measured (no copy in the trace)" if overlap is None
+             else f"{overlap:.1%} of it overlapping kernels")
+          + f"; kernels busy {sbusy:.1%} of the wall, on {card}")
+    del S, s_ref, s_st, ref, st, tmpl
+    torch.cuda.empty_cache()
+    print(f"[minibatch] in all: {time.perf_counter() - t0:.1f} s")
+    out.update(steps_per_s=1e3 / ms, ms_per_step=ms,
+               launches_per_step=per_step, busy=busy,
+               fit_peak_gib=fit_peak / 2**30,
+               streamed_peak_gib=st_peak / 2**30,
+               full_batch_peak_gib=full_peak / 2**30,
+               full_batch_need_gib=full_need / 2**30,
+               copy_ms_per_block=copy_ms / MB_BLOCKS, copy_overlap=overlap,
+               host_block_ms=prep_ms, streamed_epoch_s=dts,
+               streamed_vs_fit_rel=max(l_rel, p_rel))
+    return out
+
+
+def minibatch_alone(torch, seed, card):
+    """``--minibatch``: the [main] draw preprocessed for both stages (stage 2
+    on stage 1's priors: no fit), then [minibatch] on them."""
+    from velocycle_tpu_torch import (
+        AngularSpeed, Cycle, Phases, preprocess_for_phase_estimation,
+        preprocess_for_velocity_estimation,
+    )
+
+    adata, genes, cells, angles = _make_adata(torch, seed, "cuda")
+    cycle = Cycle.trivial_prior(genes, harmonics=H)
+    phases = Phases.from_angles(angles, concentration=1.0, cell_names=cells)
+    mp = preprocess_for_phase_estimation(
+        adata, cycle, phases, n_harmonics=H, with_delta_nu=False,
+        use_fused_nb=True, device="cuda")
+    out = minibatch_phase_stage(torch, seed, card, mp)
+    del mp
+    torch.cuda.empty_cache()
+    speed = AngularSpeed.trivial_prior(["c0"], harmonics=1, means=0.2, stds=0.5)
+    vmp = preprocess_for_velocity_estimation(
+        adata, cycle, phases, speed, n_harmonics=H, omega_n_harmonics=1,
+        with_delta_nu=False, model_type="lrmn", use_fused_nb=True,
+        device="cuda")
+    out["velocity_block_objective_rel"] = _block_objective(torch, seed, vmp,
+                                                           "velocity")
+    return out
 
 
 def mcmc_in_turn(torch, seed, card, device="cuda"):
@@ -2465,7 +3066,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--digest", action="store_true",
-                    help="print phase_digest's line and stop (no result line)")
+                    help="print kernel_digest's lines and stop (no result "
+                         "line)")
     ap.add_argument("--kernels", action="store_true",
                     help="build, then time the four main-path kernels and "
                          "stop (no result line): for comparing layouts")
@@ -2473,6 +3075,9 @@ def main(argv=None):
                     help="build, then [mcmc] alone: the chain-batched "
                          "kernel's parity and timing, and runs (a) and (b) "
                          "in turn in this process (no result line)")
+    ap.add_argument("--minibatch", action="store_true",
+                    help="build, then [minibatch] alone on the [main] draw "
+                         "(no result line)")
     ap.add_argument("--smc", action="store_true",
                     help="build, then [smc] alone: the chain-batched "
                          "phase_fwd's parity and timing, runs (a) and (b) "
@@ -2497,7 +3102,7 @@ def main(argv=None):
 
     name, count, smi = phase_device(torch)
     if args.digest:
-        phase_digest(torch, args.seed)
+        kernel_digest(torch, args.seed)
         return 0
     phase_build()
     if args.kernels:
@@ -2506,13 +3111,17 @@ def main(argv=None):
         return 0
     if args.mcmc:
         mcmc_kernels(torch, args.seed, smi)
+        velo_chain_kernels(torch, args.seed, smi)
         mcmc_in_turn(torch, args.seed, smi)
         return 0
     if args.smc:
         smc_kernels(torch, args.seed, smi)
         phase_smc(torch, args.seed, smi)
         return 0
-    phase_digest(torch, args.seed)
+    if args.minibatch:
+        minibatch_alone(torch, args.seed, smi)
+        return 0
+    kernel_digest(torch, args.seed)
     errs = phase_parity(torch, args.seed)
     timing = phase_timing(torch, args.seed, smi)
     timing.update(velo_timing(torch, args.seed, smi))
@@ -2524,22 +3133,25 @@ def main(argv=None):
     variant_errs, variant_timing = _variant_kernels(torch, args.seed, smi)
     mcmc_parity, mcmc_timing = mcmc_kernels(torch, args.seed, smi)
     smc_parity, smc_timing = smc_kernels(torch, args.seed, smi)
+    chain_kernels = velo_chain_kernels(torch, args.seed, smi)
     torch.cuda.empty_cache()
-    launches, rates = _stages(torch, args.seed)
+    launches, rates, minibatch = _stages(torch, args.seed, smi)
     # the [mcmc] runs, host-bound, beside [quickstart] and [variants]
     pool, pending = start_mcmc_runs(args.seed, smi)
     try:
         phase_quickstart(torch, args.seed, smi)
         torch.cuda.empty_cache()
         variant_launches = phase_variants(torch, args.seed, smi)
-        mcmc = mcmc_row(mcmc_parity, mcmc_timing,
-                        finish_mcmc_runs(pool, pending))
+        mcmc_runs = finish_mcmc_runs(pool, pending)
+        mcmc = mcmc_row(mcmc_parity, mcmc_timing, mcmc_runs)
     finally:
         pool.terminate()
         pool.join()
     torch.cuda.empty_cache()
     # [smc] alone on the host and the card, after the [mcmc] processes
-    smc = smc_row(smc_parity, smc_timing, phase_smc(torch, args.seed, smi))
+    smc_runs = phase_smc(torch, args.seed, smi)
+    smc = smc_row(smc_parity, smc_timing, smc_runs)
+    velo = velo_rows(chain_kernels, mcmc_runs["c"], smc_runs["c"])
     torch.cuda.empty_cache()
     steps_per_s, peak, vsteps_per_s, vpeak = rates
 
@@ -2572,6 +3184,11 @@ def main(argv=None):
             **(mcmc if k == "phase_fwdgrad" else {}),
             # [smc]: the chain-batched phase_fwd (row 1'')
             **(smc if k == "phase_fwd" else {}),
+            # the chain-batched velocity pair (rows 3'', 4''), [mcmc] (c)
+            # and [smc] (c)
+            **velo.get(k, {}),
+            # [minibatch]: MinibatchSVI's block steps at B = Nc / 8
+            **({"minibatch": minibatch} if k == "phase_fwdgrad" else {}),
         })
     # the ladder's launches come from its own entry point, run_ladder
     for rung, line in LADDER_REPLACES.items():

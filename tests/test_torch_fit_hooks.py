@@ -185,3 +185,23 @@ def test_check_model_raises_on_request():
     with pytest.raises(ValueError, match="plate 'genes'"):
         fit._check_plates(lambda data: misplated(), raise_on_error=True)
     assert len(fit._check_plates(lambda data: misplated(), raise_on_error=False)) == 2
+
+
+@pytest.mark.parametrize("stage", ["phase", "velocity"])
+def test_fit_takes_verbose_as_jax(stage, capsys):
+    """``fit(verbose=...)`` with the JAX package's meaning
+    (velocycle_tpu/fit.py `fit`): accepted by both fit models, True and
+    False alike, printing nothing beyond what ``log_every`` asks for; the
+    losses do not depend on it."""
+    losses = {}
+    for verbose in (True, False):
+        for pkg in (V, T):
+            model = (pkg.PhaseFitModel(_phase_mp(pkg), num_samples=2,
+                                       n_per_bin=2)
+                     if stage == "phase" else _velocity_fit(pkg))
+            _fit(pkg, model, 4, verbose=verbose)
+            out = capsys.readouterr().out
+            if pkg is T:
+                assert out == ""
+                losses[verbose] = np.asarray(model.losses)
+    np.testing.assert_array_equal(losses[True], losses[False])

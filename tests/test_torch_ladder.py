@@ -219,19 +219,40 @@ def test_run_ladder_on_the_cpu_gives_the_eight_rows():
     assert by["v_full"]["loss"] == by["v_nodig"]["loss"] == by["v_nocell"]["loss"]
 
 
+def _g_r_ops_by_element(k, log_b, a):
+    """The dispersion gradient's operations, element by element, on the
+    branch each gene and element take (csrc/nb_common.cuh nb_lp_grads)."""
+    if a < 64.0:
+        return 5 + (10 if k >= 2 else 3) + 1
+    e = np.exp(-abs(log_b))
+    sig_c = e / (1 + e) if log_b >= 0 else 1 / (1 + e)
+    ops = 5 + (16 if log_b >= 0 and sig_c < 0.125 else 2) + 3 + 1
+    if k >= 2:
+        ops += 26 + 2 + (16 if (k - 2) / (a + 2) < 0.125 else 1)
+    return ops
+
+
 def test_ladder_work_counts_bytes_and_operations():
     S, nu, zeta, cf, r = TP.make_inputs(8, 600, int16=True, device="cpu")
+    # three genes at small dispersion take the cancellation-free branch
+    r = r.clone()
+    r[:3] = torch.tensor([1e-3, 5e-3, 1e-4])
     N = S.numel()
     small = 2 * N + 8 * 5 * 4 + 4
     assert TP.work("stream", S, nu, zeta, cf, r) == (small, 2 * N)
     n_ge2 = int((S >= 2).sum())
     lg = 22 * n_ge2 + 5 * (N - n_ge2) + 2 * N
-    dg = 10 * n_ge2 + 3 * (N - n_ge2) + 1 * N
+    log_b = (-torch.log(r)[:, None] - (nu @ zeta.T + cf[None, :])).numpy()
+    a = (1.0 / r).numpy()
+    Sn = S.numpy()
+    dg = sum(_g_r_ops_by_element(float(Sn[g, c]), float(log_b[g, c]), float(a[g]))
+             for g in range(8) for c in range(600))
+    assert dg > 16 * N      # past the ratio branch's most: the excess branch counts
     nbytes, ops = TP.work("v_full", S, nu, zeta, cf, r)
-    assert ops == 61 * N + lg + dg
+    assert ops == 56 * N + lg + dg
     assert nbytes == (2 * N + 4 * (8 * 5 + 600 * 5 + 600 + 8) + 4
                       + 4 * 8 * 6 + 4 * 600 * 6)
-    assert TP.work("v_nocell", S, nu, zeta, cf, r)[1] == 50 * N + lg + dg
+    assert TP.work("v_nocell", S, nu, zeta, cf, r)[1] == 45 * N + lg + dg
     assert TP.work("v_nodig", S, nu, zeta, cf, r)[1] == 56 * N + lg
     assert TP.work("vpu_only", S, nu, zeta, cf, r)[0] == 4 * (40 + 3000 + 8) + 4
     ms, by = TP.bound_ms(3.35e9, 0)

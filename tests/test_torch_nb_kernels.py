@@ -125,10 +125,14 @@ def test_tile_math_twin_matches_jax_elementwise():
                                    rtol=1e-5, atol=1e-5)
 
 
-# the small-dispersion grid: shape_inv in [1e-5, 1e-1] (41 values, log
-# spaced), counts 0..200, log-means -2..5.5 (7 values)
+# the small-dispersion grid: shape_inv in [1e-6, 1e-1] (51 values, log
+# spaced: 1e-6, 1e-5 and 1e-3 among them), counts 0..200, log-means
+# -2..5.5 (7 values)
+SMALL_R = np.logspace(-6, -1, 51)
+
+
 def _small_r_grid():
-    r = np.logspace(-5, -1, 41)
+    r = SMALL_R
     R, Kc, E = np.meshgrid(r, np.arange(201), np.linspace(-2, 5.5, 7),
                            indexing="ij")
     return R.astype(np.float32), Kc.astype(np.float32), E.astype(np.float32)
@@ -167,11 +171,12 @@ def _element_error(name, got, want):
     return float(err.max())
 
 
-# the repaired twins' tolerances on the grid (measured: lp 4.6e-4, the
+# the repaired twins' tolerances on the grid (measured: lp 5.3e-4, the
 # O(k log a) float32 rounding of lgr and k * softplus at k = 200; g_elog
-# 2.9e-5; g_r 1.7e-4), each at least 10x below the JAX package's fused
-# form's error on the same grid (measured: 0.157, 3.7e-3, 0.30)
-SMALL_R_TOL = {"lp_fwd": 1e-3, "lp": 1e-3, "g_elog": 1e-4, "g_r": 5e-4}
+# 2.9e-5; g_r 1.7e-6, its three terms taken without cancellation, 3.6x
+# below), each at least 10x below the JAX package's fused form's error on
+# the same grid (measured: 0.157, 3.7e-3, 0.30)
+SMALL_R_TOL = {"lp_fwd": 1e-3, "lp": 1e-3, "g_elog": 1e-4, "g_r": 6e-6}
 
 
 @pytest.mark.parametrize("name", sorted(SMALL_R_TOL))
@@ -200,6 +205,89 @@ def test_repaired_element_matches_float64_at_small_dispersion(name):
     jax_err = _element_error(name, jax_got, want[name])
     assert port < SMALL_R_TOL[name], (name, port)
     assert jax_err >= 10 * SMALL_R_TOL[name], (name, jax_err)
+
+
+def _g_r_error_by_shape_inv(got, want):
+    """The dispersion gradient's error at each shape_inv of the grid:
+    max|err| / max|want| over its (count, log-mean) points."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    n = want.shape[0]
+    return (np.abs(got - want).reshape(n, -1).max(1)
+            / np.abs(want).reshape(n, -1).max(1))
+
+
+def test_dispersion_gradient_error_does_not_grow_with_a():
+    """The dispersion gradient's float32 error against float64 stops
+    growing with a = 1/r: at shape_inv 1e-5 and 1e-6 it is at most 2x its
+    error at 1e-3 (k - a dgr, -(log sig + sig_c) and k sig_c each O(mu^2 /
+    a), no term of size k or mu cancelling); the JAX package's fused form
+    on the same grid grows past that bound, so the check can fail."""
+    R, Kc, E = _small_r_grid()
+    a = (1.0 / R).astype(np.float32)
+    log_r = np.log(R).astype(np.float32)
+    want = _nb_element_f64(R, Kc, E)[2]
+    got = TK._nb_lp_and_grads(*[torch.as_tensor(x) for x in (Kc, a, log_r, E)],
+                              False)[2]
+    jax_got = JK._nb_lp_and_grads(*[jnp.asarray(x) for x in (Kc, a, log_r, E)],
+                                  False)[2]
+    at = {v: int(np.argmin(np.abs(SMALL_R - v))) for v in (1e-6, 1e-5, 1e-3)}
+    err = _g_r_error_by_shape_inv(got, want)
+    jax_err = _g_r_error_by_shape_inv(jax_got, want)
+    for v in (1e-5, 1e-6):
+        assert err[at[v]] <= 2.0 * err[at[1e-3]], (v, err[at[v]], err[at[1e-3]])
+    assert jax_err[at[1e-5]] > 2.0 * jax_err[at[1e-3]]
+
+
+@pytest.mark.parametrize("fn", ["log1p_excess", "log1m_excess"])
+def test_series_excesses_match_float64(fn):
+    """t - log1p(t) and -log1p(-s) - s, the two differences the repaired
+    dispersion gradient takes by series below SERIES_BELOW, against float64
+    over [0, 1/2]: relative error below 2e-6 (at most ~30 ulps where the
+    direct difference takes over, 1e-7 in the series)."""
+    from velocycle_tpu_torch.ops import special as tsp
+
+    x = np.concatenate([np.logspace(-8, -1, 200), np.linspace(0.1, 0.5, 200)])
+    x32 = torch.as_tensor(x.astype(np.float32))
+    x64 = x32.double().numpy()
+    if fn == "log1p_excess":
+        got = tsp.log1p_excess(x32, torch.log1p(x32))
+        want = x64 - np.log1p(x64)
+        keep = slice(None)
+    else:
+        keep = x64 < tsp.SERIES_BELOW          # the caller selects
+        got = tsp.log1m_excess(x32)
+        want = -np.log1p(-x64) - x64
+    rel = np.abs(got.double().numpy() - want) / want
+    assert rel[keep].max() < 2e-6, rel[keep].max()
+
+
+def test_digamma_excess_matches_float64():
+    """k - a (digamma(k + a) - digamma(a)) = sum_{j<k} j / (a + j) from
+    `lgamma_digamma_excess` against float64 over counts 0..300 and a in
+    [1e-1, 1e7]: relative error below 1e-5 (the Stirling branch's
+    truncation at small a sets it; at large a the terms no longer cancel,
+    where a - a * digamma ratio in float32 would lose everything), and the
+    ratios equal to `lgamma_digamma_ratio`'s and `lgamma_ratio`'s."""
+    from velocycle_tpu_torch.ops import special as tsp
+
+    a = np.logspace(-1, 7, 60)
+    A, Kc = np.meshgrid(a, np.arange(301), indexing="ij")
+    A32 = A.astype(np.float32)
+    k32 = Kc.astype(np.float32)
+    lgr, dgr, kad = tsp.lgamma_digamma_excess(torch.as_tensor(k32),
+                                              torch.as_tensor(A32))
+    lgr2, dgr2 = tsp.lgamma_digamma_ratio(torch.as_tensor(k32), torch.as_tensor(A32))
+    assert torch.equal(lgr, lgr2) and torch.equal(dgr, dgr2)
+    assert torch.equal(lgr, tsp.lgamma_ratio(torch.as_tensor(k32),
+                                             torch.as_tensor(A32)))
+    a64 = A32.astype(np.float64)
+    want = np.zeros(A.shape)
+    for j in range(1, 300):
+        want += np.where(Kc > j, j / (a64 + j), 0.0)
+    got = kad.double().numpy()
+    assert np.abs(got[Kc < 2]).max() == 0.0
+    rel = np.abs(got - want)[Kc >= 2] / want[Kc >= 2]
+    assert rel.max() < 1e-5, rel.max()
 
 
 def test_disp_grad_false_zero_dispersion_rest_unchanged():
@@ -315,6 +403,39 @@ def test_kernel_widths_are_the_sources_instantiations():
     assert re.findall(r"constexpr int kMaxDnuWidth = (\d+);", common) == [
         str(TK.DNU_WIDTH)]
     assert TK.MAX_WIDTH == max(TK.KERNEL_WIDTHS)
+
+
+def test_dispersion_gradient_takes_its_form_by_gene():
+    """The element's two dispersion-gradient forms, chosen per gene at a =
+    1/r = EXCESS_FROM (csrc/nb_common.cuh kExcessFrom; the series below
+    SERIES_BELOW as kSeriesBelow): below it exactly -a^2 (dgr + log sig) +
+    a g_elog, from it on exactly the excess form; the kernel's constants are
+    the twin's."""
+    import re
+
+    from velocycle_tpu_torch.ops import cuda_build
+    from velocycle_tpu_torch.ops import special as tsp
+
+    common = (cuda_build.CSRC / "nb_common.cuh").read_text()
+    assert [float(v) for v in re.findall(
+        r"constexpr float kExcessFrom = ([0-9.]+)f;", common)] == [tsp.EXCESS_FROM]
+    assert [float(v) for v in re.findall(
+        r"constexpr float kSeriesBelow = ([0-9.]+)f;", common)] == [tsp.SERIES_BELOW]
+    a = torch.tensor([1.5, 20.0, np.nextafter(np.float32(64.0), np.float32(0.0)),
+                      64.0, 65.0, 1e4])[:, None]
+    k = torch.arange(0.0, 40.0)[None, :]
+    elog = torch.linspace(-2.0, 5.0, 40)[None, :]
+    log_r = -torch.log(a)
+    _, g_elog, g_r = TK._nb_lp_and_grads(k, a, log_r, elog, False)
+    log_b = -log_r - elog
+    _, log_sig, _, sig_c = tsp.softplus_log_sigmoid(log_b)
+    _, dgr, kad = tsp.lgamma_digamma_excess(k, a)
+    ratio = ((dgr + log_sig) * (-a) + g_elog) * a
+    q = torch.where((log_b >= 0) & (sig_c < tsp.SERIES_BELOW),
+                    tsp.log1m_excess(sig_c), -(log_sig + sig_c))
+    excess = ((kad - k * sig_c) + a * q) * a
+    assert torch.equal(g_r[:3], ratio[:3]) and torch.equal(g_r[3:], excess[3:])
+    assert not torch.equal(ratio[3:], excess[3:])
 
 
 @pytest.mark.parametrize("Nh,Nb,want", [

@@ -34,11 +34,12 @@ import jax.numpy as jnp
 import velocycle_tpu as V
 from velocycle_tpu.core import handlers as jh
 from velocycle_tpu.infer import smc as JS
-from velocycle_tpu_torch.convert import phase_data_from_jax
+from velocycle_tpu_torch.convert import phase_data_from_jax, velocity_data_from_jax
 from velocycle_tpu_torch.core import distributions as tdist
 from velocycle_tpu_torch.core import handlers as th
 from velocycle_tpu_torch.infer import smc as TS
 from velocycle_tpu_torch.models.phase import phase_model
+from velocycle_tpu_torch.models.velocity import velocity_model
 from velocycle_tpu_torch.ops import nb_kernels as K
 
 VAL_RTOL, VAL_ATOL = 1e-5, 1e-6
@@ -267,12 +268,14 @@ def test_prior_draws_compute_no_likelihood(monkeypatch):
                                    tr[name]["value"].numpy(), rtol=1e-6)
 
 
-def test_velocity_loss_only_chain_batch_maps_the_plain_version_and_not_on_the_card():
-    """The velocity pair has no chain batch on the card (ROADMAP.md queue
-    1 item 6a): the loss-only call raises there; on the CPU the plain
-    version is mapped over the chains."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 6a"):
-        K._CHAINS[K.velo_fwd](None, None)
+def test_fused_velocity_smc_runs_on_a_chain_batch():
+    """The velocity pair takes the chain axis itself (on the card one
+    velo_fwd launch per stage and one velo_fwdgrad per batched
+    evaluation): the loss-only plain version mapped over the chains equals
+    the per-chain losses, and a short SMC run on fused velocity data (the
+    plain versions on the CPU) reaches beta = 1 with finite particles and
+    log Z."""
+    assert K._CHAINS[K.velo_fwd] is K.velo_fwd
     rng = np.random.default_rng(4)
     Ng, Nc, Kc = 5, 30, 3
     S = torch.as_tensor(rng.poisson(3, (Ng, Nc)).astype(np.int16))
@@ -286,6 +289,25 @@ def test_velocity_loss_only_chain_batch_maps_the_plain_version_and_not_on_the_ca
     for c in range(Kc):
         one = K.velo_fwd_plain(S, U, nu[c], zeta, zdphi, cf, omega, lb, lg, r)
         assert abs(float(batched[c]) - float(one)) < 1e-5 * abs(float(one))
+    sim = V.simulate.simulate_data(Nc=20, Ng=5, seed=3)
+    mp = V.preprocess_for_velocity_estimation(
+        sim, V.Cycle.trivial_prior(list(sim.var.index), harmonics=1),
+        V.Phases.from_angles(sim.obs["simulated_phis"].values,
+                             cell_names=list(sim.obs.index)),
+        V.AngularSpeed.trivial_prior(["c0"], harmonics=1, means=0.2,
+                                     stds=0.5),
+        n_harmonics=1, omega_n_harmonics=1, with_delta_nu=False,
+        model_type="fourier", use_fused_nb=True)
+    td = velocity_data_from_jax(mp.data, device="cpu")
+    tmodel = th.condition(velocity_model, data={"phi_xy": td.phixy_prior})
+    smc = TS.SMC(tmodel, num_particles=16, num_moves=1, max_stages=60)
+    smc.run(3, td)
+    s = smc.get_samples()
+    sched = smc.temperature_schedule
+    assert sched[-1] == 1.0 and (np.diff(sched) > 0).all()
+    assert np.isfinite(smc.log_evidence())
+    assert all(np.isfinite(v).all() for v in s.values())
+    assert s["nu"].shape == (16, 5, 3)
 
 
 def test_smc_runs_on_the_phase_model_and_refuses_a_mesh():

@@ -1,8 +1,8 @@
 """Effect handlers: the probabilistic-program transforms of the model DSL.
 
 Port of `velocycle_tpu/core/handlers.py` (sample/param/factor/
-deterministic/plate, the trace, seed, substitute, condition, replay, block
-and enum handlers, and `check_plate_shapes`).  A model is a plain Python function; interpreting it under
+deterministic/plate, the trace, seed, substitute, condition, replay, block,
+scale and enum handlers, and `check_plate_shapes`).  A model is a plain Python function; interpreting it under
 a handler stack yields a trace of torch tensors, and autograd records the
 computation as it runs.
 
@@ -30,6 +30,7 @@ __all__ = [
     "condition",
     "replay",
     "block",
+    "scale",
     "enum",
     "Trace",
     "fold_in",
@@ -260,6 +261,27 @@ class block(Messenger):
     def process_message(self, msg):
         if msg["name"] in self.hide:
             msg["hidden"] = True
+
+
+class scale(Messenger):
+    """Multiply selected sample sites' log-prob contributions by
+    ``scale_factor`` (pyro's ``poutine.scale``): the ELBOs weight each
+    site's summed log-prob by its ``msg["scale"]``.  `infer.minibatch`
+    upweights the cell-local sites so that each block's loss is an unbiased
+    estimate of the full ELBO.  ``site_filter(name)`` selects the sites; by
+    default every sample site is scaled."""
+
+    def __init__(self, fn=None, scale_factor=1.0, site_filter=None):
+        super().__init__(fn)
+        self.scale_factor = scale_factor
+        self.site_filter = site_filter
+
+    def process_message(self, msg):
+        if msg["type"] != "sample":
+            return
+        if self.site_filter is not None and not self.site_filter(msg["name"]):
+            return
+        msg["scale"] = msg.get("scale", 1.0) * self.scale_factor
 
 
 class enum(Messenger):

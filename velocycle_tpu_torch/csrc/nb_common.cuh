@@ -20,9 +20,21 @@ namespace vct {
 // `pick_nh`; ops/nb_kernels.py KERNEL_WIDTHS).
 constexpr int kMaxDnuWidth = 7;
 
-// Per-gene columns of the NB log-pmf and of `lgamma_digamma_ratio`: they
-// depend on the dispersion r only, so a kernel computes them once per gene
-// and stages them in shared memory instead of once per element.
+// The chain batch of one launch: K parameter sets over the same counts (the
+// chains of an MCMC batch, the particles of an SMC stage).  Each parameter
+// operand's stride between chains in floats, 0 where the chains share it;
+// the counts and Db are shared by every chain.  K = 1 is the unbatched
+// launch.  The phase body reads nu, zeta, cf, disp and dnu; the velocity
+// body all of them.
+struct ChainStrides {
+  int K;
+  int loss_pieces;        // loss_part entries per chain (the plan's)
+  long long nu, zeta, zdphi, cf, omega, lbeta, lgamma, disp, dnu;
+};
+
+// Per-gene columns of the NB log-pmf and of the lgamma / digamma ratios:
+// they depend on the dispersion r only, so a kernel computes them once per
+// gene and stages them in shared memory instead of once per element.
 struct GeneCols {
   float a;        // 1 / r
   float log_r;    // log r
@@ -61,29 +73,83 @@ __device__ __forceinline__ GeneCols gene_cols(float r) {
   return c;
 }
 
-// lgamma(k + a) - lgamma(a) and, when WANT_D, digamma(k + a) - digamma(a),
-// for an integer-valued count k >= 0.
-template <bool WANT_D>
-__device__ __forceinline__ void lgamma_digamma_ratio(float k, const GeneCols& c,
-                                                     float& lgr, float& dgr) {
-  const float x = fmaxf(k - 2.0f, 0.0f);
-  const float ka = c.y + x;
-  const float l1p = log1pf(x * c.inv_y);
-  const float inv = 1.0f / ka;
-  const float inv2 = inv * inv;
-  const float rc_ka = inv * ((1.0f / 12.0f) - inv2 * ((1.0f / 360.0f) -
-                      inv2 * ((1.0f / 1260.0f) - inv2 * (1.0f / 1680.0f))));
-  const float stir_l = (c.ym + x) * l1p + x * c.log_y - x + rc_ka - c.rc_y;
-  const bool lt = k < 2.0f;
+// From this a = 1/r on, a gene's dispersion gradient takes the form with no
+// cancelling terms (nb_lp_grads); below it the form d lp/d a = dgr + log
+// sigmoid, whose float32 error grows as a / mu but is no larger below here
+// (ops/special.py EXCESS_FROM).
+constexpr float kExcessFrom = 64.0f;
+
+// Below this argument log1p_excess and log1m_excess take their series
+// (through the 9th power: truncated at ~1.4e-8 relative); above it the
+// direct differences lose at most ~30 float32 ulps (ops/special.py
+// SERIES_BELOW).
+constexpr float kSeriesBelow = 0.125f;
+
+// t - log1p(t) for t >= 0, given l1p = log1p(t): its series t^2/2 - t^3/3
+// + ... - t^9/9 below kSeriesBelow, where the difference cancels.
+__device__ __forceinline__ float log1p_excess(float t, float l1p) {
+  const float ser = t * t * (0.5f - t * ((1.0f / 3.0f) - t * (0.25f - t * (0.2f - t * (
+                    (1.0f / 6.0f) - t * ((1.0f / 7.0f) - t * (0.125f - t / 9.0f)))))));
+  return t < kSeriesBelow ? ser : t - l1p;
+}
+
+// -log1p(-s) - s = s^2/2 + s^3/3 + ... + s^9/9, for 0 <= s < kSeriesBelow.
+__device__ __forceinline__ float log1m_excess(float s) {
+  return s * s * (0.5f + s * ((1.0f / 3.0f) + s * (0.25f + s * (0.2f + s * (
+         (1.0f / 6.0f) + s * ((1.0f / 7.0f) + s * (0.125f + s / 9.0f)))))));
+}
+
+// The Stirling branch's arguments for a count k >= 0 (used where k >= 2):
+// x = k - 2 (clamped at 0), t = x / y, log1p(t) and 1 / (y + x) and its
+// square, with y = a + 2.
+struct Stirling {
+  float x, t, l1p, inv, inv2;
+  bool lt;  // k < 2: the ratios are exact sums of at most two terms
+};
+
+__device__ __forceinline__ Stirling stirling(float k, const GeneCols& c) {
+  Stirling s;
+  s.x = fmaxf(k - 2.0f, 0.0f);
+  s.t = s.x * c.inv_y;
+  s.l1p = log1pf(s.t);
+  s.inv = 1.0f / (c.y + s.x);
+  s.inv2 = s.inv * s.inv;
+  s.lt = k < 2.0f;
+  return s;
+}
+
+// lgamma(k + a) - lgamma(a) for an integer-valued count k >= 0.
+__device__ __forceinline__ float lgamma_ratio(float k, const Stirling& s, const GeneCols& c) {
+  const float rc_ka = s.inv * ((1.0f / 12.0f) - s.inv2 * ((1.0f / 360.0f) -
+                      s.inv2 * ((1.0f / 1260.0f) - s.inv2 * (1.0f / 1680.0f))));
+  const float stir_l = (c.ym + s.x) * s.l1p + s.x * c.log_y - s.x + rc_ka - c.rc_y;
   const float small_l = (k > 0.0f ? c.l0 : 0.0f) + (k > 1.0f ? c.l1 : 0.0f);
-  lgr = lt ? small_l : c.full_l + stir_l;
-  if (WANT_D) {
-    const float tail_ka = -0.5f * inv - inv2 * ((1.0f / 12.0f) -
-                          inv2 * ((1.0f / 120.0f) - inv2 / 252.0f));
-    const float stir_d = l1p + tail_ka - c.tail_y;
-    const float small_d = (k > 0.0f ? c.i0 : 0.0f) + (k > 1.0f ? c.i1 : 0.0f);
-    dgr = lt ? small_d : c.full_d + stir_d;
-  }
+  return s.lt ? small_l : c.full_l + stir_l;
+}
+
+// digamma(k + a) - digamma(a).
+__device__ __forceinline__ float digamma_ratio(float k, const Stirling& s, const GeneCols& c) {
+  const float tail_ka = -0.5f * s.inv - s.inv2 * ((1.0f / 12.0f) -
+                        s.inv2 * ((1.0f / 120.0f) - s.inv2 / 252.0f));
+  const float stir_d = s.l1p + tail_ka - c.tail_y;
+  const float small_d = (k > 0.0f ? c.i0 : 0.0f) + (k > 1.0f ? c.i1 : 0.0f);
+  return s.lt ? small_d : c.full_d + stir_d;
+}
+
+// k - a (digamma(k + a) - digamma(a)) = sum_{j<k} j / (a + j): 0 for k < 2;
+// for k >= 2 the Stirling branch's 1/(a+1) + (x - a log1p(t)) - a
+// (tail(ka) - tail(y)) with ka = y + x, taken as y (t - log1p t) + (y - a)
+// log1p t (y - a is exact) and through 1/ka - 1/y = -x / (ka y): no
+// difference of two O(k) or two O(1/a) numbers, which cancel when a = 1/r
+// is large.
+__device__ __forceinline__ float digamma_excess(const Stirling& s, const GeneCols& c) {
+  const float d1 = -s.x * s.inv * c.inv_y;  // 1/ka - 1/y
+  const float iy2 = c.inv_y * c.inv_y;
+  const float d2 = d1 * (s.inv + c.inv_y);  // 1/ka^2 - 1/y^2
+  const float td = -0.5f * d1 - d2 * ((1.0f / 12.0f) - (s.inv2 + iy2) * (1.0f / 120.0f) +
+                   (s.inv2 * s.inv2 + s.inv2 * iy2 + iy2 * iy2) * (1.0f / 252.0f));
+  const float stir_k = c.i1 + c.y * log1p_excess(s.t, s.l1p) + (c.y - c.a) * s.l1p - c.a * td;
+  return s.lt ? 0.0f : stir_k;
 }
 
 // log Gamma(x) for x > 0: Lanczos, g = 7, n = 9.
@@ -118,8 +184,7 @@ __device__ __forceinline__ void softplus_log_sigmoid(float log_b, float e, float
 // lgamma), free of the cancellation of a * log_b - (a + k) * softplus(log_b).
 template <bool SKIP_K>
 __device__ __forceinline__ float nb_lp(float k, float log_b, const GeneCols& c) {
-  float lgr, unused;
-  lgamma_digamma_ratio<false>(k, c, lgr, unused);
+  const float lgr = lgamma_ratio(k, stirling(k, c), c);
   float sp, log_sig;
   softplus_log_sigmoid(log_b, expf(-fabsf(log_b)), sp, log_sig);
   float lp = lgr + c.a * log_sig - k * sp;
@@ -129,9 +194,16 @@ __device__ __forceinline__ float nb_lp(float k, float log_b, const GeneCols& c) 
 
 // (log-pmf, d lp/d elog, d lp/d r) as the fwd+grad kernels evaluate them:
 // softplus, log sigmoid, sigmoid and 1 - sigmoid share one exp; d lp/d elog
-// is k * sig - a * (1 - sig), not (a + k) * sig - a, and d lp/d a at fixed
-// log_b is dgr + log sigmoid(log_b): no term cancels at small dispersion.
-// g_r is 0 unless WANT_DISP, which compiles the digamma chain in.
+// is k * sig - a * (1 - sig), not (a + k) * sig - a.  d lp/d r is, for a
+// gene with a < kExcessFrom, -a^2 d lp/d a + a g_elog with d lp/d a = dgr +
+// log sig at fixed log_b; from kExcessFrom on
+//   d lp/d r = a ((k - a dgr) - k sig_c - a (log sig + sig_c)),
+// each term O(mu^2 / a): k - a dgr from digamma_excess, and -(log sig +
+// sig_c) where log_b >= 0 and sig_c < kSeriesBelow as log1m_excess(sig_c)
+// (there the difference of two O(mu / a) numbers).  No term cancels at small
+// dispersion.  The kernels' threads all work on one gene at a time, so the
+// choice between the two is uniform across a warp.  g_r is 0 unless
+// WANT_DISP, which compiles the digamma chain in.
 template <bool WANT_DISP, bool SKIP_K>
 __device__ __forceinline__ void nb_lp_grads(float k, float log_b, const GeneCols& c,
                                             float& lp, float& g_elog, float& g_r) {
@@ -143,15 +215,19 @@ __device__ __forceinline__ void nb_lp_grads(float k, float log_b, const GeneCols
   const bool pos = log_b >= 0.0f;
   const float sig = pos ? d : ed;
   const float sig_c = pos ? ed : d;
-  float lgr, dgr = 0.0f;
-  lgamma_digamma_ratio<WANT_DISP>(k, c, lgr, dgr);
-  lp = lgr + c.a * log_sig - k * sp;
+  const Stirling s = stirling(k, c);
+  lp = lgamma_ratio(k, s, c) + c.a * log_sig - k * sp;
   if (!SKIP_K) lp -= lgamma_pos(k + 1.0f);
   g_elog = k * sig - c.a * sig_c;
   g_r = 0.0f;
   if (WANT_DISP) {
-    const float dlp_da = dgr + log_sig;
-    g_r = (dlp_da * (-c.a) + g_elog) * c.a;
+    if (c.a < kExcessFrom) {
+      const float dlp_da = digamma_ratio(k, s, c) + log_sig;
+      g_r = (dlp_da * (-c.a) + g_elog) * c.a;
+    } else {
+      const float q = (pos && sig_c < kSeriesBelow) ? log1m_excess(sig_c) : -(log_sig + sig_c);
+      g_r = ((digamma_excess(s, c) - k * sig_c) + c.a * q) * c.a;
+    }
   }
 }
 

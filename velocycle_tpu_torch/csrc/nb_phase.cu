@@ -42,6 +42,7 @@
 namespace {
 
 using namespace vct::phase;
+using vct::ChainStrides;
 using vct::unit_owner;
 
 struct Args {
@@ -289,7 +290,7 @@ int vct_phase_run(int mode, const void* S, int counts_int16, const float* nu,
                   float* dcf, void* stream) {
   const Args a{mode, S, nu, zeta, cf, disp, dnu, Db, Ng, Nc, Nh, Nb, n_rep,
                skip_k != 0, want_disp != 0,
-               ChainStrides{K, loss_pieces, st_nu, st_zeta, st_cf, st_disp, st_dnu},
+               ChainStrides{K, loss_pieces, st_nu, st_zeta, 0, st_cf, 0, 0, 0, st_disp, st_dnu},
                loss_part, gene_part, cell_piece, dzeta, dcf, static_cast<cudaStream_t>(stream)};
   (void)cudaGetLastError();
   return dispatch(a, counts_int16 != 0, RunOp{a, grid, pieces});

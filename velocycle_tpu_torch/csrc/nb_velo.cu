@@ -21,6 +21,11 @@
 // even split over a persistent grid, and S and U staged ahead of the
 // arithmetic in a cp.async ring.
 //
+// A launch may carry K parameter sets over the same S and U (the chains
+// of an MCMC batch or the particles of an SMC stage: `ChainStrides`,
+// nb_common.cuh): the layout, the instantiations and the fixed-order sums
+// are those of K = 1, which is the unbatched launch bit for bit.
+//
 // S and U each have their own count type (int16 or float32): all four pairs
 // are instantiated, so a dataset that compacts only one matrix to int16
 // runs without a converted copy of the other.  Basis widths: Nh in {3, 5,
@@ -42,6 +47,7 @@
 namespace {
 
 using namespace vct::velo;
+using vct::ChainStrides;
 using vct::unit_owner;
 
 struct Args {
@@ -60,22 +66,24 @@ struct Args {
   const float* Db;    // (Nb, Nc) or null
   int Ng, Nc, Nh, Nb;
   bool skip_k, want_disp;
-  double* loss_part;  // (grid,)
-  float* gene_part;   // (n_tiles, Ng, Nh + 3 + Nb), FWDGRAD
-  float* cell_piece;  // (pieces, 2 Nh + 2, Nc), FWDGRAD
-  float* dzeta;       // (Nc, Nh), FWDGRAD
-  float* dzdphi;      // (Nc, Nh), FWDGRAD
-  float* dcf;         // (Nc,), FWDGRAD
-  float* domega;      // (Nc,), FWDGRAD
+  ChainStrides cs;    // the chain batch: K, loss pieces, parameter strides
+  double* loss_part;  // (K, loss_pieces)
+  float* gene_part;   // (K, n_tiles, Ng, Nh + 3 + Nb), FWDGRAD
+  float* cell_piece;  // (pieces, 2 Nh + 2, K * Nc), FWDGRAD
+  float* dzeta;       // (K, Nc, Nh), FWDGRAD
+  float* dzdphi;      // (K, Nc, Nh), FWDGRAD
+  float* dcf;         // (K, Nc), FWDGRAD
+  float* domega;      // (K, Nc), FWDGRAD
   cudaStream_t stream;
 };
 
 // How one call is laid out on the card.
 struct Plan {
-  int grid;           // CTAs: loss_part entries
+  int grid;           // CTAs
   int pieces;         // most cell-gradient pieces of one tile (0: none)
   int blocks_per_sm;  // resident CTAs per SM (occupancy)
   int dyn_smem;       // dynamic shared memory per CTA, bytes (the ring)
+  int loss_pieces;    // most CTAs that carry units of one chain
 };
 
 template <typename TS, typename TU, int NH, int CUT, bool WANT_DISP, bool HAS_DNU, bool SKIP_K>
@@ -118,14 +126,21 @@ struct Inst {
     if (p.blocks_per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
     const int n_chunks = (a.Ng + kGeneChunk - 1) / kGeneChunk;
     const int tiles = (a.Nc + kCellsPerTile - 1) / kCellsPerTile;
-    const long long n_units = static_cast<long long>(tiles) * n_chunks;
+    const long long UC = static_cast<long long>(tiles) * n_chunks;
+    const long long n_units = UC * a.cs.K;
     const long long slots = static_cast<long long>(sms) * p.blocks_per_sm;
     p.grid = static_cast<int>(n_units < slots ? n_units : slots);
     p.dyn_smem = kRingBytes;
     p.pieces = 0;
+    p.loss_pieces = 0;
+    for (int c = 0; c < a.cs.K; ++c) {
+      const int n = unit_owner((c + 1) * UC - 1, n_units, p.grid) -
+                    unit_owner(c * UC, n_units, p.grid) + 1;
+      if (n > p.loss_pieces) p.loss_pieces = n;
+    }
     if (CUT == FWDGRAD) {
-      for (int t = 0; t < tiles; ++t) {
-        const long long first = static_cast<long long>(t) * n_chunks;
+      for (long long t = 0; t < static_cast<long long>(tiles) * a.cs.K; ++t) {
+        const long long first = t * n_chunks;
         const int n = unit_owner(first + n_chunks - 1, n_units, p.grid) -
                       unit_owner(first, n_units, p.grid) + 1;
         if (n > p.pieces) p.pieces = n;
@@ -138,12 +153,13 @@ struct Inst {
     velo_kernel<TS, TU, NH, CUT, WANT_DISP, HAS_DNU, SKIP_K>
         <<<p.grid, kThreads, p.dyn_smem, a.stream>>>(
         static_cast<const TS*>(a.S), static_cast<const TU*>(a.U), a.nu, a.zeta, a.zdphi, a.cf,
-        a.omega, a.lbeta, a.lgamma, a.disp, a.dnu, a.Db, a.Ng, a.Nc, a.Nb, a.loss_part,
+        a.omega, a.lbeta, a.lgamma, a.disp, a.dnu, a.Db, a.Ng, a.Nc, a.Nb, a.cs, a.loss_part,
         a.gene_part, a.cell_piece);
     int rc = static_cast<int>(cudaGetLastError());
     if (rc != 0 || CUT != FWDGRAD) return rc;
-    velo_cell_sum_kernel<NH><<<(a.Nc + 255) / 256, 256, 0, a.stream>>>(
-        a.cell_piece, a.Ng, a.Nc, p.grid, a.dzeta, a.dzdphi, a.dcf, a.domega);
+    const long long KNc = static_cast<long long>(a.cs.K) * a.Nc;
+    velo_cell_sum_kernel<NH><<<static_cast<int>((KNc + 255) / 256), 256, 0, a.stream>>>(
+        a.cell_piece, a.Ng, a.Nc, a.cs.K, p.grid, a.dzeta, a.dzdphi, a.dcf, a.domega);
     return static_cast<int>(cudaGetLastError());
   }
 };
@@ -194,7 +210,8 @@ int pick_u(const Args& a, bool u_int16, const Op& op) {
 
 template <class Op>
 int dispatch(const Args& a, bool s_int16, bool u_int16, const Op& op) {
-  if (a.cut < 0 || a.cut >= kNumCuts || a.Ng < 1 || a.Nc < 1 || a.Nb < 0 || a.Nb > kMaxNb)
+  if (a.cut < 0 || a.cut >= kNumCuts || a.Ng < 1 || a.Nc < 1 || a.Nb < 0 || a.Nb > kMaxNb ||
+      a.cs.K < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   return s_int16 ? pick_u<int16_t>(a, u_int16, op) : pick_u<float>(a, u_int16, op);
 }
@@ -213,7 +230,7 @@ struct RunOp {
     const int rc = K::plan(a, p);
     if (rc != 0) return rc;
     // the caller's buffers were sized from vct_velo_plan
-    if (p.grid != grid || p.pieces > pieces ||
+    if (p.grid != grid || p.pieces > pieces || p.loss_pieces != a.cs.loss_pieces ||
         (K::kCut == FWDGRAD && (a.gene_part == nullptr || a.cell_piece == nullptr ||
                                 a.dzeta == nullptr || a.dzdphi == nullptr ||
                                 a.dcf == nullptr || a.domega == nullptr)))
@@ -235,10 +252,11 @@ int vct_velo_layout(int* out, int n) {
   return i;
 }
 
-// The plan of one call of `cut` (0: velo_fwd, 1: velo_fwdgrad): out =
-// {grid, pieces, blocks_per_sm, dyn_smem}.  The caller sizes loss_part
-// (grid,) and, for velo_fwdgrad, cell_piece (pieces, 2 Nh + 2, Nc) from it.
-int vct_velo_plan(int cut, int s_int16, int u_int16, int Ng, int Nc, int Nh, int Nb,
+// The plan of one call of `cut` (0: velo_fwd, 1: velo_fwdgrad) over K
+// chains (K = 1: unbatched): out = {grid, pieces, blocks_per_sm, dyn_smem,
+// loss_pieces}.  The caller sizes loss_part (K, loss_pieces) and, for
+// velo_fwdgrad, cell_piece (pieces, 2 Nh + 2, K * Nc) from it.
+int vct_velo_plan(int cut, int s_int16, int u_int16, int Ng, int Nc, int Nh, int Nb, int K,
                   int skip_k, int want_disp, int* out) {
   Args a{};
   a.cut = cut;
@@ -248,44 +266,66 @@ int vct_velo_plan(int cut, int s_int16, int u_int16, int Ng, int Nc, int Nh, int
   a.Nb = Nb;
   a.skip_k = skip_k != 0;
   a.want_disp = want_disp != 0;
+  a.cs.K = K;
   Plan p{};
   const int rc = dispatch(a, s_int16 != 0, u_int16 != 0, PlanOp{a, p});
   out[0] = p.grid;
   out[1] = p.pieces;
   out[2] = p.blocks_per_sm;
   out[3] = p.dyn_smem;
+  out[4] = p.loss_pieces;
   return rc;
 }
 
-// Loss only, with the grid of its plan: loss_part (grid,) doubles, summed
-// by the caller.  Returns the CUDA error of the launch, or
-// cudaErrorInvalidValue for arguments the plan does not match.
+// Both entry points take K parameter sets over the same S, U and Db: chain
+// c reads nu + c * st_nu, zeta + c * st_zeta, zeta_dphi + c * st_zdphi, cf
+// + c * st_cf, omega + c * st_omega, log_beta + c * st_lbeta, log_gamma + c
+// * st_lgamma, disp + c * st_disp and dnu + c * st_dnu (strides in floats,
+// 0 for an operand the chains share).  They return the CUDA error of the
+// launches, or cudaErrorInvalidValue for arguments or buffers the plan
+// does not match.
+
+// Loss only, with the grid and loss pieces of its plan: loss_part (K,
+// loss_pieces) doubles, zero where a chain has fewer pieces, summed by the
+// caller.
 int vct_velo_fwd(const void* S, int s_int16, const void* U, int u_int16, const float* nu,
                  const float* zeta, const float* zdphi, const float* cf, const float* omega,
                  const float* lbeta, const float* lgamma, const float* disp, const float* dnu,
-                 const float* Db, int Ng, int Nc, int Nh, int Nb, int skip_k, int grid,
-                 double* loss_part, void* stream) {
+                 const float* Db, int Ng, int Nc, int Nh, int Nb, int K, long long st_nu,
+                 long long st_zeta, long long st_zdphi, long long st_cf, long long st_omega,
+                 long long st_lbeta, long long st_lgamma, long long st_disp, long long st_dnu,
+                 int skip_k, int grid, int loss_pieces, double* loss_part, void* stream) {
   const Args a{FWD, S, U, nu, zeta, zdphi, cf, omega, lbeta, lgamma, disp, dnu, Db,
-               Ng, Nc, Nh, Nb, skip_k != 0, false, loss_part, nullptr, nullptr, nullptr,
-               nullptr, nullptr, nullptr, static_cast<cudaStream_t>(stream)};
+               Ng, Nc, Nh, Nb, skip_k != 0, false,
+               ChainStrides{K, loss_pieces, st_nu, st_zeta, st_zdphi, st_cf, st_omega,
+                            st_lbeta, st_lgamma, st_disp, st_dnu},
+               loss_part, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+               static_cast<cudaStream_t>(stream)};
   (void)cudaGetLastError();
   return dispatch(a, s_int16 != 0, u_int16 != 0, RunOp{a, grid, 0});
 }
 
-// Loss and all gradients, with the grid and pieces of its plan: loss_part
-// (grid,); gene_part (n_tiles, Ng, Nh + 3 + Nb) = [dnu, ddisp, dlog_beta,
-// sum_c g_x, ddnu]; dzeta and dzdphi (Nc, Nh), dcf and domega (Nc,), through
-// the cell_piece (pieces, 2 Nh + 2, Nc) scratch.
+// Loss and all gradients, with the grid, pieces and loss pieces of its
+// plan: loss_part (K, loss_pieces); gene_part (K, n_tiles, Ng, Nh + 3 + Nb)
+// = [dnu, ddisp, dlog_beta, sum_c g_x, ddnu]; dzeta and dzdphi (K, Nc,
+// Nh), dcf and domega (K, Nc), through the cell_piece (pieces, 2 Nh + 2, K
+// * Nc) scratch.
 int vct_velo_fwdgrad(const void* S, int s_int16, const void* U, int u_int16, const float* nu,
                      const float* zeta, const float* zdphi, const float* cf,
                      const float* omega, const float* lbeta, const float* lgamma,
                      const float* disp, const float* dnu, const float* Db, int Ng, int Nc,
-                     int Nh, int Nb, int skip_k, int want_disp, int grid, int pieces,
-                     double* loss_part, float* gene_part, float* cell_piece, float* dzeta,
-                     float* dzdphi, float* dcf, float* domega, void* stream) {
+                     int Nh, int Nb, int K, long long st_nu, long long st_zeta,
+                     long long st_zdphi, long long st_cf, long long st_omega,
+                     long long st_lbeta, long long st_lgamma, long long st_disp,
+                     long long st_dnu, int skip_k, int want_disp, int grid, int pieces,
+                     int loss_pieces, double* loss_part, float* gene_part, float* cell_piece,
+                     float* dzeta, float* dzdphi, float* dcf, float* domega, void* stream) {
   const Args a{FWDGRAD, S, U, nu, zeta, zdphi, cf, omega, lbeta, lgamma, disp, dnu, Db,
-               Ng, Nc, Nh, Nb, skip_k != 0, want_disp != 0, loss_part, gene_part,
-               cell_piece, dzeta, dzdphi, dcf, domega, static_cast<cudaStream_t>(stream)};
+               Ng, Nc, Nh, Nb, skip_k != 0, want_disp != 0,
+               ChainStrides{K, loss_pieces, st_nu, st_zeta, st_zdphi, st_cf, st_omega,
+                            st_lbeta, st_lgamma, st_disp, st_dnu},
+               loss_part, gene_part, cell_piece, dzeta, dzdphi, dcf, domega,
+               static_cast<cudaStream_t>(stream)};
   (void)cudaGetLastError();
   return dispatch(a, s_int16 != 0, u_int16 != 0, RunOp{a, grid, pieces});
 }

@@ -18,13 +18,13 @@
 // warps resident (PERF.md, the layout sweep).
 //
 // Chains.  A launch may carry K parameter sets over the same counts (the
-// chains of an MCMC batch: `ChainStrides`).  The units are then chain-major,
-// K x tiles x chunks, and the persistent grid splits all of them evenly, so
-// a CTA's run may cross from one chain into the next.  Gene partials and
-// cell-gradient pieces are indexed by the tile counted over all chains, and
-// the loss goes to per-(chain, CTA) doubles, flushed when the run crosses a
-// chain boundary.  At K = 1 every index and every sum is the unbatched
-// launch's: the same bits.
+// chains of an MCMC batch: `ChainStrides`, nb_common.cuh).  The units are
+// then chain-major, K x tiles x chunks, and the persistent grid splits all
+// of them evenly, so a CTA's run may cross from one chain into the next.
+// Gene partials and cell-gradient pieces are indexed by the tile counted
+// over all chains, and the loss goes to per-(chain, CTA) doubles, flushed
+// when the run crosses a chain boundary.  At K = 1 every index and every
+// sum is the unbatched launch's: the same bits.
 //
 // Counts reach the arithmetic through a ring of kStages shared-memory
 // stages: while unit i is computed, units i+1 .. i+kStages-1 are in flight
@@ -114,16 +114,6 @@ __host__ __device__ constexpr int stage_bytes() {
   return kGeneChunk * row_bytes<TK>() +
          (kGeneChunk * (NH + 1 + (HAS_DNU ? kMaxNb : 0)) * 4 + 15) / 16 * 16;
 }
-
-// The chain batch of one launch: K parameter sets over the same counts.
-// Each parameter operand's stride between chains in floats, 0 where the
-// chains share it; the counts and Db are shared by every chain.  K = 1 is
-// the unbatched launch.
-struct ChainStrides {
-  int K;
-  int loss_pieces;        // loss_part entries per chain (vct_phase_plan)
-  long long nu, zeta, cf, disp, dnu;
-};
 
 template <typename TK, int NH, int CUT, bool WANT_DISP, bool HAS_DNU, bool SKIP_K>
 __global__ void __launch_bounds__(kThreads, kMinBlocksPerSm)

@@ -29,6 +29,15 @@
 // warps per SM) beat 16-gene chunks in three stages (12 warps at 134
 // registers) and one cell per thread (20 warps).
 //
+// Chains.  A launch may carry K parameter sets over the same S and U (the
+// chains of an MCMC batch, the particles of an SMC stage: `ChainStrides`,
+// nb_common.cuh), as phase_kernel.cuh does: chain-major units, K x tiles x
+// chunks, split evenly over the same persistent grid; gene partials (K,
+// tiles, Ng, NV) and cell pieces over K x Nc indexed by the tile counted
+// over all chains; the loss in per-(chain, CTA) doubles, flushed when a
+// CTA's run crosses a chain boundary.  At K = 1 every index and every sum
+// is the unbatched launch's: the same bits.
+//
 // S and U reach the arithmetic through a ring of kStages shared-memory
 // stages: while unit i is computed, units i+1 .. i+kStages-1 are in flight
 // as 16-byte `cp.async` copies of the aligned window around each row
@@ -47,8 +56,8 @@
 // dlog_beta, sum_c g_x, ddelta_nu] go through a warp reduce-scatter and the
 // CTA's warps into per-tile partials (n_tiles, Ng, NH + 3 + Nb) that the
 // caller sums over tiles (dlog_gamma = (sum_c g_x) * exp(log_gamma) after
-// that sum); the loss into per-CTA doubles; the cell gradients through the
-// pieces.  Repeats are bit-identical.
+// that sum); the loss into per-(chain, CTA) doubles; the cell gradients
+// through the pieces.  Repeats are bit-identical.
 //
 // The layout constants below are their only definition: the Python wrappers
 // read them back from the library (vct_velo_layout), and on the CPU from
@@ -142,7 +151,7 @@ velo_kernel(const TS* __restrict__ S, const TU* __restrict__ U, const float* __r
             const float* __restrict__ cf, const float* __restrict__ omega,
             const float* __restrict__ lbeta, const float* __restrict__ lgamma,
             const float* __restrict__ disp, const float* __restrict__ dnu,
-            const float* __restrict__ Db, int Ng, int Nc, int Nb,
+            const float* __restrict__ Db, int Ng, int Nc, int Nb, ChainStrides cs,
             double* __restrict__ loss_part, float* __restrict__ gene_part,
             float* __restrict__ cell_piece) {
   constexpr bool GRAD = CUT == FWDGRAD;
@@ -173,8 +182,9 @@ velo_kernel(const TS* __restrict__ S, const TU* __restrict__ U, const float* __r
   const int nb = HAS_DNU ? Nb : 0;
   const int NV = NH + kGeneExtra + nb;
   const int n_chunks = (Ng + kGeneChunk - 1) / kGeneChunk;
-  const long long n_units =
-      static_cast<long long>((Nc + kCellsPerTile - 1) / kCellsPerTile) * n_chunks;
+  const int tiles = (Nc + kCellsPerTile - 1) / kCellsPerTile;
+  const long long UC = static_cast<long long>(tiles) * n_chunks;  // units of one chain
+  const long long n_units = UC * cs.K;
   const long long u0 = static_cast<long long>(blockIdx.x) * n_units / gridDim.x;
   const long long u1 = static_cast<long long>(blockIdx.x + 1) * n_units / gridDim.x;
   const size_t n_el = static_cast<size_t>(Ng) * Nc;
@@ -184,34 +194,40 @@ velo_kernel(const TS* __restrict__ S, const TU* __restrict__ U, const float* __r
   // start the copies of unit u into ring stage `slot`
   auto issue = [&](long long u, int slot) {
     unsigned char* st = ring + slot * STAGE;
-    const int t = static_cast<int>(u / n_chunks);
-    const int g0 = static_cast<int>(u - static_cast<long long>(t) * n_chunks) * kGeneChunk;
+    const int gt = static_cast<int>(u / n_chunks);
+    const int ch = gt / tiles;
+    const int t = gt - ch * tiles;
+    const int g0 = static_cast<int>(u - static_cast<long long>(gt) * n_chunks) * kGeneChunk;
     const int gn = min(kGeneChunk, Ng - g0);
     const int c0 = t * kCellsPerTile;
     issue_rows(st, S, n_el, g0, gn, c0, Nc, tid);
     issue_rows(st + OFF_U, U, n_el, g0, gn, c0, Nc, tid);
     float* prm = reinterpret_cast<float*>(st + PRM);
+    const float* nu_c = nu + ch * cs.nu;
     for (int i = tid; i < gn * NH; i += kThreads)
-      cp_async4(prm + i, nu + static_cast<size_t>(g0) * NH + i);
+      cp_async4(prm + i, nu_c + static_cast<size_t>(g0) * NH + i);
     // each gene's dispersion, log_beta and log_gamma are copied by the
     // thread that turns them into its staged columns
     if (tid < gn) {
-      cp_async4(prm + PRM_DISP + tid, disp + g0 + tid);
-      cp_async4(prm + PRM_LB + tid, lbeta + g0 + tid);
-      cp_async4(prm + PRM_LG + tid, lgamma + g0 + tid);
+      cp_async4(prm + PRM_DISP + tid, disp + ch * cs.disp + g0 + tid);
+      cp_async4(prm + PRM_LB + tid, lbeta + ch * cs.lbeta + g0 + tid);
+      cp_async4(prm + PRM_LG + tid, lgamma + ch * cs.lgamma + g0 + tid);
     }
     if (HAS_DNU) {
+      const float* dnu_c = dnu + ch * cs.dnu;
       for (int i = tid; i < gn * nb; i += kThreads) {
         const int b = i / gn;
         const int g = i - b * gn;
-        cp_async4(prm + PRM_DNU + b * kGeneChunk + g, dnu + static_cast<size_t>(b) * Ng + g0 + g);
+        cp_async4(prm + PRM_DNU + b * kGeneChunk + g, dnu_c + static_cast<size_t>(b) * Ng + g0 + g);
       }
     }
   };
 
   // this thread's cells of the current tile (i * kThreads + tid): registers
-  // for the tile's units
+  // for the tile's units.  `tile` counts the tiles of all chains (chain *
+  // tiles + tile of the chain); cell[] is the cell within the chain
   constexpr int C = kCellsPerThread;
+  const size_t KNc = static_cast<size_t>(cs.K) * Nc;
   int tile = -1;
   int cell[C];
   bool valid[C];
@@ -233,22 +249,43 @@ velo_kernel(const TS* __restrict__ S, const TU* __restrict__ U, const float* __r
     for (int b = 0; b < NB_SLOTS; ++b) db[i][b] = 0.0f;
   }
 
-  // this CTA's piece of a tile's cell gradients, in CTA order
-  auto flush = [&](int t) {
+  // this CTA's piece of a tile's cell gradients, in CTA order; the pieces
+  // are (pieces, 2 NH + 2, K * Nc), the chains' cells side by side
+  auto flush = [&](int gt) {
     const int k = static_cast<int>(blockIdx.x) -
-                  unit_owner(static_cast<long long>(t) * n_chunks, n_units, gridDim.x);
+                  unit_owner(static_cast<long long>(gt) * n_chunks, n_units, gridDim.x);
+    const size_t c0 = static_cast<size_t>(gt / tiles) * Nc;
 #pragma unroll
     for (int i = 0; i < C; ++i) {
       if (!valid[i]) continue;
-      float* out = cell_piece + static_cast<size_t>(k) * NCG * Nc + cell[i];
+      float* out = cell_piece + static_cast<size_t>(k) * NCG * KNc + c0 + cell[i];
 #pragma unroll
       for (int h = 0; h < (GRAD ? NH : 1); ++h) {
-        out[static_cast<size_t>(h) * Nc] = dz[i][h];
-        out[static_cast<size_t>(NH + h) * Nc] = dzd[i][h];
+        out[static_cast<size_t>(h) * KNc] = dz[i][h];
+        out[static_cast<size_t>(NH + h) * KNc] = dzd[i][h];
       }
-      out[static_cast<size_t>(2 * NH) * Nc] = dc[i];
-      out[static_cast<size_t>(2 * NH + 1) * Nc] = dom[i];
+      out[static_cast<size_t>(2 * NH) * KNc] = dc[i];
+      out[static_cast<size_t>(2 * NH + 1) * KNc] = dom[i];
     }
+  };
+
+  // this CTA's piece of a chain's loss: loss_part is (K, loss_pieces), a
+  // chain's pieces in the order of the CTAs that carry its units
+  int chain = static_cast<int>(u0 / UC);
+  double loss = 0.0;
+  auto flush_loss = [&]() {
+    loss = warp_sum(loss);
+    if (lane == 0) s_loss[warp] = loss;
+    __syncthreads();
+    if (tid == 0) {
+      double s = 0.0;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) s += s_loss[w];
+      const int k = static_cast<int>(blockIdx.x) - unit_owner(chain * UC, n_units, gridDim.x);
+      loss_part[static_cast<size_t>(chain) * cs.loss_pieces + k] = s;
+    }
+    __syncthreads();
+    loss = 0.0;
   };
 
 #pragma unroll
@@ -257,8 +294,11 @@ velo_kernel(const TS* __restrict__ S, const TU* __restrict__ U, const float* __r
     cp_async_commit();
   }
 
-  double loss = 0.0;
   for (long long u = u0; u < u1; ++u) {
+    if (u / UC != chain) {  // uniform over the CTA: the next chain's units
+      flush_loss();
+      chain = static_cast<int>(u / UC);
+    }
     const int iu = static_cast<int>(u - u0);
     const int slot = iu % kStages;
     // refill the stage that unit u - 1 used (every thread left it at the
@@ -267,8 +307,9 @@ velo_kernel(const TS* __restrict__ S, const TU* __restrict__ U, const float* __r
     cp_async_commit();
     cp_async_wait<kStages - 1>();
 
-    const int t = static_cast<int>(u / n_chunks);
-    const int g0 = static_cast<int>(u - static_cast<long long>(t) * n_chunks) * kGeneChunk;
+    const int gt = static_cast<int>(u / n_chunks);
+    const int t = gt - chain * tiles;
+    const int g0 = static_cast<int>(u - static_cast<long long>(gt) * n_chunks) * kGeneChunk;
     const int gn = min(kGeneChunk, Ng - g0);
     const unsigned char* st = ring + slot * STAGE;
     const float* prm = reinterpret_cast<const float*>(st + PRM);
@@ -279,9 +320,13 @@ velo_kernel(const TS* __restrict__ S, const TU* __restrict__ U, const float* __r
     }
     __syncthreads();  // the stage and the columns are in place for every thread
 
-    if (t != tile) {
+    if (gt != tile) {
       if (GRAD && tile >= 0) flush(tile);
-      tile = t;
+      tile = gt;
+      const float* zeta_c = zeta + chain * cs.zeta;
+      const float* zdphi_c = zdphi + chain * cs.zdphi;
+      const float* cf_c = cf + chain * cs.cf;
+      const float* om_c = omega + chain * cs.omega;
 #pragma unroll
       for (int i = 0; i < C; ++i) {
         cell[i] = t * kCellsPerTile + i * kThreads + tid;
@@ -289,13 +334,13 @@ velo_kernel(const TS* __restrict__ S, const TU* __restrict__ U, const float* __r
         const size_t row = static_cast<size_t>(valid[i] ? cell[i] : 0) * NH;
 #pragma unroll
         for (int h = 0; h < NH; ++h) {
-          z[i][h] = valid[i] ? zeta[row + h] : 0.0f;
-          zd[i][h] = valid[i] ? zdphi[row + h] : 0.0f;
+          z[i][h] = valid[i] ? zeta_c[row + h] : 0.0f;
+          zd[i][h] = valid[i] ? zdphi_c[row + h] : 0.0f;
         }
 #pragma unroll
         for (int h = 0; h < (GRAD ? NH : 1); ++h) dz[i][h] = dzd[i][h] = 0.0f;
-        cfv[i] = valid[i] ? cf[cell[i]] : 0.0f;
-        om[i] = valid[i] ? omega[cell[i]] : 0.0f;
+        cfv[i] = valid[i] ? cf_c[cell[i]] : 0.0f;
+        om[i] = valid[i] ? om_c[cell[i]] : 0.0f;
         dc[i] = dom[i] = 0.0f;
 #pragma unroll
         for (int b = 0; b < NB_SLOTS; ++b)
@@ -410,49 +455,43 @@ velo_kernel(const TS* __restrict__ S, const TU* __restrict__ U, const float* __r
         float s = 0.0f;
 #pragma unroll
         for (int w = 0; w < kWarps; ++w) s += s_red[gl][vi][w];
-        gene_part[(static_cast<size_t>(t) * Ng + g0 + gl) * NV + vi] = s;
+        gene_part[(static_cast<size_t>(gt) * Ng + g0 + gl) * NV + vi] = s;
       }
     }
   }
   if (GRAD && tile >= 0) flush(tile);
   cp_async_wait<0>();
-
-  loss = warp_sum(loss);
-  if (lane == 0) s_loss[warp] = loss;
-  __syncthreads();
-  if (tid == 0) {
-    double s = 0.0;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) s += s_loss[w];
-    loss_part[blockIdx.x] = s;
-  }
+  flush_loss();
 }
 
-// dzeta and dzeta_dphi (Nc, NH), dcf and domega (Nc,) from the pieces
-// (pieces, 2 NH + 2, Nc): each tile's pieces added in the order of the CTAs
-// that wrote them.
+// dzeta and dzeta_dphi (K, Nc, NH), dcf and domega (K, Nc) from the
+// pieces (pieces, 2 NH + 2, K * Nc): each tile's pieces added in the order
+// of the CTAs that wrote them.
 template <int NH>
 __global__ void velo_cell_sum_kernel(const float* __restrict__ cell_piece, int Ng, int Nc,
-                                     int grid, float* __restrict__ dzeta,
+                                     int K, int grid, float* __restrict__ dzeta,
                                      float* __restrict__ dzdphi, float* __restrict__ dcf,
                                      float* __restrict__ domega) {
   constexpr int NCG = 2 * NH + 2;
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= Nc) return;
+  const long long KNc = static_cast<long long>(K) * Nc;
+  const long long v = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (v >= KNc) return;
+  const int ch = static_cast<int>(v / Nc);
+  const int c = static_cast<int>(v - static_cast<long long>(ch) * Nc);
   const int n_chunks = (Ng + kGeneChunk - 1) / kGeneChunk;
-  const long long n_units =
-      static_cast<long long>((Nc + kCellsPerTile - 1) / kCellsPerTile) * n_chunks;
-  const long long first = static_cast<long long>(c / kCellsPerTile) * n_chunks;
+  const int tiles = (Nc + kCellsPerTile - 1) / kCellsPerTile;
+  const long long n_units = static_cast<long long>(K) * tiles * n_chunks;
+  const long long first = (static_cast<long long>(ch) * tiles + c / kCellsPerTile) * n_chunks;
   const int n = unit_owner(first + n_chunks - 1, n_units, grid) -
                 unit_owner(first, n_units, grid) + 1;
 #pragma unroll
   for (int r = 0; r < NCG; ++r) {
-    float s = cell_piece[static_cast<size_t>(r) * Nc + c];
-    for (int k = 1; k < n; ++k) s += cell_piece[(static_cast<size_t>(k) * NCG + r) * Nc + c];
-    if (r < NH) dzeta[static_cast<size_t>(c) * NH + r] = s;
-    else if (r < 2 * NH) dzdphi[static_cast<size_t>(c) * NH + r - NH] = s;
-    else if (r == 2 * NH) dcf[c] = s;
-    else domega[c] = s;
+    float s = cell_piece[static_cast<size_t>(r) * KNc + v];
+    for (int k = 1; k < n; ++k) s += cell_piece[(static_cast<size_t>(k) * NCG + r) * KNc + v];
+    if (r < NH) dzeta[static_cast<size_t>(v) * NH + r] = s;
+    else if (r < 2 * NH) dzdphi[static_cast<size_t>(v) * NH + r - NH] = s;
+    else if (r == 2 * NH) dcf[v] = s;
+    else domega[v] = s;
   }
 }
 

@@ -90,7 +90,7 @@ class _FitModel:
         self.svi = None
 
     def fit(self, optimizer=None, loss=None, num_steps=1000, seed=0,
-            log_every=0, callback=None, store_output=False,
+            log_every=0, verbose=False, callback=None, store_output=False,
             intermediate_output_step_size=100, store_num_samples=50,
             live_plot=False):
         """Run SVI and extract posterior estimates.
@@ -103,6 +103,9 @@ class _FitModel:
           num_steps: SVI steps (>= 1).
           seed: root integer seed of the fit's random draws.
           log_every: print the loss at chunk ends when non-zero.
+          verbose: accepted for the reference's callers; as in the JAX
+            package's ``fit`` it prints nothing beyond what ``log_every``
+            asks for.
           callback: ``callback(step, state, last_loss)`` at chunk ends.
           store_output: keep a posterior snapshot every
             ``intermediate_output_step_size`` steps (chunk ends) in

@@ -2,7 +2,8 @@
 
 `Trace_ELBO` is the single-particle reparameterized Trace ELBO: one draw
 from the guide, replayed through the model; loss = -(sum model log p - sum
-guide log q).  Delta guide sites contribute log q = 0, and auxiliary sites
+guide log q), each site's term weighted by its ``scale`` (`handlers.scale`,
+as the minibatch path sets it).  Delta guide sites contribute log q = 0, and auxiliary sites
 (``infer={"is_auxiliary": True}``, such as the LRMN guide's single draw
 feeding its Delta sites) contribute nothing, as in pyro, where that draw
 happens outside any sample site.
@@ -31,11 +32,13 @@ def _elbo_term(site):
 
 
 def _logp_sum(tr):
+    """Sum over the trace of each site's summed log-prob times its scale
+    (`handlers.scale`; 1 unless a handler set one)."""
     total = 0.0
     for site in tr.values():
         lp = _elbo_term(site)
         if lp is not None:
-            total = total + lp.sum()
+            total = total + lp.sum() * site.get("scale", 1.0)
     return total
 
 

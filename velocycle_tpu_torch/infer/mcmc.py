@@ -14,7 +14,8 @@ Port of `velocycle_tpu/infer/mcmc.py`.
     `torch.func.vmap(potential_fn)` over the chains, then one reverse pass
     of autograd (`_batched_value_and_grad`).  On fused NB data that is ONE
     chain-batched kernel launch per leapfrog step
-    (`ops.nb_kernels.phase_fwdgrad` over its chain axis).
+    (`ops.nb_kernels.phase_fwdgrad`, or `velo_fwdgrad` on velocity data,
+    over its chain axis).
   * Randomness: one `torch.Generator` per chain (on the host), seeded from
     the caller's integer seed, so chain k's draws do not depend on which
     other chains share its batch: K chains batched give the K single-chain

@@ -16,9 +16,9 @@ The particles are ONE batch, (n, dim) tensors, as `infer.mcmc`'s chains
 are: each stage's log-likelihood is `torch.func.vmap` of the model over
 the particles with gradients disabled, and each HMC leapfrog one batched
 value-and-gradient of the tempered potential (`mcmc._batched_value_and_
-grad`).  On fused NB data that is ONE chain-batched ``phase_fwd`` launch
-per stage and ONE chain-batched ``phase_fwdgrad`` launch per leapfrog
-(`ops.nb_kernels`).  The tempered potential takes prior and likelihood
+grad`).  On fused NB data that is ONE chain-batched ``phase_fwd`` (on
+velocity data ``velo_fwd``) launch per stage and ONE chain-batched
+``phase_fwdgrad`` (``velo_fwdgrad``) launch per leapfrog (`ops.nb_kernels`).  The tempered potential takes prior and likelihood
 from ONE trace of the model per evaluation (`mcmc.ModelInfo.log_parts`);
 a prior draw stops the model at its last latent site, so no likelihood is
 computed for it.

@@ -52,7 +52,9 @@ import torch
 
 from . import cuda_build
 from .likelihoods import nb_logpmf
-from .special import lgamma_digamma_ratio, lgamma_pos, softplus_log_sigmoid
+from .special import (EXCESS_FROM, SERIES_BELOW, lgamma_digamma_excess,
+                      lgamma_pos, lgamma_ratio, log1m_excess,
+                      softplus_log_sigmoid)
 
 __all__ = [
     "KERNEL_WIDTHS",
@@ -171,7 +173,7 @@ def _nb_lp(k, elog, a, log_r, skip_lgamma_k=False):
     ``a * log_b - a * softplus(log_b)``, whose two halves cancel where a =
     1/r is large (small dispersion)."""
     log_b = -log_r - elog
-    lgr, _ = lgamma_digamma_ratio(k, a)
+    lgr = lgamma_ratio(k, a)
     sp, log_sig = softplus_log_sigmoid(log_b, with_sigmoid=False)
     lp = lgr + a * log_sig - k * sp
     if not skip_lgamma_k:
@@ -185,11 +187,23 @@ def _nb_lp_and_grads(k, a, log_r, elog, skip_k, want_r=True):
 
     Free of the small-dispersion cancellations: the log-pmf as in `_nb_lp`,
     d lp/d elog = k * sigmoid(log_b) - a * (1 - sigmoid(log_b)) (not
-    ``(a + k) * sigmoid - a``), and d lp/d a at fixed log_b = dgr + log
-    sigmoid(log_b)."""
+    ``(a + k) * sigmoid - a``), and for genes with a >= EXCESS_FROM
+
+        d lp/d r = a ((k - a dgr) - k sig_c - a (log sig + sig_c)),
+
+    sig_c = 1 - sigmoid(log_b), whose three terms are each O(mu^2 / a):
+    k - a dgr from `lgamma_digamma_excess`, and -(log sig + sig_c)
+    where log_b >= 0 as `log1m_excess(sig_c)` below SERIES_BELOW (mu / a
+    small: the difference of two O(mu / a) numbers otherwise).  Below
+    EXCESS_FROM, d lp/d r = -a^2 (dgr + log sig) + a g_elog: its error grows
+    as a / mu, but there it is no larger than the other form's, which costs
+    more operations."""
     log_b = -log_r - elog
     sp, log_sig, sig, sig_c = softplus_log_sigmoid(log_b)
-    lgr, dgr = lgamma_digamma_ratio(k, a)
+    if want_r:
+        lgr, dgr, kad = lgamma_digamma_excess(k, a)
+    else:
+        lgr = lgamma_ratio(k, a)
     lp = lgr + a * log_sig - k * sp
     if not skip_k:
         lp = lp - lgamma_pos(k + 1.0)
@@ -197,8 +211,11 @@ def _nb_lp_and_grads(k, a, log_r, elog, skip_k, want_r=True):
     if not want_r:
         return lp, g_elog, None
     dlp_da = dgr + log_sig
-    g_r = (dlp_da * (-a) + g_elog) * a
-    return lp, g_elog, g_r
+    g_r_ratio = (dlp_da * (-a) + g_elog) * a
+    q = torch.where((log_b >= 0.0) & (sig_c < SERIES_BELOW),
+                    log1m_excess(sig_c), -(log_sig + sig_c))
+    g_r_excess = ((kad - k * sig_c) + a * q) * a
+    return lp, g_elog, torch.where(a < EXCESS_FROM, g_r_ratio, g_r_excess)
 
 
 def _finish_loss(total64, lgamma_k_sum):
@@ -421,7 +438,7 @@ class Plan(NamedTuple):
     pieces: int             # cell-gradient pieces per cell (0: none)
     blocks_per_sm: int      # resident CTAs per SM
     dyn_smem: int           # dynamic shared memory per CTA, bytes
-    loss_pieces: int        # loss partials per chain (velocity: the grid)
+    loss_pieces: int        # loss partials per chain
 
 
 def _read_layout(header):
@@ -490,17 +507,18 @@ def _phase_lib():
 def _velo_lib():
     """The loaded library of csrc/nb_velo.cu, typed and checked."""
     # S, S int16 flag, U, U int16 flag, nu, zeta, zeta_dphi, cf, omega,
-    # log_beta, log_gamma, disp, dnu, Db, Ng, Nc, Nh, Nb, skip_k
-    common = [_P, _I, _P, _I] + [_P] * 10 + [_I] * 5
+    # log_beta, log_gamma, disp, dnu, Db, Ng, Nc, Nh, Nb, K, the strides of
+    # nu, zeta, zeta_dphi, cf, omega, log_beta, log_gamma, disp, dnu, skip_k
+    common = [_P, _I, _P, _I] + [_P] * 10 + [_I] * 5 + [_L] * 9 + [_I]
     return _typed_lib("nb_velo", "vct_velo", velo_layout(), {
         "vct_velo_layout": [_P, _I],
-        # cut, S int16, U int16, Ng, Nc, Nh, Nb, skip_k, want_disp, out
-        "vct_velo_plan": [_I] * 9 + [_P],
-        # ..., grid, loss_part, stream
-        "vct_velo_fwd": common + [_I, _P, _P],
-        # ..., want_disp, grid, pieces, loss_part, gene_part, cell_piece,
-        # dzeta, dzeta_dphi, dcf, domega, stream
-        "vct_velo_fwdgrad": common + [_I] * 3 + [_P] * 8,
+        # cut, S int16, U int16, Ng, Nc, Nh, Nb, K, skip_k, want_disp, out
+        "vct_velo_plan": [_I] * 10 + [_P],
+        # ..., grid, loss_pieces, loss_part, stream
+        "vct_velo_fwd": common + [_I, _I, _P, _P],
+        # ..., want_disp, grid, pieces, loss_pieces, loss_part, gene_part,
+        # cell_piece, dzeta, dzeta_dphi, dcf, domega, stream
+        "vct_velo_fwdgrad": common + [_I] * 4 + [_P] * 8,
     })
 
 
@@ -511,13 +529,12 @@ def _device_index(device):
 
 @functools.lru_cache(maxsize=256)
 def _plan(lib_fn, device_index, args):
-    phase = lib_fn == "vct_phase_plan"
-    lib = _phase_lib() if phase else _velo_lib()
+    lib = _phase_lib() if lib_fn == "vct_phase_plan" else _velo_lib()
     out = (ctypes.c_int * 5)()
     with torch.cuda.device(device_index):
         rc = getattr(lib, lib_fn)(*args, out)
     _raise_on(rc, f"{lib_fn} {args}")
-    return Plan(*out[:4], out[4] if phase else out[0])
+    return Plan(*out)
 
 
 def phase_plan(mode, int16, Ng, Nc, Nh=5, Nb=0, skip_k=True, want_disp=True,
@@ -532,13 +549,14 @@ def phase_plan(mode, int16, Ng, Nc, Nh=5, Nb=0, skip_k=True, want_disp=True,
 
 
 def velo_plan(cut, s_int16, u_int16, Ng, Nc, Nh=5, Nb=0, skip_k=True,
-              want_disp=False, device=None):
+              want_disp=False, device=None, chains=1):
     """The `Plan` of one call of the velocity kernel cut ``cut``
     (`VELO_CUTS`) on ``device`` (default: the current card), for int16 or
-    float32 S and U each, at an instantiated width Nh."""
+    float32 S and U each, at an instantiated width Nh, over ``chains``
+    parameter sets."""
     return _plan("vct_velo_plan", _device_index(device), (
         VELO_CUTS.index(cut), int(bool(s_int16)), int(bool(u_int16)), Ng, Nc,
-        Nh, Nb, int(bool(skip_k)), int(bool(want_disp))))
+        Nh, Nb, int(chains), int(bool(skip_k)), int(bool(want_disp))))
 
 
 def _chain_stride(t, base_dim):
@@ -604,9 +622,11 @@ _SHAPES = {"nu": "gh", "zeta": "ch", "zeta_dphi": "ch", "count_factor": "c",
            "dispersion": "g"}
 
 
-# the operands the phase kernels take per chain in a chain-batched call
-# (`phase_fwd`, `phase_fwdgrad`); the counts and Db are shared by every chain
-_CHAIN_OPERANDS = ("nu", "zeta", "count_factor", "dispersion", "delta_nu")
+# the operands the kernels take per chain in a chain-batched call (every
+# parameter; the phase kernels have no zeta_dphi, omega, log_beta or
+# log_gamma); the counts and Db are shared by every chain
+_CHAIN_OPERANDS = ("nu", "zeta", "zeta_dphi", "count_factor", "omega",
+                   "log_beta", "log_gamma", "dispersion", "delta_nu")
 
 
 def _check_inputs(counts, params, delta_nu, Db, max_nb=None, chains=False,
@@ -686,11 +706,11 @@ def _raise_on(rc, name):
         raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
 
 
-def _on_card(name, counts, params, delta_nu, Db, max_nb, chains=False):
+def _on_card(name, counts, params, delta_nu, Db, max_nb):
     """Check a kernel call and choose its width: (width, fold) of
-    `kernel_width` and the chain count of `_check_inputs`; raises for CPU
-    tensors."""
-    K = _check_inputs(counts, params, delta_nu, Db, max_nb, chains)
+    `kernel_width` and the chain count of `_check_inputs` (every parameter
+    may carry a leading chain axis); raises for CPU tensors."""
+    K = _check_inputs(counts, params, delta_nu, Db, max_nb, chains=True)
     ref = counts[0][1]
     if ref.device.type != "cuda":
         raise ValueError(f"{name} launches a CUDA kernel; got CPU tensors")
@@ -711,7 +731,7 @@ def _phase_call(name, S, nu, zeta, cf, r, delta_nu, Db, lgamma_k_sum,
     leading chain axis in a chain-batched call."""
     grad = name == "phase_fwdgrad"
     width, fold, K = _on_card(name, [("S", S)], _phase_params(nu, zeta, cf, r),
-                              delta_nu, Db, phase_layout().max_nb, chains=True)
+                              delta_nu, Db, phase_layout().max_nb)
     nu_k, (zeta_k,), dnu_k, Db_k = widen_inputs(nu, [zeta], delta_nu, Db,
                                                 width, fold)
     loss_part, gene_part, dzeta, dcf = _phase_launch(
@@ -771,60 +791,76 @@ def _velo_params(nu, zeta, zeta_dphi, cf, omega, log_beta, log_gamma, r):
 def _velo_call(name, S, U, params, delta_nu, Db, lgamma_k_sum,
                want_disp=False):
     """Check, widen where the shape needs it, size the buffers from the
-    plan, launch and count one velocity kernel.  Returns (loss, gene
-    partials summed over the cell tiles (Ng, W + 3 + Nb) or None, [dzeta,
+    plan, launch and count one velocity kernel (over a chain batch where
+    operands carry a leading chain axis).  Returns (loss, gene partials
+    summed over the cell tiles (Ng, W + 3 + Nb) or None, [dzeta,
     dzeta_dphi, dcf, domega] at width W or [], (Nh, Nb, fold, kernel
-    delta_nu))."""
-    width, fold, _ = _on_card(name, [("S", S), ("U", U)], params, delta_nu,
+    delta_nu)), each with the leading chain axis in a chain-batched call."""
+    width, fold, K = _on_card(name, [("S", S), ("U", U)], params, delta_nu,
                               Db, velo_layout().max_nb)
     nu, (zeta, zdphi), dnu_k, Db_k = widen_inputs(
         params["nu"], [params["zeta"], params["zeta_dphi"]], delta_nu, Db,
         width, fold)
     lib = _velo_lib()
     Ng, Nc = S.shape
-    Nb_k = 0 if dnu_k is None else dnu_k.shape[0]
+    Kc = K or 1
+    Nb_k = 0 if dnu_k is None else dnu_k.shape[-2]
     cut = "fwdgrad" if name == "velo_fwdgrad" else "fwd"
     s16, u16 = S.dtype == torch.int16, U.dtype == torch.int16
     skip_k = lgamma_k_sum is not None
     dev = S.device
     plan = velo_plan(cut, s16, u16, Ng, Nc, width, Nb_k, skip_k,
-                     bool(want_disp), dev)
+                     bool(want_disp), dev, chains=Kc)
     f32 = dict(dtype=torch.float32, device=dev)
-    loss_part = torch.empty(plan.grid, dtype=torch.float64, device=dev)
-    args = [_ptr(S), int(s16), _ptr(U), int(u16), _ptr(nu), _ptr(zeta),
-            _ptr(zdphi), *(_ptr(params[k]) for k in (
-                "count_factor", "omega", "log_beta", "log_gamma",
-                "dispersion")),
-            _ptr(dnu_k), _ptr(Db_k), Ng, Nc, width, Nb_k, int(skip_k)]
+    # zeros: a chain with fewer loss pieces than the most leaves the rest
+    loss_part = torch.zeros((Kc, plan.loss_pieces), dtype=torch.float64,
+                            device=dev)
+    ops = [zeta, zdphi, *(params[k] for k in (
+        "count_factor", "omega", "log_beta", "log_gamma", "dispersion"))]
+    strides = [_chain_stride(t, d) for t, d in zip(
+        [nu, *ops, dnu_k], (2, 2, 2, 1, 1, 1, 1, 1, 2))]
+    args = [_ptr(S), int(s16), _ptr(U), int(u16), _ptr(nu),
+            *(_ptr(t) for t in ops), _ptr(dnu_k), _ptr(Db_k), Ng, Nc, width,
+            Nb_k, Kc, *strides, int(skip_k)]
     gene_part, cell = None, []
     if cut == "fwd":
-        fn, tail = lib.vct_velo_fwd, [plan.grid, loss_part.data_ptr()]
+        fn = lib.vct_velo_fwd
+        tail = [plan.grid, plan.loss_pieces, loss_part.data_ptr()]
     else:
         tiles = -(-Nc // lib.layout.cells_per_tile)
-        gene_part = torch.empty((tiles, Ng, width + _VELO_GENE_EXTRA + Nb_k),
-                                **f32)
-        cell_piece = torch.empty((plan.pieces, 2 * width + 2, Nc), **f32)
-        cell = [torch.empty(shape, **f32)
-                for shape in ((Nc, width), (Nc, width), (Nc,), (Nc,))]
+        gene_part = torch.empty(
+            (Kc, tiles, Ng, width + _VELO_GENE_EXTRA + Nb_k), **f32)
+        cell_piece = torch.empty((plan.pieces, 2 * width + 2, Kc * Nc), **f32)
+        cell = [torch.empty(shape, **f32) for shape in (
+            (Kc, Nc, width), (Kc, Nc, width), (Kc, Nc), (Kc, Nc))]
         fn = lib.vct_velo_fwdgrad
         tail = [int(bool(want_disp)), plan.grid, plan.pieces,
-                loss_part.data_ptr(), gene_part.data_ptr(),
+                plan.loss_pieces, loss_part.data_ptr(), gene_part.data_ptr(),
                 cell_piece.data_ptr(), *(t.data_ptr() for t in cell)]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(*args, *tail, stream)
     _raise_on(rc, name)
-    _count_launch(name, width, 1)
-    loss = _finish_loss(loss_part.sum(), lgamma_k_sum)
-    # fixed-order reduction over the cell tiles (no float atomics)
-    gene = None if gene_part is None else gene_part.sum(0)
-    Nb = 0 if delta_nu is None else delta_nu.shape[0]
-    return loss, gene, cell, (params["nu"].shape[1], Nb, fold, dnu_k)
+    _count_launch(name, width, Kc)
+    # fixed-order reductions over each chain's loss pieces and cell tiles
+    # (no float atomics)
+    loss = _finish_loss(loss_part.sum(-1), lgamma_k_sum)
+    gene = None if gene_part is None else gene_part.sum(1)
+    if K is None:   # unbatched: drop the chain axis of one
+        loss = loss[0]
+        gene = None if gene is None else gene[0]
+        cell = [t[0] for t in cell]
+    Nb = 0 if delta_nu is None else delta_nu.shape[-2]
+    return loss, gene, cell, (params["nu"].shape[-1], Nb, fold, dnu_k)
 
 
 def velo_fwd(S, U, nu, zeta, zeta_dphi, cf, omega, log_beta, log_gamma, r,
              delta_nu=None, Db=None, lgamma_k_sum=None):
-    """Loss of the fused velocity S+U NB likelihood on the card."""
+    """Loss of the fused velocity S+U NB likelihood on the card.
+
+    Chain-batched as `phase_fwd`: where any parameter carries a leading
+    chain axis K, ONE launch computes the K losses (K,); counted once in
+    LAUNCHES and under K in LAUNCH_CHAINS."""
     return _velo_call(
         "velo_fwd", S, U,
         _velo_params(nu, zeta, zeta_dphi, cf, omega, log_beta, log_gamma, r),
@@ -837,21 +873,29 @@ def velo_fwdgrad(S, U, nu, zeta, zeta_dphi, cf, omega, log_beta, log_gamma,
     """Loss and every gradient of the fused velocity S+U NB likelihood on
     the card, as `velo_fwdgrad_plain`.  The kernel's gene partials hold
     [dnu (width), ddisp, dlog_beta, sum_c g_x, ddelta_nu (Nb)] per gene;
-    dlog_gamma is sum_c g_x times exp(log_gamma), applied after the sum."""
+    dlog_gamma is sum_c g_x times exp(log_gamma), applied after the sum.
+
+    Chain-batched as `phase_fwdgrad`: where any of the parameters (nu,
+    zeta, zeta_dphi, cf, omega, log_beta, log_gamma, r, delta_nu) carries a
+    leading chain axis K, ONE launch computes all K chains (the operands
+    without the axis shared by them, S, U and Db always), and the loss is
+    (K,) and every gradient (K, ...); counted once in LAUNCHES and under K
+    in LAUNCH_CHAINS."""
     loss, gene, (dzeta, dzdphi, dcf, domega), (Nh, Nb, fold, dnu_k) = \
         _velo_call(
             "velo_fwdgrad", S, U,
             _velo_params(nu, zeta, zeta_dphi, cf, omega, log_beta, log_gamma,
                          r),
             delta_nu, Db, lgamma_k_sum, want_disp)
-    W = dzeta.shape[1]
-    ddnu = gene[:, W + 3:].T.contiguous() if dnu_k is not None else None
+    W = dzeta.shape[-1]
+    ddnu = (gene[..., W + 3:].transpose(-1, -2).contiguous()
+            if dnu_k is not None else None)
     dnu, (dzeta, dzdphi), ddnu = narrow_grads(
-        gene[:, :W], [dzeta, dzdphi], ddnu, Nh, Nb, fold)
+        gene[..., :W], [dzeta, dzdphi], ddnu, Nh, Nb, fold)
     return loss, (dnu, dzeta, dzdphi, dcf, domega,
-                  gene[:, W + 1].contiguous(),
-                  gene[:, W + 2] * torch.exp(log_gamma),
-                  gene[:, W].contiguous(), ddnu)
+                  gene[..., W + 1].contiguous(),
+                  gene[..., W + 2] * torch.exp(log_gamma),
+                  gene[..., W].contiguous(), ddnu)
 
 # ---------------------------------------------------------------------------
 # autograd bindings
@@ -862,18 +906,6 @@ _NO_SECOND_DERIVATIVE = (
     "gradients the kernel computed in the forward pass.  Take Hessians, "
     "Hessian-vector products and forward-mode derivatives through the plain "
     "model path (use_fused_nb=False)")
-
-# the chain batch of the velocity kernels is not ported
-_VELO_CHAINS = (
-    "the velocity kernels take one parameter set per launch: the "
-    "chain-batched velo_fwdgrad / velo_fwd, and with them MCMC and SMC over "
-    "fused velocity data on the card, are ROADMAP.md queue 1 item 6a (not "
-    "ported); sample the velocity model with use_fused_nb=False")
-
-
-def _velo_chains(S, U, *params, lgamma_k_sum=None, want_disp=True):
-    raise NotImplementedError(_VELO_CHAINS)
-
 
 def _velo_plain_chains(plain):
     """``plain`` (`velo_fwd_plain` or `velo_fwdgrad_plain`) over a chain
@@ -942,9 +974,9 @@ class _FusedNBLogLik(torch.autograd.Function):
     gradient.  The gradients leave `forward` as outputs marked
     non-differentiable, so that under `torch.func.vmap` they are batched
     like the loss; the `vmap` rule makes ONE chain-batched call for the
-    whole batch (`phase_fwdgrad` over its chain axis).  The likelihood has
-    no second derivative: differentiating its gradient raises, and so does
-    a forward-mode derivative."""
+    whole batch (`phase_fwdgrad` or `velo_fwdgrad` over its chain axis).
+    The likelihood has no second derivative: differentiating its gradient
+    raises, and so does a forward-mode derivative."""
 
     @staticmethod
     def forward(fwdgrad, n_data, lgamma_k_sum, disp_grad, *inputs):
@@ -995,9 +1027,9 @@ class _FusedNBLogLik(torch.autograd.Function):
 
 class _FusedNBLoss(torch.autograd.Function):
     """The loss-only kernel under `torch.func.vmap`: its `vmap` rule makes
-    ONE chain-batched call for the whole batch (`phase_fwd` over its chain
-    axis).  `_fused` sends a batched call here only with gradients
-    disabled, so it has no backward."""
+    ONE chain-batched call for the whole batch (`phase_fwd` or `velo_fwd`
+    over its chain axis).  `_fused` sends a batched call here only with
+    gradients disabled, so it has no backward."""
 
     @staticmethod
     def forward(fwd, n_data, lgamma_k_sum, *inputs):
@@ -1110,15 +1142,16 @@ def nbsu_loglik_fused(S, U, nu, zeta, zeta_dphi, count_factor, omega,
 
 
 # each kernel function's call over a chain batch, for the `vmap` rules of
-# `_FusedNBLogLik` and `_FusedNBLoss` (the phase pair and its plain versions
-# take the chain axis themselves)
+# `_FusedNBLogLik` and `_FusedNBLoss` (the four kernels and the phase pair's
+# plain versions take the chain axis themselves; the velocity pair's plain
+# versions are mapped over it)
 _CHAINS = {
     phase_fwd: phase_fwd,
     phase_fwdgrad: phase_fwdgrad,
     phase_fwd_plain: phase_fwd_plain,
     phase_fwdgrad_plain: phase_fwdgrad_plain,
-    velo_fwd: _velo_chains,
-    velo_fwdgrad: _velo_chains,
+    velo_fwd: velo_fwd,
+    velo_fwdgrad: velo_fwdgrad,
     velo_fwd_plain: _velo_plain_chains(velo_fwd_plain),
     velo_fwdgrad_plain: _velo_plain_chains(velo_fwdgrad_plain),
 }

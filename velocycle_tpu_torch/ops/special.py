@@ -15,14 +15,32 @@ and the kernels' on-card comparisons hold one arithmetic.
     digamma(a)) with exact masked sums for k < 2 and shared Stirling
     differences at arguments >= a+2.  Its digamma half truncates to about
     1.6e-5 absolute near k+a = 2 (see tests/test_torch_special.py).
+  * `lgamma_ratio`: the lgamma half alone (the loss-only element).
+  * `lgamma_digamma_excess`: both ratios and ``k - a * (digamma(k+a) -
+    digamma(a))`` = sum_{j<k} j / (a+j) from the same Stirling branch, the
+    last with no difference of two O(k) or two O(1/a) numbers (the NB
+    element's dispersion gradient from a = 1/r = EXCESS_FROM on).
+  * `log1p_excess`, `log1m_excess`: t - log1p(t) and -log1p(-s) - s, by
+    their series below 1/8.
 """
 from __future__ import annotations
 
 import torch
 
 __all__ = [
-    "lgamma_pos", "softplus_log_sigmoid", "lgamma_digamma_ratio",
+    "lgamma_pos", "softplus_log_sigmoid", "lgamma_ratio", "lgamma_digamma_ratio",
+    "lgamma_digamma_excess", "log1p_excess", "log1m_excess",
 ]
+
+# below this argument `log1p_excess` and `log1m_excess` take their series
+# (through the 9th power: truncated at ~1.4e-8 relative); above it the
+# direct differences lose at most ~30 float32 ulps
+SERIES_BELOW = 0.125
+# from this a = 1/r on the NB element's dispersion gradient is taken from
+# the digamma excess, whose terms do not cancel; below it from the digamma
+# ratio, whose float32 error grows as a / mu but is no larger than the
+# excess form's there (csrc/nb_common.cuh kExcessFrom)
+EXCESS_FROM = 64.0
 
 _LANCZOS_G = 7.0
 _LANCZOS_C0 = 0.99999999999980993
@@ -69,17 +87,31 @@ def softplus_log_sigmoid(x, with_sigmoid=True):
     return sp, log_sig, torch.where(pos, d, ed), torch.where(pos, ed, d)
 
 
-def lgamma_digamma_ratio(k, a):
-    """(lgamma(k+a) - lgamma(a), digamma(k+a) - digamma(a)) for integer
-    counts ``k >= 0`` and per-gene ``a > 0`` broadcast along the cells."""
+def log1p_excess(t, l1p):
+    """t - log1p(t) for t >= 0, given ``l1p`` = log1p(t): the series t^2/2 -
+    t^3/3 + ... - t^9/9 below SERIES_BELOW, where the difference cancels,
+    the difference above."""
+    ser = t * t * (0.5 - t * (1.0 / 3.0 - t * (0.25 - t * (0.2 - t * (
+        1.0 / 6.0 - t * (1.0 / 7.0 - t * (0.125 - t / 9.0)))))))
+    return torch.where(t < SERIES_BELOW, ser, t - l1p)
+
+
+def log1m_excess(s):
+    """-log1p(-s) - s = s^2/2 + s^3/3 + ... + s^9/9 for 0 <= s <
+    SERIES_BELOW (the caller selects)."""
+    return s * s * (0.5 + s * (1.0 / 3.0 + s * (0.25 + s * (0.2 + s * (
+        1.0 / 6.0 + s * (1.0 / 7.0 + s * (0.125 + s / 9.0)))))))
+
+
+def _ratio_parts(k, a):
+    """The per-gene columns and Stirling pieces shared by the lgamma ratio,
+    the digamma ratio and the digamma excess (csrc/nb_common.cuh
+    `GeneCols`, `lgamma_digamma_ratio`), in the kernels' operation order."""
     zero = torch.zeros((), dtype=a.dtype, device=a.device)
     masks = [k > j for j in range(2)]
     logs = [torch.log(a + j) for j in range(2)]    # per-gene columns
     invs = [1.0 / (a + j) for j in range(2)]
     small_l = sum(torch.where(masks[j], logs[j], zero) for j in range(2))
-    small_d = sum(torch.where(masks[j], invs[j], zero) for j in range(2))
-    full_l = sum(logs)
-    full_d = sum(invs)
 
     # Stirling differences at args >= 2: y = a+2, x = k-2 (clamped)
     y = a + 2.0
@@ -88,7 +120,8 @@ def lgamma_digamma_ratio(k, a):
     inv_y = 1.0 / y
     inv2_y = inv_y * inv_y
     log_y = torch.log(y)
-    l1p = torch.log1p(x * inv_y)
+    t = x * inv_y
+    l1p = torch.log1p(t)
     inv = 1.0 / ka
     inv2 = inv * inv
     rc_ka = inv * (1.0 / 12.0 - inv2 * (
@@ -98,16 +131,63 @@ def lgamma_digamma_ratio(k, a):
         1.0 / 360.0 - inv2_y * (1.0 / 1260.0 - inv2_y * (1.0 / 1680.0))
     ))
     stir_l = (y - 0.5 + x) * l1p + x * log_y - x + rc_ka - rc_y
+    lt = k < 2
+    lgr = torch.where(lt, small_l, sum(logs) + stir_l)
+    return dict(zero=zero, masks=masks, invs=invs, y=y, x=x, t=t, l1p=l1p,
+                inv=inv, inv2=inv2, inv_y=inv_y, inv2_y=inv2_y, lt=lt,
+                lgr=lgr)
+
+
+def lgamma_ratio(k, a):
+    """lgamma(k+a) - lgamma(a) for integer counts ``k >= 0`` and per-gene
+    ``a > 0`` broadcast along the cells."""
+    return _ratio_parts(k, a)["lgr"]
+
+
+def _digamma_ratio(p):
+    invs, inv, inv2 = p["invs"], p["inv"], p["inv2"]
+    inv_y, inv2_y = p["inv_y"], p["inv2_y"]
+    small_d = sum(torch.where(p["masks"][j], invs[j], p["zero"])
+                  for j in range(2))
     tail_ka = -0.5 * inv - inv2 * (
         1.0 / 12.0 - inv2 * (1.0 / 120.0 - inv2 / 252.0)
     )
     tail_y = -0.5 * inv_y - inv2_y * (
         1.0 / 12.0 - inv2_y * (1.0 / 120.0 - inv2_y / 252.0)
     )
-    stir_d = l1p + tail_ka - tail_y
+    stir_d = p["l1p"] + tail_ka - tail_y
+    return torch.where(p["lt"], small_d, sum(invs) + stir_d)
 
-    lt = k < 2
-    return (
-        torch.where(lt, small_l, full_l + stir_l),
-        torch.where(lt, small_d, full_d + stir_d),
-    )
+
+def _digamma_excess(p, a):
+    x, y, inv, inv2, inv_y = p["x"], p["y"], p["inv"], p["inv2"], p["inv_y"]
+    l1p = p["l1p"]
+    d1 = -x * inv * inv_y                  # 1/ka - 1/y
+    iy2 = inv_y * inv_y
+    d2 = d1 * (inv + inv_y)                # 1/ka^2 - 1/y^2
+    td = -0.5 * d1 - d2 * (1.0 / 12.0 - (inv2 + iy2) * (1.0 / 120.0)
+                           + (inv2 * inv2 + inv2 * iy2 + iy2 * iy2)
+                           * (1.0 / 252.0))
+    stir_k = (p["invs"][1] + y * log1p_excess(p["t"], l1p) + (y - a) * l1p
+              - a * td)
+    return torch.where(p["lt"], p["zero"], stir_k)
+
+
+def lgamma_digamma_ratio(k, a):
+    """(lgamma(k+a) - lgamma(a), digamma(k+a) - digamma(a)) for integer
+    counts ``k >= 0`` and per-gene ``a > 0`` broadcast along the cells."""
+    p = _ratio_parts(k, a)
+    return p["lgr"], _digamma_ratio(p)
+
+
+def lgamma_digamma_excess(k, a):
+    """(lgamma(k+a) - lgamma(a), dgr = digamma(k+a) - digamma(a), k - a
+    dgr) for integer counts ``k >= 0``.  The third is sum_{j<k} j / (a+j),
+    0 for k < 2, and for k >= 2 the Stirling branch of the ratios taken as
+    1/(a+1) + (x - a log1p(t)) - a (tail(a+k) - tail(y)) with y = a+2, x =
+    k-2, t = x/y: the middle term as y (t - log1p t) + (y - a) log1p t
+    (`log1p_excess`; y - a is exact) and the tail difference through 1/ka
+    - 1/y = -x / (ka y), so that no two terms of size k, or of size 1/a,
+    cancel when a is large."""
+    p = _ratio_parts(k, a)
+    return p["lgr"], _digamma_ratio(p), _digamma_excess(p, a)

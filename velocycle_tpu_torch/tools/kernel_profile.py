@@ -28,6 +28,7 @@ import torch
 
 from ..device import resolve_device
 from ..ops import ladder_kernels as L
+from ..ops.special import EXCESS_FROM, SERIES_BELOW
 
 NG, NC = 2048, 102_400
 TPU_CELL_TILE = 4096      # the TPU tool's TC: its stream rung adds nu Nc // TC times
@@ -38,7 +39,8 @@ ROWS = ("stream", "matmul", "logpmf", "fwdgrad", "vpu_only", "v_full",
 
 # FP32 operations per count-matrix element, counted from csrc/phase_kernel.cuh
 # with Nh = 5 as chip_smoke.py counts the phase kernels (a transcendental or
-# a division counts 1), besides the lgamma / digamma ratios below:
+# a division counts 1), besides the lgamma ratio and the dispersion
+# gradient below:
 #   stream    count convert 1, sum 1
 #   matmul    count convert 1, ElogS dot 10, product 1, sum 1
 #   logpmf    convert 1, dot 10, log_b 1, lp 4, softplus + log sigmoid 7,
@@ -46,18 +48,63 @@ ROWS = ("stream", "matmul", "logpmf", "fwdgrad", "vpu_only", "v_full",
 #   fwdgrad   logpmf's 17 besides softplus + log sigmoid, softplus + log
 #             sigmoid + sigmoid and its complement 13, g_elog 3, dnu
 #             accumulation 10
-#   v_full    fwdgrad + cf 1, dlp_da + g_r 5, ddisp 1, dzeta 10, dcf 1
-#   v_nodig   v_full without dlp_da + g_r (its sum of g_elog replaces ddisp)
+#   v_full    fwdgrad + cf 1, ddisp 1, dzeta 10, dcf 1 (and g_r, DISP_OPS)
+#   v_nodig   v_full without g_r (its sum of g_elog replaces ddisp)
 #   v_nocell  v_full without dzeta and dcf
 #   vpu_only  dot 10, floor(3 |elog|) 3, log_b 1, lp 4, softplus + log
 #             sigmoid 7, sum 1 (on its synthetic counts)
 ELEMENT_OPS = {"stream": 2, "matmul": 13, "logpmf": 24, "fwdgrad": 43,
-               "v_full": 61, "v_nodig": 56, "v_nocell": 50, "vpu_only": 26}
+               "v_full": 56, "v_nodig": 56, "v_nocell": 45, "vpu_only": 26}
 # lgamma ratio: Stirling difference 22 where k >= 2, small-k sum 5 where
-# k < 2, branch select 2; digamma ratio (v_full, v_nocell): 10, 3, 1
+# k < 2, branch select 2
 LGAMMA_OPS = (22, 5, 2)
-DIGAMMA_OPS = (10, 3, 1)
-DIGAMMA_RUNGS = ("v_full", "v_nocell")
+# the dispersion gradient g_r of one element (csrc/nb_common.cuh
+# nb_lp_grads), counted on the branch its gene and its inputs take:
+#   a < EXCESS_FROM: dlp_da + g_r 5; the digamma ratio: Stirling 10 where
+#     k >= 2, small-k sum 3 where k < 2, select 1
+#   a >= EXCESS_FROM: ((k - a dgr) - k sig_c + a q) a 5; q = -(log sig +
+#     sig_c) by series 16 where log_b >= 0 and sig_c < 1/8, else directly
+#     2, the test 3; the digamma excess k - a dgr where k >= 2: 1/ka - 1/y
+#     3, its square 3, the tail difference 13, the sum 7, and t - log1p t
+#     by series 16 where t = (k - 2) / (a + 2) < 1/8, else directly 1, the
+#     test 2; 0 where k < 2; select 1
+DISP_OPS = {"ratio": 5, "dg_stir": 10, "dg_small": 3, "dg_sel": 1,
+            "excess": 5, "q_series": 16, "q_direct": 2, "q_test": 3,
+            "kad_stir": 26, "t_series": 16, "t_direct": 1, "t_test": 2,
+            "kad_sel": 1}
+DISP_RUNGS = ("v_full", "v_nocell")
+
+
+def disp_ops(k, elog, r):
+    """FP32 operations of the dispersion gradient (DISP_OPS) over counts
+    ``k`` at log-means ``elog`` (each (..., Ng, Nc) or broadcast to it) and
+    dispersions ``r`` (..., Ng): each element counted on the branch its
+    gene and its inputs take, as the lgamma ratio is."""
+    D = DISP_OPS
+    a = 1.0 / r[..., None]
+    log_b = -torch.log(r)[..., None] - elog
+    shape = torch.broadcast_shapes(k.shape, log_b.shape)
+    ex = (a >= EXCESS_FROM).expand(shape)
+    ge2 = (k >= 2).expand(shape)
+    n = math.prod(shape)
+    n_ex = int(ex.sum())
+    n_ra = n - n_ex
+    ra_ge2 = int((ge2 & ~ex).sum())
+    ops = ((D["ratio"] + D["dg_sel"]) * n_ra + D["dg_stir"] * ra_ge2
+           + D["dg_small"] * (n_ra - ra_ge2))
+    if n_ex:
+        e = torch.exp(-log_b.abs())
+        q_ser = (log_b >= 0) & (e / (1.0 + e) < SERIES_BELOW)
+        t_ser = torch.clamp(k.float() - 2.0, min=0.0) / (a + 2.0) < SERIES_BELOW
+        n_q = int((ex & q_ser).sum())
+        ex_ge2 = ex & ge2
+        n_k = int(ex_ge2.sum())
+        n_t = int((ex_ge2 & t_ser).sum())
+        ops += ((D["excess"] + D["q_test"] + D["kad_sel"]) * n_ex
+                + D["q_series"] * n_q + D["q_direct"] * (n_ex - n_q)
+                + (D["kad_stir"] + D["t_test"]) * n_k
+                + D["t_series"] * n_t + D["t_direct"] * (n_k - n_t))
+    return ops
 
 
 def make_inputs(Ng=NG, Nc=NC, int16=False, seed=0, device=None):
@@ -82,8 +129,9 @@ def make_inputs(Ng=NG, Nc=NC, int16=False, seed=0, device=None):
 
 def work(rung, S, nu, zeta, cf, r):
     """(bytes, FP32 operations) of one rung on these inputs: each input read
-    once, each output written once; the lgamma and digamma ratios counted by
-    branch on this data (vpu_only's synthetic counts included)."""
+    once, each output written once; the lgamma ratio and the dispersion
+    gradient counted by branch on this data (vpu_only's synthetic counts
+    included)."""
     Ng, Nc = nu.shape[0], zeta.shape[0]
     sizes = {"nu": nu.numel(), "zeta": zeta.numel(), "count_factor": Nc,
              "dispersion": Ng}
@@ -102,9 +150,13 @@ def work(rung, S, nu, zeta, cf, r):
         k = torch.floor(torch.abs(nu @ zeta.T) * 3.0) if rung == "vpu_only" else S
         n_ge2 = int((k >= 2).sum())
         n_lt2 = N - n_ge2
-        tables = [LGAMMA_OPS] + ([DIGAMMA_OPS] if rung in DIGAMMA_RUNGS else [])
-        for stir, small, sel in tables:
-            ops += stir * n_ge2 + small * n_lt2 + sel * N
+        stir, small, sel = LGAMMA_OPS
+        ops += stir * n_ge2 + small * n_lt2 + sel * N
+    if rung in DISP_RUNGS:
+        elog = nu @ zeta.T
+        if "count_factor" in L.READS[rung]:
+            elog = elog + cf[None, :]
+        ops += disp_ops(S, elog, r)
     return nbytes, ops
 
 

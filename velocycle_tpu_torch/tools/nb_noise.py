@@ -11,7 +11,11 @@ shape_inv = softplus(u) for u in [-9, 0], as ONE chain batch of 400.  The
 two differ by a constant (their baselines); what is left after removing
 it is the fused path's rounding.  Printed per decade of shape_inv: its
 standard deviation and maximum in nats, and the relative error of the
-fused gradient along the line.  With ``--nuts``, `MCMCFitModel` samples
+fused gradient along the line.  Then the fused likelihood's dispersion
+gradient against float64 (`nb_loglik_reference` on the same values) at
+every gene's shape_inv spread by a factor 1.8 around each of 1e-6 .. 1e-2:
+its largest error over the genes relative to the largest gradient, and the
+median of the genes' relative errors.  With ``--nuts``, `MCMCFitModel` samples
 nu and shape_inv at (b)'s chain count, warmup, draws and depth on both
 paths (the warm start's curvature through the plain path) and prints
 split R-hat by site.  Runs on the card by default, on the CPU with
@@ -26,9 +30,10 @@ import time
 import numpy as np
 import torch
 
-__all__ = ["line_noise", "nuts_by_path"]
+__all__ = ["disp_grad_error", "line_noise", "nuts_by_path"]
 
 DECADES = ((1e-4, 1e-3), (1e-3, 1e-2), (1e-2, 1e-1), (1e-1, 1.0))
+SHAPE_INVS = (1e-2, 1e-3, 1e-4, 1e-5, 1e-6)
 
 
 def _data(fused, device):
@@ -78,6 +83,38 @@ def line_noise(device, gene=0, n=400):
     return res
 
 
+def disp_grad_error(device, seed=0):
+    """{shape_inv: (max error / max |gradient|, median relative error over
+    the genes)} of the fused likelihood's dispersion gradient against
+    float64, nu drawn around the prior mean, the phases at their prior."""
+    from velocycle_tpu_torch.models.basis import expression_basis
+    from velocycle_tpu_torch.ops import nb_kernels as K
+
+    d = _data(True, device).data
+    zeta = expression_basis(d, torch.atan2(d.phixy_prior[:, 1],
+                                           d.phixy_prior[:, 0]))
+    rng = np.random.default_rng(seed)
+    nu = d.mu_nu + torch.as_tensor(rng.normal(0, 0.1, tuple(d.mu_nu.shape)),
+                                   dtype=torch.float32, device=device)
+    cf = d.count_factor
+    out = {}
+    for si in SHAPE_INVS:
+        r = si * torch.exp(torch.linspace(-0.3, 0.3, d.S.shape[0],
+                                          device=device))
+        r32 = r.clone().requires_grad_(True)
+        loss = K.nb_loglik_fused(d.S, nu, zeta, cf, r32,
+                                 lgamma_k_sum=d.lgamma_k_sum)
+        (g32,) = torch.autograd.grad(loss, r32)
+        r64 = r.double().requires_grad_(True)
+        ref = K.nb_loglik_reference(d.S.double(), nu.double(), zeta.double(),
+                                    cf.double(), r64)
+        (g64,) = torch.autograd.grad(ref, r64)
+        err = (g32.double() - g64).abs()
+        out[si] = (float(err.max() / g64.abs().max()),
+                   float((err / g64.abs()).median()))
+    return out
+
+
 def nuts_by_path(device, seed=0):
     """{path: (accept, max split R-hat by site, min ESS, seconds)} of
     `MCMCFitModel` at (b)'s configuration on the fused and plain paths."""
@@ -114,6 +151,14 @@ def main(argv=None):
         print(f"[nb_noise] shape_inv in [{lo:g}, {hi:g}): fused - plain "
               f"potential noise std {sd:.4f} max {mx:.4f} nats; fused "
               f"gradient rel error median {gmed:.2e} max {gmax:.2e} ({where})")
+    errs = disp_grad_error(args.device)
+    for si, (mx, med) in errs.items():
+        print(f"[nb_noise] dispersion gradient at shape_inv {si:g}: error "
+              f"against float64 {mx:.2e} of the largest, median over genes "
+              f"{med:.2e} ({where})")
+    print(f"[nb_noise] dispersion gradient error at shape_inv 1e-5 / 1e-3: "
+          f"{errs[1e-5][0] / errs[1e-3][0]:.2f}x (largest), "
+          f"{errs[1e-5][1] / errs[1e-3][1]:.2f}x (median) ({where})")
     if args.nuts:
         for name, (acc, rhat, ess, dt) in nuts_by_path(args.device).items():
             print(f"[nb_noise] MCMCFitModel (b) {name}: accept {acc:.4f}, max "
