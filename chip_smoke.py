@@ -2,7 +2,7 @@
 """On-card smoke run of the PyTorch + CUDA port (`velocycle_tpu_torch`).
 
     python3 chip_smoke.py [--seed 0] [--digest | --kernels | --mcmc | --smc |
-                           --minibatch]
+                           --minibatch | --velo2d]
 
 Run from the root of a checkout, on a machine with one CUDA card.  Phases,
 in order; any failure exits non-zero and prints no result line:
@@ -150,7 +150,21 @@ in order; any failure exits non-zero and prints no result line:
      particle-moves/s, wall time,
      host time per evaluation, a device profile over one stage, peak
      memory (``--smc``: build, then this phase alone);
- 11. print the kernel table as one JSON line, the nvidia-smi line, and
+ 11. [velo2d], alone after [smc]: the 2-D extension (twodim), which
+     reaches none of the NB kernels (checked: every launch count stays 0).
+     (a) the reference's published run, run_simulations' defaults: for
+     seeds 0 and 1, generate_adata (1,000 cells x 200 genes) ->
+     prepare_data on the card -> train_velo2d (1,000 steps per stage) ->
+     evaluate_fit, gated as tests/test_twodim.py (both losses fall, corr
+     ElogS > 0.9, ElogU > 0.6, log_beta > 0.4), the seven correlations
+     printed; (b) the Stereo-seq-class width, 2048 genes x 102,400 cells:
+     (a)'s seed-0 genes tiled, cells placed from --seed by the simulator's
+     branching positions, ElogS / ElogU formed and S / U drawn on the card
+     (float32), train_velo2d 200 steps per stage, gated on finite falling
+     losses; the data's build time, each stage's steady-state steps/s,
+     launches per step, busy share and peak memory, and the correlations
+     with the tiled truth (``--velo2d``: build, then this phase alone);
+ 12. print the kernel table as one JSON line, the nvidia-smi line, and
      last {"ok": true, "device": {...}}.
 
 The configuration is the repository's Stereo-seq-class fit (bench.py
@@ -2704,6 +2718,237 @@ def smc_row(parity, timing, runs):
             "smc_check": {k: runs["check"][k] for k in ("dlogZ", "dnu")}}
 
 
+# ---------------------------------------------------------------------------
+# [velo2d]: the 2-D extension (twodim), no kernel of its own
+# ---------------------------------------------------------------------------
+
+# (a) run_simulations' defaults (the reference's run_simulations.py): 1,000
+# cells x 200 genes, 1,000 steps per stage, seeds 0 and 1
+VELO2D_A = dict(n_cells=1000, n_genes=200, steps=1000, seeds=(0, 1))
+# (b) the Stereo-seq-class width: (a)'s seed-0 genes tiled to NG, NC cells
+VELO2D_B = dict(Ng=NG, Nc=NC, steps=200)
+VELO2D_GATES = {"ElogS": 0.9, "ElogU": 0.6, "log_beta": 0.4}  # tests/test_twodim.py
+
+
+def _no_nb_launch(tag):
+    """The 2-D path reaches none of the fused NB kernels (the JAX 2-D
+    models reach no Pallas kernel): all launch counts still 0."""
+    from velocycle_tpu_torch.ops import nb_kernels as K_
+
+    check(not any(K_.LAUNCHES.values()),
+          f"[velo2d] {tag} launched an NB kernel: {K_.LAUNCHES}")
+
+
+def _falls(losses, tag):
+    import numpy as np
+
+    check(np.isfinite(losses).all(), f"[velo2d] {tag}: non-finite losses")
+    check(losses[-10:].mean() < losses[0],
+          f"[velo2d] {tag}: losses did not fall ({losses[0]} -> "
+          f"{losses[-10:].mean()})")
+
+
+def velo2d_published(torch, card, cfg=VELO2D_A, device="cuda"):
+    """(a): run_simulations' loop (simulate -> prepare_data -> train_velo2d
+    -> evaluate_fit) at its defaults for each seed, gated as
+    tests/test_twodim.py.  Returns ({seed: numbers}, seed 0's AnnData)."""
+    from velocycle_tpu_torch.ops import nb_kernels as K_
+    from velocycle_tpu_torch.twodim import (
+        evaluate_fit, generate_adata, prepare_data, train_velo2d,
+    )
+
+    out, first = {}, None
+    for seed in cfg["seeds"]:
+        t0 = time.perf_counter()
+        adata = generate_adata(n_cells=cfg["n_cells"], n_genes=cfg["n_genes"],
+                               seed=seed)
+        t_sim = time.perf_counter() - t0
+        pd = prepare_data(adata, device=device)
+        check(pd.S.device.type == device and pd.S.dtype == torch.float32,
+              "[velo2d] (a): counts not float32 on the card")
+        K_.reset_launch_counts()
+        t0 = time.perf_counter()
+        results, ls, lu = train_velo2d(pd, n_steps_s=cfg["steps"],
+                                       n_steps_u=cfg["steps"], key=seed)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        _no_nb_launch("(a)")
+        corrs = evaluate_fit(adata, results)
+        print(f"[velo2d] (a) seed {seed}, {cfg['n_cells']} cells x "
+              f"{cfg['n_genes']} genes: simulate {t_sim:.2f} s (host), fit "
+              f"{2 * cfg['steps']} steps {dt:.2f} s "
+              f"({2 * cfg['steps'] / dt:.1f} steps/s) on {card}; stage S "
+              f"loss {ls[0]:.6g} -> {ls[-1]:.6g}, stage U {lu[0]:.6g} -> "
+              f"{lu[-1]:.6g}")
+        print(f"[velo2d] (a) seed {seed} correlations: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in corrs.items()))
+        _falls(ls, f"(a) seed {seed} stage S")
+        _falls(lu, f"(a) seed {seed} stage U")
+        for k, gate in VELO2D_GATES.items():
+            check(corrs[k] > gate,
+                  f"[velo2d] (a) seed {seed}: corr {k} {corrs[k]:.4f} <= {gate}")
+        out[seed] = {"fit_s": dt, "corrs": corrs,
+                     "loss_s": [float(ls[0]), float(ls[-1])],
+                     "loss_u": [float(lu[0]), float(lu[-1])]}
+        first = adata if first is None else first
+        del pd, results
+        torch.cuda.empty_cache()
+    return out, first
+
+
+def _velo2d_width_data(torch, seed, adata0, cfg, device):
+    """(b)'s data: ``adata0``'s accepted genes tiled to Ng, Nc cells placed
+    by the port's `_branching_positions` from ``seed`` with their designs,
+    ElogS and ElogU formed on the card and S, U drawn there from a seeded
+    generator as float32.  Returns (Velo2DData, truth dict on the card)."""
+    import numpy as np
+
+    from velocycle_tpu_torch.twodim import Velo2DData, make_designs
+    from velocycle_tpu_torch.twodim.simulate import _branching_positions
+
+    Ng, Nc = cfg["Ng"], cfg["Nc"]
+    lo, hi = adata0.uns["phi_lower"], adata0.uns["phi_upper"]
+    rng = np.random.default_rng(seed)
+    # generate_adata's defaults: branch at x = 5, trunk at y = 5, position
+    # noise sd 0.2-0.6
+    phi, _ = _branching_positions(Nc, lo, hi, 5.0, 5.0, 0.2, 0.6, rng)
+    design_s, design_dx, design_dy, design_omega = (
+        torch.as_tensor(np.ascontiguousarray(d, np.float32), device=device)
+        for d in make_designs(phi, lo, hi))
+    idx = np.arange(Ng) % adata0.n_vars
+
+    def put(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=device)
+
+    w_s = put(adata0.uns["w_s"][idx])
+    log_beta = put(adata0.var["log_beta"].values[idx])
+    log_gamma = put(adata0.var["log_gamma"].values[idx])
+    w_omega = put(adata0.uns["w_omega"])
+    with torch.no_grad():
+        ElogS = w_s @ design_s
+        omega = w_omega @ design_omega
+        inner = ((w_s @ design_dx) * omega[0] + (w_s @ design_dy) * omega[1]
+                 + torch.exp(log_gamma)[:, None])
+        ElogU = (-log_beta[:, None] + ElogS
+                 + torch.log(torch.clamp(inner, min=0.0) + 1e-5))
+        del inner
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
+        S = torch.poisson(torch.exp(ElogS), generator=gen)
+        U = torch.poisson(torch.exp(ElogU), generator=gen)
+    pd = Velo2DData(
+        design_s=design_s, design_dx=design_dx, design_dy=design_dy,
+        design_omega=design_omega, S=S, U=U,
+        w_s=torch.zeros((Ng, design_s.shape[0]), device=device),
+        ElogS=torch.zeros_like(S), Ng=Ng, Nc=Nc,
+        n_coef_s=design_s.shape[0], n_coef_omega=design_omega.shape[0])
+    truth = {"ElogS": ElogS, "ElogU": ElogU, "omega": omega,
+             "log_beta": log_beta, "log_gamma": log_gamma}
+    return pd, truth
+
+
+def _corr(torch, a, b):
+    """Pearson correlation of the tensor ``a`` and the same-size array
+    ``b``, in float64 on ``a``'s device."""
+    a = a.double().flatten()
+    b = torch.as_tensor(b, device=a.device).double().flatten()
+    a, b = a - a.mean(), b - b.mean()
+    return float((a * b).sum() / (a.norm() * b.norm()))
+
+
+def _velo2d_stage_rates(torch, pd, results, seed):
+    """Each stage's steady state (`_steady_state`: steps/s, then launches
+    per step and busy share under the profiler) and its peak device
+    memory, on (b)'s data with `train_velo2d`'s SVI; stage U on the fitted
+    w_s and ElogS."""
+    from velocycle_tpu_torch.infer import SVI, Trace_ELBO, adam
+    from velocycle_tpu_torch.infer.autoguide import AutoNormal
+    from velocycle_tpu_torch.twodim import velo2d_s_model, velo2d_u_model
+
+    w_s = torch.as_tensor(results["w_s"], device=pd.device)
+    with torch.no_grad():
+        pd_u = pd.replace(w_s=w_s, ElogS=w_s @ pd.design_s)
+    out = {}
+    for stage, model, data in (("S", velo2d_s_model, pd),
+                               ("U", velo2d_u_model, pd_u)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        svi = SVI(model, AutoNormal(model), adam(1e-2), Trace_ELBO())
+        tag = f"velo2d {stage}"
+        steps_per_s = _steady_state(torch, svi, svi.init(seed, data), data, tag)
+        peak = torch.cuda.max_memory_allocated() - base
+        print(f"[{tag}] peak device memory {peak / 2**30:.3f} GiB above the "
+              f"{base / 2**30:.3f} GiB resident before the stage")
+        out[stage] = {"steps_per_s": steps_per_s, "peak_gib": peak / 2**30}
+        del svi
+    return out
+
+
+def velo2d_full_width(torch, seed, card, adata0, cfg=VELO2D_B, device="cuda"):
+    """(b): `train_velo2d` at Ng x Nc on data built on the card from
+    ``adata0``'s genes; gated on finite, falling losses."""
+    import numpy as np
+
+    from velocycle_tpu_torch.ops import nb_kernels as K_
+    from velocycle_tpu_torch.twodim import train_velo2d
+
+    t0 = time.perf_counter()
+    pd, truth = _velo2d_width_data(torch, seed, adata0, cfg, device)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    print(f"[velo2d] (b) data at {cfg['Ng']} genes x {cfg['Nc']} cells "
+          f"({pd.n_coef_s} expression, {pd.n_coef_omega} velocity "
+          f"coefficients): built in {build_s:.2f} s (host clock)")
+    K_.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    results, ls, lu = train_velo2d(pd, n_steps_s=cfg["steps"],
+                                   n_steps_u=cfg["steps"], key=seed)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    _no_nb_launch("(b)")
+    print(f"[velo2d] (b) train_velo2d, {cfg['steps']} + {cfg['steps']} "
+          f"steps: {fit_s:.2f} s on {card}; stage S loss {ls[0]:.6g} -> "
+          f"{ls[-1]:.6g}, stage U {lu[0]:.6g} -> {lu[-1]:.6g}; peak "
+          f"{peak / 2**30:.3f} GiB above {base / 2**30:.3f} GiB resident")
+    _falls(ls, "(b) stage S")
+    _falls(lu, "(b) stage U")
+    corrs = {
+        "omega_x": _corr(torch, truth["omega"][0], results["omega"][0]),
+        "omega_y": _corr(torch, truth["omega"][1], results["omega"][1]),
+        "ElogS": _corr(torch, truth["ElogS"], results["ElogS"]),
+        "ElogU": _corr(torch, truth["ElogU"], results["ElogU"]),
+        "log_beta": _corr(torch, truth["log_beta"], results["log_beta"]),
+        "log_gamma": _corr(torch, truth["log_gamma"], results["log_gamma"]),
+        "gamma_beta_ratio": _corr(
+            torch, torch.exp(truth["log_gamma"] - truth["log_beta"]),
+            np.exp(results["log_gamma"] - results["log_beta"])),
+    }
+    print("[velo2d] (b) correlations with the tiled truth: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in corrs.items()))
+    del truth
+    rates = _velo2d_stage_rates(torch, pd, results, seed)
+    del pd, results
+    torch.cuda.empty_cache()
+    return {"build_s": build_s, "fit_s": fit_s, "fit_peak_gib": peak / 2**30,
+            "loss_s": [float(ls[0]), float(ls[-1])],
+            "loss_u": [float(lu[0]), float(lu[-1])], "corrs": corrs,
+            "stages": rates}
+
+
+def phase_velo2d(torch, seed, card, a=VELO2D_A, b=VELO2D_B, device="cuda"):
+    """[velo2d]: (a) the reference's published run, then (b) the
+    full-width fit on (a)'s seed-0 genes."""
+    t0 = time.perf_counter()
+    published, adata0 = velo2d_published(torch, card, a, device)
+    full = velo2d_full_width(torch, seed, card, adata0, b, device)
+    print(f"[velo2d] in all: {time.perf_counter() - t0:.1f} s")
+    return {"a": published, "b": full}
+
+
 def profile_steps(torch, svi, state, data, tag, n=5):
     """Device time by kernel over a few SVI steps (`_device_profile`)."""
     _device_profile(torch, lambda: svi.update_chunk(state, n, data)[1].cpu(),
@@ -3082,6 +3327,10 @@ def main(argv=None):
                     help="build, then [smc] alone: the chain-batched "
                          "phase_fwd's parity and timing, runs (a) and (b) "
                          "and the bridge-vs-prior check (no result line)")
+    ap.add_argument("--velo2d", action="store_true",
+                    help="build, then [velo2d] alone: the 2-D extension's "
+                         "published run and its full-width fit (no result "
+                         "line)")
     args = ap.parse_args(argv)
 
     import torch
@@ -3121,6 +3370,9 @@ def main(argv=None):
     if args.minibatch:
         minibatch_alone(torch, args.seed, smi)
         return 0
+    if args.velo2d:
+        phase_velo2d(torch, args.seed, smi)
+        return 0
     kernel_digest(torch, args.seed)
     errs = phase_parity(torch, args.seed)
     timing = phase_timing(torch, args.seed, smi)
@@ -3152,6 +3404,9 @@ def main(argv=None):
     smc_runs = phase_smc(torch, args.seed, smi)
     smc = smc_row(smc_parity, smc_timing, smc_runs)
     velo = velo_rows(chain_kernels, mcmc_runs["c"], smc_runs["c"])
+    torch.cuda.empty_cache()
+    # [velo2d] alone after [smc]: the 2-D extension, no kernel of its own
+    phase_velo2d(torch, args.seed, smi)
     torch.cuda.empty_cache()
     steps_per_s, peak, vsteps_per_s, vpeak = rates
 

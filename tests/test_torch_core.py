@@ -200,7 +200,12 @@ def test_package_never_imports_jax():
     assert not offenders, offenders
     assert os.path.join(REPO, "velocycle_tpu_torch", "native", "__init__.py") in files
     assert os.path.join(REPO, "velocycle_tpu_torch", "genes.py") in files
+    for f in (("twodim", "models.py"), ("twodim", "simulate.py"),
+              ("twodim", "driver.py"), ("infer", "autoguide.py"),
+              ("examples", "08_velo2d_branching.py")):
+        assert os.path.join(REPO, "velocycle_tpu_torch", *f) in files, f
     code = ("import sys, velocycle_tpu_torch, velocycle_tpu_torch.fit, "
+            "velocycle_tpu_torch.twodim, velocycle_tpu_torch.infer.autoguide, "
             "velocycle_tpu_torch.convert, velocycle_tpu_torch.ops.nb_kernels, "
             "velocycle_tpu_torch.ops.ladder_kernels, "
             "velocycle_tpu_torch.tools.kernel_profile, "

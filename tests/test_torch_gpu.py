@@ -1218,3 +1218,190 @@ def test_cuda_minibatch_block_objective_matches_full_batch(stage):
     name = "phase_fwd" if stage == "phase" else "velo_fwd"
     assert K.LAUNCHES[name] == 5
     assert np.isclose(total / 4, full, rtol=1e-5), (total / 4, full)
+
+
+# ---------------------------------------------------------------------------
+# the 2-D extension (twodim, AutoNormal / AutoDelta, plain Adam) on the card
+# against its CPU run: no kernel of its own, plain torch on cuda tensors.
+# Tolerances: ELBO rel 1e-5, gradients max|a-b| / max|a| 1e-4 (only the
+# float32 reduction and matmul order differs); Adam rtol 1e-6, atol 1e-6
+# ---------------------------------------------------------------------------
+
+def _velo2d_data(device, Nc=300, Ng=40, seed=0):
+    from velocycle_tpu_torch import twodim as T2
+
+    adata = T2.generate_adata(n_cells=Nc, n_genes=Ng, seed=seed)
+    pd = T2.prepare_data(adata, device=device)
+    w_s = torch.as_tensor(np.asarray(adata.uns["w_s"], np.float32),
+                          device=device)
+    return adata, pd, pd.replace(w_s=w_s, ElogS=w_s @ pd.design_s)
+
+
+def _velo2d_elbo_and_grads(device, stage, kind):
+    """The ELBO of one 2-D model under one autoguide at fixed params and
+    fixed guide noise (both from numpy), and its param gradients."""
+    from velocycle_tpu_torch import twodim as T2
+    from velocycle_tpu_torch.core import handlers
+    from velocycle_tpu_torch.infer import SVI, Trace_ELBO, adam
+    from velocycle_tpu_torch.infer import autoguide as AG
+
+    def model_and_data(dev):
+        _, pd_s, pd_u = _velo2d_data(dev)
+        return ((T2.velo2d_s_model, pd_s) if stage == "s"
+                else (T2.velo2d_u_model, pd_u))
+
+    # the params of a CPU init (a card's generator draws other numbers)
+    model, cpu_data = model_and_data(torch.device("cpu"))
+    base = SVI(model, getattr(AG, kind)(model), adam(),
+               Trace_ELBO()).init(0, cpu_data).params
+    model, data = model_and_data(device)
+    guide = getattr(AG, kind)(model)
+    svi = SVI(model, guide, adam(), Trace_ELBO())
+    svi.init(0, data)
+    rng = np.random.default_rng(3)
+    params = {k: torch.tensor(v.detach().numpy()
+                              + rng.normal(0, 0.1, v.shape).astype(np.float32),
+                              device=device, requires_grad=True)
+              for k, v in base.items()}
+    eps = {k: torch.as_tensor(rng.normal(size=v.shape).astype(np.float32),
+                              device=device)
+           for k, v in guide._get_prototype(data).items()}
+
+    class Noise(handlers.Messenger):
+        def process_message(self, msg):
+            if (msg["type"] == "sample" and msg["value"] is None
+                    and msg["name"] in eps and kind == "AutoNormal"):
+                d = msg["fn"].base
+                msg["value"] = d.loc + d.scale * eps[msg["name"]]
+
+    svi.guide = Noise(guide)
+    loss = svi.loss_fn(params, 1, data)
+    loss.backward()
+    return float(loss.detach()), {k: v.grad.cpu().numpy()
+                                  for k, v in params.items()}
+
+
+@pytest.mark.parametrize("stage", ["s", "u"])
+@pytest.mark.parametrize("kind", ["AutoNormal", "AutoDelta"])
+def test_velo2d_elbo_on_the_card_matches_the_cpu(stage, kind):
+    dev = _cuda_or_skip()
+    gl, gg = _velo2d_elbo_and_grads(dev, stage, kind)
+    cl, cg = _velo2d_elbo_and_grads(torch.device("cpu"), stage, kind)
+    assert np.isfinite(gl) and abs(gl - cl) / abs(cl) < 1e-5, (gl, cl)
+    assert sorted(gg) == sorted(cg)
+    for k in cg:
+        assert _max_rel(torch.as_tensor(gg[k]), torch.as_tensor(cg[k])) < 1e-4, k
+
+
+def test_adam_on_the_card_matches_the_cpu():
+    dev = _cuda_or_skip()
+    from velocycle_tpu_torch.infer import adam
+
+    rng = np.random.default_rng(0)
+    p0 = rng.normal(size=(64, 37)).astype(np.float32)
+    grads = [rng.normal(size=p0.shape).astype(np.float32) for _ in range(20)]
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        p = {"w": torch.tensor(p0, device=d)}
+        opt = adam(1e-2)
+        state = opt.init(p)
+        for g in grads:
+            opt.update({"w": torch.tensor(g, device=d)}, state, p)
+        out[d.type] = p["w"].cpu().numpy()
+    np.testing.assert_allclose(out["cuda"], out["cpu"], rtol=1e-6, atol=1e-6)
+
+
+def test_train_velo2d_on_the_card_defaults_to_it():
+    """prepare_data with no device puts the data on the card; a short
+    two-stage fit there launches no NB kernel, and its losses fall."""
+    _cuda_or_skip()
+    from velocycle_tpu_torch import twodim as T2
+
+    adata = T2.generate_adata(n_cells=300, n_genes=40, seed=1)
+    pd = T2.prepare_data(adata)
+    assert pd.S.device.type == "cuda" and pd.design_s.device.type == "cuda"
+    K.reset_launch_counts()
+    results, ls, lu = T2.train_velo2d(pd, n_steps_s=60, n_steps_u=60, key=1)
+    assert not any(K.LAUNCHES.values())
+    assert np.isfinite(ls).all() and np.isfinite(lu).all()
+    assert ls[-10:].mean() < ls[0] and lu[-10:].mean() < lu[0]
+    assert results["ElogU"].shape == (40, 300)
+    assert np.isfinite(results["ElogU"]).all()
+
+
+# ---------------------------------------------------------------------------
+# the core remainders on cuda tensors against the CPU: the same float32
+# formulas (ProjectedNormal in float64), rtol 1e-5 / atol 1e-5; the
+# ELBO's num_particles on the card against the mean of single particles
+# ---------------------------------------------------------------------------
+
+def _remainder_cases():
+    import math
+
+    from velocycle_tpu_torch.core import distributions as D
+    from velocycle_tpu_torch.ops import likelihoods as LK
+    from velocycle_tpu_torch.ops import special as SP
+
+    rng = np.random.default_rng(6)
+    A = rng.normal(size=(3, 3)).astype(np.float32)
+    cov = A @ A.T + 3 * np.eye(3, dtype=np.float32)
+    theta = np.linspace(-math.pi, math.pi, 361).astype(np.float32)
+    k = np.concatenate([np.arange(12), [20, 50, 500]]).astype(np.float32)
+    a = np.array([[0.02], [0.5], [8.0], [59.0], [2000.0]], np.float32)
+    return {
+        "LogNormal": (lambda x: D.LogNormal(x[0], x[1]).log_prob(x[2]),
+                      [np.float32(0.3), np.float32(0.8),
+                       np.linspace(0.1, 5, 50).astype(np.float32)]),
+        "MultivariateNormal": (
+            lambda x: D.MultivariateNormal(
+                x[0], covariance_matrix=x[1]).log_prob(x[2]),
+            [rng.normal(size=3).astype(np.float32), cov,
+             rng.normal(size=(40, 3)).astype(np.float32)]),
+        "ProjectedNormal": (
+            lambda x: D.ProjectedNormal(x[0], 1.0).log_prob(x[1]),
+            [np.array([[1.2, 0.8], [14.0, 0.0], [0.0, -20.0]],
+                      np.float32)[:, None, :], theta]),
+        "digamma_pos": (lambda x: SP.digamma_pos(x[0]),
+                        [np.linspace(1e-3, 40, 300).astype(np.float32)]),
+        "lgamma_ratio": (lambda x: SP.lgamma_ratio(x[0], x[1]), [k, a]),
+        "digamma_ratio": (lambda x: SP.digamma_ratio(x[0], x[1]), [k, a]),
+        "lognormal_logpdf": (lambda x: LK.lognormal_logpdf(*x),
+                             [rng.normal(size=50).astype(np.float32),
+                              rng.normal(size=50).astype(np.float32),
+                              np.float32(0.7)]),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_remainder_cases()))
+def test_core_remainders_on_the_card_match_the_cpu(name):
+    dev = _cuda_or_skip()
+    fn, args = _remainder_cases()[name]
+    got = fn([torch.as_tensor(x, device=dev) for x in args])
+    want = fn([torch.as_tensor(x) for x in args])
+    assert got.device.type == "cuda" and torch.isfinite(got).all()
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_num_particles_on_the_card():
+    dev = _cuda_or_skip()
+    from velocycle_tpu_torch.core import distributions as D
+    from velocycle_tpu_torch.core import handlers
+    from velocycle_tpu_torch.infer import Trace_ELBO
+
+    loc = torch.tensor(0.4, device=dev, requires_grad=True)
+
+    def model():
+        handlers.sample("x", D.Normal(torch.zeros((), device=dev), 1.0))
+
+    def guide():
+        handlers.sample("x", D.Normal(loc, 0.8))
+
+    four = Trace_ELBO(num_particles=4).loss(3, model, guide)
+    singles = torch.stack([Trace_ELBO().loss(handlers.fold_in(3, i), model,
+                                             guide) for i in range(4)])
+    assert four.device.type == "cuda"
+    assert torch.allclose(four, singles.mean(), rtol=1e-6)
+    with torch.no_grad():
+        many = float(Trace_ELBO(num_particles=4096).loss(0, model, guide))
+    assert abs(many + 0.5 * (1 + np.log(0.64) - 0.16 - 0.64)) < 0.02

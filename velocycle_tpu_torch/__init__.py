@@ -14,6 +14,9 @@ likelihoods of both stages run as hand-written CUDA kernels for Hopper
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 with no card and no explicit CPU request they raise (`device.py`).
 
+The 2-D extension (a spline velocity field on a branching 2-D manifold,
+its simulator and two-stage driver) is `velocycle_tpu_torch.twodim`.
+
 Real data enters as in the JAX package: `read_h5ad` (or `native.read_mtx`),
 `normalize_total`, `genes.get_cycling_gene_set`, the `Phases` prior builders
 and the joint gauge fixes `invert_direction` / `shift_zero`.

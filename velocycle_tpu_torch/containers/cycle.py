@@ -3,8 +3,8 @@
 Port of `velocycle_tpu/containers/cycle.py` on the shared `FourierTable`
 base.  Columns are genes; rows are ``nu0, nu1_cos, nu1_sin, ...``.  After a
 fit the container also holds the per-gene NB dispersion (``disp``) and, after
-a velocity fit, the kinetics (``log_gammas``, ``log_betas``).  The spline
-prior is not ported yet.
+a velocity fit, the kinetics (``log_gammas``, ``log_betas``);
+`Cycle.spline_prior` builds the B-spline manifold's prior.
 
 `shift_zero` keeps the JAX package's deliberate divergence from the
 reference: harmonic ``h`` is rotated by ``h*delta`` (the correct phase

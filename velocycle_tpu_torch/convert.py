@@ -7,7 +7,8 @@
   * `phase_data_from_jax` / `velocity_data_from_jax` take a JAX
     `PhaseData` / `VelocityData` (its arrays as numpy, or anything with the
     same attributes) and return the port's container with the same arrays
-    and config.
+    and config; `velo2d_data_from_jax` does the same for the 2-D models'
+    `Velo2DData`.
 
 Neither imports jax: the inputs are read through ``np.asarray``.
 """
@@ -22,13 +23,18 @@ from .device import resolve_device
 from .models.metapars import (
     PHASE_TENSOR_FIELDS, VELOCITY_TENSOR_FIELDS, PhaseData, VelocityData,
 )
+from .twodim.models import (
+    VELO2D_PRIOR_FIELDS, VELO2D_TENSOR_FIELDS, Velo2DData,
+)
 
-__all__ = ["params_from_jax", "phase_data_from_jax", "velocity_data_from_jax"]
+__all__ = ["params_from_jax", "phase_data_from_jax", "velocity_data_from_jax",
+           "velo2d_data_from_jax"]
 
 
 def params_from_jax(params, device=None):
     """{name: array} of unconstrained params -> {name: float32 leaf
-    tensor on ``device`` that requires grad}."""
+    tensor on ``device`` that requires grad}; names are kept as they are
+    (``nu_locs``, ``AutoNormal.locs.w_s``, ...)."""
     dev = resolve_device(device)
     return {
         k: torch.tensor(np.asarray(v), dtype=torch.float32, device=dev)
@@ -61,3 +67,23 @@ def velocity_data_from_jax(data, device=None):
     """JAX `VelocityData` -> port `VelocityData` on ``device``, as
     `phase_data_from_jax`."""
     return _data_from_jax(VelocityData, VELOCITY_TENSOR_FIELDS, data, device)
+
+
+def velo2d_data_from_jax(data, device=None):
+    """JAX `Velo2DData` -> port `Velo2DData` on ``device``: the designs,
+    counts and frozen stage-1 arrays as float32 tensors, a prior that is a
+    scalar as a Python float, one that is an array as a tensor."""
+    dev = resolve_device(device)
+    kw = {}
+    for f in dataclasses.fields(Velo2DData):
+        v = getattr(data, f.name)
+        if f.name in VELO2D_TENSOR_FIELDS or (
+                f.name in VELO2D_PRIOR_FIELDS and np.ndim(v) > 0):
+            kw[f.name] = torch.as_tensor(
+                np.require(np.asarray(v, np.float32), requirements="CW"),
+                device=dev)
+        elif f.name in VELO2D_PRIOR_FIELDS:
+            kw[f.name] = float(v)
+        else:
+            kw[f.name] = int(v)
+    return Velo2DData(**kw)

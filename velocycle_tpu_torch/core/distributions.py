@@ -1,11 +1,16 @@
-"""The distributions the phase and velocity models and guides need, in
-plain torch.
+"""The distribution library of the model DSL, in plain torch.
 
 Same parameterizations and log-densities as `velocycle_tpu/core/
 distributions.py`, including the f32-hardened Gamma-Poisson.  ``sample``
 takes an integer seed and draws from an explicit `torch.Generator` on the
 parameters' device (`core.handlers.seed` derives one seed per site);
 location-scale draws are reparameterized.
+
+One density departs from the JAX package's arithmetic on purpose:
+`ProjectedNormal.log_prob` takes its Mills-ratio term through a stable
+log-Phi in float64, where the JAX package's float32 ``exp(0.5 t^2)``
+overflows to +inf from t = |loc| / scale ~ 13.3 at the mode and loses
+the tail (ROADMAP.md section 3).
 """
 from __future__ import annotations
 
@@ -19,6 +24,7 @@ __all__ = [
     "Distribution",
     "Independent",
     "Normal",
+    "LogNormal",
     "Gamma",
     "Poisson",
     "GammaPoisson",
@@ -28,7 +34,9 @@ __all__ = [
     "Beta",
     "Bernoulli",
     "Uniform",
+    "MultivariateNormal",
     "VonMises",
+    "ProjectedNormal",
     "log_i0",
     "log_i1",
     "generator",
@@ -132,6 +140,30 @@ class Normal(Distribution):
     def log_prob(self, value):
         z = (value - self.loc) / self.scale
         return -0.5 * z * z - torch.log(self.scale) - 0.5 * _LOG_2PI
+
+
+class LogNormal(Distribution):
+    """exp of a Normal(loc, scale) variable; draws reparameterized."""
+
+    support = "positive"
+
+    def __init__(self, loc, scale):
+        self.loc, self.scale = _promote(loc, scale)
+
+    @property
+    def batch_shape(self):
+        return tuple(torch.broadcast_shapes(self.loc.shape, self.scale.shape))
+
+    def sample(self, key, sample_shape=()):
+        shape = tuple(sample_shape) + self.batch_shape
+        eps = torch.randn(shape, generator=generator(key, self.loc.device),
+                          device=self.loc.device, dtype=self.loc.dtype)
+        return torch.exp(self.loc + self.scale * eps)
+
+    def log_prob(self, value):
+        logv = torch.log(value)
+        z = (logv - self.loc) / self.scale
+        return -0.5 * z * z - torch.log(self.scale) - 0.5 * _LOG_2PI - logv
 
 
 class Gamma(Distribution):
@@ -309,6 +341,47 @@ class LowRankMultivariateNormal(Distribution):
         return -0.5 * (mahal + logdet + d * _LOG_2PI)
 
 
+class MultivariateNormal(Distribution):
+    """N(loc, L L^T) with ``scale_tril`` L given, or taken as the Cholesky
+    factor of ``covariance_matrix``; draws ``loc + L eps``,
+    reparameterized."""
+
+    def __init__(self, loc, covariance_matrix=None, scale_tril=None):
+        (self.loc,) = _promote(loc)
+        kw = dict(dtype=self.loc.dtype, device=self.loc.device)
+        if scale_tril is None:
+            scale_tril = torch.linalg.cholesky(
+                torch.as_tensor(covariance_matrix, **kw))
+        self.scale_tril = torch.as_tensor(scale_tril, **kw)
+
+    @property
+    def event_shape(self):
+        return tuple(self.loc.shape[-1:])
+
+    @property
+    def batch_shape(self):
+        return tuple(torch.broadcast_shapes(self.loc.shape[:-1],
+                                            self.scale_tril.shape[:-2]))
+
+    def sample(self, key, sample_shape=()):
+        shape = tuple(sample_shape) + self.batch_shape + self.event_shape
+        eps = torch.randn(shape, generator=generator(key, self.loc.device),
+                          device=self.loc.device, dtype=self.loc.dtype)
+        return self.loc + (self.scale_tril @ eps[..., None])[..., 0]
+
+    def log_prob(self, value):
+        L = self.scale_tril
+        diff = value - self.loc
+        bshape = torch.broadcast_shapes(diff.shape[:-1], L.shape[:-2])
+        y = torch.linalg.solve_triangular(
+            L.expand(bshape + L.shape[-2:]),
+            diff.expand(bshape + diff.shape[-1:])[..., None], upper=False,
+        )[..., 0]
+        d = self.loc.shape[-1]
+        half_logdet = torch.log(torch.diagonal(L, dim1=-2, dim2=-1)).sum(-1)
+        return -0.5 * (y * y).sum(-1) - half_logdet - 0.5 * d * _LOG_2PI
+
+
 class Beta(Distribution):
     support = "unit_interval"
 
@@ -456,3 +529,52 @@ class VonMises(Distribution):
             out = torch.where(accept & ~found, theta, out)
             found = found | accept
         return torch.remainder(out + loc + math.pi, 2.0 * math.pi) - math.pi
+
+
+class ProjectedNormal(Distribution):
+    """The angle of a 2-D isotropic normal centred at ``loc_xy`` (last axis
+    x, y) with standard deviation ``scale``: the implicit phase prior of
+    the phi_xy parametrization."""
+
+    def __init__(self, loc_xy, scale=1.0):
+        self.loc_xy, self.scale = _promote(loc_xy, scale)
+
+    @property
+    def batch_shape(self):
+        return tuple(self.loc_xy.shape[:-1])
+
+    def sample(self, key, sample_shape=()):
+        shape = tuple(sample_shape) + self.batch_shape + (2,)
+        eps = torch.randn(shape, generator=generator(key, self.loc_xy.device),
+                          device=self.loc_xy.device, dtype=self.loc_xy.dtype)
+        xy = self.loc_xy + self.scale[..., None] * eps
+        return torch.atan2(xy[..., 1], xy[..., 0])
+
+    def log_prob(self, value):
+        """The exact density, p = exp(-r^2/2) / (2 pi) (1 + t Phi(t) /
+        phi(t)) with m = loc / scale, r = |m|, t = m . (cos, sin).  As a
+        log, -u^2/2 - log(2 pi)/2 + log g(t), with u^2 = r^2 - t^2 the
+        squared normal component (u = m x (cos, sin)) and g = phi + t Phi:
+        where t >= 0, g >= phi(0) is summed directly; where t < 0, log g =
+        log phi(t) + log1p(t Phi(t) / phi(t)), the Mills ratio taken from
+        log_ndtr.  In float64 (the result in the input's dtype), so that
+        neither term overflows nor underflows: finite for every t; the
+        log1p's float64 cancellation grows as t^2 and stays far below
+        float32 resolution for |t| < 1e3."""
+        dtype = torch.promote_types(self.loc_xy.dtype,
+                                    torch.as_tensor(value).dtype)
+        m = (self.loc_xy / self.scale[..., None]).double()
+        v = torch.as_tensor(value, device=m.device).double()
+        c, s = torch.cos(v), torch.sin(v)
+        t = m[..., 0] * c + m[..., 1] * s
+        u = m[..., 0] * s - m[..., 1] * c
+        half_log_2pi = 0.5 * _LOG_2PI
+        tp = torch.clamp(t, min=0.0)
+        log_g_pos = torch.log(tp * torch.special.ndtr(tp)
+                              + torch.exp(-0.5 * tp * tp - half_log_2pi))
+        tn = torch.clamp(t, max=0.0)
+        log_phi_n = -0.5 * tn * tn - half_log_2pi
+        log_g_neg = log_phi_n + torch.log1p(
+            tn * torch.exp(torch.special.log_ndtr(tn) - log_phi_n))
+        log_g = torch.where(t >= 0.0, log_g_pos, log_g_neg)
+        return (-0.5 * u * u - half_log_2pi + log_g).to(dtype)

@@ -2,9 +2,9 @@
 
 Port of `velocycle_tpu/core/handlers.py` (sample/param/factor/
 deterministic/plate, the trace, seed, substitute, condition, replay, block,
-scale and enum handlers, and `check_plate_shapes`).  A model is a plain Python function; interpreting it under
-a handler stack yields a trace of torch tensors, and autograd records the
-computation as it runs.
+scale, enum and uncondition handlers, and `check_plate_shapes`).  A model
+is a plain Python function; interpreting it under a handler stack yields a
+trace of torch tensors, and autograd records the computation as it runs.
 
 Randomness: `seed` holds one root integer and gives every sample site its
 own seed, derived from the root and a stable hash of the site name
@@ -32,6 +32,7 @@ __all__ = [
     "block",
     "scale",
     "enum",
+    "uncondition",
     "Trace",
     "fold_in",
     "site_seed",
@@ -61,6 +62,22 @@ def site_seed(root: int, name: str) -> int:
 
 class Trace(dict):
     """An ordered dict of site-name -> message dicts."""
+
+    def log_prob_sum(self, site_filter=lambda name, site: True):
+        """Sum over the sample sites that ``site_filter(name, site)`` keeps
+        of each site's summed log-prob times its scale (`scale`; 1 unless
+        a handler set one).  Observed and auxiliary sites count too, as in
+        the JAX package (the ELBOs leave auxiliary sites out)."""
+        total = 0.0
+        for name, site in self.items():
+            if site["type"] == "sample" and site_filter(name, site):
+                lp = site["fn"].log_prob(site["value"]).sum()
+                total = total + lp * site.get("scale", 1.0)
+        return total
+
+    def nodes(self):
+        """The trace itself (pyro's ``trace.nodes``)."""
+        return self
 
 
 def _apply_stack(msg):
@@ -108,9 +125,10 @@ def sample(name, fn, obs=None, infer=None):
     return msg["value"]
 
 
-def param(name, init=None, constraint=None):
+def param(name, init=None, constraint=None, event_dim=None):
     """Learnable parameter: under `substitute` the stored value is returned;
-    otherwise ``init``."""
+    otherwise ``init``.  ``event_dim`` is accepted and ignored, as in the
+    JAX package."""
     if not _STACK:
         raise RuntimeError("param() outside of an effect-handler context.")
     msg = {
@@ -390,3 +408,17 @@ def check_plate_shapes(fn, *args, key=None, **kwargs):
                     f"align with value shape {shape}"
                 )
     return problems
+
+
+def uncondition():
+    """A handler that strips observations: every observed sample site is
+    drawn again (under `seed`) instead of taking its data, so a model
+    generates from its prior predictive."""
+
+    class _Uncondition(Messenger):
+        def process_message(self, msg):
+            if msg["type"] == "sample" and msg["is_observed"]:
+                msg["is_observed"] = False
+                msg["value"] = None
+
+    return _Uncondition()

@@ -11,6 +11,10 @@ happens outside any sample site.
 `TraceEnum_ELBO` adds exact parallel enumeration of marked discrete model
 sites (`handlers.enum`).  Both draw the guide and the model from the same
 seeds for one key, so at one key they see the same guide draws.
+
+Both take ``num_particles``: 1 (the default) evaluates one particle at
+``key``; N > 1 the mean of N particles, the i-th at ``fold_in(key, i)``
+(the JAX package splits its key instead; the port's draws differ anyway).
 """
 from __future__ import annotations
 
@@ -55,18 +59,37 @@ def _traces(key, model, guide, args, kwargs):
     return guide_tr, replayed
 
 
-class Trace_ELBO:
-    """Negated single-particle ELBO."""
+class _ELBO:
+    def __init__(self, num_particles=1):
+        if int(num_particles) < 1:
+            raise ValueError(
+                f"num_particles must be >= 1, got {num_particles}")
+        self.num_particles = int(num_particles)
 
     def loss(self, key, model, guide, *args, **kwargs):
+        """The negated ELBO: one particle at ``key``, or the mean of
+        ``num_particles`` at ``fold_in(key, i)``."""
+        if self.num_particles == 1:
+            return self._particle(key, model, guide, args, kwargs)
+        return torch.stack([
+            self._particle(handlers.fold_in(key, i), model, guide, args,
+                           kwargs)
+            for i in range(self.num_particles)
+        ]).mean()
+
+
+class Trace_ELBO(_ELBO):
+    """Negated reparameterized Trace ELBO."""
+
+    def _particle(self, key, model, guide, args, kwargs):
         guide_tr, replayed = _traces(key, model, guide, args, kwargs)
         model_tr = handlers.trace(replayed).get_trace(*args, **kwargs)
         return -(_logp_sum(model_tr) - _logp_sum(guide_tr))
 
 
-class TraceEnum_ELBO:
+class TraceEnum_ELBO(_ELBO):
     """Trace ELBO with exact parallel enumeration of marked discrete sites
-    (pyro's ``TraceEnum_ELBO`` with ``config_enumerate``), single particle.
+    (pyro's ``TraceEnum_ELBO`` with ``config_enumerate``).
 
     Sites sampled in the MODEL with ``infer={"enumerate": "parallel"}``
     and absent from the guide are summed out of the model log-joint:
@@ -88,7 +111,7 @@ class TraceEnum_ELBO:
     marginalizing the wrong axis.
     """
 
-    def loss(self, key, model, guide, *args, **kwargs):
+    def _particle(self, key, model, guide, args, kwargs):
         guide_tr, replayed = _traces(key, model, guide, args, kwargs)
         # the model with its enumerated sites drawn: only the ndim of each
         # log-prob is read, so no graph is kept
@@ -115,7 +138,9 @@ class TraceEnum_ELBO:
         for name, site in model_tr.items():
             lp = _elbo_term(site)
             if lp is not None:
-                lps[name] = lp
+                # weighted by the site's scale (handlers.scale) inside the
+                # marginalization, as the JAX package weights it
+                lps[name] = lp * site["scale"] if "scale" in site else lp
         dep_names = [n for n, lp in lps.items() if lp.ndim > base_ndim[n]]
         total = 0.0
         for n, lp in lps.items():

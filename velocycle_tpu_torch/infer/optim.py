@@ -6,13 +6,14 @@
   3. step ``-lr * lrd**t``, t counted from 0.
 
 `ClippedAdam.update` writes the new parameters in place (no second copy of
-each parameter per step).
+each parameter per step).  `adam` is the same update with no clamp and no
+decay, as `optax.adam` (the 2-D driver's optimizer).
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["ClippedAdam", "clipped_adam"]
+__all__ = ["ClippedAdam", "clipped_adam", "adam"]
 
 
 class ClippedAdam:
@@ -36,7 +37,7 @@ class ClippedAdam:
     def update(self, grads, state, params):
         """One step: ``params`` (a dict of tensors) is updated in place;
         ``state`` is advanced in place.  A missing or None gradient counts
-        as zero."""
+        as zero; ``clip_norm=None`` clamps nothing."""
         b1, b2 = self.betas
         t = state["count"]
         bc1 = 1.0 - b1 ** (t + 1)
@@ -44,9 +45,10 @@ class ClippedAdam:
         step = -self.lr * self.lrd ** t
         for name, p in params.items():
             g = grads.get(name)
-            g = torch.zeros_like(p) if g is None else g.clamp(
-                -self.clip_norm, self.clip_norm
-            )
+            if g is None:
+                g = torch.zeros_like(p)
+            elif self.clip_norm is not None:
+                g = g.clamp(-self.clip_norm, self.clip_norm)
             m, v = state["m"][name], state["v"][name]
             m.mul_(b1).add_(g, alpha=1.0 - b1)
             v.mul_(b2).addcmul_(g, g, value=1.0 - b2)
@@ -60,3 +62,9 @@ def clipped_adam(lr=0.05, betas=(0.80, 0.99), eps=1e-8, clip_norm=10.0,
     """The ClippedAdam the reference tutorials use (see `ClippedAdam`)."""
     return ClippedAdam(lr=lr, betas=betas, eps=eps, clip_norm=clip_norm,
                        lrd=lrd)
+
+
+def adam(lr=1e-2, betas=(0.9, 0.999), eps=1e-8):
+    """Plain Adam, as ``optax.adam``: bias-corrected moments, eps outside the
+    square root, no clamp, no decay."""
+    return ClippedAdam(lr=lr, betas=betas, eps=eps, clip_norm=None)

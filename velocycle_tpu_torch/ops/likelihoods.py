@@ -1,4 +1,5 @@
-"""The Negative-Binomial and Poisson count likelihoods in plain torch.
+"""The Negative-Binomial and Poisson count likelihoods and the log-normal
+density in plain torch.
 
 NB parameterization: ``GammaPoisson(1/r, 1/(r * exp(ElogS)))`` with
 per-gene dispersion r, in the cancellation-free form of
@@ -6,9 +7,11 @@ per-gene dispersion r, in the cancellation-free form of
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
-__all__ = ["lgamma_diff", "nb_logpmf", "poisson_logpmf"]
+__all__ = ["lgamma_diff", "nb_logpmf", "poisson_logpmf", "lognormal_logpdf"]
 
 
 def _stirling_rc(z):
@@ -59,3 +62,10 @@ def nb_logpmf(k, elog_mu, dispersion):
 def poisson_logpmf(k, elog_mu):
     """Poisson log-pmf at counts ``k`` with log-mean ``elog_mu``."""
     return k * elog_mu - torch.exp(elog_mu) - torch.lgamma(k + 1.0)
+
+
+def lognormal_logpdf(logx, elog_mu, sigma):
+    """Normal log-density of ``logx`` around ``elog_mu`` with scale
+    ``sigma`` (the log-normal likelihood on log counts, no Jacobian)."""
+    z = (logx - elog_mu) / sigma
+    return -0.5 * z * z - torch.log(sigma) - 0.5 * math.log(2.0 * math.pi)

@@ -53,7 +53,7 @@ import torch
 from . import cuda_build
 from .likelihoods import nb_logpmf
 from .special import (EXCESS_FROM, SERIES_BELOW, lgamma_digamma_excess,
-                      lgamma_pos, lgamma_ratio, log1m_excess,
+                      lgamma_pos, lgamma_ratio2, log1m_excess,
                       softplus_log_sigmoid)
 
 __all__ = [
@@ -173,7 +173,7 @@ def _nb_lp(k, elog, a, log_r, skip_lgamma_k=False):
     ``a * log_b - a * softplus(log_b)``, whose two halves cancel where a =
     1/r is large (small dispersion)."""
     log_b = -log_r - elog
-    lgr = lgamma_ratio(k, a)
+    lgr = lgamma_ratio2(k, a)
     sp, log_sig = softplus_log_sigmoid(log_b, with_sigmoid=False)
     lp = lgr + a * log_sig - k * sp
     if not skip_lgamma_k:
@@ -203,7 +203,7 @@ def _nb_lp_and_grads(k, a, log_r, elog, skip_k, want_r=True):
     if want_r:
         lgr, dgr, kad = lgamma_digamma_excess(k, a)
     else:
-        lgr = lgamma_ratio(k, a)
+        lgr = lgamma_ratio2(k, a)
     lp = lgr + a * log_sig - k * sp
     if not skip_k:
         lp = lp - lgamma_pos(k + 1.0)

@@ -15,21 +15,31 @@ and the kernels' on-card comparisons hold one arithmetic.
     digamma(a)) with exact masked sums for k < 2 and shared Stirling
     differences at arguments >= a+2.  Its digamma half truncates to about
     1.6e-5 absolute near k+a = 2 (see tests/test_torch_special.py).
-  * `lgamma_ratio`: the lgamma half alone (the loss-only element).
+  * `lgamma_ratio2`: the lgamma half alone (the loss-only element).
   * `lgamma_digamma_excess`: both ratios and ``k - a * (digamma(k+a) -
     digamma(a))`` = sum_{j<k} j / (a+j) from the same Stirling branch, the
     last with no difference of two O(k) or two O(1/a) numbers (the NB
     element's dispersion gradient from a = 1/r = EXCESS_FROM on).
   * `log1p_excess`, `log1m_excess`: t - log1p(t) and -log1p(-s) - s, by
     their series below 1/8.
+
+The JAX package's standalone forms, ported in its operation order and on
+no kernel's path:
+
+  * `digamma_pos`: a 6-step upward recurrence into the asymptotic series.
+  * `lgamma_ratio`, `digamma_ratio`: lgamma(k+a) - lgamma(a) and
+    digamma(k+a) - digamma(a) with exact masked sums for k < 8 and
+    Stirling differences at arguments >= a+8 (threshold 8, where the
+    kernels' forms above take threshold 2).
 """
 from __future__ import annotations
 
 import torch
 
 __all__ = [
-    "lgamma_pos", "softplus_log_sigmoid", "lgamma_ratio", "lgamma_digamma_ratio",
-    "lgamma_digamma_excess", "log1p_excess", "log1m_excess",
+    "lgamma_pos", "softplus_log_sigmoid", "lgamma_ratio2",
+    "lgamma_digamma_ratio", "lgamma_digamma_excess", "log1p_excess",
+    "log1m_excess", "digamma_pos", "lgamma_ratio", "digamma_ratio",
 ]
 
 # below this argument `log1p_excess` and `log1m_excess` take their series
@@ -138,9 +148,10 @@ def _ratio_parts(k, a):
                 lgr=lgr)
 
 
-def lgamma_ratio(k, a):
+def lgamma_ratio2(k, a):
     """lgamma(k+a) - lgamma(a) for integer counts ``k >= 0`` and per-gene
-    ``a > 0`` broadcast along the cells."""
+    ``a > 0`` broadcast along the cells, in the threshold-2 form of
+    `lgamma_digamma_ratio`."""
     return _ratio_parts(k, a)["lgr"]
 
 
@@ -191,3 +202,78 @@ def lgamma_digamma_excess(k, a):
     cancel when a is large."""
     p = _ratio_parts(k, a)
     return p["lgr"], _digamma_ratio(p), _digamma_excess(p, a)
+
+
+def digamma_pos(x):
+    """digamma(x) for x > 0: shift x above 6 with psi(x) = psi(x+1) - 1/x,
+    then the asymptotic series (A&S 6.3.18)."""
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    acc = torch.zeros_like(x)
+    for _ in range(6):
+        small = x < 6.0
+        acc = acc - torch.where(small, 1.0 / x, zero)
+        x = x + torch.where(small, 1.0, 0.0).to(x.dtype)
+    inv = 1.0 / x
+    inv2 = inv * inv
+    series = (
+        torch.log(x)
+        - 0.5 * inv
+        - inv2 * (1.0 / 12.0 - inv2 * (1.0 / 120.0 - inv2 * (1.0 / 252.0)))
+    )
+    return acc + series
+
+
+def _stirling_rc(z):
+    """Stirling-series correction 1/(12z) - 1/(360z^3) + 1/(1260z^5)."""
+    inv = 1.0 / z
+    inv2 = inv * inv
+    return inv * (
+        1.0 / 12.0 - inv2 * (1.0 / 360.0 - inv2 * (1.0 / 1260.0))
+    )
+
+
+def lgamma_ratio(k, a):
+    """lgamma(k + a) - lgamma(a) for integer-valued counts ``k >= 0`` and
+    ``a > 0`` broadcast against them: sum_{j<k} log(a + j) for k < 8, and
+    sum_{j<8} log(a+j) + [lgamma(k+a) - lgamma(a+8)] by Stirling's series
+    at arguments >= 8 above (no difference of two O(a log a) lgammas)."""
+    zero = torch.zeros((), dtype=a.dtype, device=a.device)
+    logs = [torch.log(a + j) for j in range(8)]
+    full8 = sum(logs)
+    small = sum(torch.where(k > j, logs[j], zero) for j in range(8))
+    # (y-1/2) log1p(x/y) + x log(y+x) - x + rc(y+x) - rc(y), y = a+8, x = k-8
+    y = a + 8.0
+    x = torch.clamp(k - 8.0, min=0.0)       # keep the unselected branch finite
+    ka = a + torch.clamp(k, min=8.0)
+    stir = (
+        (y - 0.5) * torch.log1p(x / y)
+        + x * torch.log(ka)
+        - x
+        + _stirling_rc(ka)
+        - _stirling_rc(y)
+    )
+    return torch.where(k < 8, small, full8 + stir)
+
+
+def _digamma_tail(z):
+    inv = 1.0 / z
+    inv2 = inv * inv
+    return (
+        -0.5 * inv
+        - inv2 * (1.0 / 12.0 - inv2 * (1.0 / 120.0 - inv2 / 252.0))
+    )
+
+
+def digamma_ratio(k, a):
+    """digamma(k + a) - digamma(a), as `lgamma_ratio`: sum_{j<k} 1/(a+j)
+    for k < 8, the asymptotic series' difference at arguments >= 8
+    above."""
+    zero = torch.zeros((), dtype=a.dtype, device=a.device)
+    invs = [1.0 / (a + j) for j in range(8)]
+    full8 = sum(invs)
+    small = sum(torch.where(k > j, invs[j], zero) for j in range(8))
+    y = a + 8.0
+    x = torch.clamp(k - 8.0, min=0.0)
+    ka = a + torch.clamp(k, min=8.0)
+    stir = torch.log1p(x / y) + _digamma_tail(ka) - _digamma_tail(y)
+    return torch.where(k < 8, small, full8 + stir)
