@@ -1,8 +1,8 @@
 """The fit hooks of the port against the JAX package: `SVI.run(callback=)`
 with its chunk-size rule, `fit(store_output=...)` snapshots,
 `sample_posterior(params=, data=)`, `check_model` / `check_guide` over
-`handlers.check_plate_shapes`, and the refusals of what waits for the
-plots.py port.  Both packages fit the same small simulated data on the CPU.
+`handlers.check_plate_shapes`, and the plots.py hooks (`fit(live_plot=)`
+and `polar_plot`).  Both packages fit the same small simulated data on the CPU.
 
 Random streams differ between the packages, so the comparisons are of
 structure: the steps the callback sees, the snapshot steps, sites and
@@ -134,12 +134,20 @@ def test_sample_posterior_takes_params_and_data():
 
 
 def test_plots_wait_for_their_port():
+    """plots.py is ported: `fit(live_plot=True)` redraws at each chunk end
+    and `polar_plot` returns its polar axis (the Agg backend)."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
     fit = T.PhaseFitModel(_phase_mp(T), get_posterior=False)
-    with pytest.raises(NotImplementedError, match="plots.py"):
-        fit.fit(num_steps=2, live_plot=True)
-    fit.fit(num_steps=2)
-    with pytest.raises(NotImplementedError, match="plots.py"):
-        fit.polar_plot()
+    before = len(plt.get_fignums())
+    fit.fit(num_steps=4, live_plot=True, intermediate_output_step_size=2)
+    assert len(plt.get_fignums()) - before == 2   # one figure per chunk end
+    ax = fit.polar_plot()
+    assert ax.name == "polar"
+    plt.close("all")
 
 
 # ---------------------------------------------------------------------------

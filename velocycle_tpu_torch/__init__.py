@@ -21,11 +21,15 @@ Real data enters as in the JAX package: `read_h5ad` (or `native.read_mtx`),
 `normalize_total`, `genes.get_cycling_gene_set`, the `Phases` prior builders
 and the joint gauge fixes `invert_direction` / `shift_zero`.
 
+Support: `checkpoint` (save and resume an SVI state), `profiling` (traces,
+step timers, device memory), `plots` (matplotlib, imported lazily) and
+`warmup` / `enable_compile_cache` (build the CUDA kernels ahead of a fit).
+
 This package imports torch, numpy, scipy and pandas (h5py only inside the
 .h5ad functions) — never jax or the JAX package, which stays in the
 repository as the reference.
 """
-from . import alignment, genes, native  # noqa: F401
+from . import alignment, checkpoint, genes, native, plots, profiling  # noqa: F401
 from .alignment import invert_direction, shift_zero  # noqa: F401
 from .anndata_lite import AnnDataLite, read_h5ad, write_h5ad  # noqa: F401
 from .containers import AngularSpeed, Cycle, FourierTable, Phases  # noqa: F401
@@ -41,6 +45,7 @@ from .preprocessing import (  # noqa: F401
     preprocess_for_velocity_estimation,
 )
 from .simulate import simulate_data  # noqa: F401
+from .warmup import enable_compile_cache, warmup  # noqa: F401
 
 __all__ = [
     "AngularSpeed",
@@ -55,6 +60,7 @@ __all__ = [
     "SMCFitModel",
     "VelocityData",
     "VelocityFitModel",
+    "enable_compile_cache",
     "filter_shared_genes",
     "genes",
     "invert_direction",
@@ -66,5 +72,6 @@ __all__ = [
     "resolve_device",
     "shift_zero",
     "simulate_data",
+    "warmup",
     "write_h5ad",
 ]

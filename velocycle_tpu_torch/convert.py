@@ -9,6 +9,9 @@
     same attributes) and return the port's container with the same arrays
     and config; `velo2d_data_from_jax` does the same for the 2-D models'
     `Velo2DData`.
+  * `svi_state_from_jax` takes a JAX `SVIState` of a ``clipped_adam`` (or
+    ``adam``) fit and returns the port's `SVIState`, so that a JAX
+    checkpoint resumes here.
 
 Neither imports jax: the inputs are read through ``np.asarray``.
 """
@@ -20,6 +23,7 @@ import numpy as np
 import torch
 
 from .device import resolve_device
+from .infer.svi import SVIState
 from .models.metapars import (
     PHASE_TENSOR_FIELDS, VELOCITY_TENSOR_FIELDS, PhaseData, VelocityData,
 )
@@ -28,7 +32,7 @@ from .twodim.models import (
 )
 
 __all__ = ["params_from_jax", "phase_data_from_jax", "velocity_data_from_jax",
-           "velo2d_data_from_jax"]
+           "velo2d_data_from_jax", "svi_state_from_jax"]
 
 
 def params_from_jax(params, device=None):
@@ -87,3 +91,29 @@ def velo2d_data_from_jax(data, device=None):
         else:
             kw[f.name] = int(v)
     return Velo2DData(**kw)
+
+
+def svi_state_from_jax(state, key, device=None):
+    """JAX `SVIState` -> port `SVIState` on ``device``: the step, the params
+    through `params_from_jax`, the optimizer's ``ScaleByAdamState``
+    (``count``, ``mu``, ``nu``, found by its fields in the optax chain's
+    state) as ``{count, m, v}``, and ``key``, an integer seed: the two
+    packages' random streams differ, so the JAX key does not carry over."""
+    dev = resolve_device(device)
+    adam = [s for s in state.opt_state if hasattr(s, "mu") and hasattr(s, "nu")]
+    if len(adam) != 1:
+        raise ValueError("the JAX optimizer state holds no single Adam state "
+                         "(ScaleByAdamState with mu and nu)")
+    (adam,) = adam
+
+    def moments(tree):
+        return {k: torch.tensor(np.asarray(v), dtype=torch.float32, device=dev)
+                for k, v in tree.items()}
+
+    return SVIState(
+        step=int(np.asarray(state.step)),
+        params=params_from_jax(state.params, device=dev),
+        opt_state={"count": int(np.asarray(adam.count)),
+                   "m": moments(adam.mu), "v": moments(adam.nu)},
+        key=int(key),
+    )

@@ -111,14 +111,10 @@ class _FitModel:
             ``intermediate_output_step_size`` steps (chunk ends) in
             ``self.intermediate_output``: ``store_num_samples`` draws of the
             latent sites (no ElogS/ElogU), seeded by the step.
-          live_plot: the live ELBO plot waits for the plots.py port; True
-            raises NotImplementedError.
+          live_plot: redraw the live ELBO curve (`plots.live_plot`, for
+            notebooks) at every chunk end, chunks of
+            ``intermediate_output_step_size`` steps.
         """
-        if live_plot:
-            raise NotImplementedError(
-                "live_plot=True needs plots.py, which velocycle_tpu_torch has "
-                "not ported yet"
-            )
         if optimizer is None:
             optimizer = clipped_adam(
                 lr=0.05, betas=(0.80, 0.99),
@@ -127,17 +123,23 @@ class _FitModel:
         self.svi = SVI(self.model, self.guide, optimizer,
                        loss or Trace_ELBO())
         self.intermediate_output = []
+        loss_history = []
         chunk_size = None
-        if store_output:
+        if store_output or live_plot:
             chunk_size = min(intermediate_output_step_size, num_steps)
             user_callback = callback
 
             def callback(step, state, last_loss):
-                params = {k: _np(v)
-                          for k, v in self.svi.get_params(state).items()}
-                self.intermediate_output.append(
-                    self._snapshot_posterior(params, step, store_num_samples)
-                )
+                loss_history.append(float(last_loss))
+                if store_output:
+                    params = {k: _np(v)
+                              for k, v in self.svi.get_params(state).items()}
+                    self.intermediate_output.append(self._snapshot_posterior(
+                        params, step, store_num_samples))
+                if live_plot:
+                    from .plots import live_plot as _live_plot
+
+                    _live_plot({"ELBO": loss_history})
                 if user_callback is not None:
                     user_callback(step, state, last_loss)
 
@@ -300,11 +302,10 @@ class PhaseFitModel(_FitModel):
         return out
 
     def polar_plot(self, **kwargs):
-        """The polar plot waits for the plots.py port."""
-        raise NotImplementedError(
-            "polar_plot needs plots.py, which velocycle_tpu_torch has not "
-            "ported yet"
-        )
+        """`plots.pplot` of this fit; returns the polar axis."""
+        from .plots import pplot
+
+        return pplot(self, **kwargs)
 
 
 class VelocityFitModel(_FitModel):

@@ -2,8 +2,9 @@
 
 Each ``csrc/*.cu`` compiles with ``nvcc`` into its own shared library with a
 plain C interface, loaded with `ctypes`.  Builds happen at first use, into
-``build/velocycle_tpu_torch/`` beside the package (listed in .gitignore),
-named by a hash of the sources so an edited source rebuilds.  `build_all`
+``build/velocycle_tpu_torch/`` beside the package (listed in .gitignore;
+`warmup.enable_compile_cache` points ``BUILD_DIR`` elsewhere), named by a
+hash of the sources so an edited source rebuilds.  `build_all`
 starts one ``nvcc`` per source, all at once.  Nothing here runs at import.
 """
 from __future__ import annotations
@@ -16,10 +17,13 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["CSRC", "BUILD_DIR", "build_all", "load", "build_log"]
+__all__ = ["CSRC", "BUILD_DIR", "DEFAULT_BUILD_DIR", "build_all", "load",
+           "build_log", "loaded"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "velocycle_tpu_torch"
+DEFAULT_BUILD_DIR = (Path(__file__).resolve().parents[2] / "build"
+                     / "velocycle_tpu_torch")
+BUILD_DIR = DEFAULT_BUILD_DIR
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -98,6 +102,12 @@ def build_log(name: str) -> str:
     """nvcc's output (ptxas registers / shared memory / spills) for the last
     build of csrc/<name>.cu in this process."""
     return _LOGS.get(name, "")
+
+
+def loaded() -> list[str]:
+    """The stems of the libraries this process has loaded (from
+    ``BUILD_DIR``)."""
+    return sorted(_LIBS)
 
 
 def load(name: str) -> ctypes.CDLL:
