@@ -23,7 +23,6 @@ Run (from the root of a checkout):
 seconds (the CPU test runs it so).
 """
 import argparse
-import os
 import sys
 from pathlib import Path
 
@@ -37,13 +36,7 @@ from velocycle_tpu_torch import (  # noqa: E402
 from velocycle_tpu_torch.infer import MinibatchSVI, iter_host_blocks  # noqa: E402
 from velocycle_tpu_torch.ops.circular import circular_corrcoef  # noqa: E402
 
-SMOKE = os.environ.get("VCT_SMOKE") == "1"
-
-
-def sz(full, tiny):
-    """The full-size value, or the tiny one under VCT_SMOKE=1."""
-    return tiny if SMOKE else full
-
+from _smoke import sz  # noqa: E402
 
 NC, NG, NBLK = sz(2000, 256), sz(120, 24), sz(8, 4)
 

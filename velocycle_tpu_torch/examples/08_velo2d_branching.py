@@ -7,14 +7,14 @@ Run (from the root of a checkout):
     python velocycle_tpu_torch/examples/08_velo2d_branching.py [--device cpu]
 
 ``VCT_SMOKE=1`` shrinks the data and the steps so that it finishes in
-seconds (the CPU test runs it so).  This example draws no figure: the JAX
-example's quiver plot comes from the reference's plotting helpers, and
-waits for the port of `plots.py`.
+seconds (the CPU test runs it so); ``VCT_FIGDIR=dir`` saves the fitted
+against the true velocity field as a quiver plot.
 """
 import argparse
-import os
 import sys
 from pathlib import Path
+
+import numpy as np
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
 
@@ -22,12 +22,8 @@ from velocycle_tpu_torch.twodim import (  # noqa: E402
     evaluate_fit, generate_adata, prepare_data, train_velo2d,
 )
 
-SMOKE = os.environ.get("VCT_SMOKE") == "1"
-
-
-def sz(full, tiny):
-    """The full-size value, or the tiny one under VCT_SMOKE=1."""
-    return tiny if SMOKE else full
+from _smoke import sz  # noqa: E402
+import _figs  # noqa: E402
 
 
 def main(argv=None):
@@ -45,6 +41,13 @@ def main(argv=None):
     corrs = evaluate_fit(adata, results)
     for k, v in corrs.items():
         print(f"  corr[{k}] = {v:.3f}")
+    _figs.fig_quiver2d(
+        adata.obs["cell_x"].values, adata.obs["cell_y"].values,
+        results["omega"],
+        np.stack([adata.obs["omega_x"].values,
+                  adata.obs["omega_y"].values]),
+        "velo2d_quiver.png",
+    )
     return losses_s, losses_u, corrs
 
 
