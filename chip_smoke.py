@@ -2,14 +2,15 @@
 """On-card smoke run of the PyTorch + CUDA port (`velocycle_tpu_torch`).
 
     python3 chip_smoke.py [--seed 0] [--digest | --kernels | --mcmc | --smc |
-                           --minibatch | --velo2d]
+                           --minibatch | --velo2d | --examples | --tiles]
 
 Run from the root of a checkout, on a machine with one CUDA card.  Phases,
 in order; any failure exits non-zero and prints no result line:
 
   1. report the card (name, count, nvidia-smi name and power limit);
   2. build every CUDA kernel from velocycle_tpu_torch/csrc/ (one nvcc per
-     source, started together) and print ptxas' registers / static shared
+     source, started together; beside them, at niceness 19, the copies of
+     [tiles]' other layouts) and print ptxas' registers / static shared
      memory / spills beside each main-path and ladder instantiation's
      dynamic shared memory;
   3. print a digest of each of the four kernels' full-width results
@@ -22,10 +23,12 @@ in order; any failure exits non-zero and prints no result line:
      relu and float32 S beside int16 U (and the reverse), and in both
      stages basis widths off the instantiations (Nh = 4, 9, 11) and more
      batches than they take as such (Nb = 5, 6);
-  4. time each kernel, its plain version and its bound with CUDA events,
-     and print each main-path kernel's grid and resident CTAs and warps per
-     SM (``--kernels``: build, then this for the four main-path kernels
-     alone, to compare layouts);
+  4. time each kernel, its plain version and its bound with CUDA events
+     (the kernel's ms: the median of 5 repetitions of 20 calls after one
+     untimed repetition, every repetition printed), and print each
+     main-path kernel's grid and resident CTAs and warps per SM
+     (``--kernels``: build, then this for the four main-path kernels
+     alone);
   5. the roofline ladder (the port of tools/kernel_profile.py: compile-time
      cuts of the phase kernels' one body, csrc/phase_kernel.cuh, launched
      through csrc/nb_phase.cu): hold each rung against its plain version
@@ -47,6 +50,22 @@ in order; any failure exits non-zero and prints no result line:
        use_fused_nb=True) -> VelocityFitModel conditioned on stage 1's nu,
        phi_xy and shape_inv, num_samples=2 -> fit(num_steps=50) -> one
        loss-only evaluation;
+     before the stages, [tiles]: the layout ladder tool
+     (velocycle_tpu_torch/tools/kernel_ladder.py) at its shapes, the
+     package's layout of each family in this process and one other in a
+     copy of the package built with other constants (16x512xi16 for phase,
+     8x512xi16 for velo): ms per step of the fused call's loss and every
+     gradient, each layout's loss within rel 1e-5 of the package layout's,
+     the in-process rows' launches counted (``--tiles``: build, then the
+     sweep alone, three layouts per family at int16 and float32);
+     after each stage's [minibatch] (below), [support] on its data:
+     warmup on its metaparams (the build already done), 50 uninterrupted
+     SVI steps against 25 + Checkpointer.save + restore into a fresh SVI's
+     state + 25 (losses and every param and Adam moment bit-equal, exactly 50
+     phase_fwdgrad or velo_fwdgrad launches per run; .npz bytes, save and
+     restore ms), for stage 1 profiling.trace around 5 steps (the trace
+     must name the phase kernel) with StepTimer and device_memory_stats,
+     and check_model's site table;
      after each stage, [minibatch] on its preprocessed data (no second
      preprocessing): MinibatchSVI with 8 blocks of 12,800 cells.  Stage 1:
      the block objective (at the guide's draws, the mean of the scaled
@@ -164,7 +183,14 @@ in order; any failure exits non-zero and prints no result line:
      losses; the data's build time, each stage's steady-state steps/s,
      launches per step, busy share and peak memory, and the correlations
      with the tiled truth (``--velo2d``: build, then this phase alone);
- 12. print the kernel table as one JSON line, the nvidia-smi line, and
+ 12. [examples], last: the port's examples 01-04 and 06 through their
+     command lines, each in a process of its own at its smoke size
+     (VCT_SMOKE=1), all five at once; gates: exit 0, example 06 launches
+     phase_fwdgrad, 01-04 no kernel (the plain path, as the JAX examples);
+     each one's wall time, launches and output printed (``--examples``:
+     build, then the five at their published sizes, in turn, with their
+     quality lines);
+ 13. print the kernel table as one JSON line, the nvidia-smi line, and
      last {"ok": true, "device": {...}}.
 
 The configuration is the repository's Stereo-seq-class fit (bench.py
@@ -584,40 +610,64 @@ def phase_parity(torch, seed):
     return {**results, **vresults}
 
 
+TIMING_REPS = 5         # timed repetitions of TIMING_CALLS calls, after one untimed
+TIMING_CALLS = 20
+
+
+def _median_reps(TP, fns):
+    """{name: (median ms, every repetition's ms)} of each of ``fns`` (name ->
+    callable), CUDA events around TIMING_CALLS back-to-back calls: one
+    untimed repetition each, then TIMING_REPS timed ones, in turns.  The
+    median keeps an allocator stall in one repetition out of the figure."""
+    import statistics
+
+    for fn in fns.values():
+        TP.event_ms(fn, reps=TIMING_CALLS, warmup=0)
+    reps = {name: [] for name in fns}
+    for _ in range(TIMING_REPS):
+        for name, fn in fns.items():
+            reps[name].append(TP.event_ms(fn, reps=TIMING_CALLS, warmup=0))
+    return {name: (statistics.median(r), r) for name, r in reps.items()}
+
+
+def _reps_note(reps):
+    return "[" + ", ".join(f"{t:.4f}" for t in reps) + "]"
+
+
 def _time_pair(torch, name, kern, plain, nbytes, nops, card, note,
                library=None):
-    """Kernel and plain version in turns (plain, kernel, kernel, plain),
-    and the library call where one PyTorch call computes the same function
-    (after each kernel run), against the bound max(bytes / HBM rate, FP32
-    operations / FP32 rate) of `tools.kernel_profile.bound_ms`."""
+    """Kernel and plain version in turns (plain, kernel, plain), and the
+    library call where one PyTorch call computes the same function (in turns
+    with the kernel's repetitions), against the bound max(bytes / HBM rate,
+    FP32 operations / FP32 rate) of `tools.kernel_profile.bound_ms`.  The
+    kernel's and the library's ms are medians (`_median_reps`)."""
     from velocycle_tpu_torch.tools import kernel_profile as TP
 
-    lib_ms = []
     p1 = TP.event_ms(plain, reps=3)
     # the plain version's temporaries leave the allocator's cache full
     torch.cuda.empty_cache()
-    k1 = TP.event_ms(kern, reps=20, warmup=2)
+    fns = {"kernel": kern}
     if library is not None:
-        lib_ms.append(TP.event_ms(library[1], reps=20, warmup=2))
-    k2 = TP.event_ms(kern, reps=20, warmup=2)
-    if library is not None:
-        lib_ms.append(TP.event_ms(library[1], reps=20, warmup=2))
+        fns["library"] = library[1]
+    med = _median_reps(TP, fns)
     p2 = TP.event_ms(plain, reps=3)
     t_bytes = nbytes / TP.PEAK_BYTES_PER_S * 1e3
     t_ops = nops / TP.PEAK_FP32_PER_S * 1e3
     bound, bound_by = TP.bound_ms(nbytes, nops)
-    ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+    ms, plain_ms = med["kernel"][0], (p1 + p2) / 2
     lib_note = ("none (no single PyTorch call computes this function)"
                 if library is None else
-                f"{lib_ms[0]:.4f} / {lib_ms[1]:.4f} ms ({library[0]})")
-    print(f"[timing] {name} @ {NG}x{NC} int16 on {card}: kernel {k1:.4f} / "
-          f"{k2:.4f} ms, plain {p1:.3f} / {p2:.3f} ms, bound {bound:.4f} ms "
-          f"(bytes {t_bytes:.4f} ms = {nbytes / 1e9:.3f} GB; operations "
-          f"{t_ops:.4f} ms = {nops / 1e9:.2f} GFLOP, {note}), "
+                f"median {med['library'][0]:.4f} ms of "
+                f"{_reps_note(med['library'][1])} ({library[0]})")
+    print(f"[timing] {name} @ {NG}x{NC} int16 on {card}: kernel median "
+          f"{ms:.4f} ms of {_reps_note(med['kernel'][1])} ({TIMING_REPS} x "
+          f"{TIMING_CALLS} calls), plain {p1:.3f} / {p2:.3f} ms, bound "
+          f"{bound:.4f} ms (bytes {t_bytes:.4f} ms = {nbytes / 1e9:.3f} GB; "
+          f"operations {t_ops:.4f} ms = {nops / 1e9:.2f} GFLOP, {note}), "
           f"{bound / ms:.1%} of bound; library_ms: {lib_note}")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": bound_by,
-            "library_ms": sum(lib_ms) / len(lib_ms) if lib_ms else None}
+            "library_ms": med["library"][0] if library is not None else None}
 
 
 def _ratio_ops(torch, counts):
@@ -1864,19 +1914,18 @@ def _batched_timing(torch, seed, card, cfg, batched, mode, wd=False,
         return plain(*counts, *params, Db, lgamma_k_sum=lgk, **kw)
 
     s1 = TP.event_ms(single_calls, reps=3)
-    b1 = TP.event_ms(batched_call, reps=20, warmup=2)
-    b2 = TP.event_ms(batched_call, reps=20, warmup=2)
+    ms, b_reps = _median_reps(TP, {"batched": batched_call})["batched"]
     s2 = TP.event_ms(single_calls, reps=3)
     p1 = TP.event_ms(plain_call, reps=3)
     dev_ms = _kernel_device_ms(torch, batched_call)
     bound, bound_by = TP.bound_ms(nbytes, ops)
-    ms = (b1 + b2) / 2
     single = (s1 + s2) / 2
     what = f"disp_grad={wd}" if grad else "loss only"
     dev_note = ("not measured (no device time in the trace)" if dev_ms is None
                 else f"{dev_ms:.4f} ms, {bound / dev_ms:.1%} of bound")
     print(f"[timing] {name} over {Kc} chains @ {Ng}x{Nc} int16, Nh={nh}, "
-          f"{what} on {card}: one batched launch {b1:.4f} / {b2:.4f} ms, "
+          f"{what} on {card}: one batched launch median {ms:.4f} ms of "
+          f"{_reps_note(b_reps)}, "
           f"{Kc} single launches {s1:.3f} / {s2:.3f} ms "
           f"({single / ms:.1f}x), plain batched {p1:.3f} ms, bound "
           f"{bound:.4f} ms by {bound_by} ({nbytes / 1e6:.3f} MB, "
@@ -2991,14 +3040,17 @@ def kernel_digest(torch, seed):
 
 def _stages(torch, seed, card):
     """Both stages at full width, alone on the host and the card, each
-    followed by [minibatch] on its preprocessed data.  Returns (launches by
-    kernel from the stage that drives it, (stage 1 steps/s, peak, stage 2
-    steps/s, peak), [minibatch]'s numbers)."""
+    followed by [minibatch] and [support] on its preprocessed data.  Returns
+    (launches by kernel from the stage that drives it, (stage 1 steps/s,
+    peak, stage 2 steps/s, peak), [minibatch]'s numbers, [support]'s)."""
     adata, genes, cells, angles = _make_adata(torch, seed, "cuda")
     launches, steps_per_s, peak, stage1 = phase_main_path(
         torch, seed, adata, genes, cells, angles)
     torch.cuda.empty_cache()
     mb = minibatch_phase_stage(torch, seed, card, stage1.mp)
+    torch.cuda.empty_cache()
+    support = {"phase": support_stage(torch, seed, card, stage1.mp, None,
+                                      "phase", steps_per_s)}
     stage1.mp = None
     torch.cuda.empty_cache()
     vlaunches, vsteps_per_s, vpeak, vmp = velocity_main_path(
@@ -3007,9 +3059,177 @@ def _stages(torch, seed, card):
                     velo_fwdgrad=vlaunches["velo_fwdgrad"])
     mb["velocity_block_objective_rel"] = _block_objective(
         torch, seed, vmp, "velocity")
+    torch.cuda.empty_cache()
+    p = stage1.params
+    cond = {"nu": p["nu_locs"], "phi_xy": p["phixy_locs"],
+            "shape_inv": p["shape_inv_locs"]}
+    support["velocity"] = support_stage(torch, seed, card, vmp, cond,
+                                        "velocity", vsteps_per_s)
     del adata, stage1, vmp
     torch.cuda.empty_cache()
-    return launches, (steps_per_s, peak, vsteps_per_s, vpeak), mb
+    return launches, (steps_per_s, peak, vsteps_per_s, vpeak), mb, support
+
+
+# ---------------------------------------------------------------------------
+# [support]: warmup, checkpoint and resume, profiling and check_model on
+# each stage's full-width data
+# ---------------------------------------------------------------------------
+
+SUPPORT_STEPS, SUPPORT_RESUME_AT = 50, 25
+SUPPORT_DIR = "build/chip_smoke"      # checkpoints and traces (git-ignored)
+
+
+def _sync(torch, device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _resume_check(torch, seed, driver, data, tag, kernel, device):
+    """SUPPORT_STEPS uninterrupted SVI steps against SUPPORT_RESUME_AT steps,
+    `Checkpointer.save`, `restore` into a fresh SVI's state and the rest:
+    losses and every leaf of the state bit-equal, exactly one ``kernel``
+    launch per step in each run.  Returns (the resumed SVI, its state, the
+    numbers)."""
+    import os
+    import shutil
+
+    from velocycle_tpu_torch.checkpoint import Checkpointer
+    from velocycle_tpu_torch.infer import SVI, Trace_ELBO, clipped_adam
+    from velocycle_tpu_torch.ops import nb_kernels as K_
+
+    n, k = SUPPORT_STEPS, SUPPORT_RESUME_AT
+
+    def new_svi():
+        return SVI(driver.model, driver.guide, clipped_adam(
+            lr=0.05, betas=(0.80, 0.99), lrd=0.1 ** (1.0 / n)), Trace_ELBO())
+
+    K_.reset_launch_counts()
+    svi = new_svi()
+    full, full_losses = svi.update_chunk(svi.init(seed, data), n, data)
+    _sync(torch, device)
+    full_launches = dict(K_.LAUNCHES)
+
+    K_.reset_launch_counts()
+    svi1 = new_svi()
+    part, first = svi1.update_chunk(svi1.init(seed, data), k, data)
+    directory = os.path.join(SUPPORT_DIR, f"ckpt_{tag}")
+    shutil.rmtree(directory, ignore_errors=True)
+    ckpt = Checkpointer(directory)
+    _sync(torch, device)
+    t0 = time.perf_counter()
+    ckpt.save(part.step, part)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    npz_bytes = os.path.getsize(os.path.join(directory, f"ckpt_{k}.npz"))
+    svi2 = new_svi()
+    like = svi2.init(seed + 1, data)      # a fresh state, as a new process has
+    _sync(torch, device)
+    t0 = time.perf_counter()
+    resumed = ckpt.restore(like)
+    _sync(torch, device)
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    check(ckpt.latest_step() == k and resumed.step == k,
+          f"[support] {tag}: restored step {resumed.step}")
+    resumed, rest = svi2.update_chunk(resumed, n - k, data)
+    _sync(torch, device)
+    resumed_launches = dict(K_.LAUNCHES)
+
+    losses_equal = torch.equal(full_losses, torch.cat([first, rest]))
+    pairs = ([(full.params, resumed.params)]
+             + [(full.opt_state[m], resumed.opt_state[m]) for m in ("m", "v")])
+    leaves_equal = all(list(a) == list(b) and all(torch.equal(a[x], b[x])
+                                                  for x in a)
+                       for a, b in pairs)
+    leaves_equal &= (full.step, full.key, full.opt_state["count"]) == (
+        resumed.step, resumed.key, resumed.opt_state["count"])
+    print(f"[support] {tag}: {n} steps uninterrupted against {k} + save + "
+          f"restore into a fresh SVI + {n - k}: losses bit-equal "
+          f"{losses_equal}, every param and Adam moment bit-equal "
+          f"{leaves_equal}; {kernel} launches {full_launches[kernel]} / "
+          f"{resumed_launches[kernel]}; .npz {npz_bytes} bytes, save "
+          f"{save_ms:.2f} ms, restore {restore_ms:.2f} ms")
+    check(losses_equal and leaves_equal,
+          f"[support] {tag}: the resumed fit differs from the uninterrupted")
+    for launches in (full_launches, resumed_launches):
+        check(launches[kernel] == n and sum(launches.values()) == n,
+              f"[support] {tag}: launches {launches} in {n} steps")
+    return svi2, resumed, {"npz_bytes": npz_bytes, "save_ms": save_ms,
+                           "restore_ms": restore_ms,
+                           "launches": full_launches[kernel]}
+
+
+def _traced_steps(torch, card, svi, state, data, steps_per_s, device):
+    """`profiling.trace` around 5 SVI steps, each under `StepTimer` (ending
+    in a synchronize); the trace must name the phase kernel.  Returns the
+    kernel's name in the trace."""
+    import glob
+    import os
+    import shutil
+
+    from velocycle_tpu_torch import profiling
+
+    logdir = os.path.join(SUPPORT_DIR, "trace")
+    shutil.rmtree(logdir, ignore_errors=True)
+    timer = profiling.StepTimer()
+    with profiling.trace(logdir):
+        for i in range(5):
+            with profiling.annotate(f"svi_step_{i}"), timer:
+                state, _ = svi.update(state, data)
+                _sync(torch, device)
+    (path,) = glob.glob(os.path.join(logdir, "*.pt.trace.json"))
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    names = sorted({e["name"] for e in events if e.get("cat") == "kernel"
+                    and "phase_kernel" in e.get("name", "")})
+    summary = timer.summary()
+    stats = profiling.device_memory_stats()
+    peak = stats[str(torch.device(device, 0))]["allocated_bytes.all.peak"]
+    print(f"[support] trace of 5 steps: {os.path.getsize(path)} bytes, "
+          f"{len(events)} events; the phase kernel in it: "
+          f"{names[0][:100] if names else 'none'}")
+    print(f"[support] StepTimer: {summary['steps_per_s']:.2f} steps/s "
+          f"(p50 {summary['p50_ms']:.2f} ms, first {summary['compile_s'] * 1e3:.2f}"
+          f" ms, profiler on) beside the stage's own {steps_per_s:.2f} steps/s "
+          f"(host clock, 20 steps); device_memory_stats peak "
+          f"{peak / 2**30:.3f} GiB beside max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, on {card}")
+    check(names, "[support] the trace names no phase kernel")
+    return names[0]
+
+
+def support_stage(torch, seed, card, mp, cond, stage, steps_per_s,
+                  device="cuda"):
+    """[support] on one stage's preprocessed full-width data: (a) `warmup`
+    on its metaparams (the build already done: ~0 s); (b) checkpoint and
+    resume (`_resume_check`), conditioned as the stage's fit is; (c) for the
+    phase stage, `profiling.trace` around 5 steps; (d) `check_model`'s site
+    table."""
+    from velocycle_tpu_torch import PhaseFitModel, VelocityFitModel, warmup
+    from velocycle_tpu_torch.ops import cuda_build
+    from velocycle_tpu_torch.plots import check_model
+
+    t0 = time.perf_counter()
+    phase = stage == "phase"
+    timings = warmup(mp, condition_on=cond, num_steps=SUPPORT_STEPS,
+                     num_posterior_samples=8 if phase else 2, seed=seed,
+                     cache_dir=str(cuda_build.BUILD_DIR), verbose=False)
+    print(f"[support] {stage} warmup: " + ", ".join(
+        f"{k} {v:.3f} s" for k, v in timings.items()))
+    driver = (PhaseFitModel(mp, get_posterior=False) if phase else
+              VelocityFitModel(mp, condition_on=cond, get_posterior=False))
+    data = driver.metaparams.data
+    kernel = "phase_fwdgrad" if phase else "velo_fwdgrad"
+    svi, state, out = _resume_check(torch, seed, driver, data, stage, kernel,
+                                    device)
+    out["warmup"] = timings
+    if phase:
+        out["trace_kernel"] = _traced_steps(torch, card, svi, state, data,
+                                            steps_per_s, device)
+    del svi, state
+    print(f"[support] {stage} check_model at {data.Ng} x {data.Nc}:")
+    check_model(driver.model, data)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[support] {stage} in all: {out['seconds']:.1f} s")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3296,6 +3516,161 @@ def minibatch_alone(torch, seed, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# [tiles]: the layout ladder tool (tools/kernel_ladder.py's port)
+# ---------------------------------------------------------------------------
+
+# the package's layout of each family and one other (more cells per
+# thread, the open lever), int16; ``--tiles`` sweeps three layouts of each
+# at both count types
+TILES_DEFAULT = {"phase": ["16x256xi16", "16x512xi16"],
+                 "velo": ["8x256xi16", "8x512xi16"]}
+TILES_SWEEP = {kind: [f"{lay}x{dt}" for lay in lays for dt in ("i16", "f32")]
+               for kind, lays in (("phase", ("16x256", "32x256", "16x512")),
+                                  ("velo", ("8x256", "16x256", "8x512")))}
+
+
+def start_tiles(layouts):
+    """Start building the copies of every non-package layout of
+    ``layouts``, at niceness 19: they take the host's cores only where the
+    package's own build (and what follows it) leaves them idle."""
+    from velocycle_tpu_torch.tools import kernel_ladder as KL
+
+    return KL.start_builds([(kind, KL.parse_layout(kind, n))
+                            for kind, names in layouts.items()
+                            for n in names], nice=19)
+
+
+def phase_tiles(torch, card, layouts, pending):
+    """[tiles]: `kernel_ladder.run_sweep` of each family: ms per step of the
+    fused call's loss and every gradient at each layout, each layout's loss
+    against the package layout's (rel 1e-5); the package layout runs in this
+    process, through phase_fwdgrad / velo_fwdgrad (counted: two loops of 25
+    steps per row), the others in their copies."""
+    from velocycle_tpu_torch.ops import nb_kernels as K_
+    from velocycle_tpu_torch.tools import kernel_ladder as KL
+
+    t0 = time.perf_counter()
+    out = {}
+    for kind, names in layouts.items():
+        kernel = "phase_fwdgrad" if kind == "phase" else "velo_fwdgrad"
+        K_.reset_launch_counts()
+        rows = KL.run_sweep(kind, names, pending={
+            k: v for k, v in pending.items() if k[0] == kind})
+        here = sum(r["copy"] is None for r in rows)
+        for row in rows:
+            print(f"[tiles] {KL.format_row(row)}, on {card}")
+            check(math.isfinite(row["ms"]) and row["ms"] > 0
+                  and row["rel_to_package"] < KL.LOSS_RTOL,
+                  f"[tiles] {kind} {row['layout']}: {row}")
+        check(K_.LAUNCHES[kernel] == 2 * 25 * here
+              and sum(K_.LAUNCHES.values()) == K_.LAUNCHES[kernel],
+              f"[tiles] {kind}: launches {K_.LAUNCHES} for {here} rows in "
+              "this process")
+        print(f"[tiles] {kind}: {K_.LAUNCHES[kernel]} {kernel} launches in "
+              f"this process ({here} package-layout rows x 2 loops x 25)")
+        out[kind] = {r["layout"]: r["ms"] for r in rows}
+    print(f"[tiles] in all: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# [examples]: the port's examples 01-04 and 06, each in a process of its own
+# ---------------------------------------------------------------------------
+
+EXAMPLES = ("01_phase_and_velocity_one_sample.py",
+            "02_two_sample_condition_contrast.py",
+            "03_mcmc_and_smc_posteriors.py", "04_pancreas_1d_spline.py",
+            "06_stereoseq_spatial.py")
+EXAMPLE_FUSED = "06_stereoseq_spatial.py"   # the one on the fused kernels
+# runs an example as its command line does, then prints its launch counts
+EXAMPLE_RUNNER = """\
+import json, runpy, sys
+sys.path.insert(0, {dir!r})
+sys.argv = [{path!r}, "--device", "cuda"]
+from velocycle_tpu_torch.ops import nb_kernels as K
+K.reset_launch_counts()
+runpy.run_path({path!r}, run_name="__main__")
+print("[launches] " + json.dumps(K.LAUNCHES))
+"""
+
+
+def _start_example(name, smoke):
+    """Start example ``name`` in a process of its own, its output into
+    files under SUPPORT_DIR (no pipe to fill while others run)."""
+    import os
+    from pathlib import Path
+
+    import velocycle_tpu_torch
+
+    path = str(Path(velocycle_tpu_torch.__file__).parent / "examples" / name)
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("VCT_SMOKE", "VCT_FIGDIR")}
+    if smoke:
+        env["VCT_SMOKE"] = "1"
+    code = EXAMPLE_RUNNER.format(dir=os.path.dirname(path), path=path)
+    logs = Path(SUPPORT_DIR) / "examples"
+    logs.mkdir(parents=True, exist_ok=True)
+    with open(logs / f"{name}.out", "w") as out, \
+            open(logs / f"{name}.err", "w") as err:
+        proc = subprocess.Popen([sys.executable, "-c", code], env=env,
+                                stdout=out, stderr=err)
+    return {"proc": proc, "start": time.perf_counter(), "logs": logs}
+
+
+def phase_examples(torch, card, smoke=True, timeout=600):
+    """[examples]: each example in a process of its own on the card, through
+    its command line: at its smoke size (``VCT_SMOKE=1``) all five at once,
+    else (``--examples``) at its published size, one after the other.  Gates:
+    exit code 0; example 06 launches phase_fwdgrad, the others no kernel
+    (they run the plain path, as the JAX examples do).  Prints each one's
+    wall time (start to exit), launches and output lines."""
+    t0 = time.perf_counter()
+    out, running = {}, {}
+    try:
+        for name in EXAMPLES:
+            running[name] = _start_example(name, smoke)
+            while running and (not smoke or name == EXAMPLES[-1]):
+                for n, run in list(running.items()):
+                    if run["proc"].poll() is not None:
+                        run["wall"] = time.perf_counter() - run["start"]
+                        out[n] = _finish_example(n, running.pop(n), card)
+                    elif time.perf_counter() - run["start"] > timeout:
+                        fail(f"[examples] {n} ran past {timeout} s")
+                time.sleep(0.05)
+    finally:
+        for run in running.values():
+            if run["proc"].poll() is None:
+                run["proc"].kill()
+                run["proc"].wait()
+    for name, launches in out.items():
+        if name == EXAMPLE_FUSED:
+            check(launches["phase_fwdgrad"] > 0,
+                  f"[examples] {name} launched no phase_fwdgrad")
+        else:
+            check(sum(launches.values()) == 0,
+                  f"[examples] {name} launched {launches}")
+    print(f"[examples] {'smoke size, all at once' if smoke else 'published sizes, in turn'}"
+          f": {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def _finish_example(name, run, card):
+    logs = run["logs"]
+    lines = (logs / f"{name}.out").read_text().strip().splitlines()
+    rc = run["proc"].returncode
+    launches = json.loads(lines[-1][len("[launches] "):]) if (
+        lines and lines[-1].startswith("[launches] ")) else None
+    print(f"[examples] {name}: exit {rc} in {run['wall']:.1f} s wall, on "
+          f"{card}; launches {launches}")
+    for line in lines[:-1]:
+        print(f"[examples]   | {line}")
+    if rc != 0 or launches is None:
+        print((logs / f"{name}.err").read_text()[-3000:], file=sys.stderr)
+        fail(f"[examples] {name} exited {rc}")
+    return launches
+
+
 def mcmc_in_turn(torch, seed, card, device="cuda"):
     """``--mcmc``: [mcmc]'s runs one after the other in this process, with
     nothing else on the host or the card (the runs' own numbers)."""
@@ -3331,6 +3706,14 @@ def main(argv=None):
                     help="build, then [velo2d] alone: the 2-D extension's "
                          "published run and its full-width fit (no result "
                          "line)")
+    ap.add_argument("--examples", action="store_true",
+                    help="build, then [examples] alone: examples 01-04 and "
+                         "06 at their published sizes, in turn, with their "
+                         "quality lines (no result line)")
+    ap.add_argument("--tiles", action="store_true",
+                    help="build, then [tiles] alone: the layout ladder's "
+                         "sweep, three layouts of each family at int16 and "
+                         "float32 counts (no result line)")
     args = ap.parse_args(argv)
 
     import torch
@@ -3353,7 +3736,28 @@ def main(argv=None):
     if args.digest:
         kernel_digest(torch, args.seed)
         return 0
+    alone = (args.kernels or args.mcmc or args.smc or args.minibatch
+             or args.velo2d or args.examples)
+    tiles = TILES_SWEEP if args.tiles else {} if alone else TILES_DEFAULT
+    # the copies of [tiles]' other layouts build beside the package's build
+    pending = start_tiles(tiles)
+    try:
+        return _run(torch, args, name, count, smi, t_start, tiles, pending)
+    finally:
+        from velocycle_tpu_torch.tools import kernel_ladder as KL
+
+        KL.stop(pending)
+
+
+def _run(torch, args, name, count, smi, t_start, tiles, pending):
+    """main's phases from the build on."""
     phase_build()
+    if args.tiles:
+        phase_tiles(torch, smi, tiles, pending)
+        return 0
+    if args.examples:
+        phase_examples(torch, smi, smoke=False, timeout=1500)
+        return 0
     if args.kernels:
         phase_timing(torch, args.seed, smi)
         velo_timing(torch, args.seed, smi)
@@ -3387,7 +3791,10 @@ def main(argv=None):
     smc_parity, smc_timing = smc_kernels(torch, args.seed, smi)
     chain_kernels = velo_chain_kernels(torch, args.seed, smi)
     torch.cuda.empty_cache()
-    launches, rates, minibatch = _stages(torch, args.seed, smi)
+    # the layouts, alone on the card before the [mcmc] processes
+    layouts = phase_tiles(torch, smi, tiles, pending)
+    torch.cuda.empty_cache()
+    launches, rates, minibatch, support = _stages(torch, args.seed, smi)
     # the [mcmc] runs, host-bound, beside [quickstart] and [variants]
     pool, pending = start_mcmc_runs(args.seed, smi)
     try:
@@ -3408,6 +3815,8 @@ def main(argv=None):
     # [velo2d] alone after [smc]: the 2-D extension, no kernel of its own
     phase_velo2d(torch, args.seed, smi)
     torch.cuda.empty_cache()
+    # [examples] last: five processes of their own at once
+    examples = phase_examples(torch, smi)
     steps_per_s, peak, vsteps_per_s, vpeak = rates
 
     print("kernels: " + ", ".join(f"{k} ({v} launches)" for k, v in sorted(launches.items())))
@@ -3444,6 +3853,14 @@ def main(argv=None):
             **velo.get(k, {}),
             # [minibatch]: MinibatchSVI's block steps at B = Nc / 8
             **({"minibatch": minibatch} if k == "phase_fwdgrad" else {}),
+            # [support] (checkpoint and resume, warmup, trace) and example
+            # 06's launches on the phase kernel; [tiles]' ms per layout
+            **({"support": support,
+                "example_06_launches": examples[EXAMPLE_FUSED][k]}
+               if k == "phase_fwdgrad" else {}),
+            **({"layouts_ms": layouts["phase" if k.startswith("phase")
+                                      else "velo"]}
+               if k.endswith("fwdgrad") else {}),
         })
     # the ladder's launches come from its own entry point, run_ladder
     for rung, line in LADDER_REPLACES.items():

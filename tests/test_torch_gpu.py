@@ -1405,3 +1405,135 @@ def test_num_particles_on_the_card():
     with torch.no_grad():
         many = float(Trace_ELBO(num_particles=4096).loss(0, model, guide))
     assert abs(many + 0.5 * (1 + np.log(0.64) - 0.16 - 0.64)) < 0.02
+
+
+# ---------------------------------------------------------------------------
+# the support modules on the card (checkpoint, warmup, profiling) and the
+# layout ladder tool's package layout
+# ---------------------------------------------------------------------------
+
+def _support_driver(dev, stage):
+    """A fit driver of one stage on fused int16 counts at 40 genes x 300
+    cells: the phase stage, or the velocity stage conditioned as the
+    two-stage workflow conditions it (velo_fwdgrad without the dispersion
+    gradient)."""
+    import velocycle_tpu_torch as T
+
+    if stage == "phase":
+        adata = T.simulate_data(Nc=300, Ng=40, seed=3)
+        mp = T.preprocess_for_phase_estimation(
+            adata, T.Cycle.trivial_prior(list(adata.var.index), harmonics=2),
+            T.Phases.from_angles(np.asarray(adata.obs["simulated_phis"]),
+                                 cell_names=list(adata.obs.index)),
+            n_harmonics=2, with_delta_nu=False, use_fused_nb=True, device=dev)
+        return T.PhaseFitModel(mp, get_posterior=False), None
+    mp = _velocity_mp(dev, True, Nc=300, Ng=40)
+    cond = {"nu": mp.data.mu_nu, "phi_xy": mp.data.phixy_prior,
+            "shape_inv": torch.full((40,), 0.3, device=dev)}
+    return T.VelocityFitModel(mp, condition_on=cond, get_posterior=False), cond
+
+
+@pytest.mark.parametrize("stage,kernel", [("phase", "phase_fwdgrad"),
+                                          ("velocity", "velo_fwdgrad")])
+def test_checkpoint_resume_is_bit_equal_on_the_card(stage, kernel, tmp_path):
+    dev = _cuda_or_skip()
+    from velocycle_tpu_torch.checkpoint import Checkpointer
+    from velocycle_tpu_torch.infer import SVI, Trace_ELBO, clipped_adam
+
+    driver, _ = _support_driver(dev, stage)
+    data = driver.metaparams.data
+
+    def new_svi():
+        return SVI(driver.model, driver.guide, clipped_adam(lrd=0.1 ** 0.1),
+                   Trace_ELBO())
+
+    K.reset_launch_counts()
+    svi = new_svi()
+    full, full_losses = svi.update_chunk(svi.init(5, data), 10, data)
+    assert K.LAUNCHES[kernel] == 10
+    svi1 = new_svi()
+    part, first = svi1.update_chunk(svi1.init(5, data), 4, data)
+    ckpt = Checkpointer(str(tmp_path))
+    ckpt.save(part.step, part)
+    svi2 = new_svi()
+    resumed = ckpt.restore(svi2.init(9, data))
+    assert all(p.device.type == "cuda" and p.is_leaf and p.requires_grad
+               for p in resumed.params.values())
+    resumed, rest = svi2.update_chunk(resumed, 6, data)
+    assert torch.equal(full_losses, torch.cat([first, rest]))
+    for a, b in ((full.params, resumed.params),
+                 (full.opt_state["m"], resumed.opt_state["m"]),
+                 (full.opt_state["v"], resumed.opt_state["v"])):
+        assert all(torch.equal(a[n], b[n]) for n in a)
+    assert K.LAUNCHES[kernel] == 20
+
+
+@pytest.mark.parametrize("stage", ["phase", "velocity"])
+def test_warmup_on_the_card(stage):
+    dev = _cuda_or_skip()
+    import velocycle_tpu_torch as T
+
+    driver, cond = _support_driver(dev, stage)
+    K.reset_launch_counts()
+    timings = T.warmup(driver.metaparams, condition_on=cond, num_steps=20,
+                       num_posterior_samples=2, cache_dir=False,
+                       verbose=False)
+    assert list(timings) == ["build", "svi_step", "predictive"]
+    assert timings["build"] >= 0 and timings["svi_step"] > 0
+    kernel = "phase_fwdgrad" if stage == "phase" else "velo_fwdgrad"
+    assert K.LAUNCHES[kernel] == 1 and sum(K.LAUNCHES.values()) == 1
+
+
+def test_trace_names_the_kernel_and_memory_stats(tmp_path):
+    dev = _cuda_or_skip()
+    import glob
+    import json
+    import os
+
+    from velocycle_tpu_torch import profiling
+    from velocycle_tpu_torch.infer import SVI, Trace_ELBO, clipped_adam
+
+    driver, _ = _support_driver(dev, "phase")
+    data = driver.metaparams.data
+    svi = SVI(driver.model, driver.guide, clipped_adam(), Trace_ELBO())
+    state = svi.init(0, data)
+    timer = profiling.StepTimer()
+    with profiling.trace(str(tmp_path)):
+        for _ in range(3):
+            with profiling.annotate("support_step"), timer:
+                state, _ = svi.update(state, data)
+                torch.cuda.synchronize()
+    (path,) = glob.glob(os.path.join(str(tmp_path), "*.pt.trace.json"))
+    events = json.load(open(path))["traceEvents"]
+    names = {e["name"] for e in events if e.get("cat") == "kernel"}
+    assert any("phase_kernel" in n for n in names), sorted(names)[:20]
+    assert any(e.get("name") == "support_step" for e in events)
+    assert timer.summary()["steps"] == 3
+    stats = profiling.device_memory_stats()
+    assert list(stats) == [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+    assert stats["cuda:0"]["allocated_bytes.all.peak"] == \
+        torch.cuda.max_memory_allocated(0)
+    assert list(profiling.device_memory_stats("cuda:0")) == ["cuda:0"]
+
+
+@pytest.mark.parametrize("kind", ["phase", "velo"])
+def test_kernel_ladder_package_layout_matches_the_fused_call(kind):
+    """The tool's package layout, one step: its loss is the fused call's
+    on the tool's inputs (loss only, phase_fwd / velo_fwd) and the plain
+    version's (loss rel 1e-5)."""
+    dev = _cuda_or_skip()
+    from velocycle_tpu_torch.tools import kernel_ladder as KL
+
+    ms, loss = (KL.measure_phase if kind == "phase" else KL.measure_velo)(
+        *KL.package_layout(kind)[:2], "i16", n_it=1)
+    assert ms > 0
+    counts, args, lgk = KL.make_inputs(kind, 0, dev)
+    counts = [c.to(torch.int16) for c in counts]
+    fused = K.nb_loglik_fused if kind == "phase" else K.nbsu_loglik_fused
+    with torch.no_grad():
+        direct = float(fused(*counts, *args, lgamma_k_sum=lgk))
+        plain = (K.phase_fwd_plain(*counts, *args, None, None, lgk)
+                 if kind == "phase" else
+                 K.velo_fwd_plain(*counts, *args, None, None, lgk))
+    for want in (direct, float(plain)):
+        assert abs(loss - want) / abs(want) < 1e-5, (loss, want)

@@ -17,7 +17,8 @@ tests/test_warmup.py on the CPU.
   * `warmup`'s keys, its conditioning (the conditioned site is observed in
     the model and absent from the blocked guide; the params are those of
     the JAX package's conditioned pair), ``num_steps=0``;
-    `_chunk_lengths` equal to the JAX package's; `enable_compile_cache`.
+    `_chunk_lengths` equal to the JAX package's and to the chunks the
+    port's `SVI.run` takes; `enable_compile_cache`.
 """
 import glob
 import os
@@ -268,9 +269,8 @@ def test_warmup_returns_its_keys_and_refuses_zero_steps():
     """The port builds, steps once and draws once; it compiles no program
     per chunk length, so it has no ``svi_chunk_<n>`` keys."""
     _, mp = _phase_mp(fused=True, Nc=30, Ng=10)
-    timings = T.warmup(mp, num_steps=25, chunk_size=10,
-                       num_posterior_samples=4, cache_dir=False,
-                       verbose=False)
+    timings = T.warmup(mp, num_steps=25, num_posterior_samples=4,
+                       cache_dir=False, verbose=False)
     assert list(timings) == ["build", "svi_step", "predictive"]
     assert timings["build"] >= 0 and timings["svi_step"] > 0
     assert timings["predictive"] > 0
@@ -314,10 +314,23 @@ def test_warmup_respects_conditioning(monkeypatch):
     assert names == sorted(jsvi.init(jax.random.PRNGKey(0), jmp.data).params)
 
 
-def test_chunk_lengths_match_jax():
+def test_chunk_lengths_match_jax_and_svi_run(monkeypatch):
     for args in ((500,), (1000,), (3000,), (2500,), (25, 10)):
         assert _chunk_lengths(*args) == j_chunk_lengths(*args)
     assert _chunk_lengths(2500) == [500, 1000]
+    # the port's SVI.run takes the chunks _chunk_lengths derives
+    svi, _ = _toy("torch", None)
+    seen = []
+
+    def chunk(self, state, n, *a, **k):
+        seen.append(n)
+        return state, torch.zeros(n)
+
+    monkeypatch.setattr(tsvi.SVI, "update_chunk", chunk)
+    for num_steps, chunk_size in ((2500, None), (25, 10), (700, None)):
+        seen.clear()
+        svi.run(0, num_steps, chunk_size=chunk_size)
+        assert sorted(set(seen)) == _chunk_lengths(num_steps, chunk_size)
 
 
 def test_enable_compile_cache_sets_and_returns_the_directory(tmp_path,

@@ -30,6 +30,7 @@ import json
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import time
@@ -134,18 +135,31 @@ def layout_copy(kind, layout):
     return root
 
 
-def _child(root, *args):
+def _child(root, *args, nice=0):
     """Start this tool in the copy at ``root`` (it imports the copy's
-    package: the copy comes first on its path)."""
+    package: the copy comes first on its path), in a session of its own so
+    that `stop` ends its compilers too; ``nice`` lowers its priority."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     return subprocess.Popen(
         [sys.executable, "-m", f"{PACKAGE.name}.tools.kernel_ladder",
          "--child", *args], cwd=root, env=env, stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True)
+        stderr=subprocess.PIPE, text=True, start_new_session=True,
+        preexec_fn=(lambda: os.nice(nice)) if nice else None)
+
+
+def stop(pending):
+    """End every process of `start_builds`' builds that is still running."""
+    for _, proc in pending.values():
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
 
 
 def _child_result(proc, root, what, timeout):
-    out, err = proc.communicate(timeout=timeout)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    finally:
+        stop({None: (root, proc)})
     if proc.returncode != 0:
         raise RuntimeError(f"{what} in {root} failed:\n{err[-3000:]}")
     result = json.loads(out.strip().splitlines()[-1])
@@ -155,10 +169,11 @@ def _child_result(proc, root, what, timeout):
     return result
 
 
-def start_builds(pairs):
+def start_builds(pairs, nice=0):
     """Copy the package for each (kind, layout) that is not the package's
-    own, and start building each copy's library, all at once; returns the
-    pending builds for `finish_builds`."""
+    own, and start building each copy's library, all at once (at niceness
+    ``nice``); returns the pending builds for `finish_builds` (or
+    `stop`)."""
     pending = {}
     for kind, layout in pairs:
         if _is_package(kind, layout):
@@ -166,7 +181,7 @@ def start_builds(pairs):
         key = (kind, layout.gene_chunk, layout.cells_per_tile)
         if key not in pending:
             root = layout_copy(kind, layout)
-            pending[key] = (root, _child(root, "build", kind))
+            pending[key] = (root, _child(root, "build", kind, nice=nice))
     return pending
 
 
@@ -240,15 +255,13 @@ def _measure_here(kind, dtype, n_it=25, seed=0):
     loss = loop()
     t1.record()
     torch.cuda.synchronize(dev)
-    return t0.elapsed_time(t1) / n_it, float(loss)
+    return t0.elapsed_time(t1) / n_it, float(loss.detach())
 
 
 def measure(kind, layout, n_it=25, seed=0):
-    """{"ms", "loss", "copy"} of ``layout`` (a `Layout` or its name): in
-    this process for the package's own layout, else in its copy (whose
-    library is built at its first use unless `start_builds` built it)."""
-    if isinstance(layout, str):
-        layout = parse_layout(kind, layout)
+    """{"ms", "loss", "copy"} of a `Layout`: in this process for the
+    package's own layout, else in its copy (whose library is built at its
+    first use unless `start_builds` built it)."""
     resolve_device(None)
     if _is_package(kind, layout):
         ms, loss = _measure_here(kind, layout.dtype, n_it, seed)

@@ -77,9 +77,8 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def warmup(metaparams, condition_on=None, num_steps=1000, chunk_size=None,
-           predictive=True, num_posterior_samples=None, seed=0,
-           cache_dir=None, verbose=True):
+def warmup(metaparams, condition_on=None, num_steps=1000, predictive=True,
+           num_posterior_samples=None, seed=0, cache_dir=None, verbose=True):
     """Build and run once what a fit of this configuration runs.
 
     Builds the exact model/guide pair the fit drivers build (``condition_on``
@@ -100,8 +99,6 @@ def warmup(metaparams, condition_on=None, num_steps=1000, chunk_size=None,
       condition_on: the same dict you will pass to the fit driver.
       num_steps: the real fit's step count (>= 1; sets the decay of the
         learning rate as the drivers do).
-      chunk_size: accepted for the JAX package's callers; nothing here
-        depends on the chunking (`_chunk_lengths`).
       num_posterior_samples: draws of the predictive call (default 500).
       seed: integer seed of the step's and the draws' noise.
       cache_dir: forwarded to `enable_compile_cache`; ``False`` leaves the
