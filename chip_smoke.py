@@ -2,7 +2,8 @@
 """On-card smoke run of the PyTorch + CUDA port (`velocycle_tpu_torch`).
 
     python3 chip_smoke.py [--seed 0] [--digest | --kernels | --mcmc | --smc |
-                           --minibatch | --velo2d | --examples | --tiles]
+                           --minibatch | --velo2d | --examples | --tiles |
+                           --sharded]
 
 Run from the root of a checkout, on a machine with one CUDA card.  Phases,
 in order; any failure exits non-zero and prints no result line:
@@ -58,6 +59,7 @@ in order; any failure exits non-zero and prints no result line:
      gradient, each layout's loss within rel 1e-5 of the package layout's,
      the in-process rows' launches counted (``--tiles``: build, then the
      sweep alone, three layouts per family at int16 and float32);
+     after each stage's [support], [sharded] (a) on its data (phase 11);
      after each stage's [minibatch] (below), [support] on its data:
      warmup on its metaparams (the build already done), 50 uninterrupted
      SVI steps against 25 + Checkpointer.save + restore into a fresh SVI's
@@ -169,7 +171,35 @@ in order; any failure exits non-zero and prints no result line:
      particle-moves/s, wall time,
      host time per evaluation, a device profile over one stage, peak
      memory (``--smc``: build, then this phase alone);
- 11. [velo2d], alone after [smc]: the 2-D extension (twodim), which
+ 11. [sharded]: the port's parallel/ on the one card (one process per
+     rank, torch.distributed; NCCL refuses two ranks on one device, so two
+     ranks share it over gloo, which stages CUDA tensors through host
+     memory: they show the sharded program correct on the card, they
+     measure contention, not scaling).  (a) Inside phase 6, after each
+     stage's [support], on its full-width data: one rank over NCCL, 50
+     `SVI.update` steps, then 50 sharded steps (`shard_phase_data` /
+     `shard_velocity_data`, `SVI.init_sharded`) from the same seed, bit for
+     bit equal (losses, params, Adam moments), exactly 50 launches of the
+     stage's kernel each.  Then, alone after [smc]: (b) two ranks sharing
+     the card over gloo, 51,200 cells each, each drawing the [main] counts
+     on the card from --seed and keeping its cells around a host template
+     of (a)'s data (no second host preprocessing): 50 steps of stage 1 and
+     of stage 2 (LRMN, conditioned on stage 1's fit), the losses against
+     (a)'s within rtol 2e-4 over steps 1-20 and 2e-3 over all 50, the
+     ranks' losses, replicated params and Adam moments bit-identical,
+     exactly one launch per rank per step; per rank steps/s, busy share,
+     peak memory and the ms per step in the all-reduce (torch.profiler).
+     Then, beside [examples] at the end (host-bound both; their wall times
+     are not taken alone): (c) at two ranks, [mcmc] (a)'s NUTS with its
+     chains split (64 chains, cut to 100 warmup + 80 draws; its gates,
+     R-hat < 1.05) and [smc] (a) and (c) (the fused velocity model) with
+     their particles split (their gates, |delta log Z| < 2 against the
+     one-rank runs), one launch of a rank's chains or particles per
+     batched evaluation; (d) example 05 at its smoke size, --world 2
+     --backend gloo, exit 0 with its four lines (``--sharded``: build, the
+     stages at full width for (a)'s data, (a)-(d), then
+     `parallel.phase_weak_scaling` at one and two ranks on the card, gloo);
+ 12. [velo2d], alone after [sharded] (b): the 2-D extension (twodim), which
      reaches none of the NB kernels (checked: every launch count stays 0).
      (a) the reference's published run, run_simulations' defaults: for
      seeds 0 and 1, generate_adata (1,000 cells x 200 genes) ->
@@ -183,14 +213,15 @@ in order; any failure exits non-zero and prints no result line:
      losses; the data's build time, each stage's steady-state steps/s,
      launches per step, busy share and peak memory, and the correlations
      with the tiled truth (``--velo2d``: build, then this phase alone);
- 12. [examples], last: the port's examples 01-04 and 06 through their
-     command lines, each in a process of its own at its smoke size
+ 13. [examples], last, beside [sharded] (c) and (d): the port's examples
+     01-04 and 06 through their command lines, each in a process of its
+     own at its smoke size
      (VCT_SMOKE=1), all five at once; gates: exit 0, example 06 launches
      phase_fwdgrad, 01-04 no kernel (the plain path, as the JAX examples);
      each one's wall time, launches and output printed (``--examples``:
      build, then the five at their published sizes, in turn, with their
      quality lines);
- 13. print the kernel table as one JSON line, the nvidia-smi line, and
+ 14. print the kernel table as one JSON line, the nvidia-smi line, and
      last {"ok": true, "device": {...}}.
 
 The configuration is the repository's Stereo-seq-class fit (bench.py
@@ -2065,11 +2096,25 @@ def _mcmc_report(tag, K_, counter, iters, dt, chains, samples, card,
 MCMC_MAX_RHAT = 1.05
 
 
-def mcmc_wrapped(torch, seed, card, cfg=MCMC_A, device="cuda"):
+def _local_count(n, mesh, axis):
+    """This rank's share of ``n`` chains or particles on ``mesh``'s
+    ``axis`` (all ``n`` without a mesh)."""
+    if mesh is None:
+        return n
+    from velocycle_tpu_torch.parallel.mesh import axis_share
+
+    share = axis_share(mesh, axis, n)
+    return share.hi - share.lo
+
+
+def mcmc_wrapped(torch, seed, card, cfg=MCMC_A, device="cuda", mesh=None):
     """(a) `nuts_phi_wrapped`: an 800-step phase fit locates the genes; the
     wrapped phases are sampled with the genes conditioned, through
     MCMCFitModel on the fused data (the warm start takes its Hessian
-    diagonal on the same counts through the plain path)."""
+    diagonal on the same counts through the plain path).  With ``mesh``
+    (a ("chains",) mesh) this rank runs its share of the chains, one
+    launch of them per batched evaluation, and gates the gathered draws;
+    the device profile is left out."""
     import numpy as np
 
     from velocycle_tpu_torch import (
@@ -2107,13 +2152,14 @@ def mcmc_wrapped(torch, seed, card, cfg=MCMC_A, device="cuda"):
     K_.reset_launch_counts()
     with _EvalCounter() as counter:
         t0 = time.perf_counter()
-        fm.run(seed + 9)
+        fm.run(seed + 9, mesh=mesh)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     iters = cfg["warmup"] + cfg["samples"]
     by_k = _mcmc_report("(a) nuts_phi_wrapped", K_, counter, iters, dt,
-                        cfg["chains"], cfg["samples"], card)
+                        _local_count(cfg["chains"], mesh, "chains"),
+                        cfg["samples"], card)
     # single launches: the SVI warm start's steps, and one per init_model
     # on the fused data (its baseline, traced with gradients)
     check(by_k.get(1, 0) >= cfg["svi_warm"],
@@ -2135,6 +2181,13 @@ def mcmc_wrapped(torch, seed, card, cfg=MCMC_A, device="cuda"):
     check(d["max_split_rhat"] < MCMC_MAX_RHAT,
           f"(a): max split R-hat {d['max_split_rhat']} (gate "
           f"{MCMC_MAX_RHAT})")
+    res = {"launches": by_k, "evals": counter.calls, "iters": iters,
+           "wall_s": dt, "samples_per_s": cfg["chains"] * cfg["samples"] / dt,
+           "accept": d["accept_rate"], "max_split_rhat": d["max_split_rhat"],
+           "min_ess": d["min_ess"], "median_ess": d["median_ess"],
+           "circ_corr": cc, "peak_gib": peak / 2**30}
+    if mesh is not None:
+        return res
     info = fm.mcmc.model_info
     q = fm.mcmc._samples_u[:, -1].contiguous()
     busy = _device_profile(torch, lambda: _nuts_transitions(info, q, cfg),
@@ -2143,11 +2196,7 @@ def mcmc_wrapped(torch, seed, card, cfg=MCMC_A, device="cuda"):
     print(f"[mcmc] (a): per leapfrog {dt / counter.calls * 1e3:.2f} ms of "
           f"wall (run incl. warm start), of it {ev:.2f} ms one batched "
           f"evaluation alone (host clock) on {card}")
-    return {"launches": by_k, "evals": counter.calls, "iters": iters,
-            "wall_s": dt, "samples_per_s": cfg["chains"] * cfg["samples"] / dt,
-            "accept": d["accept_rate"], "max_split_rhat": d["max_split_rhat"],
-            "min_ess": d["min_ess"], "median_ess": d["median_ess"],
-            "circ_corr": cc, "peak_gib": peak / 2**30, "busy": busy}
+    return {**res, "busy": busy}
 
 
 def _velo_sim(torch, cfg, seed, device):
@@ -2605,29 +2654,32 @@ def _smc_data(torch, cfg, seed, device):
 
 
 def smc_run(torch, seed, card, tag, cfg, mp, svi_steps, max_stages,
-            target_ess, run_seed, device="cuda", kind="phase"):
+            target_ess, run_seed, device="cuda", kind="phase", mesh=None):
     """One SMCFitModel run on ``mp`` (phases conditioned), its launches
     counted: exactly one chain-batched ``kind``_fwd per stage (its
     log-likelihood or log ratio over the particles), one chain-batched
     ``kind``_fwdgrad per batched potential evaluation (1 + num_moves x
     leapfrog per stage) and, in prior tempering, one single ``kind``_fwd in
-    all (the prior draws compute no likelihood).  Returns its numbers and
-    the fit."""
+    all (the prior draws compute no likelihood).  With ``mesh`` (a
+    ("particles",) mesh) the launches are of this rank's share of the
+    particles.  Returns its numbers and the fit."""
     import numpy as np
 
     from velocycle_tpu_torch import SMCFitModel
     from velocycle_tpu_torch.infer import smc as TS
     from velocycle_tpu_torch.ops import nb_kernels as K_
 
-    n, moves = cfg["chains"], cfg["num_moves"]
+    moves = cfg["num_moves"]
     fm = SMCFitModel(mp, condition_on={"phi_xy": mp.data.phixy_prior},
-                     num_particles=n, num_moves=moves, target_ess=target_ess,
-                     max_stages=max_stages, svi_steps=svi_steps)
+                     num_particles=cfg["chains"], num_moves=moves,
+                     target_ess=target_ess, max_stages=max_stages,
+                     svi_steps=svi_steps)
+    n = _local_count(cfg["chains"], mesh, "particles")
     torch.cuda.reset_peak_memory_stats()
     K_.reset_launch_counts()
     with _EvalCounter(TS) as counter:
         t0 = time.perf_counter()
-        fm.run(run_seed)
+        fm.run(run_seed, mesh=mesh)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
@@ -3040,9 +3092,10 @@ def kernel_digest(torch, seed):
 
 def _stages(torch, seed, card):
     """Both stages at full width, alone on the host and the card, each
-    followed by [minibatch] and [support] on its preprocessed data.  Returns
-    (launches by kernel from the stage that drives it, (stage 1 steps/s,
-    peak, stage 2 steps/s, peak), [minibatch]'s numbers, [support]'s)."""
+    followed by [minibatch], [support] and [sharded] (a) on its preprocessed
+    data.  Returns (launches by kernel from the stage that drives it, (stage
+    1 steps/s, peak, stage 2 steps/s, peak), [minibatch]'s numbers,
+    [support]'s, what [sharded] (b) takes from (a))."""
     adata, genes, cells, angles = _make_adata(torch, seed, "cuda")
     launches, steps_per_s, peak, stage1 = phase_main_path(
         torch, seed, adata, genes, cells, angles)
@@ -3051,6 +3104,7 @@ def _stages(torch, seed, card):
     torch.cuda.empty_cache()
     support = {"phase": support_stage(torch, seed, card, stage1.mp, None,
                                       "phase", steps_per_s)}
+    sharded = sharded_stage_refs(torch, seed, card, "phase", stage1.mp.data)
     stage1.mp = None
     torch.cuda.empty_cache()
     vlaunches, vsteps_per_s, vpeak, vmp = velocity_main_path(
@@ -3065,9 +3119,11 @@ def _stages(torch, seed, card):
             "shape_inv": p["shape_inv_locs"]}
     support["velocity"] = support_stage(torch, seed, card, vmp, cond,
                                         "velocity", vsteps_per_s)
+    sharded_stage_refs(torch, seed, card, "velocity", vmp.data, cond, sharded)
     del adata, stage1, vmp
     torch.cuda.empty_cache()
-    return launches, (steps_per_s, peak, vsteps_per_s, vpeak), mb, support
+    return (launches, (steps_per_s, peak, vsteps_per_s, vpeak), mb, support,
+            sharded)
 
 
 # ---------------------------------------------------------------------------
@@ -3575,6 +3631,587 @@ def phase_tiles(torch, card, layouts, pending):
 
 
 # ---------------------------------------------------------------------------
+# [sharded]: parallel/ on the card, the cell-sharded SVI step, the chain-
+# and particle-sharded samplers, example 05
+# ---------------------------------------------------------------------------
+
+SHARDED_STEPS = 50
+# the JAX package's two trajectory gates (steps, rtol): the first 20 steps
+# at 2e-4 (tests/test_distributed.py:255), all at 2e-3
+# (tests/test_sharding.py:105)
+SHARDED_GATES = ((20, 2e-4), (SHARDED_STEPS, 2e-3))
+SHARDED_WORLD = 2       # ranks sharing the one card, over gloo
+# (c): [mcmc] (a)'s and [smc] (a)'s shapes at two ranks, NUTS cut in draws
+SHARDED_MCMC = dict(MCMC_A, warmup=100, samples=80)
+SHARDED_KERNEL = {"phase": "phase_fwdgrad", "velocity": "velo_fwdgrad"}
+
+
+def _stage_pair(stage, cond=None):
+    """(model, guide) of a stage's SVI as the fit classes build them:
+    stage 2 conditioned on ``cond`` (the guide hides those sites)."""
+    from velocycle_tpu_torch.core import handlers
+    from velocycle_tpu_torch.models.phase import phase_guide, phase_model
+    from velocycle_tpu_torch.models.velocity import (
+        velocity_guide_lrmn, velocity_model,
+    )
+
+    if stage == "phase":
+        return phase_model, phase_guide
+    return (handlers.condition(velocity_model, data=cond),
+            handlers.block(velocity_guide_lrmn, hide=list(cond)))
+
+
+def _host_template(data):
+    """``data`` without its count matrices, every other tensor on the host:
+    what a rank of (b) builds its shard around (the counts it draws)."""
+    from velocycle_tpu_torch.parallel.sharding import _tensor_fields
+
+    small = data.replace(**{f: None for f in ("S", "U", "logS", "logU")
+                            if hasattr(data, f)})
+    return small.replace(**{f: getattr(small, f).cpu()
+                            for f in _tensor_fields(small)
+                            if getattr(small, f) is not None})
+
+
+def _count_sums(torch, data):
+    """Each rank's share of the count sums (int64) of S (and U): (b)'s ranks
+    check that they drew the counts (a) ran on."""
+    from velocycle_tpu_torch.parallel import distributed
+
+    out = {}
+    for f in ("S", "U"):
+        t = getattr(data, f, None)
+        if t is not None:
+            out[f] = [int(t[:, lo:hi].sum(dtype=torch.int64)) for lo, hi in (
+                distributed.process_cell_slice(data.Nc, r, SHARDED_WORLD)
+                for r in range(SHARDED_WORLD))]
+    return out
+
+
+def _digest(torch, tensors):
+    import hashlib
+
+    h = hashlib.sha256()
+    for k in sorted(tensors):
+        h.update(k.encode())
+        h.update(tensors[k].detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def sharded_one_rank(torch, seed, card, data, stage, cond=None):
+    """[sharded] (a) on this process's full-width data of ``stage``: one
+    rank over NCCL (a world of one over an in-memory store, destroyed
+    before this returns, so that no later phase runs beside it).  50
+    `SVI.update` steps, then 50 sharded steps of `SVI.init_sharded`'s
+    state from the same seed: the losses, every param and both Adam
+    moments bit for bit, exactly 50 launches of the stage's kernel and no
+    other.
+    Returns the sharded losses ((b)'s reference) and the numbers."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from velocycle_tpu_torch.infer import SVI, Trace_ELBO, clipped_adam
+    from velocycle_tpu_torch.ops import nb_kernels as K
+    from velocycle_tpu_torch.parallel import (
+        make_mesh, shard_phase_data, shard_velocity_data,
+    )
+
+    t0 = time.perf_counter()
+    kernel = SHARDED_KERNEL[stage]
+    if stage == "velocity":
+        data = data.replace(disp_grad=False)    # shape_inv conditioned
+        cond = {k: torch.as_tensor(v, dtype=torch.float32, device=data.device)
+                for k, v in cond.items()}
+    model, guide = _stage_pair(stage, cond)
+    mesh = make_mesh(("cells",))
+    try:
+        check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+              f"(a): {dist.get_backend()} world of {dist.get_world_size()}")
+        sdata = (shard_velocity_data if stage == "velocity"
+                 else shard_phase_data)(data, mesh)
+        check(sdata.S.data_ptr() == data.S.data_ptr() and sdata.Nc == data.Nc,
+              "(a): one rank's shard copied the counts")
+        runs = {}
+        for mode in ("update", "sharded"):
+            svi = SVI(model, guide, clipped_adam(), Trace_ELBO())
+            state = (svi.init(seed, data) if mode == "update"
+                     else svi.init_sharded(seed, mesh, sdata))
+            K.reset_launch_counts()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            state, losses = svi.update_chunk(
+                state, SHARDED_STEPS, data if mode == "update" else sdata)
+            losses = losses.cpu()
+            dt = time.perf_counter() - t1
+            runs[mode] = (state, losses, dict(K.LAUNCHES), dt)
+    finally:
+        dist.destroy_process_group()
+    ref, ref_l, ref_k, ref_dt = runs["update"]
+    st, l, k, dt = runs["sharded"]
+    check(k[kernel] == SHARDED_STEPS and sum(k.values()) == SHARDED_STEPS,
+          f"(a) {stage}: launches {k} in {SHARDED_STEPS} sharded steps")
+    check(ref_k == k, f"(a) {stage}: launches {ref_k} unsharded, {k} sharded")
+    same = torch.equal(l, ref_l) and all(
+        torch.equal(st.params[n], ref.params[n])
+        and torch.equal(st.opt_state["m"][n], ref.opt_state["m"][n])
+        and torch.equal(st.opt_state["v"][n], ref.opt_state["v"][n])
+        for n in ref.params)
+    print(f"[sharded] (a) {stage}: one rank over NCCL, {SHARDED_STEPS} "
+          f"sharded steps bit-equal to SVI.update's: {same} (losses "
+          f"{float(l[0]):.8g} -> {float(l[-1]):.8g}); {k[kernel]} {kernel} "
+          f"launches; {SHARDED_STEPS / dt:.2f} steps/s sharded, "
+          f"{SHARDED_STEPS / ref_dt:.2f} unsharded (host clock, one chunk); "
+          f"{time.perf_counter() - t0:.1f} s on {card}")
+    check(same, f"(a) {stage}: the sharded step is not SVI.update's bits")
+    check(np.isfinite(l.numpy()).all() and float(l[-10:].mean()) < float(l[0]),
+          f"(a) {stage}: losses {l}")
+    return l.numpy(), {"launches": k[kernel], "bit_equal": same,
+                       "steps_per_s": SHARDED_STEPS / dt,
+                       "unsharded_steps_per_s": SHARDED_STEPS / ref_dt}
+
+
+def _rank_profile(torch, fn, n):
+    """(wall s, device-busy share, ms per unit in collectives) of ``n``
+    units of ``fn()`` under torch.profiler: device kernel time summed; the
+    collectives are the profiler's all-reduce events (the outermost of
+    them), on the host's clock."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = coll = 0.0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            dt = getattr(e, "self_device_time_total", None)
+            busy += (e.self_cuda_time_total if dt is None else dt) / 1e6
+        elif "allreduce" in e.key.replace("_", "").lower():
+            coll = max(coll, e.cpu_time_total / 1e3)
+    return wall, (busy / wall if busy else None), coll / n
+
+
+def _rank_stage(torch, svi, state, data, kernel, steps, tag):
+    """A rank's ``steps`` sharded steps, counted and timed (host clock,
+    after a barrier), then 5 more under the profiler: its numbers."""
+    import torch.distributed as dist
+
+    from velocycle_tpu_torch.ops import nb_kernels as K
+    from velocycle_tpu_torch.parallel.sharding import PARAM_CELL_AXES
+
+    K.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    dist.barrier()
+    t0 = time.perf_counter()
+    state, losses = svi.update_chunk(state, steps, data)
+    losses = losses.cpu().numpy()
+    dt = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    rep = {n: p for n, p in state.params.items() if n not in PARAM_CELL_AXES}
+    moments = {f"{m}:{n}": state.opt_state[m][n] for m in ("m", "v")
+               for n in rep}
+    holder = [state]
+
+    def more():
+        holder[0], _ = svi.update_chunk(holder[0], 5, data)
+
+    wall, busy, coll = _rank_profile(torch, more, 5)
+    return {"losses": losses, "launches": launches[kernel],
+            "other_launches": sum(launches.values()) - launches[kernel],
+            "steps_per_s": steps / dt, "busy": busy, "coll_ms": coll,
+            "profiled_ms_per_step": wall / 5 * 1e3,
+            "peak_gib": peak / 2**30, "replicated": _digest(torch, rep),
+            "moments": _digest(torch, moments), "tag": tag}
+
+
+def _sharded_rank(p):
+    """One rank of [sharded] (b): draw the [main] counts on the card from
+    the seed, keep its cells (`shard_phase_data` / `shard_velocity_data`
+    around the host templates of (a)'s data), then stage 1's and stage 2's
+    sharded steps."""
+    import torch
+    import torch.distributed as dist
+
+    from velocycle_tpu_torch.infer import SVI, Trace_ELBO, clipped_adam
+    from velocycle_tpu_torch.parallel import (
+        distributed, make_mesh, shard_phase_data, shard_velocity_data,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = distributed.rank_device("cuda")
+    mesh = make_mesh(("cells",))
+    rank = dist.get_rank()
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev)
+    g.manual_seed(p["seed"])
+    Ng, Nc = p["Ng"], p["Nc"]
+
+    def counts(mean):          # _make_adata's draws, (genes, cells)
+        return torch.floor(torch.exp(
+            torch.randn((Nc, Ng), generator=g, device=dev) * 0.8 + mean
+        )).to(torch.int16).T
+
+    def local_logs(data):      # the fused path reads no log counts
+        return {f"log{f}": torch.log(getattr(data, f).float() + 1.0 + 1e-16)
+                for f in ("S", "U") if hasattr(data, f)}
+
+    spliced = counts(1.0)
+    torch.rand(Nc, generator=g, device=dev)           # the phases' draw
+    unspliced = counts(0.4)
+    none = torch.zeros((), device=dev).expand(Ng, Nc)
+    out = {}
+    for stage, tmpl in (("phase", p["tmpl1"]), ("velocity", p["tmpl2"])):
+        full = dict(S=spliced, logS=none)
+        if stage == "velocity":
+            full.update(U=unspliced, logU=none)
+        data = (shard_velocity_data if stage == "velocity"
+                else shard_phase_data)(tmpl.replace(**full), mesh)
+        data = data.replace(**local_logs(data))
+        if stage == "velocity":
+            # as (a): shape_inv is conditioned
+            data = data.replace(disp_grad=False)
+        for f, sums in p["sums"][stage].items():
+            got = int(getattr(data, f).sum(dtype=torch.int64))
+            check(got == sums[rank], f"(b) rank {rank}: {f} sums to {got}, "
+                  f"(a)'s cells {sums[rank]}")
+        cond = None
+        if stage == "velocity":
+            lo, hi = data.shard.lo, data.shard.hi
+            cond = {k: torch.as_tensor(v[lo:hi] if k == "phi_xy" else v,
+                                       dtype=torch.float32, device=dev)
+                    for k, v in p["cond"].items()}
+        model, guide = _stage_pair(stage, cond)
+        svi = SVI(model, guide, clipped_adam(), Trace_ELBO())
+        state = svi.init_sharded(p["seed"], mesh, data)
+        prep = time.perf_counter() - t0
+        out[stage] = _rank_stage(torch, svi, state, data,
+                                 SHARDED_KERNEL[stage], p["steps"],
+                                 f"rank {rank} cells [{data.shard.lo}, "
+                                 f"{data.shard.hi})")
+        out[stage]["prep_s"] = prep
+        del data, state, svi
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+    return out
+
+
+def _sharded_samplers_rank(p):
+    """One rank of [sharded] (c): [mcmc] (a) with its chains split, then
+    [smc] (a) and (c) with their particles split; what they print comes
+    back with their numbers."""
+    import contextlib
+    import io
+
+    import torch
+
+    from velocycle_tpu_torch.parallel import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    text = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(text):
+            t0 = time.perf_counter()
+            out["mcmc"] = mcmc_wrapped(
+                torch, p["seed"], p["card"], cfg=SHARDED_MCMC,
+                mesh=make_mesh(("chains",)))
+            out["mcmc"]["run_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            mp = _smc_data(torch, SMC_A, p["seed"], "cuda")
+            out["smc"] = smc_run(
+                torch, p["seed"], p["card"], "(a) smc", SMC_A, mp,
+                SMC_A["svi_steps"], SMC_A["max_stages"],
+                SMC_A["target_ess"], p["seed"] + 3,
+                mesh=make_mesh(("particles",)))[1]
+            out["smc"]["run_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            _, vmp = _velo_sim(torch, VELO_SMC, p["seed"], "cuda")
+            out["smc_velo"] = smc_run(
+                torch, p["seed"], p["card"], "(c) velocity smc", VELO_SMC,
+                vmp, VELO_SMC["svi_steps"], VELO_SMC["max_stages"],
+                VELO_SMC["target_ess"], p["seed"] + 5, kind="velo",
+                mesh=make_mesh(("particles",)))[1]
+            out["smc_velo"]["run_s"] = time.perf_counter() - t0
+    except BaseException:
+        print(text.getvalue(), file=sys.stderr)
+        raise
+    out["text"] = text.getvalue()
+    return out
+
+
+def _start_example_05():
+    """Example 05 at its smoke size over two ranks sharing the card (gloo),
+    through its command line, in a process of its own: (process, start)."""
+    import os
+    from pathlib import Path
+
+    import velocycle_tpu_torch
+
+    path = Path(velocycle_tpu_torch.__file__).parent / "examples" / \
+        "05_sharded_fit.py"
+    env = dict(os.environ, VCT_SMOKE="1")
+    env.pop("VCT_FIGDIR", None)
+    proc = subprocess.Popen(
+        [sys.executable, str(path), "--device", "cuda", "--world", "2",
+         "--backend", "gloo"], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    return proc, time.perf_counter()
+
+
+def _stop(proc):
+    if proc.poll() is None:
+        proc.kill()
+        proc.communicate()
+
+
+def _finish_example_05(proc, start, timeout=600):
+    """(exit code, stdout, the end of stderr, wall s); the process is
+    stopped in every case."""
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    finally:
+        _stop(proc)
+    return proc.returncode, out, err[-3000:], time.perf_counter() - start
+
+
+def _gate_b(ranks, ref, card):
+    """[sharded] (b)'s gates on the ranks' results: the losses against
+    (a)'s within the JAX package's two gates, every rank's losses,
+    replicated params and Adam moments bit-identical, exactly one launch of
+    the stage's kernel per rank per step; prints per rank steps/s, busy
+    share, peak memory and the ms per step in collectives."""
+    import numpy as np
+
+    out = {}
+    for stage in ("phase", "velocity"):
+        kernel = SHARDED_KERNEL[stage]
+        one = ref["losses"][stage]
+        r0 = ranks[0][stage]
+        rel = np.abs(r0["losses"] - one) / np.abs(one)
+        for r in ranks:
+            x = r[stage]
+            busy = "not measured" if x["busy"] is None else f"{x['busy']:.1%}"
+            print(f"[sharded] (b) {stage} {x['tag']}: {x['steps_per_s']:.2f} "
+                  f"steps/s (host clock, two ranks on one card), busy {busy}, "
+                  f"{x['coll_ms']:.3f} ms per step in all-reduce (profiler, "
+                  f"{x['profiled_ms_per_step']:.2f} ms per profiled step), "
+                  f"peak {x['peak_gib']:.2f} GiB, {x['launches']} {kernel} "
+                  f"launches, shard built in {x['prep_s']:.1f} s on {card}")
+            check(x["launches"] == SHARDED_STEPS and x["other_launches"] == 0,
+                  f"(b) {stage} {x['tag']}: {x['launches']} {kernel} and "
+                  f"{x['other_launches']} other launches in {SHARDED_STEPS} "
+                  "steps")
+            check(np.array_equal(x["losses"], r0["losses"])
+                  and x["replicated"] == r0["replicated"]
+                  and x["moments"] == r0["moments"],
+                  f"(b) {stage}: the ranks' losses or replicated params "
+                  "differ")
+        print(f"[sharded] (b) {stage}: losses {r0['losses'][0]:.8g} -> "
+              f"{r0['losses'][-1]:.8g}, against one rank max rel "
+              f"{rel[:20].max():.3g} (steps 1-20, gate 2e-4), "
+              f"{rel.max():.3g} (all {SHARDED_STEPS}, gate 2e-3); replicated "
+              f"params {r0['replicated']}, moments {r0['moments']} on both "
+              "ranks")
+        for n, rtol in SHARDED_GATES:
+            check(rel[:n].max() < rtol, f"(b) {stage}: rel {rel[:n].max()} "
+                  f"over steps 1-{n} (gate {rtol})")
+        out[stage] = {"max_rel_20": float(rel[:20].max()),
+                      "max_rel_50": float(rel.max()),
+                      "ranks": [{k: v for k, v in r[stage].items()
+                                 if k not in ("losses", "tag")}
+                                for r in ranks]}
+    return out
+
+
+def _gate_cd(torch, ranks, example, seed, card, smc_refs):
+    """[sharded] (c) and (d)'s gates: the runs' own gates held inside them
+    on every rank (R-hat < 1.05, accept, the circular correlation; beta
+    reaching 1, finite log Z; one launch of a rank's chains or particles
+    per batched evaluation), the same R-hat and log Z on both ranks,
+    |delta log Z| < 2 against the one-rank [smc] (a) and (c) (``smc_refs``
+    {"a": log Z, "c": log Z}; run here when not given); example 05 exits 0
+    with its four lines (``example``: `_finish_example_05`'s)."""
+    for r, res in enumerate(ranks):
+        for line in res["text"].splitlines():
+            print(f"[sharded] (c) rank {r} | {line}")
+    m0 = ranks[0]["mcmc"]
+    check(all(r["mcmc"]["max_split_rhat"] == m0["max_split_rhat"]
+              for r in ranks), "(c): the ranks' R-hat differ")
+    print(f"[sharded] (c) NUTS at two ranks, {SHARDED_MCMC['chains']} chains "
+          f"x ({SHARDED_MCMC['warmup']} + {SHARDED_MCMC['samples']}): accept "
+          f"{m0['accept']:.4f}, max split R-hat {m0['max_split_rhat']:.4f}, "
+          f"run {m0['run_s']:.1f} s per rank on {card}")
+    refs = dict(smc_refs or {})
+    smc = {}
+    for tag, key, cfg, kind, run_seed in (
+            ("a", "smc", SMC_A, "phase", seed + 3),
+            ("c", "smc_velo", VELO_SMC, "velo", seed + 5)):
+        s0 = ranks[0][key]
+        check(all(r[key]["log_evidence"] == s0["log_evidence"]
+                  for r in ranks), f"(c) [smc] ({tag}): the ranks' log Z "
+              "differ")
+        if tag not in refs:
+            mp = (_smc_data(torch, cfg, seed, "cuda") if kind == "phase"
+                  else _velo_sim(torch, cfg, seed, "cuda")[1])
+            refs[tag] = smc_run(torch, seed, card, f"({tag}) one rank", cfg,
+                                mp, cfg["svi_steps"], cfg["max_stages"],
+                                cfg["target_ess"], run_seed,
+                                kind=kind)[1]["log_evidence"]
+        dz = s0["log_evidence"] - refs[tag]
+        print(f"[sharded] (c) [smc] ({tag}) at two ranks ({kind} model, "
+              f"{cfg['chains']} particles): {s0['stages']} stages, log Z "
+              f"{s0['log_evidence']:.3f} against one rank's {refs[tag]:.3f} "
+              f"({dz:+.3f} nats, gate 2), {s0['run_s']:.1f} s on {card}")
+        check(abs(dz) < 2.0, f"(c) [smc] ({tag}): log Z two ranks - one "
+              f"rank = {dz}")
+        smc[key] = {"launches": s0["launches"], "stages": s0["stages"],
+                    "log_evidence": s0["log_evidence"], "dlogZ": dz,
+                    "run_s": s0["run_s"]}
+    rc, out_ex, err_ex, dt_ex = example
+    print(f"[sharded] (d) example 05 (smoke size, --world 2 --backend gloo), "
+          f"beside (c): exit {rc} in {dt_ex:.1f} s")
+    for line in out_ex.strip().splitlines():
+        print(f"[sharded] (d)   | {line}")
+    if rc != 0:
+        print(err_ex, file=sys.stderr)
+    check(rc == 0, f"(d): example 05 exited {rc}")
+    for want in ("2-rank mesh: ELBO", "S sharding: cells", "sharded NUTS: 2",
+                 "sharded SMC: "):
+        check(want in out_ex, f"(d): example 05 printed no {want!r}")
+    return {"mcmc": {k: m0[k] for k in ("launches", "evals", "accept",
+                                        "max_split_rhat", "run_s")},
+            **smc, "example_05_s": dt_ex}
+
+
+def sharded_stage_refs(torch, seed, card, stage, data, cond=None, ref=None):
+    """(a) for ``stage`` inside [main]'s stages, and what (b) takes from it:
+    the host template, the count sums, the losses; ``ref`` collects them."""
+    ref = ref if ref is not None else {"losses": {}, "sums": {}, "a": {}}
+    losses, nums = sharded_one_rank(torch, seed, card, data, stage, cond)
+    ref["losses"][stage] = losses
+    ref["a"][stage] = nums
+    ref["sums"][stage] = _count_sums(torch, data)
+    ref["tmpl1" if stage == "phase" else "tmpl2"] = _host_template(data)
+    if stage == "velocity":
+        ref["cond"] = {k: (v.detach().cpu().numpy()
+                           if isinstance(v, torch.Tensor) else v)
+                       for k, v in cond.items()}
+    return ref
+
+
+def sharded_row(kernel, sharded):
+    """A kernel's [sharded] numbers for the JSON table: (a) and (b) for the
+    fwdgrad kernels, (c)'s launches per rank (by chain count)."""
+    smc = sharded["smc" if kernel.startswith("phase") else "smc_velo"]
+    row = {"smc_launches_per_rank": smc["launches"][kernel]}
+    if kernel.endswith("fwdgrad"):
+        stage = "phase" if kernel.startswith("phase") else "velocity"
+        row.update(one_rank_nccl=sharded["a"][stage],
+                   two_ranks_gloo=sharded["b"][stage])
+    if kernel == "phase_fwdgrad":
+        row["mcmc_launches_per_rank"] = sharded["mcmc"]["launches"]
+    return row
+
+
+def sharded_alone(torch, seed, card):
+    """``--sharded``: [main]'s stages at full width for (a)'s data (their
+    own gates), [sharded] (a)-(d), then `parallel.phase_weak_scaling` at one
+    and two ranks on the card over gloo (two ranks on one card: contention,
+    not scaling)."""
+    from velocycle_tpu_torch.parallel import format_report, phase_weak_scaling
+
+    adata, genes, cells, angles = _make_adata(torch, seed, "cuda")
+    _, _, _, stage1 = phase_main_path(torch, seed, adata, genes, cells, angles)
+    ref = sharded_stage_refs(torch, seed, card, "phase", stage1.mp.data)
+    stage1.mp = None
+    torch.cuda.empty_cache()
+    _, _, _, vmp = velocity_main_path(torch, seed, adata, stage1)
+    p = stage1.params
+    cond = {"nu": p["nu_locs"], "phi_xy": p["phixy_locs"],
+            "shape_inv": p["shape_inv_locs"]}
+    sharded_stage_refs(torch, seed, card, "velocity", vmp.data, cond, ref)
+    del adata, stage1, vmp
+    torch.cuda.empty_cache()
+    phase_sharded(torch, seed, card, ref)
+    finish_sharded_samplers(torch, start_sharded_samplers(seed, card), seed,
+                            card)
+    for cells_per_rank, genes_ in ((512, 64), (25_600, 256)):
+        t0 = time.perf_counter()
+        rows = phase_weak_scaling(per_device_cells=cells_per_rank, Ng=genes_,
+                                  steps=50, device_counts=[1, 2], repeats=3,
+                                  device="cuda", backend="gloo")
+        print(f"[sharded] weak scaling, {cells_per_rank} cells x {genes_} "
+              f"genes per rank, gloo; two ranks on one card: contention, "
+              f"not scaling ({time.perf_counter() - t0:.1f} s, {card}):")
+        for line in format_report(rows).splitlines():
+            print(f"[sharded]   {line}")
+
+
+def phase_sharded(torch, seed, card, ref):
+    """[sharded] (b), alone on the host and the card, in one spawn of two
+    ranks sharing the card over gloo ((a) ran inside the stages)."""
+    from velocycle_tpu_torch.parallel import run_ranks
+
+    t0 = time.perf_counter()
+    payload = {k: ref[k] for k in ("tmpl1", "tmpl2", "cond", "sums")}
+    payload.update(seed=seed, steps=SHARDED_STEPS, Ng=ref["tmpl1"].Ng,
+                   Nc=ref["tmpl1"].Nc)
+    ranks = run_ranks(_sharded_rank, SHARDED_WORLD, backend="gloo",
+                      device="cuda", timeout=900, args=(payload,))
+    out = {"a": ref["a"], "b": _gate_b(ranks, ref, card)}
+    print(f"[sharded] (b) in all, {SHARDED_WORLD} ranks spawned: "
+          f"{time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def start_sharded_samplers(seed, card):
+    """Start [sharded] (c) (two ranks over gloo, `run_ranks` in a thread of
+    this process) and (d) (example 05's process), to run beside the
+    phase that follows; `finish_sharded_samplers` waits for both."""
+    import threading
+
+    from velocycle_tpu_torch.parallel import run_ranks
+
+    payload = dict(seed=seed, card=card)
+    pending = {"start": time.perf_counter()}
+
+    def ranks():
+        try:
+            pending["ranks"] = run_ranks(
+                _sharded_samplers_rank, SHARDED_WORLD, backend="gloo",
+                device="cuda", timeout=1000, args=(payload,))
+        except BaseException as e:       # read by finish_sharded_samplers
+            pending["error"] = e
+
+    # daemonic: if this process fails meanwhile, its exit does not wait
+    # for the ranks (run_ranks' processes are daemonic too)
+    pending["thread"] = threading.Thread(target=ranks, daemon=True)
+    pending["thread"].start()
+    pending["example"] = _start_example_05()
+    return pending
+
+
+def finish_sharded_samplers(torch, pending, seed, card, smc_refs=None):
+    """Wait for [sharded] (c) and (d) and hold them to their gates
+    (`_gate_cd`); example 05's process is stopped in every case."""
+    try:
+        pending["thread"].join()
+        example = _finish_example_05(*pending["example"])
+    finally:
+        _stop(pending["example"][0])
+    if "error" in pending:
+        raise pending["error"]
+    out = _gate_cd(torch, pending["ranks"], example, seed, card, smc_refs)
+    print(f"[sharded] (c) and (d), start to gates: "
+          f"{time.perf_counter() - pending['start']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # [examples]: the port's examples 01-04 and 06, each in a process of its own
 # ---------------------------------------------------------------------------
 
@@ -3710,6 +4347,11 @@ def main(argv=None):
                     help="build, then [examples] alone: examples 01-04 and "
                          "06 at their published sizes, in turn, with their "
                          "quality lines (no result line)")
+    ap.add_argument("--sharded", action="store_true",
+                    help="build, then [sharded] alone: the stages at full "
+                         "width for (a)'s data, (a)-(d) and the weak-scaling "
+                         "harness at one and two ranks on the card (no "
+                         "result line)")
     ap.add_argument("--tiles", action="store_true",
                     help="build, then [tiles] alone: the layout ladder's "
                          "sweep, three layouts of each family at int16 and "
@@ -3737,7 +4379,7 @@ def main(argv=None):
         kernel_digest(torch, args.seed)
         return 0
     alone = (args.kernels or args.mcmc or args.smc or args.minibatch
-             or args.velo2d or args.examples)
+             or args.velo2d or args.examples or args.sharded)
     tiles = TILES_SWEEP if args.tiles else {} if alone else TILES_DEFAULT
     # the copies of [tiles]' other layouts build beside the package's build
     pending = start_tiles(tiles)
@@ -3777,6 +4419,9 @@ def _run(torch, args, name, count, smi, t_start, tiles, pending):
     if args.velo2d:
         phase_velo2d(torch, args.seed, smi)
         return 0
+    if args.sharded:
+        sharded_alone(torch, args.seed, smi)
+        return 0
     kernel_digest(torch, args.seed)
     errs = phase_parity(torch, args.seed)
     timing = phase_timing(torch, args.seed, smi)
@@ -3794,7 +4439,8 @@ def _run(torch, args, name, count, smi, t_start, tiles, pending):
     # the layouts, alone on the card before the [mcmc] processes
     layouts = phase_tiles(torch, smi, tiles, pending)
     torch.cuda.empty_cache()
-    launches, rates, minibatch, support = _stages(torch, args.seed, smi)
+    launches, rates, minibatch, support, sharded_ref = _stages(
+        torch, args.seed, smi)
     # the [mcmc] runs, host-bound, beside [quickstart] and [variants]
     pool, pending = start_mcmc_runs(args.seed, smi)
     try:
@@ -3812,11 +4458,25 @@ def _run(torch, args, name, count, smi, t_start, tiles, pending):
     smc = smc_row(smc_parity, smc_timing, smc_runs)
     velo = velo_rows(chain_kernels, mcmc_runs["c"], smc_runs["c"])
     torch.cuda.empty_cache()
+    # [sharded] (b) alone after [smc]
+    sharded = phase_sharded(torch, args.seed, smi, sharded_ref)
+    del sharded_ref
+    torch.cuda.empty_cache()
     # [velo2d] alone after [smc]: the 2-D extension, no kernel of its own
     phase_velo2d(torch, args.seed, smi)
     torch.cuda.empty_cache()
-    # [examples] last: five processes of their own at once
-    examples = phase_examples(torch, smi)
+    # [examples] last: five processes of their own at once, beside
+    # [sharded] (c) and (d), host-bound too; [smc] (a) and (c) are (c)'s
+    # one-rank references
+    pending = start_sharded_samplers(args.seed, smi)
+    try:
+        examples = phase_examples(torch, smi)
+    except BaseException:
+        _stop(pending["example"][0])
+        raise
+    sharded.update(finish_sharded_samplers(
+        torch, pending, args.seed, smi,
+        {tag: smc_runs[tag]["log_evidence"] for tag in ("a", "c")}))
     steps_per_s, peak, vsteps_per_s, vpeak = rates
 
     print("kernels: " + ", ".join(f"{k} ({v} launches)" for k, v in sorted(launches.items())))
@@ -3861,6 +4521,9 @@ def _run(torch, args, name, count, smi, t_start, tiles, pending):
             **({"layouts_ms": layouts["phase" if k.startswith("phase")
                                       else "velo"]}
                if k.endswith("fwdgrad") else {}),
+            # [sharded]: (a) one rank over NCCL, (b) two ranks over gloo
+            # (per-rank numbers), (c) the samplers' per-rank launches
+            **{"sharded": sharded_row(k, sharded)},
         })
     # the ladder's launches come from its own entry point, run_ladder
     for rung, line in LADDER_REPLACES.items():

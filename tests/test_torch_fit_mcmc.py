@@ -268,8 +268,16 @@ def test_smc_driver(smc_mp):
     assert sm.posterior["nu"].shape == (128, NG, 3)
     # the conditioned site is NOT in the posterior (it was pinned)
     assert "phi_xy" not in sm.posterior
-    with pytest.raises(NotImplementedError, match="item 10"):
-        sm.run(1, mesh=object())
+    # the particles split over two spawned ranks: one log Z on both, within
+    # 2 nats of this run's
+    from _torch_parallel_ranks import spawn
+
+    ranks = spawn(2, [("fit", "smc_fit", (mp, 128, 1))])
+    log_z, sched, nu = ranks[0]["fit"]
+    assert ranks[1]["fit"][0] == log_z and np.isfinite(log_z)
+    assert abs(log_z - sm.log_evidence) < 2.0
+    assert sched[-1] == pytest.approx(1.0, abs=1e-3)
+    assert nu.shape == (128, NG, 3)
 
 
 def test_smc_driver_evidence_reacts_to_data_fit(smc_mp):

@@ -1537,3 +1537,36 @@ def test_kernel_ladder_package_layout_matches_the_fused_call(kind):
                  K.velo_fwd_plain(*counts, *args, None, None, lgk))
     for want in (direct, float(plain)):
         assert abs(loss - want) / abs(want) < 1e-5, (loss, want)
+
+
+# ---------------------------------------------------------------------------
+# the sharded SVI step on the card (velocycle_tpu_torch/parallel/)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("Ng,Nc", [(24, 64), (2048, 12_800)])
+def test_sharded_svi_on_the_card(Ng, Nc):
+    """One rank over NCCL: 20 sharded steps bit-equal to 20 `SVI.update`
+    steps on cuda tensors.  Two ranks sharing the card over gloo: losses
+    and phixy_locs within rtol 2e-4 of the one rank's
+    (tests/test_distributed.py:255), the replicated params and their Adam
+    moments bit-identical across the ranks."""
+    _cuda_or_skip()
+    from _torch_parallel_ranks import run_all
+    from velocycle_tpu_torch.parallel import run_ranks
+
+    tasks = [("t", "card_trajectory", (Ng, Nc, 20))]
+    one = run_ranks(run_all, 1, device="cuda", timeout=600,
+                    args=(tasks,))[0]["t"]
+    np.testing.assert_array_equal(one["losses"], one["unsharded_losses"])
+    for k, v in one["unsharded_params"].items():
+        np.testing.assert_array_equal(one["params"][k], v, err_msg=k)
+    two = [r["t"] for r in run_ranks(run_all, 2, backend="gloo",
+                                     device="cuda", timeout=600,
+                                     args=(tasks,))]
+    np.testing.assert_allclose(two[0]["losses"], one["losses"], rtol=2e-4)
+    ph = one["cells"]["phixy_locs"]
+    np.testing.assert_allclose(two[0]["cells"]["phixy_locs"], ph, rtol=2e-4,
+                               atol=2e-4 * np.abs(ph).max())
+    np.testing.assert_array_equal(two[1]["losses"], two[0]["losses"])
+    assert two[1]["replicated"] == two[0]["replicated"]
+    assert two[1]["moments"] == two[0]["moments"]

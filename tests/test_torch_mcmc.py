@@ -617,6 +617,12 @@ def test_nuts_runs_on_the_wrapped_phases_and_keeps_them_in_the_period():
 
 
 def test_mcmc_driver_reuses_the_potential_and_refuses_a_mesh():
+    """`MCMC` reuses its potential across runs; over a ("chains",) mesh
+    of two spawned ranks (tests/test_torch_parallel_samplers.py has the
+    statistics) each rank runs its half of the chains, the same chain seeds,
+    and every rank gathers the draws of one process."""
+    from _torch_parallel_ranks import gauss, spawn
+
     def model():
         th.sample("x", tdist.Normal(0.0, 1.0))
 
@@ -628,8 +634,12 @@ def test_mcmc_driver_reuses_the_potential_and_refuses_a_mesh():
     assert m.model_info is info
     assert m.get_samples()["x"].shape == (6,)
     assert m.get_samples(group_by_chain=True)["x"].shape == (2, 3)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        m.run(0, mesh=object())
+    one = TM.MCMC(gauss, kernel="hmc", num_warmup=20, num_samples=10,
+                  num_chains=3)
+    one.run(5)
+    want = one.get_samples(group_by_chain=True)["x"]
+    for r in spawn(2, [("x", "gauss_chains", ("hmc", 20, 10, 3, 5))]):
+        np.testing.assert_allclose(r["x"][0], want, rtol=1e-5, atol=1e-6)
 
 
 # the fused likelihood against float64 at small dispersion: its loss to

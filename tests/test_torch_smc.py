@@ -313,7 +313,10 @@ def test_fused_velocity_smc_runs_on_a_chain_batch():
 def test_smc_runs_on_the_phase_model_and_refuses_a_mesh():
     """tests/test_smc.py's small phase model, cut to 64 particles: the
     schedule rises to 1, the particles are finite and in their supports,
-    logZ is finite; a mesh raises."""
+    logZ is finite; over a ("particles",) mesh of two spawned ranks the
+    same run gives one log Z on both ranks, within 2 nats of this one."""
+    from _torch_parallel_ranks import spawn
+
     _, _, tmodel, td, _ = _phase_case(True, Nc=20, Ng=8, seed=9)
     smc = TS.SMC(tmodel, num_particles=64, num_moves=2, max_stages=100)
     smc.run(2, td)
@@ -323,8 +326,11 @@ def test_smc_runs_on_the_phase_model_and_refuses_a_mesh():
     sched = smc.temperature_schedule
     assert sched[-1] == 1.0 and (np.diff(sched) > 0).all()
     assert np.isfinite(smc.log_evidence())
-    with pytest.raises(NotImplementedError, match="item 10"):
-        TS.SMC(tmodel).run(0, td, mesh=object())
+    ranks = spawn(2, [("smc", "smc_phase", (td, 64, 2))])
+    log_z = ranks[0]["smc"][0]
+    assert ranks[1]["smc"][0] == log_z and np.isfinite(log_z)
+    assert abs(log_z - smc.log_evidence()) < 2.0
+    assert ranks[0]["smc"][1].shape == (64, 8, 3)
 
 
 def test_smc_refuses_to_stop_short_of_beta_one():

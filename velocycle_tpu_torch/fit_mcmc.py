@@ -33,8 +33,9 @@ from .containers import AngularSpeed, Cycle, Phases
 from .core import handlers
 from .infer import SVI, Trace_ELBO, clipped_adam
 from .infer.mcmc import MCMC, block_precondition, init_model
-from .infer.smc import _NO_MESH, SMC, BridgedSMC
+from .infer.smc import SMC, BridgedSMC
 from .models.basis import expression_basis, omega_basis
+from .parallel.mesh import refuse_other_axes
 
 __all__ = ["MCMCFitModel", "SMCFitModel"]
 
@@ -55,6 +56,13 @@ def _plain_view(data):
     counts = {k: getattr(data, k).float() for k in ("S", "U")
               if hasattr(data, k)}
     return data.replace(use_fused_nb=False, lgamma_k_sum=None, **counts)
+
+
+def _chains_only(mesh, axis):
+    """Refuse a mesh that splits anything but ``axis``: the warm start runs
+    on the full data of every rank."""
+    if mesh is not None:
+        refuse_other_axes(mesh, axis, "the fit models")
 
 
 class _SamplingFitModel:
@@ -302,8 +310,11 @@ class MCMCFitModel(_SamplingFitModel):
         self.diagnostics = None
 
     def run(self, seed=0, mesh=None, chain_axis="chains"):
-        """Warm start, then the chains, from the integer ``seed``.  A
-        ``mesh`` raises NotImplementedError (see `MCMC.run`)."""
+        """Warm start, then the chains, from the integer ``seed``.  With
+        ``mesh=`` every rank runs the same warm start on the full data and
+        its share of the chains (`MCMC.run`); the mesh's other axes must
+        have one rank each."""
+        _chains_only(mesh, chain_axis)
         init_values, pre = self._warm_start(handlers.fold_in(seed, 0))
         self.mcmc = MCMC(
             self.model, kernel=self.kernel, num_warmup=self.num_warmup,
@@ -379,9 +390,10 @@ class SMCFitModel(_SamplingFitModel):
 
     def run(self, seed=0, mesh=None, particle_axis="particles"):
         """Temper from the integer ``seed`` (the bridge after its warm
-        start).  A ``mesh`` raises NotImplementedError (see `MCMC.run`)."""
-        if mesh is not None:
-            raise NotImplementedError(_NO_MESH)
+        start).  With ``mesh=`` the particles are split over
+        ``particle_axis`` (`SMC.run`), the warm start repeated on every
+        rank."""
+        _chains_only(mesh, particle_axis)
         if self.svi_steps:
             k_warm = handlers.fold_in(seed, 0)
             init_values, pre = self._warm_start(k_warm)
@@ -400,9 +412,11 @@ class SMCFitModel(_SamplingFitModel):
                 num_moves=self.num_moves, target_ess=self.target_ess,
                 max_stages=self.max_stages, **self.smc_kwargs,
             )
-            self.smc.run(handlers.fold_in(seed, 1))
+            self.smc.run(handlers.fold_in(seed, 1), mesh=mesh,
+                         particle_axis=particle_axis)
         else:
-            self.smc.run(seed, self.metaparams.data)
+            self.smc.run(seed, self.metaparams.data, mesh=mesh,
+                         particle_axis=particle_axis)
         self._extract(self.smc.get_samples())
         self.log_evidence = self.smc.log_evidence()
         self.temperature_schedule = self.smc.temperature_schedule

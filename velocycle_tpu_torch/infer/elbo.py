@@ -37,9 +37,13 @@ def _elbo_term(site):
 
 def _logp_sum(tr):
     """Sum over the trace of each site's summed log-prob times its scale
-    (`handlers.scale`; 1 unless a handler set one)."""
+    (`handlers.scale`; 1 unless a handler set one).  A site scaled by 0 (a
+    sharded step's gene-global sites off the group's rank 0) is left out,
+    its log-prob not computed."""
     total = 0.0
     for site in tr.values():
+        if site.get("scale", 1.0) == 0.0:
+            continue
         lp = _elbo_term(site)
         if lp is not None:
             total = total + lp.sum() * site.get("scale", 1.0)

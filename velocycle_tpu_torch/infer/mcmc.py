@@ -42,9 +42,11 @@ import torch
 
 from ..core import constraints as C
 from ..core import handlers
+from ..parallel.distributed import gather_rows
+from ..parallel.mesh import axis_share
 
 __all__ = ["init_model", "hmc", "nuts", "MCMC", "effective_sample_size",
-           "block_precondition"]
+           "block_precondition", "cell_sharded"]
 
 
 @contextlib.contextmanager
@@ -86,6 +88,10 @@ class ModelInfo(NamedTuple):
     #                               (log prior + log|J|, log lik), each less
     #                               its baseline, from ONE trace
     log_lik_offset: float = 0.0   # the observed sites' share of log_offset
+    reduce: callable = None       # (values (K,), grads (K, dim)) -> the same
+    #                               summed over a cell-sharded group
+    #                               (`cell_sharded`); None: local
+    cell_sites: tuple = ()        # the latent sites in a "cells" plate
 
 
 def _split(flat_u, site_meta):
@@ -123,9 +129,12 @@ def init_model(model, *args, seed=0, init_strategy="prior", init_values=None,
 
     site_meta = {}
     init_parts = []
+    cell_sites = []
     for name, site in _latent_sites(tr):
         if site["is_observed"]:
             continue
+        if any(p[0] == "cells" for p in site.get("cond_indep_stack", ())):
+            cell_sites.append(name)
         fn = site["fn"]
         if not getattr(fn, "has_rsample", True) and getattr(
             fn, "support", "real"
@@ -233,7 +242,8 @@ def init_model(model, *args, seed=0, init_strategy="prior", init_values=None,
         return -((lat + obs) + log_det)
 
     return ModelInfo(potential_fn, unflatten, init_u, site_meta, wrap_fn,
-                     log_offset, 0.0, log_parts, log_lik_offset)
+                     log_offset, 0.0, log_parts, log_lik_offset,
+                     cell_sites=tuple(cell_sites))
 
 
 def block_precondition(info: ModelInfo, blocks):
@@ -327,7 +337,64 @@ def block_precondition(info: ModelInfo, blocks):
         log_det_scale=info.log_det_scale + log_det_scale,
         log_parts=lambda v, **kw: info.log_parts(transform(v), **kw),
         log_lik_offset=info.log_lik_offset,
+        reduce=info.reduce,
+        cell_sites=info.cell_sites,
     )
+
+
+def cell_sharded(info: ModelInfo, group):
+    """A `ModelInfo` built on this rank's cells (cell-sharded data) as one
+    term of the potential summed over the cell axis' process ``group``:
+    the latent sites' log-prior and the log-dets on the group's rank 0
+    only, the observed sites' terms on every rank, and every batched
+    value-and-gradient all-reduced over the group in one flat buffer
+    (``reduce``), so that every member holds the same bits and the
+    members' chains run in lockstep.  ``log_offset`` and
+    ``log_lik_offset`` become the group's sums and ``init_u`` rank 0's.
+    The chain state must be the same on every member: a latent site in
+    the ``"cells"`` plate (phi_xy, phi) is refused with a ValueError; it
+    must be conditioned on the rank's cells."""
+    import torch.distributed as dist
+
+    from ..parallel import distributed
+
+    if info.log_det_scale:
+        raise ValueError("cell_sharded takes the ModelInfo of init_model, "
+                         "before block_precondition")
+    if info.cell_sites:
+        raise ValueError(
+            f"cell-sharded sampling needs one chain state on every rank, but "
+            f"the latent sites {list(info.cell_sites)} lie in the 'cells' "
+            "plate: condition them (phi_xy, phi) on this rank's cells so "
+            "that the chains carry gene-global sites only")
+    rank0 = dist.get_rank(group) == 0
+    offsets = torch.tensor(
+        [info.log_offset if rank0 else info.log_lik_offset,
+         info.log_lik_offset], dtype=torch.float64,
+        device=distributed.group_device(group))
+    dist.all_reduce(offsets, group=group)
+    init_u = info.init_u.detach().clone()
+    dist.broadcast(init_u, src=distributed.group_src(group), group=group)
+    base_parts = info.log_parts
+
+    def log_parts(u, prior=True, lik=True):
+        return base_parts(u, prior=prior and rank0, lik=lik)
+
+    def potential_fn(u):
+        lp, ll = log_parts(u)
+        return -(lp + ll)
+
+    def reduce(value, grad):
+        flat = torch.cat([value.reshape(-1), grad.reshape(-1)])
+        dist.all_reduce(flat, group=group)
+        return flat[:value.numel()].view_as(value), \
+            flat[value.numel():].view_as(grad)
+
+    return info._replace(
+        potential_fn=potential_fn if not rank0 else info.potential_fn,
+        log_parts=log_parts, init_u=init_u,
+        log_offset=float(offsets[0]), log_lik_offset=float(offsets[1]),
+        reduce=reduce)
 
 
 def _batched_value_and_grad(potential_fn):
@@ -760,8 +827,13 @@ def _chains(model_info, seeds):
     if q0.shape[0] != len(seeds):
         raise ValueError(f"{q0.shape[0]} init points for {len(seeds)} seeds")
     rng = _ChainRNG(seeds, q0.device)
-    return single, q0.contiguous(), rng, _batched_value_and_grad(
-        model_info.potential_fn)
+    vg = _batched_value_and_grad(model_info.potential_fn)
+    if model_info.reduce is not None:
+        local_vg, reduce = vg, model_info.reduce
+
+        def vg(q):
+            return reduce(*local_vg(q))
+    return single, q0.contiguous(), rng, vg
 
 
 def _unbatch(single, out):
@@ -867,18 +939,21 @@ class MCMC:
     def run(self, seed, *args, mesh=None, chain_axis="chains", **kwargs):
         """Run the chains from the integer ``seed``.
 
-        ``mesh``/``chain_axis`` shard the chains over devices in the JAX
-        package; multi-device runs are not ported (ROADMAP.md queue 1,
-        item 10) and a mesh raises NotImplementedError.
+        With ``mesh=`` (a `parallel.make_mesh` mesh carrying ``chain_axis``)
+        this rank runs its `distributed.process_cell_slice` of the chains,
+        the same chain seeds as one device runs, as one batch; the chains
+        are independent, so no collective runs until the end, when every
+        rank gathers all chains' draws and accepts.  A ``"cells"`` axis of
+        more than one rank (the model's data that rank's shard, its
+        per-cell sites conditioned) makes each batched value-and-gradient
+        a sum over the cell group (`cell_sharded`), identical on every
+        member.
 
         Repeated ``run`` calls with the SAME ``*args``/``**kwargs`` objects
         reuse the built potential (its baselines and bijections); passing
         different argument objects rebuilds it.
         """
-        if mesh is not None:
-            raise NotImplementedError(
-                "MCMC over a device mesh (chain sharding) is not ported: "
-                "ROADMAP.md queue 1, item 10 (multi-device)")
+        chains, cells = _mesh_groups(mesh, chain_axis)
         k_init = handlers.fold_in(seed, 0)
         k_run = handlers.fold_in(seed, 1)
         flat_args = _leaves((args, kwargs, self.init_values, self.inv_mass,
@@ -891,6 +966,8 @@ class MCMC:
         if not reusable:
             info = init_model(self.model, *args, seed=k_init,
                               init_values=self.init_values, **kwargs)
+            if cells is not None:
+                info = cell_sharded(info, cells)
             if self.preconditioner is not None:
                 info = block_precondition(info, self.preconditioner)
             inv_mass0 = None
@@ -915,6 +992,10 @@ class MCMC:
 
         chain_seeds = [handlers.fold_in(k_run, c)
                        for c in range(self.num_chains)]
+        share = None
+        if chains:
+            share = axis_share(mesh, chain_axis, self.num_chains)
+            chain_seeds = chain_seeds[share.lo:share.hi]
         dim = info.init_u.shape[0]
         jitter = torch.stack([
             torch.randn(dim, generator=torch.Generator().manual_seed(
@@ -932,7 +1013,11 @@ class MCMC:
             out = hmc(chain_info, seeds, self.num_warmup, self.num_samples,
                       self.step_size, self.num_leapfrog, self.adapt_mass,
                       inv_mass0, q_safe=info.init_u)
-        self._samples_u, self._accepts = out[:2]   # (chains, samples, dim)
+        samples_u, accepts = out[:2]               # (chains, samples, dim)
+        if share is not None:
+            samples_u = gather_rows(samples_u, share.group, share.counts)
+            accepts = gather_rows(accepts, share.group, share.counts)
+        self._samples_u, self._accepts = samples_u, accepts
         return self
 
     def get_samples(self, group_by_chain=False):
@@ -958,6 +1043,21 @@ class MCMC:
                          "rhat": _split_rhat(x),
                          "ess": effective_sample_size(x)}
         return out
+
+
+def _mesh_groups(mesh, chain_axis):
+    """(whether ``mesh`` names ``chain_axis``, the ``"cells"`` axis' group
+    when it has more than one rank); (False, None) without a mesh."""
+    if mesh is None:
+        return False, None
+    names = tuple(mesh.mesh_dim_names or ())
+    if chain_axis not in names and "cells" not in names:
+        raise ValueError(f"the mesh's axes {names} name neither "
+                         f"{chain_axis!r} nor 'cells'")
+    cells = mesh.get_group("cells") if "cells" in names else None
+    if cells is not None and cells.size() == 1:
+        cells = None
+    return chain_axis in names, cells
 
 
 def _split_rhat(x):

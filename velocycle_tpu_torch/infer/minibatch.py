@@ -40,6 +40,11 @@ import torch
 
 from ..core import handlers
 from ..models.metapars import PHASE_TENSOR_FIELDS, VELOCITY_TENSOR_FIELDS
+from ..parallel.sharding import (
+    PARAM_CELL_AXES as _PARAM_CELL_AXES,
+    PHASE_CELL_AXES as _PHASE_CELL_AXES,
+    VELOCITY_CELL_AXES as _VELOCITY_CELL_AXES,
+)
 from .elbo import Trace_ELBO
 from .svi import constrain, init_params
 
@@ -52,18 +57,6 @@ __all__ = ["MinibatchSVI", "MinibatchState", "split_cells",
 LOCAL_SITES = frozenset(
     {"phi_xy", "phi", "S", "U", "logS", "logU", "S_fused", "SU_fused"}
 )
-
-# data-container fields with a cell axis (the axis index)
-_PHASE_CELL_AXES = {
-    "S": 1, "logS": 1, "count_factor": 0, "phixy_prior": 0, "Db": 1,
-    "phi_prior": 0,
-}
-_VELOCITY_CELL_AXES = {
-    "S": 1, "U": 1, "logS": 1, "logU": 1, "count_factor": 0,
-    "phixy_prior": 0, "Db": 1, "D": 1, "phi_prior": 0,
-}
-# variational parameters with a cell axis (the axis index)
-_PARAM_CELL_AXES = {"phixy_locs": 0, "phi_locs": 0}
 
 
 def _is_velocity(data):

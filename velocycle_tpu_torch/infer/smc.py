@@ -23,8 +23,17 @@ from ONE trace of the model per evaluation (`mcmc.ModelInfo.log_parts`);
 a prior draw stops the model at its last latent site, so no likelihood is
 computed for it.
 The ESS/beta arithmetic is the JAX package's: float32 weights, bisection
-of 30 steps to a width of 1e-4, on the host.  A device mesh is not ported
-(ROADMAP.md queue 1, item 10).
+of 30 steps to a width of 1e-4, on the host.
+
+With ``mesh=`` the particles are split over the mesh's particle axis, each
+rank holding its `distributed.process_cell_slice` of them and drawing from
+their own per-particle generators, so that a world of any size follows the
+one-device run.  Per stage: the rank's log-weights in ONE batched call,
+an all-gather of them, the next beta, the ESS, the log-evidence increment
+and the resampling indices computed identically on every rank from one
+identically seeded generator, an all-gather of the particles from which
+each rank takes its resampled slice, then the HMC moves on its own.  log Z
+comes out bit-identical on every rank.
 """
 from __future__ import annotations
 
@@ -35,12 +44,23 @@ import numpy as np
 import torch
 
 from ..core import handlers
+from ..parallel.distributed import gather_rows
+from ..parallel.mesh import axis_share, refuse_other_axes
 from .mcmc import _ChainRNG, _batched_value_and_grad, _hmc_step, init_model
 
 __all__ = ["SMC", "BridgedSMC", "init_tempered_model"]
 
-_NO_MESH = ("SMC over a device mesh (particle sharding) is not ported: "
-            "ROADMAP.md queue 1, item 10 (multi-device)")
+
+def _particle_shard(mesh, particle_axis, n):
+    """This rank's share of the particles (None without a mesh)."""
+    if mesh is None:
+        return None
+    refuse_other_axes(mesh, particle_axis, "SMC")
+    return axis_share(mesh, particle_axis, n)
+
+
+def _gathered(t, part):
+    return t if part is None else gather_rows(t, part.group, part.counts)
 
 
 class TemperedModel(NamedTuple):
@@ -172,14 +192,17 @@ class _Tempering:
         self._log_Z = None
         self._betas = None
 
-    def _anneal(self, particles, seed, what):
-        n = particles.shape[0]
-        rng = _ChainRNG([handlers.fold_in(seed, i) for i in range(n)],
+    def _anneal(self, particles, seed, what, part=None):
+        """Temper ``particles`` (this rank's, under ``part``) to beta=1."""
+        n = self.num_particles
+        lo, hi = (0, n) if part is None else (part.lo, part.hi)
+        rng = _ChainRNG([handlers.fold_in(seed, i) for i in range(lo, hi)],
                         particles.device)
         res_gen = torch.Generator().manual_seed(handlers.fold_in(seed, n))
         beta, log_Z, betas = 0.0, 0.0, []
         for _ in range(self.max_stages):
-            particles, beta, inc = self.stage(particles, beta, rng, res_gen)
+            particles, beta, inc = self.stage(particles, beta, rng, res_gen,
+                                              part)
             log_Z += inc
             betas.append(beta)
             if beta >= 1.0:
@@ -191,33 +214,38 @@ class _Tempering:
                     "increase max_stages or target_ess" if what == "SMC" else
                     "the variational start may be poor — more SVI steps, or "
                     "increase max_stages"))
-        self._particles = particles
+        self._particles = _gathered(particles, part)
         self._log_Z = log_Z
         self._betas = np.asarray(betas)
         return self
 
-    def stage(self, particles, beta, rng, res_gen):
+    def stage(self, particles, beta, rng, res_gen, part=None):
         """One stage from ``beta``: (particles, the next beta, the log
         evidence increment), drawing from ``rng`` (a `mcmc._ChainRNG` over
         the particles) and ``res_gen`` (the resampling's generator).  Its
         weights are ONE batched evaluation of ``log_weight``, each of its
         leapfrogs ONE batched value-and-gradient of the tempered
-        potential."""
-        n = particles.shape[0]
+        potential.  Under ``part`` the particles are this rank's and the
+        weights and particles are gathered from every rank (module
+        docstring)."""
+        n = self.num_particles
         with torch.no_grad():
-            lw = torch.func.vmap(self.log_weight)(particles).float().cpu()
+            lw = torch.func.vmap(self.log_weight)(particles).float()
+        lw = _gathered(lw, part).cpu()
         new_beta = _next_beta(beta, lw, self.target_ess * n)
         log_w = (torch.tensor(new_beta, dtype=torch.float32)
                  - torch.tensor(beta, dtype=torch.float32)) * lw
         inc = float(torch.logsumexp(log_w, 0)) - math.log(n)
         u0 = torch.rand((), generator=res_gen)
         idx = _systematic_resample(u0, log_w, n)
-        particles = particles[idx.to(particles.device)]
+        particles = _gathered(particles, part)[idx.to(particles.device)]
         # rejuvenation: HMC at the new tempered posterior, the gradient
         # carried across the moves
         vg = _batched_value_and_grad(self.potential_at(new_beta))
         inv_mass = torch.clamp(torch.var(particles, 0, correction=0), min=1e-6)
-        step = torch.full((n,), float(self.hmc_step_size),
+        if part is not None:
+            particles = particles[part.lo:part.hi]
+        step = torch.full((particles.shape[0],), float(self.hmc_step_size),
                           device=particles.device)
         with torch.no_grad():
             pot, grad = vg(particles)
@@ -263,18 +291,20 @@ class SMC(_Tempering):
 
     def run(self, seed, *args, mesh=None, particle_axis="particles",
             **kwargs):
-        """Run the sampler from the integer ``seed``; a ``mesh`` raises
-        NotImplementedError (see `MCMC.run`)."""
-        if mesh is not None:
-            raise NotImplementedError(_NO_MESH)
+        """Run the sampler from the integer ``seed``; with ``mesh=`` (a
+        `parallel.make_mesh` mesh carrying ``particle_axis``) the particles
+        are split over that axis (module docstring)."""
+        part = _particle_shard(mesh, particle_axis, self.num_particles)
         tm = init_tempered_model(self.model, *args,
                                  seed=handlers.fold_in(seed, 0), **kwargs)
         self.tempered = tm
         k_prior = handlers.fold_in(seed, 1)
+        lo, hi = ((0, self.num_particles) if part is None
+                  else (part.lo, part.hi))
         particles = torch.stack([
             tm.sample_prior_u(handlers.fold_in(k_prior, i))
-            for i in range(self.num_particles)])
-        return self._anneal(particles, handlers.fold_in(seed, 2), "SMC")
+            for i in range(lo, hi)])
+        return self._anneal(particles, handlers.fold_in(seed, 2), "SMC", part)
 
     def log_weight(self, u):
         """The baselined log-likelihood at ``u``."""
@@ -317,14 +347,16 @@ class BridgedSMC(_Tempering):
         self.info = model_info
 
     def run(self, seed, mesh=None, particle_axis="particles"):
-        if mesh is not None:
-            raise NotImplementedError(_NO_MESH)
+        """Temper from the integer ``seed``; ``mesh`` as `SMC.run`."""
+        part = _particle_shard(mesh, particle_axis, self.num_particles)
         init_u = self.info.init_u
         gen = torch.Generator().manual_seed(handlers.fold_in(seed, 0))
         particles = torch.randn((self.num_particles, init_u.shape[0]),
-                                generator=gen).to(init_u.device)
-        return self._anneal(particles, handlers.fold_in(seed, 1),
-                            "bridged SMC")
+                                generator=gen)
+        if part is not None:
+            particles = particles[part.lo:part.hi]
+        return self._anneal(particles.to(init_u.device),
+                            handlers.fold_in(seed, 1), "bridged SMC", part)
 
     def log_weight(self, v):
         """log [exp(-pot(v)) / N(v; 0, I)]; the N constant matters for
