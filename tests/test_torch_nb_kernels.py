@@ -390,7 +390,10 @@ def test_velo_layout_is_the_kernel_sources_one_definition():
 
 def test_kernel_widths_are_the_sources_instantiations():
     """KERNEL_WIDTHS and DNU_WIDTH are the widths `pick_nh` dispatches to in
-    both kernel sources and the delta_nu bound of csrc/nb_common.cuh."""
+    both narrow kernel sources and the delta_nu bound of
+    csrc/nb_common.cuh; past NARROW_WIDTH, the widest of them, the wide
+    body (csrc/nb_wide.cu) takes a runtime width up to MAX_WIDTH, its
+    kMaxWidth."""
     import re
 
     from velocycle_tpu_torch.ops import cuda_build
@@ -402,7 +405,15 @@ def test_kernel_widths_are_the_sources_instantiations():
     common = (cuda_build.CSRC / "nb_common.cuh").read_text()
     assert re.findall(r"constexpr int kMaxDnuWidth = (\d+);", common) == [
         str(TK.DNU_WIDTH)]
-    assert TK.MAX_WIDTH == max(TK.KERNEL_WIDTHS)
+    assert TK.NARROW_WIDTH == max(TK.KERNEL_WIDTHS)
+    wide = (cuda_build.CSRC / "wide_kernel.cuh").read_text()
+    assert re.findall(r"constexpr int kMaxWidth = (\d+);", wide) == [
+        str(TK.MAX_WIDTH)]
+    assert "a.W > kMaxWidth" in (cuda_build.CSRC / "nb_wide.cu").read_text()
+    for Nh, Nb in ((16, 0), (12, 4), (7, 4), (8, 8)):
+        assert TK.kernel_width(Nh, Nb, 4)[0] in TK.KERNEL_WIDTHS
+    for Nh, Nb in ((17, 0), (8, 9), (5, 12), (TK.MAX_WIDTH, 0)):
+        assert TK.kernel_width(Nh, Nb, 4) == (Nh + Nb, Nb > 0)
 
 
 def test_dispersion_gradient_takes_its_form_by_gene():
@@ -450,8 +461,12 @@ def test_kernel_width_picks_the_next_instantiation(Nh, Nb, want):
 
 @pytest.mark.parametrize("Nh,Nb", [(17, 0), (11, 6), (16, 1)])
 def test_kernel_width_names_its_limit(Nh, Nb):
-    with pytest.raises(ValueError, match="at most MAX_WIDTH = 16 basis columns"):
-        TK.kernel_width(Nh, Nb, 4)
+    """One column past the widest narrow instantiation goes to the wide
+    body at Nh + Nb columns, the batches folded in; one column past the
+    wide body's ceiling raises, naming it."""
+    assert TK.kernel_width(Nh, Nb, 4) == (Nh + Nb, Nb > 0)
+    with pytest.raises(ValueError, match="at most MAX_WIDTH = 256 basis columns"):
+        TK.kernel_width(TK.MAX_WIDTH + 1 - Nb, Nb, 4)
 
 
 WIDE = [(4, 0), (9, 0), (11, 0), (5, 5), (5, 6), (9, 2)]

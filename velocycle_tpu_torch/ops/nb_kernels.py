@@ -19,11 +19,15 @@ hand-written CUDA kernels carry them on the card:
     `_velo_fwd_kernel` / `_velo_fwdgrad_kernel`.
 
 Count matrices are int16 or float32, S and U each on its own.  Basis
-widths: the kernels are instantiated for Nh in (3, 5, 7) with up to four
-delta_nu batches, and 11 and 16 without; `kernel_width` sends any other
-shape to the next width, with zero columns and the batches folded into
-basis columns (`widen_inputs`, `narrow_grads`), up to MAX_WIDTH = 16 basis
-columns in all.
+widths: the narrow bodies are instantiated for Nh in (3, 5, 7) with up to
+four delta_nu batches, and 11 and 16 without; `kernel_width` sends any
+other shape of at most NARROW_WIDTH = 16 basis columns to the next width,
+with zero columns and the batches folded into basis columns
+(`widen_inputs`, `narrow_grads`).  Past that, up to MAX_WIDTH = 256
+columns, the wide body (`csrc/nb_wide.cu` over `csrc/wide_kernel.cuh`,
+the basis width a runtime value) takes Nh + Nb columns, the batches
+folded in: ``phase_fwd_wide`` / ``phase_fwdgrad_wide`` / ``velo_fwd_wide``
+/ ``velo_fwdgrad_wide``, each launch counted under its own name.
 
 The ``*_fwd`` kernel gives the loss alone (loss-only evaluations); the
 ``*_fwdgrad`` kernel gives the loss AND every gradient in one pass (every
@@ -63,9 +67,13 @@ __all__ = [
     "LAUNCH_WIDTHS",
     "Layout",
     "MAX_WIDTH",
+    "NARROW_WIDTH",
     "PHASE_MODES",
     "Plan",
     "VELO_CUTS",
+    "WIDE_STAGES",
+    "WideLayout",
+    "WidePlan",
     "kernel_width",
     "narrow_grads",
     "nb_loglik_fused",
@@ -76,6 +84,10 @@ __all__ = [
     "phase_fwd_plain",
     "phase_fwdgrad",
     "phase_fwdgrad_plain",
+    "phase_fwdgrad_wide",
+    "phase_fwdgrad_wide_plain",
+    "phase_fwd_wide",
+    "phase_fwd_wide_plain",
     "phase_layout",
     "phase_plan",
     "reset_launch_counts",
@@ -83,17 +95,25 @@ __all__ = [
     "velo_fwd_plain",
     "velo_fwdgrad",
     "velo_fwdgrad_plain",
+    "velo_fwdgrad_wide",
+    "velo_fwdgrad_wide_plain",
+    "velo_fwd_wide",
+    "velo_fwd_wide_plain",
     "velo_layout",
     "velo_plan",
+    "wide_layout",
+    "wide_plan",
     "widen_inputs",
 ]
 
-# kernel launches on the card, by kernel, by kernel and instantiated basis
-# width (`kernel_width`), and by kernel and chain count K (a chain-batched
-# launch counts once, under its K); chip_smoke.py resets these just before
-# it drives each stage of the main path and reads them just after
+# kernel launches on the card, by kernel, by kernel and basis width
+# (`kernel_width`), and by kernel and chain count K (a chain-batched launch
+# counts once, under its K); the wide body's launches count under the
+# ``*_wide`` names.  chip_smoke.py resets these just before it drives each
+# stage of the main path and reads them just after
 LAUNCHES = {"phase_fwd": 0, "phase_fwdgrad": 0, "velo_fwd": 0,
-            "velo_fwdgrad": 0}
+            "velo_fwdgrad": 0, "phase_fwd_wide": 0, "phase_fwdgrad_wide": 0,
+            "velo_fwd_wide": 0, "velo_fwdgrad_wide": 0}
 LAUNCH_WIDTHS = {k: {} for k in LAUNCHES}
 LAUNCH_CHAINS = {k: {} for k in LAUNCHES}
 
@@ -310,27 +330,98 @@ def velo_fwdgrad_plain(S, U, nu, zeta, zeta_dphi, cf, omega, log_beta,
                   ddnu)
 
 
+# the wide body's plain versions (its "wide twins"): the batches folded into
+# basis columns as the kernel takes them, then the plain versions above at
+# Nh + Nb columns, then the folded columns' gradients back to ddelta_nu
+
+def _fold(nu, zetas, delta_nu, Db):
+    """(inputs at W = Nh + Nb columns as the wide body takes them, Nh, Nb,
+    fold)."""
+    Nh = nu.shape[-1]
+    Nb = 0 if delta_nu is None else delta_nu.shape[-2]
+    nu_w, zetas_w, _, _ = widen_inputs(nu, zetas, delta_nu, Db, Nh + Nb,
+                                       Nb > 0)
+    return nu_w, zetas_w, Nh, Nb, Nb > 0
+
+
+def phase_fwd_wide_plain(S, nu, zeta, cf, r, delta_nu=None, Db=None,
+                         lgamma_k_sum=None):
+    """Plain version of ``phase_fwd_wide``: the loss, as `phase_fwd_plain`
+    with the batches folded into basis columns (chain-batched as it)."""
+    nu_w, (zeta_w,), *_ = _fold(nu, [zeta], delta_nu, Db)
+    return phase_fwd_plain(S, nu_w, zeta_w, cf, r, None, None, lgamma_k_sum)
+
+
+def phase_fwdgrad_wide_plain(S, nu, zeta, cf, r, delta_nu=None, Db=None,
+                             lgamma_k_sum=None, want_disp=True):
+    """Plain version of ``phase_fwdgrad_wide``: (loss, (dnu, dzeta, dcf,
+    ddisp, ddelta_nu)) as `phase_fwdgrad_plain`, the batches folded into
+    basis columns (chain-batched as it)."""
+    nu_w, (zeta_w,), Nh, Nb, fold = _fold(nu, [zeta], delta_nu, Db)
+    loss, (dnu, dzeta, dcf, ddisp, _) = phase_fwdgrad_plain(
+        S, nu_w, zeta_w, cf, r, None, None, lgamma_k_sum, want_disp)
+    dnu, (dzeta,), ddnu = narrow_grads(dnu, [dzeta], None, Nh, Nb, fold)
+    return loss, (dnu, dzeta, dcf, ddisp, ddnu)
+
+
+def velo_fwd_wide_plain(S, U, nu, zeta, zeta_dphi, cf, omega, log_beta,
+                        log_gamma, r, delta_nu=None, Db=None,
+                        lgamma_k_sum=None):
+    """Plain version of ``velo_fwd_wide``: the loss, as `velo_fwd_plain`
+    with the batches folded into basis columns."""
+    nu_w, (z_w, zd_w), *_ = _fold(nu, [zeta, zeta_dphi], delta_nu, Db)
+    return velo_fwd_plain(S, U, nu_w, z_w, zd_w, cf, omega, log_beta,
+                          log_gamma, r, None, None, lgamma_k_sum)
+
+
+def velo_fwdgrad_wide_plain(S, U, nu, zeta, zeta_dphi, cf, omega, log_beta,
+                            log_gamma, r, delta_nu=None, Db=None,
+                            lgamma_k_sum=None, want_disp=True):
+    """Plain version of ``velo_fwdgrad_wide``: the loss and every gradient
+    as `velo_fwdgrad_plain`, the batches folded into basis columns (whose
+    zeta_dphi columns are zero: dEs keeps its bits)."""
+    nu_w, (z_w, zd_w), Nh, Nb, fold = _fold(nu, [zeta, zeta_dphi], delta_nu,
+                                            Db)
+    loss, g = velo_fwdgrad_plain(S, U, nu_w, z_w, zd_w, cf, omega, log_beta,
+                                 log_gamma, r, None, None, lgamma_k_sum,
+                                 want_disp)
+    dnu, (dzeta, dzdphi), ddnu = narrow_grads(g[0], [g[1], g[2]], None, Nh,
+                                              Nb, fold)
+    return loss, (dnu, dzeta, dzdphi, *g[3:8], ddnu)
+
+
 # ---------------------------------------------------------------------------
 # basis widths: padding and batch folding for the kernels' instantiations
 # ---------------------------------------------------------------------------
 
-# the basis widths the kernels are instantiated for (csrc/nb_phase.cu and
-# csrc/nb_velo.cu, `pick_nh`); up to DNU_WIDTH also with delta_nu batches
-# as such (csrc/nb_common.cuh kMaxDnuWidth)
+# the basis widths the narrow bodies are instantiated for (csrc/nb_phase.cu
+# and csrc/nb_velo.cu, `pick_nh`); up to DNU_WIDTH also with delta_nu
+# batches as such (csrc/nb_common.cuh kMaxDnuWidth).  Past NARROW_WIDTH
+# columns the wide body runs any width up to MAX_WIDTH (csrc/wide_kernel.cuh
+# kMaxWidth)
 KERNEL_WIDTHS = (3, 5, 7, 11, 16)
-MAX_WIDTH = KERNEL_WIDTHS[-1]
+NARROW_WIDTH = KERNEL_WIDTHS[-1]
+MAX_WIDTH = 256
 DNU_WIDTH = 7
 
 
+def _wide_shape(Nh, Nb, max_nb):
+    """Whether Nh basis columns and Nb batches run on the wide body: past
+    NARROW_WIDTH columns once the batches are folded in (they are, unless
+    Nh <= DNU_WIDTH and Nb <= max_nb)."""
+    return not (Nb <= max_nb and Nh <= DNU_WIDTH) and Nh + Nb > NARROW_WIDTH
+
+
 def kernel_width(Nh, Nb, max_nb):
-    """(width, fold): the instantiated basis width that runs Nh basis
-    columns and Nb delta_nu batches, and whether the batches are folded
-    into basis columns.
+    """(width, fold): the basis width that runs Nh basis columns and Nb
+    delta_nu batches, and whether the batches are folded into basis
+    columns.
 
     Nh <= DNU_WIDTH with Nb <= max_nb runs at the next width of (3, 5, 7)
     with delta_nu as such.  Otherwise the batches become Nb extra columns
-    (`widen_inputs`) and Nh + Nb runs at the next of KERNEL_WIDTHS.  Beyond
-    MAX_WIDTH basis columns there is no instantiation: ValueError."""
+    (`widen_inputs`) and Nh + Nb runs at the next of KERNEL_WIDTHS, or past
+    NARROW_WIDTH on the wide body at Nh + Nb itself.  Beyond MAX_WIDTH
+    basis columns: ValueError."""
     if Nb <= max_nb:
         for w in KERNEL_WIDTHS:
             if Nh <= w <= DNU_WIDTH:
@@ -339,6 +430,8 @@ def kernel_width(Nh, Nb, max_nb):
     for w in KERNEL_WIDTHS:
         if n <= w:
             return w, Nb > 0
+    if n <= MAX_WIDTH:
+        return n, Nb > 0
     raise ValueError(
         f"the NB kernels take at most MAX_WIDTH = {MAX_WIDTH} basis columns, "
         f"the Nh = {Nh} basis columns plus, beyond Nh <= {DNU_WIDTH} with "
@@ -419,6 +512,10 @@ VELO_CUTS = ("fwd", "fwdgrad")
 _VELO_GENE_EXTRA = 3
 _LAYOUT_NAMES = ("kThreads", "kCellsPerTile", "kGeneChunk", "kStages",
                  "kMaxNb")
+# the stages of csrc/wide_kernel.cuh `Stage`; its cuts are VELO_CUTS
+WIDE_STAGES = ("phase", "velo")
+_WIDE_LAYOUT_NAMES = ("kThreads", "kGenesPerThread", "kMaxWidth",
+                      "kTileBudget", "kMinTile", "kMaxTile")
 
 
 class Layout(NamedTuple):
@@ -441,15 +538,36 @@ class Plan(NamedTuple):
     loss_pieces: int        # loss partials per chain
 
 
-def _read_layout(header):
+class WideLayout(NamedTuple):
+    """The wide body's layout constants (csrc/wide_kernel.cuh)."""
+    threads: int
+    genes_per_thread: int   # genes a thread carries per unit: G * T / threads
+    max_width: int          # most basis columns
+    tile_budget: int        # shared memory a tile is fitted to, bytes
+    min_tile: int           # fewest cells per tile
+    max_tile: int           # most cells per tile
+
+
+class WidePlan(NamedTuple):
+    """How one call of the wide body is laid out on the card
+    (vct_wide_plan)."""
+    grid: int
+    pieces: int
+    blocks_per_sm: int
+    dyn_smem: int
+    loss_pieces: int
+    cells_per_tile: int     # T: the gene partials' tiles are ceil(Nc / T)
+
+
+def _read_layout(header, names=_LAYOUT_NAMES, kind=Layout):
     text = (cuda_build.CSRC / header).read_text()
     vals = []
-    for name in _LAYOUT_NAMES:
+    for name in names:
         m = re.search(rf"constexpr int {name} = (\d+);", text)
         if m is None:
             raise RuntimeError(f"csrc/{header} defines no {name}")
         vals.append(int(m.group(1)))
-    return Layout(*vals)
+    return kind(*vals)
 
 
 @functools.lru_cache(maxsize=None)
@@ -469,6 +587,14 @@ def velo_layout():
     return _read_layout("velo_kernel.cuh")
 
 
+@functools.lru_cache(maxsize=None)
+def wide_layout():
+    """The layout constants of the wide body, from csrc/wide_kernel.cuh,
+    their one definition; the built library reports the same numbers
+    (`vct_wide_layout`, checked when it is loaded)."""
+    return _read_layout("wide_kernel.cuh", _WIDE_LAYOUT_NAMES, WideLayout)
+
+
 def _typed_lib(name, prefix, layout, argtypes):
     """The loaded library of csrc/<name>.cu with its C functions typed and
     its layout (``lib.layout``, as the library reports it); raises unless
@@ -479,9 +605,9 @@ def _typed_lib(name, prefix, layout, argtypes):
     for fn, types in argtypes.items():
         getattr(lib, fn).argtypes = types
         getattr(lib, fn).restype = _I
-    out = (ctypes.c_int * len(_LAYOUT_NAMES))()
+    out = (ctypes.c_int * len(layout))()
     getattr(lib, f"{prefix}_layout")(out, len(out))
-    lib.layout = Layout(*out)
+    lib.layout = type(layout)(*out)
     if lib.layout != layout:
         raise RuntimeError(f"lib{name} reports {lib.layout}, the kernel "
                            f"source {layout}")
@@ -522,6 +648,23 @@ def _velo_lib():
     })
 
 
+def _wide_lib():
+    """The loaded library of csrc/nb_wide.cu, typed and checked."""
+    return _typed_lib("nb_wide", "vct_wide", wide_layout(), {
+        "vct_wide_layout": [_P, _I],
+        # stage, cut, S int16, U int16, Ng, Nc, W, K, want_disp, out
+        "vct_wide_plan": [_I] * 9 + [_P],
+        # stage, cut, S, S int16, U, U int16, nu, zeta, zeta_dphi, cf,
+        # omega, log_beta, log_gamma, disp, Ng, Nc, W, K, the strides of
+        # nu, zeta, zeta_dphi, cf, omega, log_beta, log_gamma, disp,
+        # skip_k, want_disp, grid, pieces, loss_pieces, cells_per_tile,
+        # loss_part, gene_part, cell_piece, dzeta, dzeta_dphi, dcf, domega,
+        # stream
+        "vct_wide_run": ([_I, _I, _P, _I, _P, _I] + [_P] * 8 + [_I] * 4
+                         + [_L] * 8 + [_I] * 6 + [_P] * 8),
+    })
+
+
 def _device_index(device):
     dev = torch.device("cuda") if device is None else torch.device(device)
     return dev.index if dev.index is not None else torch.cuda.current_device()
@@ -529,12 +672,14 @@ def _device_index(device):
 
 @functools.lru_cache(maxsize=256)
 def _plan(lib_fn, device_index, args):
-    lib = _phase_lib() if lib_fn == "vct_phase_plan" else _velo_lib()
-    out = (ctypes.c_int * 5)()
+    lib, kind = {"vct_phase_plan": (_phase_lib, Plan),
+                 "vct_velo_plan": (_velo_lib, Plan),
+                 "vct_wide_plan": (_wide_lib, WidePlan)}[lib_fn]
+    out = (ctypes.c_int * len(kind._fields))()
     with torch.cuda.device(device_index):
-        rc = getattr(lib, lib_fn)(*args, out)
+        rc = getattr(lib(), lib_fn)(*args, out)
     _raise_on(rc, f"{lib_fn} {args}")
-    return Plan(*out)
+    return kind(*out)
 
 
 def phase_plan(mode, int16, Ng, Nc, Nh=5, Nb=0, skip_k=True, want_disp=True,
@@ -557,6 +702,17 @@ def velo_plan(cut, s_int16, u_int16, Ng, Nc, Nh=5, Nb=0, skip_k=True,
     return _plan("vct_velo_plan", _device_index(device), (
         VELO_CUTS.index(cut), int(bool(s_int16)), int(bool(u_int16)), Ng, Nc,
         Nh, Nb, int(chains), int(bool(skip_k)), int(bool(want_disp))))
+
+
+def wide_plan(stage, cut, s_int16, u_int16, Ng, Nc, W, want_disp=False,
+              device=None, chains=1):
+    """The `WidePlan` of one call of the wide body for ``stage``
+    (`WIDE_STAGES`) and ``cut`` (`VELO_CUTS`) on ``device`` (default: the
+    current card), for int16 or float32 S (and U), at W basis columns, over
+    ``chains`` parameter sets."""
+    return _plan("vct_wide_plan", _device_index(device), (
+        WIDE_STAGES.index(stage), VELO_CUTS.index(cut), int(bool(s_int16)),
+        int(bool(u_int16)), Ng, Nc, W, int(chains), int(bool(want_disp))))
 
 
 def _chain_stride(t, base_dim):
@@ -614,6 +770,64 @@ def _phase_launch(mode, S, nu, zeta, cf, r, delta_nu=None, Db=None,
         )
     _raise_on(rc, f"phase {mode}")
     return loss_part, gene_part, dzeta, dcf
+
+
+# the ranks of the wide body's parameter operands: nu, zeta, zeta_dphi,
+# cf, omega, log_beta, log_gamma, r
+_WIDE_OPERAND_DIMS = (2, 2, 2, 1, 1, 1, 1, 1)
+
+
+def _wide_launch(stage, cut, counts, ops, skip_k, want_disp, chains):
+    """One launch of csrc/nb_wide.cu for ``stage`` (`WIDE_STAGES`) and
+    ``cut`` on checked CUDA tensors at W = nu's columns, no delta_nu (folded
+    in): counts [S] or [S, U]; ops [nu, zeta, zeta_dphi, cf, omega,
+    log_beta, log_gamma, r], None where the stage reads none, each with a
+    leading chain axis K = ``chains`` or shared.  Returns (loss partials
+    (K, loss_pieces) float64, gene partials summed over the cell tiles (K,
+    Ng, NV) or None, [dzeta, dzeta_dphi, dcf, domega] (K, ...) with None
+    where the stage has none, or [])."""
+    lib = _wide_lib()
+    S = counts[0]
+    U = counts[1] if len(counts) > 1 else None
+    Ng, Nc = S.shape
+    W = ops[0].shape[-1]
+    K = int(chains)
+    velo = stage == "velo"
+    s16 = S.dtype == torch.int16
+    u16 = U is not None and U.dtype == torch.int16
+    dev = S.device
+    plan = wide_plan(stage, cut, s16, u16, Ng, Nc, W, want_disp, dev,
+                     chains=K)
+    f32 = dict(dtype=torch.float32, device=dev)
+    # zeros: a chain with fewer loss pieces than the most leaves the rest
+    loss_part = torch.zeros((K, plan.loss_pieces), dtype=torch.float64,
+                            device=dev)
+    gene_part = cell_piece = None
+    cell = []
+    if cut == "fwdgrad":
+        tiles = -(-Nc // plan.cells_per_tile)
+        gene_part = torch.empty((K, tiles, Ng, W + (3 if velo else 1)), **f32)
+        cell_piece = torch.empty(
+            (plan.pieces, 2 * W + 2 if velo else W + 1, K * Nc), **f32)
+        cell = [torch.empty((K, Nc, W), **f32),
+                torch.empty((K, Nc, W), **f32) if velo else None,
+                torch.empty((K, Nc), **f32),
+                torch.empty((K, Nc), **f32) if velo else None]
+    strides = [_chain_stride(t, d) for t, d in zip(ops, _WIDE_OPERAND_DIMS)]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.vct_wide_run(
+            WIDE_STAGES.index(stage), VELO_CUTS.index(cut), _ptr(S), int(s16),
+            _ptr(U), int(u16), *(_ptr(t) for t in ops), Ng, Nc, W, K,
+            *strides, int(skip_k), int(want_disp), plan.grid, plan.pieces,
+            plan.loss_pieces, plan.cells_per_tile, loss_part.data_ptr(),
+            _ptr(gene_part), _ptr(cell_piece),
+            *(None if t is None else t.data_ptr()
+              for t in (cell or [None] * 4)),
+            stream,
+        )
+    _raise_on(rc, f"{stage} wide {cut}")
+    return loss_part, None if gene_part is None else gene_part.sum(1), cell
 
 
 # parameter shapes over g = genes, c = cells, h = basis columns
@@ -722,36 +936,70 @@ def _phase_params(nu, zeta, cf, r):
     return {"nu": nu, "zeta": zeta, "count_factor": cf, "dispersion": r}
 
 
+def _route(name, width, fold, Nh, Nb, wide):
+    """(width, fold, the name the launch counts under): the wide body at
+    Nh + Nb columns, batches folded, for a ``*_wide`` entry point
+    (``wide``) or past NARROW_WIDTH; the narrow body's width otherwise."""
+    if wide:
+        return Nh + Nb, Nb > 0, name
+    if width > NARROW_WIDTH:
+        return width, fold, name + "_wide"
+    return width, fold, name
+
+
 def _phase_call(name, S, nu, zeta, cf, r, delta_nu, Db, lgamma_k_sum,
-                want_disp=False):
+                want_disp=False, wide=False):
     """Check, widen where the shape needs it, launch and count one phase
-    kernel (over a chain batch where operands carry a leading chain axis).
-    Returns (loss, gene partials summed over the cell tiles or None, dzeta
-    or None, dcf or None, (Nh, Nb, fold, kernel delta_nu)), each with the
-    leading chain axis in a chain-batched call."""
-    grad = name == "phase_fwdgrad"
+    kernel (over a chain batch where operands carry a leading chain axis):
+    the narrow body, or the wide body past NARROW_WIDTH columns or when
+    ``wide``.  Returns (loss, gene partials summed over the cell tiles or
+    None, dzeta or None, dcf or None, (Nh, Nb, fold, kernel delta_nu)),
+    each with the leading chain axis in a chain-batched call."""
+    grad = "fwdgrad" in name
     width, fold, K = _on_card(name, [("S", S)], _phase_params(nu, zeta, cf, r),
                               delta_nu, Db, phase_layout().max_nb)
+    Nb = 0 if delta_nu is None else delta_nu.shape[-2]
+    width, fold, counted = _route(name, width, fold, nu.shape[-1], Nb, wide)
     nu_k, (zeta_k,), dnu_k, Db_k = widen_inputs(nu, [zeta], delta_nu, Db,
                                                 width, fold)
-    loss_part, gene_part, dzeta, dcf = _phase_launch(
-        "fwdgrad" if grad else "fwd", S, nu_k, zeta_k, cf, r, dnu_k, Db_k,
-        skip_k=lgamma_k_sum is not None, want_disp=bool(want_disp),
-        chains=K or 1)
-    _count_launch(name, width, K or 1)
+    skip_k = lgamma_k_sum is not None
+    if counted.endswith("_wide"):
+        loss_part, gene, cell = _wide_launch(
+            "phase", "fwdgrad" if grad else "fwd", [S],
+            [nu_k, zeta_k, None, cf, None, None, None, r], skip_k,
+            bool(want_disp), K or 1)
+        dzeta, dcf = (cell[0], cell[2]) if grad else (None, None)
+    else:
+        loss_part, gene_part, dzeta, dcf = _phase_launch(
+            "fwdgrad" if grad else "fwd", S, nu_k, zeta_k, cf, r, dnu_k, Db_k,
+            skip_k=skip_k, want_disp=bool(want_disp), chains=K or 1)
+        gene = None if gene_part is None else gene_part.sum(1)
+    _count_launch(counted, width, K or 1)
     # fixed-order reductions over each chain's loss pieces and cell tiles
     # (no float atomics)
     loss = _finish_loss(loss_part.sum(-1), lgamma_k_sum)
-    gene = None if gene_part is None else gene_part.sum(1)
     if K is None:   # unbatched: drop the chain axis of one
         loss, gene, dzeta, dcf = (None if t is None else t[0]
                                   for t in (loss, gene, dzeta, dcf))
-    Nb = 0 if delta_nu is None else delta_nu.shape[-2]
     return loss, gene, dzeta, dcf, (nu.shape[-1], Nb, fold, dnu_k)
 
 
+def _phase_grads(name, S, nu, zeta, cf, r, delta_nu, Db, lgamma_k_sum,
+                 want_disp, wide=False):
+    loss, gene, dzeta, dcf, (Nh, Nb, fold, dnu_k) = _phase_call(
+        name, S, nu, zeta, cf, r, delta_nu, Db, lgamma_k_sum, want_disp,
+        wide)
+    W = dzeta.shape[-1]
+    ddnu = (gene[..., W + 1:].transpose(-1, -2).contiguous()
+            if dnu_k is not None else None)
+    dnu, (dzeta,), ddnu = narrow_grads(gene[..., :W], [dzeta], ddnu, Nh, Nb,
+                                       fold)
+    return loss, (dnu, dzeta, dcf, gene[..., W].contiguous(), ddnu)
+
+
 def phase_fwd(S, nu, zeta, cf, r, delta_nu=None, Db=None, lgamma_k_sum=None):
-    """Loss of the fused phase NB likelihood on the card (CUDA tensors).
+    """Loss of the fused phase NB likelihood on the card (CUDA tensors); past
+    NARROW_WIDTH basis columns through `phase_fwd_wide`'s kernel.
 
     Chain-batched as `phase_fwdgrad`: where any of nu, zeta, cf, r and
     delta_nu carries a leading chain axis K, ONE launch computes the K
@@ -765,21 +1013,33 @@ def phase_fwdgrad(S, nu, zeta, cf, r, delta_nu=None, Db=None,
     """Loss and every gradient of the fused phase NB likelihood on the card:
     (loss, (dnu, dzeta, dcf, ddisp, ddelta_nu)), as `phase_fwdgrad_plain`.
     The kernel's gene partials hold [dnu (width), ddisp, ddelta_nu (Nb)].
+    Past NARROW_WIDTH basis columns through `phase_fwdgrad_wide`'s kernel.
 
     Chain-batched as `phase_fwdgrad_plain`: where any of nu, zeta, cf, r and
     delta_nu carries a leading chain axis K, ONE launch computes all K
     chains (the operands without the axis shared by them) and the loss is
     (K,) and every gradient (K, ...); counted once in LAUNCHES and under K
     in LAUNCH_CHAINS."""
-    loss, gene, dzeta, dcf, (Nh, Nb, fold, dnu_k) = _phase_call(
-        "phase_fwdgrad", S, nu, zeta, cf, r, delta_nu, Db, lgamma_k_sum,
-        want_disp)
-    W = dzeta.shape[-1]
-    ddnu = (gene[..., W + 1:].transpose(-1, -2).contiguous()
-            if dnu_k is not None else None)
-    dnu, (dzeta,), ddnu = narrow_grads(gene[..., :W], [dzeta], ddnu, Nh, Nb,
-                                       fold)
-    return loss, (dnu, dzeta, dcf, gene[..., W].contiguous(), ddnu)
+    return _phase_grads("phase_fwdgrad", S, nu, zeta, cf, r, delta_nu, Db,
+                        lgamma_k_sum, want_disp)
+
+
+def phase_fwd_wide(S, nu, zeta, cf, r, delta_nu=None, Db=None,
+                   lgamma_k_sum=None):
+    """`phase_fwd` on the wide body (csrc/nb_wide.cu) at any width: W = Nh
+    + Nb basis columns, the batches folded in, up to MAX_WIDTH; counted
+    under its own name.  Chain-batched as `phase_fwd`."""
+    return _phase_call("phase_fwd_wide", S, nu, zeta, cf, r, delta_nu, Db,
+                       lgamma_k_sum, wide=True)[0]
+
+
+def phase_fwdgrad_wide(S, nu, zeta, cf, r, delta_nu=None, Db=None,
+                       lgamma_k_sum=None, want_disp=True):
+    """`phase_fwdgrad` on the wide body at any width (W = Nh + Nb, the
+    batches folded in, up to MAX_WIDTH); counted under its own name.
+    Chain-batched as `phase_fwdgrad`."""
+    return _phase_grads("phase_fwdgrad_wide", S, nu, zeta, cf, r, delta_nu,
+                        Db, lgamma_k_sum, want_disp, wide=True)
 
 
 def _velo_params(nu, zeta, zeta_dphi, cf, omega, log_beta, log_gamma, r):
@@ -789,34 +1049,61 @@ def _velo_params(nu, zeta, zeta_dphi, cf, omega, log_beta, log_gamma, r):
 
 
 def _velo_call(name, S, U, params, delta_nu, Db, lgamma_k_sum,
-               want_disp=False):
+               want_disp=False, wide=False):
     """Check, widen where the shape needs it, size the buffers from the
     plan, launch and count one velocity kernel (over a chain batch where
-    operands carry a leading chain axis).  Returns (loss, gene partials
-    summed over the cell tiles (Ng, W + 3 + Nb) or None, [dzeta,
+    operands carry a leading chain axis): the narrow body, or the wide body
+    past NARROW_WIDTH columns or when ``wide``.  Returns (loss, gene
+    partials summed over the cell tiles (Ng, W + 3 + Nb) or None, [dzeta,
     dzeta_dphi, dcf, domega] at width W or [], (Nh, Nb, fold, kernel
     delta_nu)), each with the leading chain axis in a chain-batched call."""
     width, fold, K = _on_card(name, [("S", S), ("U", U)], params, delta_nu,
                               Db, velo_layout().max_nb)
+    Nb = 0 if delta_nu is None else delta_nu.shape[-2]
+    width, fold, counted = _route(name, width, fold, params["nu"].shape[-1],
+                                  Nb, wide)
     nu, (zeta, zdphi), dnu_k, Db_k = widen_inputs(
         params["nu"], [params["zeta"], params["zeta_dphi"]], delta_nu, Db,
         width, fold)
+    Kc = K or 1
+    cut = "fwdgrad" if "fwdgrad" in name else "fwd"
+    skip_k = lgamma_k_sum is not None
+    ops = [zeta, zdphi, *(params[k] for k in (
+        "count_factor", "omega", "log_beta", "log_gamma", "dispersion"))]
+    if counted.endswith("_wide"):
+        loss_part, gene, cell = _wide_launch(
+            "velo", cut, [S, U], [nu, *ops], skip_k, bool(want_disp), Kc)
+    else:
+        loss_part, gene, cell = _velo_launch(
+            cut, S, U, nu, ops, dnu_k, Db_k, skip_k, bool(want_disp), Kc)
+    _count_launch(counted, width, Kc)
+    # fixed-order reductions over each chain's loss pieces and cell tiles
+    # (no float atomics)
+    loss = _finish_loss(loss_part.sum(-1), lgamma_k_sum)
+    if K is None:   # unbatched: drop the chain axis of one
+        loss = loss[0]
+        gene = None if gene is None else gene[0]
+        cell = [t[0] for t in cell]
+    return loss, gene, cell, (params["nu"].shape[-1], Nb, fold, dnu_k)
+
+
+def _velo_launch(cut, S, U, nu, ops, dnu_k, Db_k, skip_k, want_disp, Kc):
+    """One launch of csrc/nb_velo.cu at an instantiated width: (loss
+    partials (K, loss_pieces), gene partials summed over the cell tiles
+    (K, Ng, W + 3 + Nb) or None, [dzeta, dzeta_dphi, dcf, domega] (K, ...)
+    or [])."""
     lib = _velo_lib()
     Ng, Nc = S.shape
-    Kc = K or 1
+    width = nu.shape[-1]
     Nb_k = 0 if dnu_k is None else dnu_k.shape[-2]
-    cut = "fwdgrad" if name == "velo_fwdgrad" else "fwd"
     s16, u16 = S.dtype == torch.int16, U.dtype == torch.int16
-    skip_k = lgamma_k_sum is not None
     dev = S.device
-    plan = velo_plan(cut, s16, u16, Ng, Nc, width, Nb_k, skip_k,
-                     bool(want_disp), dev, chains=Kc)
+    plan = velo_plan(cut, s16, u16, Ng, Nc, width, Nb_k, skip_k, want_disp,
+                     dev, chains=Kc)
     f32 = dict(dtype=torch.float32, device=dev)
     # zeros: a chain with fewer loss pieces than the most leaves the rest
     loss_part = torch.zeros((Kc, plan.loss_pieces), dtype=torch.float64,
                             device=dev)
-    ops = [zeta, zdphi, *(params[k] for k in (
-        "count_factor", "omega", "log_beta", "log_gamma", "dispersion"))]
     strides = [_chain_stride(t, d) for t, d in zip(
         [nu, *ops, dnu_k], (2, 2, 2, 1, 1, 1, 1, 1, 2))]
     args = [_ptr(S), int(s16), _ptr(U), int(u16), _ptr(nu),
@@ -834,29 +1121,36 @@ def _velo_call(name, S, U, params, delta_nu, Db, lgamma_k_sum,
         cell = [torch.empty(shape, **f32) for shape in (
             (Kc, Nc, width), (Kc, Nc, width), (Kc, Nc), (Kc, Nc))]
         fn = lib.vct_velo_fwdgrad
-        tail = [int(bool(want_disp)), plan.grid, plan.pieces,
+        tail = [int(want_disp), plan.grid, plan.pieces,
                 plan.loss_pieces, loss_part.data_ptr(), gene_part.data_ptr(),
                 cell_piece.data_ptr(), *(t.data_ptr() for t in cell)]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(*args, *tail, stream)
-    _raise_on(rc, name)
-    _count_launch(name, width, Kc)
-    # fixed-order reductions over each chain's loss pieces and cell tiles
-    # (no float atomics)
-    loss = _finish_loss(loss_part.sum(-1), lgamma_k_sum)
-    gene = None if gene_part is None else gene_part.sum(1)
-    if K is None:   # unbatched: drop the chain axis of one
-        loss = loss[0]
-        gene = None if gene is None else gene[0]
-        cell = [t[0] for t in cell]
-    Nb = 0 if delta_nu is None else delta_nu.shape[-2]
-    return loss, gene, cell, (params["nu"].shape[-1], Nb, fold, dnu_k)
+    _raise_on(rc, f"velo_{cut}")
+    return loss_part, None if gene_part is None else gene_part.sum(1), cell
+
+
+def _velo_grads(name, args, delta_nu, Db, lgamma_k_sum, want_disp,
+                wide=False):
+    loss, gene, (dzeta, dzdphi, dcf, domega), (Nh, Nb, fold, dnu_k) = \
+        _velo_call(name, args[0], args[1], _velo_params(*args[2:]),
+                   delta_nu, Db, lgamma_k_sum, want_disp, wide)
+    W = dzeta.shape[-1]
+    ddnu = (gene[..., W + 3:].transpose(-1, -2).contiguous()
+            if dnu_k is not None else None)
+    dnu, (dzeta, dzdphi), ddnu = narrow_grads(
+        gene[..., :W], [dzeta, dzdphi], ddnu, Nh, Nb, fold)
+    return loss, (dnu, dzeta, dzdphi, dcf, domega,
+                  gene[..., W + 1].contiguous(),
+                  gene[..., W + 2] * torch.exp(args[8]),
+                  gene[..., W].contiguous(), ddnu)
 
 
 def velo_fwd(S, U, nu, zeta, zeta_dphi, cf, omega, log_beta, log_gamma, r,
              delta_nu=None, Db=None, lgamma_k_sum=None):
-    """Loss of the fused velocity S+U NB likelihood on the card.
+    """Loss of the fused velocity S+U NB likelihood on the card; past
+    NARROW_WIDTH basis columns through `velo_fwd_wide`'s kernel.
 
     Chain-batched as `phase_fwd`: where any parameter carries a leading
     chain axis K, ONE launch computes the K losses (K,); counted once in
@@ -874,6 +1168,7 @@ def velo_fwdgrad(S, U, nu, zeta, zeta_dphi, cf, omega, log_beta, log_gamma,
     the card, as `velo_fwdgrad_plain`.  The kernel's gene partials hold
     [dnu (width), ddisp, dlog_beta, sum_c g_x, ddelta_nu (Nb)] per gene;
     dlog_gamma is sum_c g_x times exp(log_gamma), applied after the sum.
+    Past NARROW_WIDTH basis columns through `velo_fwdgrad_wide`'s kernel.
 
     Chain-batched as `phase_fwdgrad`: where any of the parameters (nu,
     zeta, zeta_dphi, cf, omega, log_beta, log_gamma, r, delta_nu) carries a
@@ -881,21 +1176,32 @@ def velo_fwdgrad(S, U, nu, zeta, zeta_dphi, cf, omega, log_beta, log_gamma,
     without the axis shared by them, S, U and Db always), and the loss is
     (K,) and every gradient (K, ...); counted once in LAUNCHES and under K
     in LAUNCH_CHAINS."""
-    loss, gene, (dzeta, dzdphi, dcf, domega), (Nh, Nb, fold, dnu_k) = \
-        _velo_call(
-            "velo_fwdgrad", S, U,
-            _velo_params(nu, zeta, zeta_dphi, cf, omega, log_beta, log_gamma,
-                         r),
-            delta_nu, Db, lgamma_k_sum, want_disp)
-    W = dzeta.shape[-1]
-    ddnu = (gene[..., W + 3:].transpose(-1, -2).contiguous()
-            if dnu_k is not None else None)
-    dnu, (dzeta, dzdphi), ddnu = narrow_grads(
-        gene[..., :W], [dzeta, dzdphi], ddnu, Nh, Nb, fold)
-    return loss, (dnu, dzeta, dzdphi, dcf, domega,
-                  gene[..., W + 1].contiguous(),
-                  gene[..., W + 2] * torch.exp(log_gamma),
-                  gene[..., W].contiguous(), ddnu)
+    return _velo_grads(
+        "velo_fwdgrad", (S, U, nu, zeta, zeta_dphi, cf, omega, log_beta,
+                         log_gamma, r), delta_nu, Db, lgamma_k_sum, want_disp)
+
+
+def velo_fwd_wide(S, U, nu, zeta, zeta_dphi, cf, omega, log_beta, log_gamma,
+                  r, delta_nu=None, Db=None, lgamma_k_sum=None):
+    """`velo_fwd` on the wide body (csrc/nb_wide.cu) at any width: W = Nh +
+    Nb basis columns, the batches folded in, up to MAX_WIDTH; counted under
+    its own name.  Chain-batched as `velo_fwd`."""
+    return _velo_call(
+        "velo_fwd_wide", S, U,
+        _velo_params(nu, zeta, zeta_dphi, cf, omega, log_beta, log_gamma, r),
+        delta_nu, Db, lgamma_k_sum, wide=True)[0]
+
+
+def velo_fwdgrad_wide(S, U, nu, zeta, zeta_dphi, cf, omega, log_beta,
+                      log_gamma, r, delta_nu=None, Db=None, lgamma_k_sum=None,
+                      want_disp=True):
+    """`velo_fwdgrad` on the wide body at any width (W = Nh + Nb, the
+    batches folded in, up to MAX_WIDTH); counted under its own name.
+    Chain-batched as `velo_fwdgrad`."""
+    return _velo_grads(
+        "velo_fwdgrad_wide", (S, U, nu, zeta, zeta_dphi, cf, omega, log_beta,
+                              log_gamma, r), delta_nu, Db, lgamma_k_sum,
+        want_disp, wide=True)
 
 # ---------------------------------------------------------------------------
 # autograd bindings
@@ -1063,15 +1369,23 @@ def _chain_major(lgk_dim, dims, n_data, inputs):
             for t, d in zip(inputs, dims)]
 
 
-def _fused(kernels, plains, n_data, inputs, lgamma_k_sum, disp_grad):
+def _fused(kernels, plains, wide_plains, max_nb, n_data, inputs,
+           lgamma_k_sum, disp_grad):
     """The loss through the (loss-only, fwd+grad) kernel pair on CUDA
-    tensors or its plain pair on CPU tensors: the fwd+grad one when a
-    differentiable input needs a gradient, and under `torch.func.vmap`
-    with gradients enabled (a batched input reports no ``requires_grad``
-    whatever it wraps); the loss-only one otherwise, under `vmap` through
-    `_FusedNBLoss` (each binding's `vmap` rule makes the one chain-batched
-    call)."""
-    fwd, fwdgrad = kernels if inputs[0].device.type == "cuda" else plains
+    tensors (which route wide shapes to the wide body themselves) or its
+    plain pair on CPU tensors (the wide twins for the shapes the wide body
+    takes on the card): the fwd+grad one when a differentiable input needs
+    a gradient, and under `torch.func.vmap` with gradients enabled (a
+    batched input reports no ``requires_grad`` whatever it wraps); the
+    loss-only one otherwise, under `vmap` through `_FusedNBLoss` (each
+    binding's `vmap` rule makes the one chain-batched call)."""
+    if inputs[0].device.type == "cuda":
+        fwd, fwdgrad = kernels
+    else:
+        dnu = inputs[-2]
+        Nb = 0 if dnu is None else dnu.shape[-2]
+        fwd, fwdgrad = (wide_plains if _wide_shape(
+            inputs[n_data].shape[-1], Nb, max_nb) else plains)
     params = [t for t in inputs[n_data:] if t is not None]
     batched = any(torch._C._functorch.is_batchedtensor(t) for t in params)
     if torch.is_grad_enabled() and (
@@ -1105,15 +1419,20 @@ def nb_loglik_fused(S, nu, zeta, count_factor, dispersion,
     Returns a 0-d float32 tensor, differentiable w.r.t. nu, zeta,
     count_factor, dispersion and delta_nu.
 
-    On the card the basis is limited to MAX_WIDTH = 16 columns: Nh <= 16,
-    and Nh + Nb <= 16 unless Nh <= 7 and Nb <= 4 (`kernel_width`); beyond
-    that it raises ValueError.  CPU tensors take any shape.
+    On the card, shapes of at most NARROW_WIDTH = 16 basis columns (Nh <=
+    7 with Nb <= 4 batches, else Nh + Nb) run on the narrow body's
+    instantiations, wider ones on the wide body at Nh + Nb columns, the
+    batches folded in (`kernel_width`), up to MAX_WIDTH = 256; beyond that
+    it raises ValueError.  CPU tensors take any shape, through the plain
+    versions (the wide twins where the card takes the wide body).
     """
     _check_inputs([("S", S)], _phase_params(nu, zeta, count_factor,
                                             dispersion), delta_nu, Db,
                   device=False)
     return _fused(
-        (phase_fwd, phase_fwdgrad), (phase_fwd_plain, phase_fwdgrad_plain), 1,
+        (phase_fwd, phase_fwdgrad), (phase_fwd_plain, phase_fwdgrad_plain),
+        (phase_fwd_wide_plain, phase_fwdgrad_wide_plain),
+        phase_layout().max_nb, 1,
         (S, nu, zeta, count_factor, dispersion, delta_nu, Db),
         lgamma_k_sum, disp_grad,
     )
@@ -1125,7 +1444,7 @@ def nbsu_loglik_fused(S, U, nu, zeta, zeta_dphi, count_factor, omega,
                       disp_grad=True):
     """Fused velocity-stage joint NB log-likelihood of S and U.
 
-    Same contract as `nb_loglik_fused`, the MAX_WIDTH limit included, plus
+    Same contract as `nb_loglik_fused`, the widths included, plus
     U (Ng, Nc) counts, int16 or float32 whatever S is, zeta_dphi (Nc, Nh),
     omega (Nc,), log_beta and log_gamma (Ng,).  ``lgamma_k_sum`` is ``sum(lgamma(S+1)) + sum(lgamma(U+1))``.
     Differentiable w.r.t. nu, zeta, zeta_dphi, count_factor, omega,
@@ -1136,13 +1455,15 @@ def nbsu_loglik_fused(S, U, nu, zeta, zeta_dphi, count_factor, omega,
                           log_beta, log_gamma, dispersion)
     _check_inputs([("S", S), ("U", U)], params, delta_nu, Db, device=False)
     return _fused(
-        (velo_fwd, velo_fwdgrad), (velo_fwd_plain, velo_fwdgrad_plain), 2,
+        (velo_fwd, velo_fwdgrad), (velo_fwd_plain, velo_fwdgrad_plain),
+        (velo_fwd_wide_plain, velo_fwdgrad_wide_plain),
+        velo_layout().max_nb, 2,
         (S, U, *params.values(), delta_nu, Db), lgamma_k_sum, disp_grad,
     )
 
 
 # each kernel function's call over a chain batch, for the `vmap` rules of
-# `_FusedNBLogLik` and `_FusedNBLoss` (the four kernels and the phase pair's
+# `_FusedNBLogLik` and `_FusedNBLoss` (the kernels and the phase pair's
 # plain versions take the chain axis themselves; the velocity pair's plain
 # versions are mapped over it)
 _CHAINS = {
@@ -1150,8 +1471,12 @@ _CHAINS = {
     phase_fwdgrad: phase_fwdgrad,
     phase_fwd_plain: phase_fwd_plain,
     phase_fwdgrad_plain: phase_fwdgrad_plain,
+    phase_fwd_wide_plain: phase_fwd_wide_plain,
+    phase_fwdgrad_wide_plain: phase_fwdgrad_wide_plain,
     velo_fwd: velo_fwd,
     velo_fwdgrad: velo_fwdgrad,
     velo_fwd_plain: _velo_plain_chains(velo_fwd_plain),
     velo_fwdgrad_plain: _velo_plain_chains(velo_fwdgrad_plain),
+    velo_fwd_wide_plain: _velo_plain_chains(velo_fwd_wide_plain),
+    velo_fwdgrad_wide_plain: _velo_plain_chains(velo_fwdgrad_wide_plain),
 }

@@ -37,7 +37,8 @@ from __future__ import annotations
 import torch
 
 __all__ = [
-    "lgamma_pos", "softplus_log_sigmoid", "lgamma_ratio2",
+    "lgamma_pos", "softplus", "softplus_sigmoid", "softplus_log_sigmoid",
+    "lgamma_ratio2",
     "lgamma_digamma_ratio", "lgamma_digamma_excess", "log1p_excess",
     "log1m_excess", "digamma_pos", "lgamma_ratio", "digamma_ratio",
 ]
@@ -75,6 +76,30 @@ def lgamma_pos(x):
         series = series + c / (z + (i + 1.0))
     t = z + _LANCZOS_G + 0.5
     return _HALF_LOG_2PI + (z + 0.5) * torch.log(t) - t + torch.log(series)
+
+
+def _relu_abs(x):
+    """(max(x, 0), |x|) with the JAX package's derivatives at x = 0: 1/2
+    (jnp.maximum's) and 1 (jnp.abs's)."""
+    return torch.maximum(x, x.new_zeros(())), torch.where(x >= 0.0, x, -x)
+
+
+def softplus(x):
+    """log(1 + exp(x)), safe for large |x| (no exp overflow); at x = 0 its
+    gradient is the JAX package's (0, from the conventions of
+    `_relu_abs`)."""
+    relu, ab = _relu_abs(x)
+    return relu + torch.log(1.0 + torch.exp(-ab))
+
+
+def softplus_sigmoid(x):
+    """(softplus(x), sigmoid(x)) sharing one exp and one reciprocal:
+    sigmoid(x) = 1/(1+e) for x >= 0 and e/(1+e) for x < 0, with e =
+    exp(-|x|); both branches overflow-safe, gradients as `softplus`'s."""
+    relu, ab = _relu_abs(x)
+    e = torch.exp(-ab)
+    d = 1.0 / (1.0 + e)
+    return relu + torch.log1p(e), torch.where(x >= 0.0, d, e * d)
 
 
 def softplus_log_sigmoid(x, with_sigmoid=True):
