@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed 0] [--digest | --kernels | --mcmc | --smc |
                            --minibatch | --velo2d | --examples | --tiles |
-                           --sharded]
+                           --sharded | --wide]
 
 Run from the root of a checkout, on a machine with one CUDA card.  Phases,
 in order; any failure exits non-zero and prints no result line:
@@ -59,7 +59,8 @@ in order; any failure exits non-zero and prints no result line:
      gradient, each layout's loss within rel 1e-5 of the package layout's,
      the in-process rows' launches counted (``--tiles``: build, then the
      sweep alone, three layouts per family at int16 and float32);
-     after each stage's [support], [sharded] (a) on its data (phase 11);
+     after each stage's [support], [sharded] (a) on its data (phase 11),
+     then [wide] (a) on it (phase 14);
      after each stage's [minibatch] (below), [support] on its data:
      warmup on its metaparams (the build already done), 50 uninterrupted
      SVI steps against 25 + Checkpointer.save + restore into a fresh SVI's
@@ -221,7 +222,30 @@ in order; any failure exits non-zero and prints no result line:
      each one's wall time, launches and output printed (``--examples``:
      build, then the five at their published sizes, in turn, with their
      quality lines);
- 14. print the kernel table as one JSON line, the nvidia-smi line, and
+ 14. [wide]: the wide body (csrc/wide_kernel.cuh through csrc/nb_wide.cu),
+     which runs every shape past the narrow bodies' 16 basis columns
+     (delta_nu batches folded in) up to 256.  (b) and (c) beside the other
+     kernel timings, before the [mcmc] processes: (b) the four wide kernels
+     against their plain versions (the wide twins) at 17, 21, 33, 64, 130
+     and 256 columns (Nh alone, and Nh 5 with 12, 16 or 59 batches; 21, 64
+     and 130 at full width), int16 and float32 counts, the dispersion
+     gradient both ways, both stages, a misaligned view (phase), mixed
+     count types and a gated share (velocity); every width from 17 to 256
+     through phase_fwdgrad and velo_fwdgrad at 24 x 300 (one wide launch
+     each, none raises); the chain-batched pair at K = 64, 50 x 2,000, 21
+     columns against its plain version and 64 single launches.  (c) each
+     wide kernel at 21 and 64 columns at full width (the median of 5 x 20
+     calls) beside its plain version and its bound, float32 counts at 21,
+     the chain-batched launch's device time.  (a) inside phase 6, after
+     each stage's [sharded] (a), on its preprocessed counts: the batch
+     design of 16 sections of 6,400 cells (make_design_matrix on an obs
+     column), delta_nu on (21 kernel columns): stage 1 PhaseFitModel, 50
+     steps; stage 2 VelocityFitModel (LRMN) conditioned on (a)'s stage 1,
+     50 steps; exactly one wide fwd+grad launch per step and one wide
+     loss-only launch per evaluation, falling losses, the ELBO at step 0
+     fused against plain (rel 1e-5), steps/s, busy share, peak memory
+     (``--wide``: build, (b), (c), then (a) on its own preprocessing);
+ 15. print the kernel table as one JSON line, the nvidia-smi line, and
      last {"ok": true, "device": {...}}.
 
 The configuration is the repository's Stereo-seq-class fit (bench.py
@@ -481,7 +505,44 @@ def phase_build():
             dyn = K.phase_plan(mode, int16, NG, NC, want_disp=wd).dyn_smem
             show(f"ladder {rung} ({'int16' if int16 else 'f32'})",
                  infos["nb_phase"], _phase_symbol(K, mode, wd, int16), dyn)
+    secs = {n: cuda_build.build_seconds(n) for n in infos}
+    print("[build] nvcc seconds per source (concurrent): " + ", ".join(
+        f"{n} {'built before' if t is None else f'{t:.1f}'}"
+        for n, t in sorted(secs.items())))
+    # the wide body: every instantiation (its width a runtime value), and
+    # its dynamic shared memory and tile by width at full width
+    for full, (r, sm, ss, sl) in sorted(infos.get("nb_wide", {}).items()):
+        print(f"[build]   wide {_wide_symbol_note(full)}: {r} registers, {sm} "
+              f"B static smem, spill stores {ss} B, loads {sl} B")
+    for stage in K.WIDE_STAGES:
+        for cut in K.VELO_CUTS:
+            plans = [(W, K.wide_plan(stage, cut, True, True, NG, NC, W,
+                                     want_disp=cut == "fwdgrad"))
+                     for W in (17, 21, 64, 130, K.MAX_WIDTH)]
+            print(f"[build]   wide {stage} {cut} at {NG}x{NC} int16, by width: "
+                  + "; ".join(f"{W}: {p.dyn_smem} B dynamic smem, {p.cells_per_tile} "
+                              f"cells per tile, {p.blocks_per_sm} CTAs per SM"
+                              for W, p in plans))
     return dt
+
+
+def _wide_symbol_note(symbol):
+    """wide_kernel<STAGE, TS, TU, CUT, WANT_DISP>'s arguments from its
+    mangled name (csrc/wide_kernel.cuh)."""
+    import re
+
+    m = re.search(r"wide_kernelILi(\d)E(\w)(\w)Li(\d)ELb(\d)E", symbol)
+    if m is None:
+        m = re.search(r"wide_cell_sum_kernelILi(\d)E", symbol)
+        return (f"cell sum {'phase' if m.group(1) == '0' else 'velo'}" if m
+                else symbol[:60])
+    types_ = {"s": "int16", "f": "f32"}
+    stage = "phase" if m.group(1) == "0" else "velo"
+    counts = types_[m.group(2)] + ("" if stage == "phase"
+                                   else f"/{types_[m.group(3)]}")
+    cut = "fwdgrad" if m.group(4) == "1" else "fwd"
+    return (f"{stage} {cut} {counts}"
+            + (f" disp_grad={m.group(5) == '1'}" if cut == "fwdgrad" else ""))
 
 
 def _plan_note(torch, K, mode, want_disp, int16, Ng=NG, Nc=NC, velo=False):
@@ -1757,16 +1818,17 @@ def _chain(t, c, base_dim):
 
 def _batched_parity_case(torch, tag, Ng, Nc, K, batched, seed, want_disp,
                          nh=MCMC_NH, plain_batched=True, mode="fwdgrad",
-                         kind="phase", Nb=0):
+                         kind="phase", Nb=0, wide=False):
     """The chain-batched ``kind``_fwdgrad (or, ``mode="fwd"``, _fwd, of the
-    phase or velocity pair) against its plain version (over the chain
-    batch, or chain by chain where a batched plain call would not fit) and
-    against K unbatched launches.  Returns (max abs error, max loss rel
-    error) over the chains and both references."""
+    phase or velocity pair; ``wide``: its *_wide entry point) against its
+    plain version (over the chain batch, or chain by chain where a batched
+    plain call would not fit) and against K unbatched launches.  Returns
+    (max abs error, max loss rel error) over the chains and both
+    references."""
     from velocycle_tpu_torch.ops import nb_kernels as K_
 
     grad = mode == "fwdgrad"
-    name = f"{kind}_{mode}"
+    name = f"{kind}_{mode}" + ("_wide" if wide else "")
     kern = getattr(K_, name)
     plain_one = getattr(K_, f"{name}_plain")
     plain_chains = K_._CHAINS[plain_one]
@@ -1903,17 +1965,17 @@ def _batched_ops(torch, kind, mode, counts, chains, Db, nh, wd):
 
 
 def _batched_timing(torch, seed, card, cfg, batched, mode, wd=False,
-                    nh=MCMC_NH, kind="phase"):
-    """One chain-batched launch of ``kind``_``mode`` against K unbatched
-    launches at ``cfg``'s shape, each beside its bound (bytes: the counts
-    once, every chain's operands and results; operations: every
-    chain's) and the batched plain version.  No PyTorch call computes this
-    function: no library column."""
+                    nh=MCMC_NH, kind="phase", wide=False):
+    """One chain-batched launch of ``kind``_``mode`` (``wide``: its *_wide
+    entry point) against K unbatched launches at ``cfg``'s shape, each
+    beside its bound (bytes: the counts once, every chain's operands and
+    results; operations: every chain's) and the batched plain version.  No
+    PyTorch call computes this function: no library column."""
     from velocycle_tpu_torch.ops import nb_kernels as K_
     from velocycle_tpu_torch.tools import kernel_profile as TP
 
     grad = mode == "fwdgrad"
-    name = f"{kind}_{mode}"
+    name = f"{kind}_{mode}" + ("_wide" if wide else "")
     kern = getattr(K_, name)
     plain = K_._CHAINS[getattr(K_, f"{name}_plain")]
     kw = {"want_disp": wd} if grad else {}
@@ -3090,12 +3152,423 @@ def kernel_digest(torch, seed):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# [wide]: the wide body (csrc/wide_kernel.cuh through csrc/nb_wide.cu) past
+# the narrow bodies' 16 basis columns
+# ---------------------------------------------------------------------------
+
+WIDE_BATCHES = 16       # (a): 16 batches of NC / 16 = 6,400 cells: 21 columns
+WIDE_STEPS = 50
+# (b): (tag, Nh, Nb, Ng, Nc, int16 counts, lgamma_k_sum given); the
+# Nh-alone widths are a spline basis' of n_basis 16, 20 and 32 (Fourier
+# columns here: the kernel's arithmetic does not depend on the basis)
+WIDE_CASES = [
+    ("W17 Nh17", 17, 0, 257, 3001, True, True),
+    ("W17 Nh5+Nb12 f32", 5, 12, 257, 3001, False, False),
+    ("W21 Nh21 full", 21, 0, NG, NC, True, True),
+    ("W21 Nh5+Nb16 full", 5, 16, NG, NC, True, True),
+    ("W33 Nh33 129x3001", 33, 0, 129, 3001, True, True),
+    ("W64 Nh5+Nb59 full", 5, 59, NG, NC, True, True),
+    ("W130 Nh130 full", 130, 0, NG, NC, True, True),
+    ("W256 Nh200+Nb56 129x1001 f32", 200, 56, 129, 1001, False, True),
+]
+# per stage, the case that also takes its count-ring variant: the phase
+# stage's a misaligned view, the velocity stage's mixed count types and a
+# gated share below the relu
+WIDE_PHASE_EXTRA = {"W33 Nh33 129x3001": {"view": True}}
+WIDE_VELO_EXTRA = {"W33 Nh33 129x3001": {"u_int16": False},
+                   "W17 Nh5+Nb12 f32": {"u_int16": True, "gated": True}}
+WIDE_RECORD = "W21 Nh5+Nb16 full"   # (a)'s shape: the kernels line's error
+WIDE_TIMED = {21: (5, 16), 64: (5, 59)}   # width: (Nh, Nb), full width
+WIDE_CHAIN = dict(Ng=50, Nc=2000, chains=64, nh=21)
+WIDE_KERNELS = ("phase_fwd_wide", "phase_fwdgrad_wide", "velo_fwd_wide",
+                "velo_fwdgrad_wide")
+
+
+def wide_parity(torch, seed):
+    """[wide] (b): the four wide kernels against their plain versions (the
+    wide twins) at WIDE_CASES, both stages, the dispersion gradient both
+    ways; every width from 17 to MAX_WIDTH through the routed wrappers
+    (phase_fwdgrad, velo_fwdgrad) at 24 x 300, one wide launch each; the
+    chain-batched pair at K = 64.  Returns ({kernel: [max abs error, loss
+    rel error]} at WIDE_RECORD, {kernel: chain parity})."""
+    from velocycle_tpu_torch.ops import nb_kernels as K
+
+    t0 = time.perf_counter()
+    pc = [(t + (" misaligned view" if t in WIDE_PHASE_EXTRA else ""), Ng, Nc,
+           Nb, i16, sk, {"nh": nh, **WIDE_PHASE_EXTRA.get(t, {})})
+          for t, nh, Nb, Ng, Nc, i16, sk in WIDE_CASES]
+    vc = [(t, Ng, Nc, Nb, i16, sk, {"nh": nh, **WIDE_VELO_EXTRA.get(t, {})})
+          for t, nh, Nb, Ng, Nc, i16, sk in WIDE_CASES]
+    res, ok = _parity_cases(
+        torch, seed, make_inputs, 1, K.phase_fwdgrad_wide,
+        K.phase_fwdgrad_wide_plain, K.phase_fwd_wide, K.phase_fwd_wide_plain,
+        PHASE_GRADS, GRAD_RTOL, pc, record=WIDE_RECORD)
+    vres, vok = _parity_cases(
+        torch, seed, make_velo_inputs, 2, K.velo_fwdgrad_wide,
+        K.velo_fwdgrad_wide_plain, K.velo_fwd_wide, K.velo_fwd_wide_plain,
+        VELO_GRADS, VELO_GRAD_RTOL, vc, record=WIDE_RECORD)
+    check(ok and vok, "a wide kernel disagrees with its plain version (see "
+          "[parity] lines)")
+    # every width through the route: no width up to MAX_WIDTH raises
+    K.reset_launch_counts()
+    worst = 0.0
+    widths = range(K.NARROW_WIDTH + 1, K.MAX_WIDTH + 1)
+    for W in widths:
+        S, nu, zeta, cf, r, _, _ = make_inputs(torch, 24, 300, seed + W, nh=W)
+        kl = K.phase_fwdgrad(S, nu, zeta, cf, r)[0]
+        pl = K.phase_fwdgrad_wide_plain(S, nu, zeta, cf, r)[0]
+        a = make_velo_inputs(torch, 24, 300, seed + W, nh=W)[:10]
+        vkl = K.velo_fwdgrad(*a, want_disp=False)[0]
+        vpl = K.velo_fwdgrad_wide_plain(*a, want_disp=False)[0]
+        for k_, p_ in ((kl, pl), (vkl, vpl)):
+            worst = max(worst, abs(float(k_) - float(p_)) / max(abs(float(p_)), 1.0))
+    n = len(widths)
+    launches = {k: v for k, v in K.LAUNCHES.items() if v}
+    print(f"[wide] every width {widths.start}..{widths.stop - 1} at 24x300 "
+          f"through phase_fwdgrad / velo_fwdgrad: launches {launches}, loss "
+          f"rel against the wide twins at most {worst:.2e}")
+    check(launches == {"phase_fwdgrad_wide": n, "velo_fwdgrad_wide": n},
+          f"the route past {K.NARROW_WIDTH} columns launched {launches}")
+    check(worst < LOSS_RTOL, f"a routed width's loss is off by {worst:.2e}")
+    # the chain axis at 21 columns: one launch of K = 64 against the plain
+    # version over the chains and 64 single launches
+    c = WIDE_CHAIN
+    chains = {}
+    for kind in ("phase", "velo"):
+        for mode, wd in (("fwdgrad", kind == "phase"), ("fwd", False)):
+            chains[f"{kind}_{mode}_wide"] = _batched_parity_case(
+                torch, f"{c['Ng']}x{c['Nc']} K={c['chains']} W{c['nh']}",
+                c["Ng"], c["Nc"], c["chains"], ("nu", "r"), seed,
+                want_disp=wd, nh=c["nh"], mode=mode, kind=kind, wide=True)
+    torch.cuda.empty_cache()
+    print(f"[wide] (b) parity in {time.perf_counter() - t0:.1f} s")
+    return {**res, **vres}, chains
+
+
+def _wide_ops(kind, mode, W, N, lg, dg, wd):
+    """FP32 operations of a wide kernel call over N elements at W columns:
+    OPS / OPS_VELO at Nh = 5 plus OPS_PER_COLUMN for each further column
+    (the wide body makes the same sums: its passes A-C are the narrow
+    body's dot products, gene sums and cell sums), the lgamma ratio's
+    ``lg`` and, with the dispersion gradient, ``dg``."""
+    extra = W - NH
+    grad = mode == "fwdgrad"
+    if kind == "phase":
+        per = OPS["common"] + extra * OPS_PER_COLUMN["common"] + (
+            OPS["fwdgrad"] - (0 if wd else OPS_DISP)
+            + extra * OPS_PER_COLUMN["fwdgrad"] if grad else OPS["fwd"])
+    else:
+        per = OPS_VELO["common"] + extra * OPS_PER_COLUMN["velo_common"] + (
+            OPS_VELO["fwdgrad"] + (OPS_VELO["disp"] if wd else 0)
+            + extra * OPS_PER_COLUMN["velo_fwdgrad"] if grad
+            else OPS_VELO["fwd"])
+    return per * N + lg + (dg if grad and wd else 0)
+
+
+def wide_timing(torch, seed, card):
+    """[wide] (c): each wide kernel at 21 and 64 columns (Nh 5 with 16 and
+    59 batches) at full width, int16 counts, beside its plain version and
+    its bound, as (a) runs it (the phase pair with the dispersion
+    gradient, the velocity pair without); the fwd+grad kernels at 21
+    columns on float32 counts (kernel only); the chain-batched fwd+grad
+    pair at K = 64 against 64 single launches.  Returns {kernel: {"w21":
+    .., "w64": .., ...}}."""
+    from velocycle_tpu_torch.ops import nb_kernels as K
+    from velocycle_tpu_torch.tools import kernel_profile as TP
+
+    t0 = time.perf_counter()
+    out = {k: {} for k in WIDE_KERNELS}
+    for W, (nh, nb) in WIDE_TIMED.items():
+        S, nu, zeta, cf, r, dnu, Db = make_inputs(torch, NG, NC, seed, Nb=nb,
+                                                  nh=nh)
+        lgk = lgamma_k_sum(torch, S)
+        N = S.numel()
+        lg, share = _ratio_ops(torch, [S])
+        dg = _disp_ops(torch, "phase", [S], [nu, zeta, cf, r], dnu, Db)
+        ins = [nu, zeta, cf, r, dnu]
+        pbytes = 4 * sum(t.numel() for t in ins)
+        in_bytes = S.numel() * S.element_size() + pbytes + 4 * Db.numel()
+        note = f"{share:.3f} of counts >= 2, {W} columns"
+        a = (S, nu, zeta, cf, r, dnu, Db, lgk)
+        out["phase_fwdgrad_wide"][f"w{W}"] = _time_pair(
+            torch, f"phase_fwdgrad_wide at {W} columns",
+            lambda: K.phase_fwdgrad_wide(*a, want_disp=True),
+            lambda: K.phase_fwdgrad_wide_plain(*a, want_disp=True),
+            in_bytes + pbytes + 4,
+            _wide_ops("phase", "fwdgrad", W, N, lg, dg, True), card, note)
+        out["phase_fwd_wide"][f"w{W}"] = _time_pair(
+            torch, f"phase_fwd_wide at {W} columns",
+            lambda: K.phase_fwd_wide(*a), lambda: K.phase_fwd_wide_plain(*a),
+            in_bytes + 4, _wide_ops("phase", "fwd", W, N, lg, dg, False),
+            card, note)
+        if W == 21:
+            Sf = S.float()
+            af = (Sf, *a[1:])
+            med = _median_reps(TP, {"f32": lambda: K.phase_fwdgrad_wide(
+                *af, want_disp=True)})["f32"]
+            out["phase_fwdgrad_wide"]["f32_ms"] = med[0]
+            print(f"[timing] phase_fwdgrad_wide at 21 columns, float32 "
+                  f"counts: kernel median {med[0]:.4f} ms of "
+                  f"{_reps_note(med[1])}")
+            del Sf, af
+        del S, nu, zeta, cf, r, dnu, Db, a, ins
+        torch.cuda.empty_cache()
+        v = make_velo_inputs(torch, NG, NC, seed, Nb=nb, nh=nh)
+        S, U = v[:2]
+        lgk = lgamma_k_sum(torch, S, U)
+        lg, share = _ratio_ops(torch, [S, U])
+        pbytes = 4 * sum(t.numel() for t in v[2:11])
+        in_bytes = 2 * S.numel() * S.element_size() + pbytes + 4 * v[11].numel()
+        note = f"{share:.3f} of S and U counts >= 2, {W} columns"
+        a = (*v, lgk)
+        out["velo_fwdgrad_wide"][f"w{W}"] = _time_pair(
+            torch, f"velo_fwdgrad_wide at {W} columns",
+            lambda: K.velo_fwdgrad_wide(*a, want_disp=False),
+            lambda: K.velo_fwdgrad_wide_plain(*a, want_disp=False),
+            in_bytes + pbytes + 4,
+            _wide_ops("velo", "fwdgrad", W, S.numel(), lg, 0, False), card,
+            note)
+        out["velo_fwd_wide"][f"w{W}"] = _time_pair(
+            torch, f"velo_fwd_wide at {W} columns",
+            lambda: K.velo_fwd_wide(*a), lambda: K.velo_fwd_wide_plain(*a),
+            in_bytes + 4, _wide_ops("velo", "fwd", W, S.numel(), lg, 0, False),
+            card, note)
+        if W == 21:
+            af = (S.float(), U.float(), *a[2:])
+            med = _median_reps(TP, {"f32": lambda: K.velo_fwdgrad_wide(
+                *af, want_disp=False)})["f32"]
+            out["velo_fwdgrad_wide"]["f32_ms"] = med[0]
+            print(f"[timing] velo_fwdgrad_wide at 21 columns, float32 S and "
+                  f"U: kernel median {med[0]:.4f} ms of {_reps_note(med[1])}")
+            del af
+        del v, S, U, a
+        torch.cuda.empty_cache()
+    out["fold"] = _wide_fold_cost(torch, seed, card)
+    c = WIDE_CHAIN
+    for kind, wd in (("phase", True), ("velo", False)):
+        out[f"{kind}_fwdgrad_wide"]["chains"] = _batched_timing(
+            torch, seed, card, c, ("nu", "r"), "fwdgrad", wd=wd, nh=c["nh"],
+            kind=kind, wide=True)
+    for k in WIDE_KERNELS:
+        for W in WIDE_TIMED:
+            p = K.wide_plan(k.split("_")[0], "fwdgrad" if "fwdgrad" in k
+                            else "fwd", True, True, NG, NC, W,
+                            want_disp=k == "phase_fwdgrad_wide")
+            out[k][f"w{W}"]["plan"] = p._asdict()
+            print(f"[timing] {k} plan at {W} columns: {p.cells_per_tile} cells "
+                  f"per tile, grid {p.grid}, {p.blocks_per_sm} resident CTAs "
+                  f"per SM, {p.dyn_smem} B dynamic smem")
+    print(f"[wide] (c) timing in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def _wide_fold_cost(torch, seed, card):
+    """What folding the 16 batches into basis columns costs (the wide body
+    takes delta_nu only folded): the phase fwd+grad kernel at 21 columns
+    (Nh 5 + 16 batches) against the same kernel at Nh 5 alone, both on
+    the wide body at full width, and the fold's host-side work
+    (`widen_inputs` + `narrow_grads`) per call.  A body that took delta_nu
+    as it is would do the same multiply-adds in ElogS and the gene sums;
+    the fold adds the 16 columns' cell sums (whose dzeta is dropped)."""
+    from velocycle_tpu_torch.ops import nb_kernels as K
+    from velocycle_tpu_torch.tools import kernel_profile as TP
+
+    S, nu, zeta, cf, r, dnu, Db = make_inputs(torch, NG, NC, seed, Nb=16)
+    lgk = lgamma_k_sum(torch, S)
+    med = _median_reps(TP, {
+        "w21": lambda: K.phase_fwdgrad_wide(S, nu, zeta, cf, r, dnu, Db, lgk),
+        "w5": lambda: K.phase_fwdgrad_wide(S, nu, zeta, cf, r, None, None,
+                                           lgk)})
+
+    def fold():
+        nu_w, (z_w,), _, _ = K.widen_inputs(nu, [zeta], dnu, Db, 21, True)
+        return K.narrow_grads(nu_w, [z_w], None, 5, 16, True)
+
+    fold_ms = TP.event_ms(fold, reps=20)
+    w21, w5 = med["w21"][0], med["w5"][0]
+    print(f"[timing] the fold of 16 batches on {card}: phase_fwdgrad_wide "
+          f"at 21 columns (Nh 5 + 16 batches) median {w21:.4f} ms of "
+          f"{_reps_note(med['w21'][1])}, at Nh 5 alone {w5:.4f} ms of "
+          f"{_reps_note(med['w5'][1])}: the batches add {w21 - w5:.4f} ms; "
+          f"widen_inputs + narrow_grads {fold_ms:.4f} ms per call")
+    del S, nu, zeta, cf, r, dnu, Db
+    torch.cuda.empty_cache()
+    return {"w21_ms": w21, "w5_ms": w5, "fold_host_ms": fold_ms}
+
+
+def _batch_design(adata):
+    """(a)'s batch design: an obs column of WIDE_BATCHES sections of NC /
+    WIDE_BATCHES cells each, through make_design_matrix."""
+    import numpy as np
+
+    from velocycle_tpu_torch import make_design_matrix
+
+    per = NC // WIDE_BATCHES
+    adata.obs["batch"] = np.repeat(
+        [f"section{b:02d}" for b in range(WIDE_BATCHES)], per)
+    design = make_design_matrix(adata, "batch")
+    check(design.shape == (NC, WIDE_BATCHES)
+          and (design.sum(0) == per).all(), f"batch design {design.shape}")
+    return design
+
+
+def _with_batches(torch, mp, design):
+    """A stage's metaparams on the same preprocessed counts with the batch
+    design and delta_nu on (the stage's sd_dnu for every batch)."""
+    import dataclasses
+
+    import numpy as np
+
+    d = mp.data
+    dev = d.S.device
+    Db = torch.as_tensor(np.ascontiguousarray(design.T, dtype=np.float32),
+                         device=dev)
+    sd = torch.full((design.shape[1], 1), float(d.sd_dnu.reshape(-1)[0]),
+                    dtype=torch.float32, device=dev)
+    return dataclasses.replace(mp, data=d.replace(
+        Db=Db, Nb=design.shape[1], sd_dnu=sd, with_delta_nu=True))
+
+
+def wide_stage(torch, seed, card, mp, stage, cond=None,
+               num_steps=WIDE_STEPS):
+    """[wide] (a), one stage on ``mp`` (with the batch design): the fit
+    through the user entry point with the launch counts set to 0 just
+    before and read just after, one loss-only evaluation, the ELBO at the
+    fit's first step (its init params and key) on the fused path against
+    the plain path, steady-state steps/s and the device's busy share.
+    Returns the stage's numbers (and the fit's params)."""
+    import numpy as np
+
+    from velocycle_tpu_torch import PhaseFitModel, VelocityFitModel
+    from velocycle_tpu_torch.core import handlers
+    from velocycle_tpu_torch.ops import nb_kernels as K
+
+    kind = "phase" if stage == 1 else "velo"
+    tag = f"wide stage {stage}"
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    if stage == 1:
+        fit = PhaseFitModel(mp, num_samples=8, n_per_bin=8)
+    else:
+        fit = VelocityFitModel(mp, condition_on=cond, num_samples=2,
+                               n_per_bin=1)
+    data = fit.metaparams.data
+    W = data.mu_nu.shape[1] + data.Db.shape[0]
+    t0 = time.perf_counter()
+    fit.fit(num_steps=num_steps, seed=seed)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    in_fit = {k: v for k, v in K.LAUNCHES.items() if v}
+    widths = _width_launches(K)
+    K.reset_launch_counts()
+    with torch.no_grad():
+        loss_only = float(fit.svi.loss_fn(fit.state.params, 7, data))
+    in_eval = {k: v for k, v in K.LAUNCHES.items() if v}
+    peak = torch.cuda.max_memory_allocated()
+    losses = np.asarray(fit.losses)
+    print(f"[wide] (a) {tag}: {data.Ng} x {data.Nc}, {data.Db.shape[0]} "
+          f"batches, {W} kernel columns; losses {losses[0]:.6g} -> "
+          f"{losses[-1]:.6g} (mean of last 10 {losses[-10:].mean():.6g}); "
+          f"fit of {num_steps} steps incl. init, extraction and posterior "
+          f"draws {fit_s:.2f} s; loss-only evaluation {loss_only:.6g}; "
+          f"launches: fit {in_fit} by width {widths}, evaluation {in_eval}; "
+          f"peak device memory {peak / 2**30:.2f} GiB on {card}")
+    check(losses.shape == (num_steps,) and np.isfinite(losses).all()
+          and losses[-10:].mean() < losses[0], f"{tag}: losses {losses}")
+    check(in_fit == {f"{kind}_fwdgrad_wide": num_steps}
+          and widths == {f"{kind}_fwdgrad_wide": {W: num_steps}},
+          f"{tag}: launches in the fit {in_fit}, by width {widths}")
+    check(in_eval == {f"{kind}_fwd_wide": 1} and math.isfinite(loss_only),
+          f"{tag}: the loss-only evaluation launched {in_eval}")
+    # the ELBO at step 0 (the fit's init params and its first step's key),
+    # fused against plain
+    state0 = fit.svi.init(seed, data)
+    key = handlers.fold_in(state0.key, 1)
+    with torch.no_grad():
+        fused0 = float(fit.svi.loss_fn(state0.params, key, data))
+        plain0 = float(fit.svi.loss_fn(state0.params, key,
+                                       data.replace(use_fused_nb=False)))
+    rel0 = abs(fused0 - plain0) / abs(plain0)
+    print(f"[wide] (a) {tag}: ELBO at step 0 fused {fused0:.9g} vs plain "
+          f"{plain0:.9g}, rel {rel0:.2e}; the fit's first loss "
+          f"{losses[0]:.9g}")
+    check(rel0 < LOSS_RTOL, f"{tag}: fused vs plain ELBO at step 0 rel {rel0:.2e}")
+    del state0
+    torch.cuda.empty_cache()
+    # steady state: 3 warm-up steps, 20 timed (host clock), 5 profiled
+    state, _ = fit.svi.update_chunk(fit.state, 3, data)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, chunk = fit.svi.update_chunk(state, 20, data)
+    chunk.cpu()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    busy = _device_profile(
+        torch, lambda: fit.svi.update_chunk(state, 5, data)[1].cpu(), tag, 5,
+        "step")
+    print(f"[wide] (a) {tag}: steady state {20 / dt:.3f} steps/s "
+          f"({dt / 20 * 1e3:.2f} ms/step, host clock, 20 steps), "
+          f"{in_fit[f'{kind}_fwdgrad_wide'] / num_steps:.0f} wide fwd+grad "
+          f"launch per step, device busy "
+          f"{'not measured' if busy is None else f'{busy:.1%}'} on {card}")
+    out = {"steps_per_s": 20 / dt, "busy": busy, "peak_gib": peak / 2**30,
+           "launches": in_fit, "eval_launches": in_eval,
+           "elbo_step0_rel": rel0, "first_loss": float(losses[0]),
+           "last_loss": float(losses[-1]), "fit_s": fit_s, "columns": W}
+    # what stage 2 takes from a stage 1 fit (its conditioning; under
+    # --wide its preprocessing too)
+    fitted = types.SimpleNamespace(params=fit.params,
+                                   cycle_fit=getattr(fit, "cycle_fit", None),
+                                   phase_fit=getattr(fit, "phase_fit", None))
+    del fit, state
+    torch.cuda.empty_cache()
+    return out, fitted
+
+
+def _wide_cond(params):
+    """Stage 2's conditioning on a stage 1 fit, as the two-stage workflow's."""
+    return {"nu": params["nu_locs"], "phi_xy": params["phixy_locs"],
+            "shape_inv": params["shape_inv_locs"]}
+
+
+def wide_alone(torch, seed, card):
+    """``--wide``: [wide] (b) and (c), then (a) on its own preprocessing of
+    the [main] draw (stage 2 preprocessed, as [velo] is, from (a)'s stage 1
+    fit)."""
+    from velocycle_tpu_torch import (
+        AngularSpeed, Cycle, Phases, preprocess_for_phase_estimation,
+        preprocess_for_velocity_estimation,
+    )
+
+    wide_parity(torch, seed)
+    wide_timing(torch, seed, card)
+    torch.cuda.empty_cache()
+    adata, genes, cells, angles = _make_adata(torch, seed, "cuda")
+    design = _batch_design(adata)
+    mp = preprocess_for_phase_estimation(
+        adata, Cycle.trivial_prior(genes, harmonics=H),
+        Phases.from_angles(angles, concentration=1.0, cell_names=cells),
+        n_harmonics=H, with_delta_nu=False, use_fused_nb=True, device="cuda")
+    _, s1 = wide_stage(torch, seed, card, _with_batches(torch, mp, design), 1)
+    del mp
+    torch.cuda.empty_cache()
+    vmp = preprocess_for_velocity_estimation(
+        adata, s1.cycle_fit, s1.phase_fit,
+        AngularSpeed.trivial_prior(["c0"], harmonics=1, means=0.2, stds=0.5),
+        n_harmonics=H, omega_n_harmonics=1, with_delta_nu=False,
+        model_type="lrmn", use_fused_nb=True, device="cuda")
+    wide_stage(torch, seed, card, _with_batches(torch, vmp, design), 2,
+               cond=_wide_cond(s1.params))
+
+
 def _stages(torch, seed, card):
     """Both stages at full width, alone on the host and the card, each
-    followed by [minibatch], [support] and [sharded] (a) on its preprocessed
-    data.  Returns (launches by kernel from the stage that drives it, (stage
-    1 steps/s, peak, stage 2 steps/s, peak), [minibatch]'s numbers,
-    [support]'s, what [sharded] (b) takes from (a))."""
+    followed by [minibatch], [support], [sharded] (a) and [wide] (a) on its
+    preprocessed data.  Returns (launches by kernel from the stage that
+    drives it, the wide kernels' from [wide] (a), (stage 1 steps/s, peak,
+    stage 2 steps/s, peak), [minibatch]'s numbers, [support]'s, what
+    [sharded] (b) takes from (a), [wide] (a)'s numbers)."""
     adata, genes, cells, angles = _make_adata(torch, seed, "cuda")
     launches, steps_per_s, peak, stage1 = phase_main_path(
         torch, seed, adata, genes, cells, angles)
@@ -3105,6 +3578,11 @@ def _stages(torch, seed, card):
     support = {"phase": support_stage(torch, seed, card, stage1.mp, None,
                                       "phase", steps_per_s)}
     sharded = sharded_stage_refs(torch, seed, card, "phase", stage1.mp.data)
+    # [wide] (a): the same counts in 16 batches, delta_nu on: 21 columns
+    design = _batch_design(adata)
+    wide = {}
+    wide["phase"], wide1 = wide_stage(
+        torch, seed, card, _with_batches(torch, stage1.mp, design), 1)
     stage1.mp = None
     torch.cuda.empty_cache()
     vlaunches, vsteps_per_s, vpeak, vmp = velocity_main_path(
@@ -3120,10 +3598,18 @@ def _stages(torch, seed, card):
     support["velocity"] = support_stage(torch, seed, card, vmp, cond,
                                         "velocity", vsteps_per_s)
     sharded_stage_refs(torch, seed, card, "velocity", vmp.data, cond, sharded)
-    del adata, stage1, vmp
+    wide["velo"], _ = wide_stage(
+        torch, seed, card, _with_batches(torch, vmp, design), 2,
+        cond=_wide_cond(wide1.params))
+    for stage in ("phase", "velo"):
+        for k, n in wide[stage]["launches"].items():
+            launches[k] = n
+        for k, n in wide[stage]["eval_launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    del adata, stage1, vmp, wide1
     torch.cuda.empty_cache()
     return (launches, (steps_per_s, peak, vsteps_per_s, vpeak), mb, support,
-            sharded)
+            sharded, wide)
 
 
 # ---------------------------------------------------------------------------
@@ -4352,6 +4838,11 @@ def main(argv=None):
                          "width for (a)'s data, (a)-(d) and the weak-scaling "
                          "harness at one and two ranks on the card (no "
                          "result line)")
+    ap.add_argument("--wide", action="store_true",
+                    help="build, then [wide] alone: the wide kernels' parity "
+                         "and timing, then both stages at full width with 16 "
+                         "batches (21 columns) on the wide body (no result "
+                         "line)")
     ap.add_argument("--tiles", action="store_true",
                     help="build, then [tiles] alone: the layout ladder's "
                          "sweep, three layouts of each family at int16 and "
@@ -4379,7 +4870,7 @@ def main(argv=None):
         kernel_digest(torch, args.seed)
         return 0
     alone = (args.kernels or args.mcmc or args.smc or args.minibatch
-             or args.velo2d or args.examples or args.sharded)
+             or args.velo2d or args.examples or args.sharded or args.wide)
     tiles = TILES_SWEEP if args.tiles else {} if alone else TILES_DEFAULT
     # the copies of [tiles]' other layouts build beside the package's build
     pending = start_tiles(tiles)
@@ -4422,6 +4913,9 @@ def _run(torch, args, name, count, smi, t_start, tiles, pending):
     if args.sharded:
         sharded_alone(torch, args.seed, smi)
         return 0
+    if args.wide:
+        wide_alone(torch, args.seed, smi)
+        return 0
     kernel_digest(torch, args.seed)
     errs = phase_parity(torch, args.seed)
     timing = phase_timing(torch, args.seed, smi)
@@ -4436,10 +4930,14 @@ def _run(torch, args, name, count, smi, t_start, tiles, pending):
     smc_parity, smc_timing = smc_kernels(torch, args.seed, smi)
     chain_kernels = velo_chain_kernels(torch, args.seed, smi)
     torch.cuda.empty_cache()
+    # [wide] (b) and (c): the wide body past 16 columns
+    wide_errs, wide_chains = wide_parity(torch, args.seed)
+    wide_timings = wide_timing(torch, args.seed, smi)
+    torch.cuda.empty_cache()
     # the layouts, alone on the card before the [mcmc] processes
     layouts = phase_tiles(torch, smi, tiles, pending)
     torch.cuda.empty_cache()
-    launches, rates, minibatch, support, sharded_ref = _stages(
+    launches, rates, minibatch, support, sharded_ref, wide = _stages(
         torch, args.seed, smi)
     # the [mcmc] runs, host-bound, beside [quickstart] and [variants]
     pool, pending = start_mcmc_runs(args.seed, smi)
@@ -4524,6 +5022,29 @@ def _run(torch, args, name, count, smi, t_start, tiles, pending):
             # [sharded]: (a) one rank over NCCL, (b) two ranks over gloo
             # (per-rank numbers), (c) the samplers' per-rank launches
             **{"sharded": sharded_row(k, sharded)},
+        })
+    # the wide body: its launches from [wide] (a); ms, plain ms and bound at
+    # 21 columns ((a)'s shape), the same at 64 columns, float32 counts and
+    # the chain-batched launch beside them
+    for k in WIDE_KERNELS:
+        src, line = kernels[k.replace("_wide", "")]
+        check(launches.get(k, 0) > 0, f"{k} was not launched on [wide] (a)'s path")
+        w21 = {key: v for key, v in wide_timings[k]["w21"].items() if key != "plan"}
+        table.append({
+            "name": k, "route": "cuda",
+            "source": "velocycle_tpu_torch/csrc/wide_kernel.cuh",
+            "replaces": line, "launches": launches[k],
+            "max_abs_err": wide_errs[k][0], "loss_rel_err": wide_errs[k][1],
+            **w21, "columns": 21,
+            "w64": wide_timings[k]["w64"],
+            **({"f32_ms": wide_timings[k]["f32_ms"]}
+               if "f32_ms" in wide_timings[k] else {}),
+            "chains": {"parity": wide_chains[k],
+                       **({"timing": wide_timings[k]["chains"]}
+                          if "chains" in wide_timings[k] else {})},
+            "stage": wide["phase" if k.startswith("phase") else "velo"],
+            **({"fold": wide_timings["fold"]} if k == "phase_fwdgrad_wide"
+               else {}),
         })
     # the ladder's launches come from its own entry point, run_ladder
     for rung, line in LADDER_REPLACES.items():

@@ -173,8 +173,7 @@ def test_cuda_kernel_is_bit_reproducible_and_counts_launches():
     K.reset_launch_counts()
     a = K.phase_fwdgrad(*t)
     b = K.phase_fwdgrad(*t)
-    assert K.LAUNCHES == {"phase_fwd": 0, "phase_fwdgrad": 2, "velo_fwd": 0,
-                          "velo_fwdgrad": 0}
+    assert K.LAUNCHES == {**dict.fromkeys(K.LAUNCHES, 0), "phase_fwdgrad": 2}
     assert float(a[0]) == float(b[0])
     for x, y in zip(a[1], b[1]):
         if x is not None:
@@ -376,18 +375,78 @@ def test_cuda_wrappers_refuse_what_the_kernels_cannot_take():
 
 @pytest.mark.parametrize("stage", ["phase", "velo"])
 @pytest.mark.parametrize("Nh,Nb", [(17, 0), (11, 6), (16, 1)])
-def test_cuda_wrappers_name_the_width_limit(stage, Nh, Nb):
-    """One column past the widest instantiation raises, naming the limit."""
+def test_cuda_wrappers_run_wide_shapes_on_the_wide_body(stage, Nh, Nb):
+    """One column past the widest narrow instantiation: the routed wrappers
+    launch the wide body (csrc/nb_wide.cu) once per call, counted under its
+    own name, and agree with the wide twins; past MAX_WIDTH they raise,
+    naming it, and launch nothing."""
     dev = _cuda_or_skip()
     make = _inputs if stage == "phase" else _velo_inputs
-    t = [torch.as_tensor(a, device=dev) for a in make(8, 16, Nh=Nh, Nb=Nb)]
-    fwd, fwdgrad = ((K.phase_fwd, K.phase_fwdgrad) if stage == "phase"
-                    else (K.velo_fwd, K.velo_fwdgrad))
+    t = [torch.as_tensor(a, device=dev) for a in make(40, 300, Nh=Nh, Nb=Nb)]
+    name = "phase" if stage == "phase" else "velo"
+    fwd, fwdgrad = getattr(K, f"{name}_fwd"), getattr(K, f"{name}_fwdgrad")
+    fwd_p = getattr(K, f"{name}_fwd_wide_plain")
+    fwdgrad_p = getattr(K, f"{name}_fwdgrad_wide_plain")
+    names = (("dnu", "dzeta", "dcf", "ddisp", "ddnu") if stage == "phase"
+             else VELO_GRADS)
+    rtol = 1e-4 if stage == "phase" else 5e-4
+    for want_disp in (True, False):
+        K.reset_launch_counts()
+        kl, kg = fwdgrad(*t, want_disp=want_disp)
+        assert {k: v for k, v in K.LAUNCHES.items() if v} == {
+            f"{name}_fwdgrad_wide": 1}
+        assert K.LAUNCH_WIDTHS[f"{name}_fwdgrad_wide"] == {Nh + Nb: 1}
+        pl, pg = fwdgrad_p(*t, want_disp=want_disp)
+        assert abs(float(kl) - float(pl)) / max(abs(float(pl)), 1.0) < 1e-5
+        for gname, a, b in zip(names, kg, pg):
+            if b is None:
+                assert a is None
+            elif not want_disp and gname == "ddisp":
+                assert float(a.abs().max()) == 0.0
+            else:
+                assert _max_rel(a, b) < rtol, gname
+    K.reset_launch_counts()
+    kf = float(fwd(*t))
+    assert {k: v for k, v in K.LAUNCHES.items() if v} == {f"{name}_fwd_wide": 1}
+    assert abs(kf - float(fwd_p(*t))) / max(abs(kf), 1.0) < 1e-5
+    # past the wide body's ceiling
+    wide = [torch.as_tensor(a, device=dev)
+            for a in make(8, 16, Nh=K.MAX_WIDTH + 1 - Nb, Nb=Nb)]
     K.reset_launch_counts()
     for fn in (fwd, fwdgrad):
-        with pytest.raises(ValueError, match="at most MAX_WIDTH = 16 basis"):
-            fn(*t)
+        with pytest.raises(ValueError, match="at most MAX_WIDTH = 256 basis"):
+            fn(*wide)
     assert sum(K.LAUNCHES.values()) == 0
+
+
+@pytest.mark.parametrize("stage", ["phase", "velo"])
+def test_wide_fused_loglik_launches_one_wide_kernel_per_call(stage):
+    """nb_loglik_fused / nbsu_loglik_fused at 5 columns and 16 batches (21
+    kernel columns): one wide fwd+grad launch per differentiated call, one
+    wide loss-only launch per call without gradients, and no narrow
+    launch; the loss and the autograd gradients those of the wide twin."""
+    dev = _cuda_or_skip()
+    make = _inputs if stage == "phase" else _velo_inputs
+    t = [torch.as_tensor(a, device=dev) for a in make(60, 500, Nh=5, Nb=16)]
+    n_data = 1 if stage == "phase" else 2
+    name = "phase" if stage == "phase" else "velo"
+    fused = K.nb_loglik_fused if stage == "phase" else K.nbsu_loglik_fused
+    leaves = [x.clone().requires_grad_(True) for x in t[n_data:-1]]
+    K.reset_launch_counts()
+    loss = fused(*t[:n_data], *leaves, t[-1])
+    loss.backward()
+    assert {k: v for k, v in K.LAUNCHES.items() if v} == {
+        f"{name}_fwdgrad_wide": 1}
+    with torch.no_grad():
+        fused(*t[:n_data], *leaves, t[-1])
+    assert {k: v for k, v in K.LAUNCHES.items() if v} == {
+        f"{name}_fwdgrad_wide": 1, f"{name}_fwd_wide": 1}
+    twin = getattr(K, f"{name}_fwdgrad_wide_plain")
+    pl, pg = twin(*t)
+    assert abs(float(loss.detach()) - float(pl)) / abs(float(pl)) < 1e-5
+    rtol = 1e-4 if stage == "phase" else 5e-4
+    for leaf, g in zip(leaves, pg):
+        assert _max_rel(leaf.grad, g) < rtol
 
 
 def test_fused_fit_on_the_card_launches_one_fwdgrad_per_step():
@@ -600,7 +659,7 @@ def test_cuda_velocity_kernel_is_bit_reproducible_and_counts_launches():
     a = K.velo_fwdgrad(*t)
     b = K.velo_fwdgrad(*t)
     K.velo_fwd(*t)
-    assert K.LAUNCHES == {"phase_fwd": 0, "phase_fwdgrad": 0, "velo_fwd": 1,
+    assert K.LAUNCHES == {**dict.fromkeys(K.LAUNCHES, 0), "velo_fwd": 1,
                           "velo_fwdgrad": 2}
     assert float(a[0]) == float(b[0])
     for x, y in zip(a[1], b[1]):

@@ -316,11 +316,12 @@ def test_wide_layout_is_the_kernel_sources_one_definition():
     assert TK.MAX_WIDTH == lay.max_width >= 256
     assert lay.min_tile % 32 == 0 and lay.threads % lay.max_tile == 0
     # the velocity fwd+grad cut's shared memory at the smallest tile, as
-    # smem_layout counts it: nu^T, gene columns and scalars, two basis
-    # blocks, the accumulators and six factor rows
+    # smem_layout counts it: nu^T, the gene columns (GeneCols, 14 floats)
+    # and two scalars per gene, two basis blocks, the accumulators and six
+    # factor rows
     T, W = lay.min_tile, lay.max_width
     G = lay.threads * lay.genes_per_thread // T
-    floats = W * G + 16 * G + 2 * G + (2 * W + 2 * W + 2) * (T + 1) + 6 * G * (T + 1)
+    floats = W * G + 14 * G + 2 * G + (2 * W + 2 * W + 2) * (T + 1) + 6 * G * (T + 1)
     assert floats * 4 <= 227 * 1024
 
 

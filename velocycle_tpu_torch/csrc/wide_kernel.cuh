@@ -106,7 +106,7 @@ __host__ __device__ constexpr int factor_rows(int stage) { return stage == PHASE
 // pass B's threads, each on another row at the same cell, meet no bank
 // conflict.
 struct Smem {
-  int T, G, PT;
+  int G, PT;   // genes of a unit, floats between two cell rows
   int nu;      // nu^T (W, G): the unit's genes' coefficients, column by column
   int cols;    // GeneCols (G)
   int gene;    // velocity: -log_beta, exp(log_gamma) (2 x G)
@@ -118,7 +118,6 @@ struct Smem {
 
 __host__ __device__ inline Smem smem_layout(int stage, int cut, int W, int T) {
   Smem s;
-  s.T = T;
   s.G = kElems / T;
   s.PT = T + 1;
   s.nu = 0;
@@ -138,11 +137,6 @@ __host__ inline int tile_cells(int stage, int cut, int W) {
   int T = kMaxTile;
   while (T > kMinTile && smem_layout(stage, cut, W, T).total * 4 > kTileBudget) T /= 2;
   return T;
-}
-
-template <typename TK>
-__device__ __forceinline__ float count_at(const TK* K, size_t i) {
-  return static_cast<float>(K[i]);
 }
 
 // The one body.  STAGE picks the phase or the velocity element; U,
@@ -289,8 +283,8 @@ wide_kernel(const TS* __restrict__ S, const TU* __restrict__ U, const float* __r
     for (int i = 0; i < GPT; ++i) {
       const bool ok = valid && gb + i < gn;
       const size_t at = static_cast<size_t>(g0 + gb + i) * Nc + c0 + c;
-      kS[i] = ok ? count_at(S, at) : 0.0f;
-      if (VEL) kU[VEL ? i : 0] = ok ? count_at(U, at) : 0.0f;
+      kS[i] = ok ? static_cast<float>(S[at]) : 0.0f;
+      if (VEL) kU[VEL ? i : 0] = ok ? static_cast<float>(U[at]) : 0.0f;
     }
     __syncthreads();  // the unit's genes and the tile's rows are in place
 

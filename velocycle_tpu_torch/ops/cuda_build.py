@@ -15,10 +15,11 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 __all__ = ["CSRC", "BUILD_DIR", "DEFAULT_BUILD_DIR", "build_all", "load",
-           "build_log", "loaded"]
+           "build_log", "build_seconds", "loaded"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 DEFAULT_BUILD_DIR = (Path(__file__).resolve().parents[2] / "build"
@@ -35,6 +36,7 @@ SOURCE_FLAGS = {"nb_velo": ["-split-compile=0"]}
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOGS: dict[str, str] = {}
+_SECONDS: dict[str, float] = {}
 
 
 def _nvcc():
@@ -73,15 +75,16 @@ def _start(name: str):
     proc = subprocess.Popen(
         cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
     )
-    return target, (proc, tmp)
+    return target, (proc, tmp, time.perf_counter())
 
 
 def _finish(name, target, pending):
     if pending is None:
         _LOGS.setdefault(name, f"{target.name}: already built")
         return
-    proc, tmp = pending
+    proc, tmp, t0 = pending
     out, _ = proc.communicate()
+    _SECONDS[name] = time.perf_counter() - t0
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{out}")
     os.replace(tmp, target)   # atomic: a concurrent build never sees a half-written file
@@ -102,6 +105,12 @@ def build_log(name: str) -> str:
     """nvcc's output (ptxas registers / shared memory / spills) for the last
     build of csrc/<name>.cu in this process."""
     return _LOGS.get(name, "")
+
+
+def build_seconds(name: str):
+    """Seconds from the start of nvcc for csrc/<name>.cu to its end, for
+    the last build in this process (None if it was built before)."""
+    return _SECONDS.get(name)
 
 
 def loaded() -> list[str]:
