@@ -454,9 +454,13 @@ def test_dispersion_gradient_takes_its_form_by_gene():
     (7, 4, (7, False)), (8, 0, (11, False)), (9, 2, (11, True)),
     (11, 0, (11, False)), (5, 5, (11, True)), (5, 6, (11, True)),
     (12, 0, (16, False)), (16, 0, (16, False)), (11, 5, (16, True)),
+    # past 16 columns: the wide body at Nh + Nb, the batches folded in
+    (5, 16, (21, True)), (20, 0, (20, False)), (5, 59, (64, True)),
+    (250, 6, (256, True)),
 ])
 def test_kernel_width_picks_the_next_instantiation(Nh, Nb, want):
     assert TK.kernel_width(Nh, Nb, 4) == want
+    assert TK._wide_shape(Nh, Nb, 4) == (want[0] > TK.NARROW_WIDTH)
 
 
 @pytest.mark.parametrize("Nh,Nb", [(17, 0), (11, 6), (16, 1)])

@@ -325,16 +325,6 @@ def test_wide_layout_is_the_kernel_sources_one_definition():
     assert floats * 4 <= 227 * 1024
 
 
-@pytest.mark.parametrize("Nh,Nb,want", [
-    (17, 0, (17, False)), (11, 6, (17, True)), (16, 1, (17, True)),
-    (5, 16, (21, True)), (20, 0, (20, False)), (5, 59, (64, True)),
-    (250, 6, (256, True)),
-])
-def test_kernel_width_sends_past_16_columns_to_the_wide_body(Nh, Nb, want):
-    assert TK.kernel_width(Nh, Nb, 4) == want
-    assert TK._wide_shape(Nh, Nb, 4)
-
-
 @pytest.mark.parametrize("Nh,Nb", [(257, 0), (200, 57), (5, 252)])
 def test_kernel_width_names_the_wide_ceiling(Nh, Nb):
     with pytest.raises(ValueError, match="at most MAX_WIDTH = 256 basis columns"):
