@@ -308,6 +308,12 @@ OPS_VELO = {"common": 43, "fwdgrad": 84, "disp": 2, "fwd": 14}
 # ElogS and dEs dots), velocity fwdgrad 7 (dzeta 2, dzeta_dphi 2, dnu 3)
 OPS_PER_COLUMN = {"common": 2, "fwdgrad": 4, "velo_common": 4,
                   "velo_fwdgrad": 7}
+# each delta_nu batch adds, per element and in either stage, what the
+# function needs of it: its offset's multiply-add into ElogS 2 and, with
+# the gradients, its ddelta_nu multiply-add 2.  No dzeta, no dEs, no
+# dzeta_dphi: the wide body's folded columns do that work too, but the
+# function does not need it (PERF.md section 6)
+OPS_PER_BATCH = {"common": 2, "fwdgrad": 2}
 W_SPLINE = 11           # the default spline basis: spline_n_basis + 1
 
 
@@ -1820,7 +1826,8 @@ def _batched_parity_case(torch, tag, Ng, Nc, K, batched, seed, want_disp,
                          nh=MCMC_NH, plain_batched=True, mode="fwdgrad",
                          kind="phase", Nb=0, wide=False):
     """The chain-batched ``kind``_fwdgrad (or, ``mode="fwd"``, _fwd, of the
-    phase or velocity pair; ``wide``: its *_wide entry point) against its
+    phase or velocity pair; ``wide``: a width past 16 columns, on the wide
+    body, counted as *_wide and held against the wide twin) against its
     plain version (over the chain batch, or chain by chain where a batched
     plain call would not fit) and against K unbatched launches.  Returns
     (max abs error, max loss rel error) over the chains and both
@@ -1829,9 +1836,11 @@ def _batched_parity_case(torch, tag, Ng, Nc, K, batched, seed, want_disp,
 
     grad = mode == "fwdgrad"
     name = f"{kind}_{mode}" + ("_wide" if wide else "")
-    kern = getattr(K_, name)
+    kern = getattr(K_, f"{kind}_{mode}")
     plain_one = getattr(K_, f"{name}_plain")
-    plain_chains = K_._CHAINS[plain_one]
+    # the phase pair's plain versions take the chain axis themselves
+    plain_chains = (plain_one if kind == "phase"
+                    else K_._velo_plain_chains(plain_one))
     grad_names = PHASE_GRADS if kind == "phase" else VELO_GRADS
     rtol = GRAD_RTOL if kind == "phase" else VELO_GRAD_RTOL
     kw = {"want_disp": want_disp} if grad else {}
@@ -1966,18 +1975,21 @@ def _batched_ops(torch, kind, mode, counts, chains, Db, nh, wd):
 
 def _batched_timing(torch, seed, card, cfg, batched, mode, wd=False,
                     nh=MCMC_NH, kind="phase", wide=False):
-    """One chain-batched launch of ``kind``_``mode`` (``wide``: its *_wide
-    entry point) against K unbatched launches at ``cfg``'s shape, each
-    beside its bound (bytes: the counts once, every chain's operands and
-    results; operations: every chain's) and the batched plain version.  No
-    PyTorch call computes this function: no library column."""
+    """One chain-batched launch of ``kind``_``mode`` (``wide``: a width past
+    16 columns, on the wide body, beside the wide twin) against K unbatched
+    launches at ``cfg``'s shape, each beside its bound (bytes: the counts
+    once, every chain's operands and results; operations: every chain's)
+    and the batched plain version.  No PyTorch call computes this
+    function: no library column."""
     from velocycle_tpu_torch.ops import nb_kernels as K_
     from velocycle_tpu_torch.tools import kernel_profile as TP
 
     grad = mode == "fwdgrad"
     name = f"{kind}_{mode}" + ("_wide" if wide else "")
-    kern = getattr(K_, name)
-    plain = K_._CHAINS[getattr(K_, f"{name}_plain")]
+    kern = getattr(K_, f"{kind}_{mode}")
+    plain_one = getattr(K_, f"{name}_plain")
+    plain = (plain_one if kind == "phase"
+             else K_._velo_plain_chains(plain_one))
     kw = {"want_disp": wd} if grad else {}
     Ng, Nc, Kc = cfg["Ng"], cfg["Nc"], cfg["chains"]
     counts, params, Db = _chain_inputs(torch, Ng, Nc, Kc, seed, batched, nh,
@@ -3186,12 +3198,13 @@ WIDE_KERNELS = ("phase_fwd_wide", "phase_fwdgrad_wide", "velo_fwd_wide",
 
 
 def wide_parity(torch, seed):
-    """[wide] (b): the four wide kernels against their plain versions (the
-    wide twins) at WIDE_CASES, both stages, the dispersion gradient both
-    ways; every width from 17 to MAX_WIDTH through the routed wrappers
-    (phase_fwdgrad, velo_fwdgrad) at 24 x 300, one wide launch each; the
-    chain-batched pair at K = 64.  Returns ({kernel: [max abs error, loss
-    rel error]} at WIDE_RECORD, {kernel: chain parity})."""
+    """[wide] (b): the four wide kernels, through the routed wrappers at
+    shapes past 16 columns, against their plain versions (the wide twins)
+    at WIDE_CASES, both stages, the dispersion gradient both ways; every
+    width from 17 to MAX_WIDTH through phase_fwdgrad and velo_fwdgrad at
+    24 x 300, one wide launch each; the chain-batched pair at K = 64.
+    Returns ({kernel: [max abs error, loss rel error]} at WIDE_RECORD,
+    {kernel: chain parity})."""
     from velocycle_tpu_torch.ops import nb_kernels as K
 
     t0 = time.perf_counter()
@@ -3200,16 +3213,21 @@ def wide_parity(torch, seed):
           for t, nh, Nb, Ng, Nc, i16, sk in WIDE_CASES]
     vc = [(t, Ng, Nc, Nb, i16, sk, {"nh": nh, **WIDE_VELO_EXTRA.get(t, {})})
           for t, nh, Nb, Ng, Nc, i16, sk in WIDE_CASES]
+    K.reset_launch_counts()
     res, ok = _parity_cases(
-        torch, seed, make_inputs, 1, K.phase_fwdgrad_wide,
-        K.phase_fwdgrad_wide_plain, K.phase_fwd_wide, K.phase_fwd_wide_plain,
+        torch, seed, make_inputs, 1, K.phase_fwdgrad,
+        K.phase_fwdgrad_wide_plain, K.phase_fwd, K.phase_fwd_wide_plain,
         PHASE_GRADS, GRAD_RTOL, pc, record=WIDE_RECORD)
     vres, vok = _parity_cases(
-        torch, seed, make_velo_inputs, 2, K.velo_fwdgrad_wide,
-        K.velo_fwdgrad_wide_plain, K.velo_fwd_wide, K.velo_fwd_wide_plain,
+        torch, seed, make_velo_inputs, 2, K.velo_fwdgrad,
+        K.velo_fwdgrad_wide_plain, K.velo_fwd, K.velo_fwd_wide_plain,
         VELO_GRADS, VELO_GRAD_RTOL, vc, record=WIDE_RECORD)
     check(ok and vok, "a wide kernel disagrees with its plain version (see "
           "[parity] lines)")
+    # every case is past 16 columns: the wide body and nothing else ran
+    launched = {k for k, v in K.LAUNCHES.items() if v}
+    check(launched == set(WIDE_KERNELS),
+          f"the wide cases launched {K.LAUNCHES}")
     # every width through the route: no width up to MAX_WIDTH raises
     K.reset_launch_counts()
     worst = 0.0
@@ -3243,17 +3261,20 @@ def wide_parity(torch, seed):
                 want_disp=wd, nh=c["nh"], mode=mode, kind=kind, wide=True)
     torch.cuda.empty_cache()
     print(f"[wide] (b) parity in {time.perf_counter() - t0:.1f} s")
-    return {**res, **vres}, chains
+    return {f"{k}_wide": v for k, v in {**res, **vres}.items()}, chains
 
 
-def _wide_ops(kind, mode, W, N, lg, dg, wd):
-    """FP32 operations of a wide kernel call over N elements at W columns:
-    OPS / OPS_VELO at Nh = 5 plus OPS_PER_COLUMN for each further column
-    (the wide body makes the same sums: its passes A-C are the narrow
-    body's dot products, gene sums and cell sums), the lgamma ratio's
-    ``lg`` and, with the dispersion gradient, ``dg``."""
-    extra = W - NH
+def _wide_ops(kind, mode, Nh, Nb, N, lg, dg, wd):
+    """FP32 operations the function of a wide kernel call needs over N
+    elements at Nh basis columns and Nb delta_nu batches: OPS / OPS_VELO at
+    Nh = 5, OPS_PER_COLUMN for each further basis column and
+    OPS_PER_BATCH for each batch (the ElogS offset and its ddelta_nu sum
+    alone, however the body computes them), the lgamma ratio's ``lg`` and,
+    with the dispersion gradient, ``dg``."""
+    extra = Nh - NH
     grad = mode == "fwdgrad"
+    batches = Nb * (OPS_PER_BATCH["common"]
+                    + (OPS_PER_BATCH["fwdgrad"] if grad else 0))
     if kind == "phase":
         per = OPS["common"] + extra * OPS_PER_COLUMN["common"] + (
             OPS["fwdgrad"] - (0 if wd else OPS_DISP)
@@ -3263,7 +3284,7 @@ def _wide_ops(kind, mode, W, N, lg, dg, wd):
             OPS_VELO["fwdgrad"] + (OPS_VELO["disp"] if wd else 0)
             + extra * OPS_PER_COLUMN["velo_fwdgrad"] if grad
             else OPS_VELO["fwd"])
-    return per * N + lg + (dg if grad and wd else 0)
+    return (per + batches) * N + lg + (dg if grad and wd else 0)
 
 
 def wide_timing(torch, seed, card):
@@ -3293,19 +3314,19 @@ def wide_timing(torch, seed, card):
         a = (S, nu, zeta, cf, r, dnu, Db, lgk)
         out["phase_fwdgrad_wide"][f"w{W}"] = _time_pair(
             torch, f"phase_fwdgrad_wide at {W} columns",
-            lambda: K.phase_fwdgrad_wide(*a, want_disp=True),
+            lambda: K.phase_fwdgrad(*a, want_disp=True),
             lambda: K.phase_fwdgrad_wide_plain(*a, want_disp=True),
             in_bytes + pbytes + 4,
-            _wide_ops("phase", "fwdgrad", W, N, lg, dg, True), card, note)
+            _wide_ops("phase", "fwdgrad", nh, nb, N, lg, dg, True), card, note)
         out["phase_fwd_wide"][f"w{W}"] = _time_pair(
             torch, f"phase_fwd_wide at {W} columns",
-            lambda: K.phase_fwd_wide(*a), lambda: K.phase_fwd_wide_plain(*a),
-            in_bytes + 4, _wide_ops("phase", "fwd", W, N, lg, dg, False),
+            lambda: K.phase_fwd(*a), lambda: K.phase_fwd_wide_plain(*a),
+            in_bytes + 4, _wide_ops("phase", "fwd", nh, nb, N, lg, dg, False),
             card, note)
         if W == 21:
             Sf = S.float()
             af = (Sf, *a[1:])
-            med = _median_reps(TP, {"f32": lambda: K.phase_fwdgrad_wide(
+            med = _median_reps(TP, {"f32": lambda: K.phase_fwdgrad(
                 *af, want_disp=True)})["f32"]
             out["phase_fwdgrad_wide"]["f32_ms"] = med[0]
             print(f"[timing] phase_fwdgrad_wide at 21 columns, float32 "
@@ -3324,19 +3345,21 @@ def wide_timing(torch, seed, card):
         a = (*v, lgk)
         out["velo_fwdgrad_wide"][f"w{W}"] = _time_pair(
             torch, f"velo_fwdgrad_wide at {W} columns",
-            lambda: K.velo_fwdgrad_wide(*a, want_disp=False),
+            lambda: K.velo_fwdgrad(*a, want_disp=False),
             lambda: K.velo_fwdgrad_wide_plain(*a, want_disp=False),
             in_bytes + pbytes + 4,
-            _wide_ops("velo", "fwdgrad", W, S.numel(), lg, 0, False), card,
+            _wide_ops("velo", "fwdgrad", nh, nb, S.numel(), lg, 0,
+                      False), card,
             note)
         out["velo_fwd_wide"][f"w{W}"] = _time_pair(
             torch, f"velo_fwd_wide at {W} columns",
-            lambda: K.velo_fwd_wide(*a), lambda: K.velo_fwd_wide_plain(*a),
-            in_bytes + 4, _wide_ops("velo", "fwd", W, S.numel(), lg, 0, False),
+            lambda: K.velo_fwd(*a), lambda: K.velo_fwd_wide_plain(*a),
+            in_bytes + 4,
+            _wide_ops("velo", "fwd", nh, nb, S.numel(), lg, 0, False),
             card, note)
         if W == 21:
             af = (S.float(), U.float(), *a[2:])
-            med = _median_reps(TP, {"f32": lambda: K.velo_fwdgrad_wide(
+            med = _median_reps(TP, {"f32": lambda: K.velo_fwdgrad(
                 *af, want_disp=False)})["f32"]
             out["velo_fwdgrad_wide"]["f32_ms"] = med[0]
             print(f"[timing] velo_fwdgrad_wide at 21 columns, float32 S and "
@@ -3364,37 +3387,56 @@ def wide_timing(torch, seed, card):
 
 
 def _wide_fold_cost(torch, seed, card):
-    """What folding the 16 batches into basis columns costs (the wide body
-    takes delta_nu only folded): the phase fwd+grad kernel at 21 columns
-    (Nh 5 + 16 batches) against the same kernel at Nh 5 alone, both on
-    the wide body at full width, and the fold's host-side work
-    (`widen_inputs` + `narrow_grads`) per call.  A body that took delta_nu
-    as it is would do the same multiply-adds in ElogS and the gene sums;
-    the fold adds the 16 columns' cell sums (whose dzeta is dropped)."""
+    """What folding the 16 batches into basis columns costs, per stage: the
+    fwd+grad kernel at 21 columns (Nh 5 + 16 batches, through the routed
+    wrapper) against the wide body launched straight at Nh 5 alone (no
+    batches; `_wide_launch`, uncounted: a measurement of its own), both at
+    full width, and the fold's host-side work (`widen_inputs` +
+    `narrow_grads`) per call.  A body that took delta_nu as it is would
+    still add the batches' ElogS offsets and ddelta_nu sums to the Nh 5
+    work, so the difference bounds from above what it could save; no such
+    body is built, so the choice is not measured against one."""
     from velocycle_tpu_torch.ops import nb_kernels as K
     from velocycle_tpu_torch.tools import kernel_profile as TP
 
-    S, nu, zeta, cf, r, dnu, Db = make_inputs(torch, NG, NC, seed, Nb=16)
-    lgk = lgamma_k_sum(torch, S)
-    med = _median_reps(TP, {
-        "w21": lambda: K.phase_fwdgrad_wide(S, nu, zeta, cf, r, dnu, Db, lgk),
-        "w5": lambda: K.phase_fwdgrad_wide(S, nu, zeta, cf, r, None, None,
-                                           lgk)})
+    out = {}
+    for kind in ("phase", "velo"):
+        make = make_inputs if kind == "phase" else make_velo_inputs
+        v = make(torch, NG, NC, seed, Nb=WIDE_BATCHES)
+        n_counts = 1 if kind == "phase" else 2
+        counts, params = v[:n_counts], list(v[n_counts:-2])
+        dnu, Db = v[-2:]
+        lgk = lgamma_k_sum(torch, *counts)
+        wd = kind == "phase"    # as (a) runs each stage
+        routed = getattr(K, f"{kind}_fwdgrad")
+        ops = (params[:2] + [None] + params[2:3] + [None] * 3 + params[3:]
+               if kind == "phase" else params)
 
-    def fold():
-        nu_w, (z_w,), _, _ = K.widen_inputs(nu, [zeta], dnu, Db, 21, True)
-        return K.narrow_grads(nu_w, [z_w], None, 5, 16, True)
+        def alone():
+            return K._wide_launch(kind, "fwdgrad", counts, ops, True, wd, 1)
 
-    fold_ms = TP.event_ms(fold, reps=20)
-    w21, w5 = med["w21"][0], med["w5"][0]
-    print(f"[timing] the fold of 16 batches on {card}: phase_fwdgrad_wide "
-          f"at 21 columns (Nh 5 + 16 batches) median {w21:.4f} ms of "
-          f"{_reps_note(med['w21'][1])}, at Nh 5 alone {w5:.4f} ms of "
-          f"{_reps_note(med['w5'][1])}: the batches add {w21 - w5:.4f} ms; "
-          f"widen_inputs + narrow_grads {fold_ms:.4f} ms per call")
-    del S, nu, zeta, cf, r, dnu, Db
-    torch.cuda.empty_cache()
-    return {"w21_ms": w21, "w5_ms": w5, "fold_host_ms": fold_ms}
+        med = _median_reps(TP, {
+            "w21": lambda: routed(*v, lgk, want_disp=wd), "w5": alone})
+
+        def fold():
+            nu_w, zs, _, _ = K.widen_inputs(
+                params[0], params[1:2 if kind == "phase" else 3], dnu, Db,
+                NH + WIDE_BATCHES, True)
+            return K.narrow_grads(nu_w, zs, None, NH, WIDE_BATCHES, True)
+
+        fold_ms = TP.event_ms(fold, reps=20)
+        w21, w5 = med["w21"][0], med["w5"][0]
+        print(f"[timing] the fold of {WIDE_BATCHES} batches, {kind} stage, "
+              f"on {card}: {kind}_fwdgrad_wide at 21 columns (Nh 5 + "
+              f"{WIDE_BATCHES} batches) median {w21:.4f} ms of "
+              f"{_reps_note(med['w21'][1])}, the wide body at Nh 5 alone "
+              f"{w5:.4f} ms of {_reps_note(med['w5'][1])}: the batches add "
+              f"{w21 - w5:.4f} ms; widen_inputs + narrow_grads "
+              f"{fold_ms:.4f} ms per call")
+        out[kind] = {"w21_ms": w21, "w5_ms": w5, "fold_host_ms": fold_ms}
+        del v, counts, params, dnu, Db, ops
+        torch.cuda.empty_cache()
+    return out
 
 
 def _batch_design(adata):
@@ -5043,8 +5085,8 @@ def _run(torch, args, name, count, smi, t_start, tiles, pending):
                        **({"timing": wide_timings[k]["chains"]}
                           if "chains" in wide_timings[k] else {})},
             "stage": wide["phase" if k.startswith("phase") else "velo"],
-            **({"fold": wide_timings["fold"]} if k == "phase_fwdgrad_wide"
-               else {}),
+            **({"fold": wide_timings["fold"][k.split("_")[0]]}
+               if k.endswith("fwdgrad_wide") else {}),
         })
     # the ladder's launches come from its own entry point, run_ladder
     for rung, line in LADDER_REPLACES.items():

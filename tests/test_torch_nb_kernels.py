@@ -460,7 +460,6 @@ def test_dispersion_gradient_takes_its_form_by_gene():
 ])
 def test_kernel_width_picks_the_next_instantiation(Nh, Nb, want):
     assert TK.kernel_width(Nh, Nb, 4) == want
-    assert TK._wide_shape(Nh, Nb, 4) == (want[0] > TK.NARROW_WIDTH)
 
 
 @pytest.mark.parametrize("Nh,Nb", [(17, 0), (11, 6), (16, 1)])

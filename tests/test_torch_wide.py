@@ -9,8 +9,8 @@ versions, the wide twins (`phase_fwdgrad_wide_plain`,
 fused Pallas kernels in interpret mode: the loss and every gradient, both
 stages, at Nh 21 alone, Nh 5 with 16 batches, Nh 11 with 6, and over a
 chain axis of K = 3.  On the CPU `nb_loglik_fused` and `nbsu_loglik_fused`
-take the wide twins at those shapes, and the fused ELBO of each model
-matches the JAX package's fused ELBO at a spline basis of n_basis 20 and
+take the plain pair at those shapes, which agrees with the twins, and the
+fused ELBO of each model matches the JAX package's fused ELBO at a spline basis of n_basis 20 and
 at a Fourier basis of H 2 with 16 batches.  The kernels themselves are
 held against the twins on the card (tests/test_torch_gpu.py,
 chip_smoke.py [wide]).  Also the last public names: `ops.fourier.basis`,
@@ -110,15 +110,14 @@ def _twin(stage, args, chains=False):
     (the JAX kernel's argument order)."""
     t = [torch.as_tensor(a) for a in args]
     if stage == "phase":
-        fn = TK._CHAINS[TK.phase_fwdgrad_wide_plain] if chains else \
-            TK.phase_fwdgrad_wide_plain
+        fn = TK.phase_fwdgrad_wide_plain   # takes the chain axis itself
         if len(t) == 5:
             t += [None, None]
         loss, (dnu, dzeta, dcf, ddisp, ddnu) = fn(*t)
         grads = [dnu, dzeta, dcf, ddisp, ddnu]
     else:
-        fn = TK._CHAINS[TK.velo_fwdgrad_wide_plain] if chains else \
-            TK.velo_fwdgrad_wide_plain
+        fn = (TK._velo_plain_chains(TK.velo_fwdgrad_wide_plain) if chains
+              else TK.velo_fwdgrad_wide_plain)
         if len(t) == 10:
             t += [None, None]
         # (dnu, dzeta, dzdphi, dcf, domega, dlog_beta, dlog_gamma, ddisp,
@@ -176,9 +175,11 @@ def test_wide_twin_chain_axis_matches_jax(stage):
 
 
 @pytest.mark.parametrize("stage", ["phase", "velo"])
-def test_fused_wrapper_takes_the_wide_twin_on_the_cpu(stage):
-    """nb_loglik_fused / nbsu_loglik_fused on CPU tensors at a wide shape:
-    the loss and the autograd gradients are the wide twin's, bit for bit."""
+def test_fused_wrapper_on_the_cpu_matches_the_wide_twin(stage):
+    """nb_loglik_fused / nbsu_loglik_fused on CPU tensors at a wide shape
+    (the plain pair, delta_nu as such): the loss and the autograd gradients
+    agree with the wide twin's (the batches folded into columns) within the
+    kernels' gates."""
     args = [torch.as_tensor(a) for a in _inputs(stage, 16, 40, 5, 16, seed=5)]
     n_data = 1 if stage == "phase" else 2
     leaves = [t.clone().requires_grad_(True) for t in args[n_data:-1]]
@@ -188,9 +189,9 @@ def test_fused_wrapper_takes_the_wide_twin_on_the_cpu(stage):
     twin = (TK.phase_fwdgrad_wide_plain if stage == "phase"
             else TK.velo_fwdgrad_wide_plain)
     want_loss, want = twin(*args)
-    assert torch.equal(loss.detach(), want_loss)
-    for leaf, g in zip(leaves, want):
-        assert torch.equal(leaf.grad, g)
+    _assert_close(loss.detach(), [leaf.grad.numpy() for leaf in leaves],
+                  float(want_loss), [g.numpy() for g in want],
+                  GRAD_RTOL if stage == "phase" else VELO_GRAD_RTOL)
 
 
 # ---------------------------------------------------------------------------
@@ -260,7 +261,7 @@ def _wide_mp(pkg, stage, config):
 @pytest.mark.parametrize("stage", [1, 2])
 def test_fused_elbo_at_wide_bases_matches_jax_fused(stage, config):
     """At fixed params and guide draws built from the same numpy noise, the
-    port's fused ELBO (the wide twins on the CPU; the wide body on the
+    port's fused ELBO (the plain pair on the CPU; the wide body on the
     card) and every param gradient against the JAX package's fused ELBO
     (its Pallas kernels in interpret mode)."""
     jmp = _wide_mp(V, stage, config)
@@ -268,7 +269,7 @@ def test_fused_elbo_at_wide_bases_matches_jax_fused(stage, config):
     assert jdata.use_fused_nb
     Nh = jdata.mu_nu.shape[1]
     Nb = jdata.Db.shape[0] if jdata.with_delta_nu else 0
-    assert Nh + Nb == 21 and TK._wide_shape(Nh, Nb, 4)
+    assert TK.kernel_width(Nh, Nb, 4) == (21, Nb > 0)
     rng = np.random.default_rng(9)
     if stage == 1:
         tdata = phase_data_from_jax(jdata, device="cpu")

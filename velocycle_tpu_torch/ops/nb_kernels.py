@@ -24,10 +24,12 @@ four delta_nu batches, and 11 and 16 without; `kernel_width` sends any
 other shape of at most NARROW_WIDTH = 16 basis columns to the next width,
 with zero columns and the batches folded into basis columns
 (`widen_inputs`, `narrow_grads`).  Past that, up to MAX_WIDTH = 256
-columns, the wide body (`csrc/nb_wide.cu` over `csrc/wide_kernel.cuh`,
-the basis width a runtime value) takes Nh + Nb columns, the batches
-folded in: ``phase_fwd_wide`` / ``phase_fwdgrad_wide`` / ``velo_fwd_wide``
-/ ``velo_fwdgrad_wide``, each launch counted under its own name.
+columns, the same four wrappers launch the wide body (`csrc/nb_wide.cu`
+over `csrc/wide_kernel.cuh`, the basis width a runtime value) at Nh + Nb
+columns, the batches folded in, and count those launches under
+``phase_fwd_wide`` / ``phase_fwdgrad_wide`` / ``velo_fwd_wide`` /
+``velo_fwdgrad_wide``.  Its plain versions, the ``*_wide_plain`` twins,
+are the references of the tests and of chip_smoke.py.
 
 The ``*_fwd`` kernel gives the loss alone (loss-only evaluations); the
 ``*_fwdgrad`` kernel gives the loss AND every gradient in one pass (every
@@ -84,9 +86,7 @@ __all__ = [
     "phase_fwd_plain",
     "phase_fwdgrad",
     "phase_fwdgrad_plain",
-    "phase_fwdgrad_wide",
     "phase_fwdgrad_wide_plain",
-    "phase_fwd_wide",
     "phase_fwd_wide_plain",
     "phase_layout",
     "phase_plan",
@@ -95,9 +95,7 @@ __all__ = [
     "velo_fwd_plain",
     "velo_fwdgrad",
     "velo_fwdgrad_plain",
-    "velo_fwdgrad_wide",
     "velo_fwdgrad_wide_plain",
-    "velo_fwd_wide",
     "velo_fwd_wide_plain",
     "velo_layout",
     "velo_plan",
@@ -346,17 +344,18 @@ def _fold(nu, zetas, delta_nu, Db):
 
 def phase_fwd_wide_plain(S, nu, zeta, cf, r, delta_nu=None, Db=None,
                          lgamma_k_sum=None):
-    """Plain version of ``phase_fwd_wide``: the loss, as `phase_fwd_plain`
-    with the batches folded into basis columns (chain-batched as it)."""
+    """Plain version of `phase_fwd` on the wide body: the loss, as
+    `phase_fwd_plain` with the batches folded into basis columns
+    (chain-batched as it)."""
     nu_w, (zeta_w,), *_ = _fold(nu, [zeta], delta_nu, Db)
     return phase_fwd_plain(S, nu_w, zeta_w, cf, r, None, None, lgamma_k_sum)
 
 
 def phase_fwdgrad_wide_plain(S, nu, zeta, cf, r, delta_nu=None, Db=None,
                              lgamma_k_sum=None, want_disp=True):
-    """Plain version of ``phase_fwdgrad_wide``: (loss, (dnu, dzeta, dcf,
-    ddisp, ddelta_nu)) as `phase_fwdgrad_plain`, the batches folded into
-    basis columns (chain-batched as it)."""
+    """Plain version of `phase_fwdgrad` on the wide body: (loss, (dnu,
+    dzeta, dcf, ddisp, ddelta_nu)) as `phase_fwdgrad_plain`, the batches
+    folded into basis columns (chain-batched as it)."""
     nu_w, (zeta_w,), Nh, Nb, fold = _fold(nu, [zeta], delta_nu, Db)
     loss, (dnu, dzeta, dcf, ddisp, _) = phase_fwdgrad_plain(
         S, nu_w, zeta_w, cf, r, None, None, lgamma_k_sum, want_disp)
@@ -367,8 +366,8 @@ def phase_fwdgrad_wide_plain(S, nu, zeta, cf, r, delta_nu=None, Db=None,
 def velo_fwd_wide_plain(S, U, nu, zeta, zeta_dphi, cf, omega, log_beta,
                         log_gamma, r, delta_nu=None, Db=None,
                         lgamma_k_sum=None):
-    """Plain version of ``velo_fwd_wide``: the loss, as `velo_fwd_plain`
-    with the batches folded into basis columns."""
+    """Plain version of `velo_fwd` on the wide body: the loss, as
+    `velo_fwd_plain` with the batches folded into basis columns."""
     nu_w, (z_w, zd_w), *_ = _fold(nu, [zeta, zeta_dphi], delta_nu, Db)
     return velo_fwd_plain(S, U, nu_w, z_w, zd_w, cf, omega, log_beta,
                           log_gamma, r, None, None, lgamma_k_sum)
@@ -377,9 +376,9 @@ def velo_fwd_wide_plain(S, U, nu, zeta, zeta_dphi, cf, omega, log_beta,
 def velo_fwdgrad_wide_plain(S, U, nu, zeta, zeta_dphi, cf, omega, log_beta,
                             log_gamma, r, delta_nu=None, Db=None,
                             lgamma_k_sum=None, want_disp=True):
-    """Plain version of ``velo_fwdgrad_wide``: the loss and every gradient
-    as `velo_fwdgrad_plain`, the batches folded into basis columns (whose
-    zeta_dphi columns are zero: dEs keeps its bits)."""
+    """Plain version of `velo_fwdgrad` on the wide body: the loss and
+    every gradient as `velo_fwdgrad_plain`, the batches folded into basis
+    columns (whose zeta_dphi columns are zero: dEs keeps its bits)."""
     nu_w, (z_w, zd_w), Nh, Nb, fold = _fold(nu, [zeta, zeta_dphi], delta_nu,
                                             Db)
     loss, g = velo_fwdgrad_plain(S, U, nu_w, z_w, zd_w, cf, omega, log_beta,
@@ -403,13 +402,6 @@ KERNEL_WIDTHS = (3, 5, 7, 11, 16)
 NARROW_WIDTH = KERNEL_WIDTHS[-1]
 MAX_WIDTH = 256
 DNU_WIDTH = 7
-
-
-def _wide_shape(Nh, Nb, max_nb):
-    """Whether Nh basis columns and Nb batches run on the wide body: past
-    NARROW_WIDTH columns once the batches are folded in (they are, unless
-    Nh <= DNU_WIDTH and Nb <= max_nb)."""
-    return not (Nb <= max_nb and Nh <= DNU_WIDTH) and Nh + Nb > NARROW_WIDTH
 
 
 def kernel_width(Nh, Nb, max_nb):
@@ -936,30 +928,25 @@ def _phase_params(nu, zeta, cf, r):
     return {"nu": nu, "zeta": zeta, "count_factor": cf, "dispersion": r}
 
 
-def _route(name, width, fold, Nh, Nb, wide):
-    """(width, fold, the name the launch counts under): the wide body at
-    Nh + Nb columns, batches folded, for a ``*_wide`` entry point
-    (``wide``) or past NARROW_WIDTH; the narrow body's width otherwise."""
-    if wide:
-        return Nh + Nb, Nb > 0, name
-    if width > NARROW_WIDTH:
-        return width, fold, name + "_wide"
-    return width, fold, name
+def _counted(name, width):
+    """The name a launch at ``width`` counts under: ``*_wide`` past
+    NARROW_WIDTH, where the wide body runs it."""
+    return name + "_wide" if width > NARROW_WIDTH else name
 
 
 def _phase_call(name, S, nu, zeta, cf, r, delta_nu, Db, lgamma_k_sum,
-                want_disp=False, wide=False):
+                want_disp=False):
     """Check, widen where the shape needs it, launch and count one phase
     kernel (over a chain batch where operands carry a leading chain axis):
-    the narrow body, or the wide body past NARROW_WIDTH columns or when
-    ``wide``.  Returns (loss, gene partials summed over the cell tiles or
-    None, dzeta or None, dcf or None, (Nh, Nb, fold, kernel delta_nu)),
-    each with the leading chain axis in a chain-batched call."""
-    grad = "fwdgrad" in name
+    the narrow body, or the wide body past NARROW_WIDTH columns.  Returns
+    (loss, gene partials summed over the cell tiles or None, dzeta or None,
+    dcf or None, (Nh, Nb, fold, kernel delta_nu)), each with the leading
+    chain axis in a chain-batched call."""
+    grad = name == "phase_fwdgrad"
     width, fold, K = _on_card(name, [("S", S)], _phase_params(nu, zeta, cf, r),
                               delta_nu, Db, phase_layout().max_nb)
     Nb = 0 if delta_nu is None else delta_nu.shape[-2]
-    width, fold, counted = _route(name, width, fold, nu.shape[-1], Nb, wide)
+    counted = _counted(name, width)
     nu_k, (zeta_k,), dnu_k, Db_k = widen_inputs(nu, [zeta], delta_nu, Db,
                                                 width, fold)
     skip_k = lgamma_k_sum is not None
@@ -984,11 +971,11 @@ def _phase_call(name, S, nu, zeta, cf, r, delta_nu, Db, lgamma_k_sum,
     return loss, gene, dzeta, dcf, (nu.shape[-1], Nb, fold, dnu_k)
 
 
-def _phase_grads(name, S, nu, zeta, cf, r, delta_nu, Db, lgamma_k_sum,
-                 want_disp, wide=False):
+def _phase_grads(S, nu, zeta, cf, r, delta_nu, Db, lgamma_k_sum,
+                 want_disp):
     loss, gene, dzeta, dcf, (Nh, Nb, fold, dnu_k) = _phase_call(
-        name, S, nu, zeta, cf, r, delta_nu, Db, lgamma_k_sum, want_disp,
-        wide)
+        "phase_fwdgrad", S, nu, zeta, cf, r, delta_nu, Db, lgamma_k_sum,
+        want_disp)
     W = dzeta.shape[-1]
     ddnu = (gene[..., W + 1:].transpose(-1, -2).contiguous()
             if dnu_k is not None else None)
@@ -999,7 +986,7 @@ def _phase_grads(name, S, nu, zeta, cf, r, delta_nu, Db, lgamma_k_sum,
 
 def phase_fwd(S, nu, zeta, cf, r, delta_nu=None, Db=None, lgamma_k_sum=None):
     """Loss of the fused phase NB likelihood on the card (CUDA tensors); past
-    NARROW_WIDTH basis columns through `phase_fwd_wide`'s kernel.
+    NARROW_WIDTH basis columns on the wide body, counted as phase_fwd_wide.
 
     Chain-batched as `phase_fwdgrad`: where any of nu, zeta, cf, r and
     delta_nu carries a leading chain axis K, ONE launch computes the K
@@ -1013,33 +1000,16 @@ def phase_fwdgrad(S, nu, zeta, cf, r, delta_nu=None, Db=None,
     """Loss and every gradient of the fused phase NB likelihood on the card:
     (loss, (dnu, dzeta, dcf, ddisp, ddelta_nu)), as `phase_fwdgrad_plain`.
     The kernel's gene partials hold [dnu (width), ddisp, ddelta_nu (Nb)].
-    Past NARROW_WIDTH basis columns through `phase_fwdgrad_wide`'s kernel.
+    Past NARROW_WIDTH basis columns on the wide body, counted as
+    phase_fwdgrad_wide.
 
     Chain-batched as `phase_fwdgrad_plain`: where any of nu, zeta, cf, r and
     delta_nu carries a leading chain axis K, ONE launch computes all K
     chains (the operands without the axis shared by them) and the loss is
     (K,) and every gradient (K, ...); counted once in LAUNCHES and under K
     in LAUNCH_CHAINS."""
-    return _phase_grads("phase_fwdgrad", S, nu, zeta, cf, r, delta_nu, Db,
-                        lgamma_k_sum, want_disp)
-
-
-def phase_fwd_wide(S, nu, zeta, cf, r, delta_nu=None, Db=None,
-                   lgamma_k_sum=None):
-    """`phase_fwd` on the wide body (csrc/nb_wide.cu) at any width: W = Nh
-    + Nb basis columns, the batches folded in, up to MAX_WIDTH; counted
-    under its own name.  Chain-batched as `phase_fwd`."""
-    return _phase_call("phase_fwd_wide", S, nu, zeta, cf, r, delta_nu, Db,
-                       lgamma_k_sum, wide=True)[0]
-
-
-def phase_fwdgrad_wide(S, nu, zeta, cf, r, delta_nu=None, Db=None,
-                       lgamma_k_sum=None, want_disp=True):
-    """`phase_fwdgrad` on the wide body at any width (W = Nh + Nb, the
-    batches folded in, up to MAX_WIDTH); counted under its own name.
-    Chain-batched as `phase_fwdgrad`."""
-    return _phase_grads("phase_fwdgrad_wide", S, nu, zeta, cf, r, delta_nu,
-                        Db, lgamma_k_sum, want_disp, wide=True)
+    return _phase_grads(S, nu, zeta, cf, r, delta_nu, Db, lgamma_k_sum,
+                        want_disp)
 
 
 def _velo_params(nu, zeta, zeta_dphi, cf, omega, log_beta, log_gamma, r):
@@ -1049,24 +1019,23 @@ def _velo_params(nu, zeta, zeta_dphi, cf, omega, log_beta, log_gamma, r):
 
 
 def _velo_call(name, S, U, params, delta_nu, Db, lgamma_k_sum,
-               want_disp=False, wide=False):
+               want_disp=False):
     """Check, widen where the shape needs it, size the buffers from the
     plan, launch and count one velocity kernel (over a chain batch where
     operands carry a leading chain axis): the narrow body, or the wide body
-    past NARROW_WIDTH columns or when ``wide``.  Returns (loss, gene
+    past NARROW_WIDTH columns.  Returns (loss, gene
     partials summed over the cell tiles (Ng, W + 3 + Nb) or None, [dzeta,
     dzeta_dphi, dcf, domega] at width W or [], (Nh, Nb, fold, kernel
     delta_nu)), each with the leading chain axis in a chain-batched call."""
     width, fold, K = _on_card(name, [("S", S), ("U", U)], params, delta_nu,
                               Db, velo_layout().max_nb)
     Nb = 0 if delta_nu is None else delta_nu.shape[-2]
-    width, fold, counted = _route(name, width, fold, params["nu"].shape[-1],
-                                  Nb, wide)
+    counted = _counted(name, width)
     nu, (zeta, zdphi), dnu_k, Db_k = widen_inputs(
         params["nu"], [params["zeta"], params["zeta_dphi"]], delta_nu, Db,
         width, fold)
     Kc = K or 1
-    cut = "fwdgrad" if "fwdgrad" in name else "fwd"
+    cut = "fwdgrad" if name == "velo_fwdgrad" else "fwd"
     skip_k = lgamma_k_sum is not None
     ops = [zeta, zdphi, *(params[k] for k in (
         "count_factor", "omega", "log_beta", "log_gamma", "dispersion"))]
@@ -1131,11 +1100,10 @@ def _velo_launch(cut, S, U, nu, ops, dnu_k, Db_k, skip_k, want_disp, Kc):
     return loss_part, None if gene_part is None else gene_part.sum(1), cell
 
 
-def _velo_grads(name, args, delta_nu, Db, lgamma_k_sum, want_disp,
-                wide=False):
+def _velo_grads(args, delta_nu, Db, lgamma_k_sum, want_disp):
     loss, gene, (dzeta, dzdphi, dcf, domega), (Nh, Nb, fold, dnu_k) = \
-        _velo_call(name, args[0], args[1], _velo_params(*args[2:]),
-                   delta_nu, Db, lgamma_k_sum, want_disp, wide)
+        _velo_call("velo_fwdgrad", args[0], args[1], _velo_params(*args[2:]),
+                   delta_nu, Db, lgamma_k_sum, want_disp)
     W = dzeta.shape[-1]
     ddnu = (gene[..., W + 3:].transpose(-1, -2).contiguous()
             if dnu_k is not None else None)
@@ -1150,7 +1118,7 @@ def _velo_grads(name, args, delta_nu, Db, lgamma_k_sum, want_disp,
 def velo_fwd(S, U, nu, zeta, zeta_dphi, cf, omega, log_beta, log_gamma, r,
              delta_nu=None, Db=None, lgamma_k_sum=None):
     """Loss of the fused velocity S+U NB likelihood on the card; past
-    NARROW_WIDTH basis columns through `velo_fwd_wide`'s kernel.
+    NARROW_WIDTH basis columns on the wide body, counted as velo_fwd_wide.
 
     Chain-batched as `phase_fwd`: where any parameter carries a leading
     chain axis K, ONE launch computes the K losses (K,); counted once in
@@ -1168,7 +1136,8 @@ def velo_fwdgrad(S, U, nu, zeta, zeta_dphi, cf, omega, log_beta, log_gamma,
     the card, as `velo_fwdgrad_plain`.  The kernel's gene partials hold
     [dnu (width), ddisp, dlog_beta, sum_c g_x, ddelta_nu (Nb)] per gene;
     dlog_gamma is sum_c g_x times exp(log_gamma), applied after the sum.
-    Past NARROW_WIDTH basis columns through `velo_fwdgrad_wide`'s kernel.
+    Past NARROW_WIDTH basis columns on the wide body, counted as
+    velo_fwdgrad_wide.
 
     Chain-batched as `phase_fwdgrad`: where any of the parameters (nu,
     zeta, zeta_dphi, cf, omega, log_beta, log_gamma, r, delta_nu) carries a
@@ -1176,32 +1145,9 @@ def velo_fwdgrad(S, U, nu, zeta, zeta_dphi, cf, omega, log_beta, log_gamma,
     without the axis shared by them, S, U and Db always), and the loss is
     (K,) and every gradient (K, ...); counted once in LAUNCHES and under K
     in LAUNCH_CHAINS."""
-    return _velo_grads(
-        "velo_fwdgrad", (S, U, nu, zeta, zeta_dphi, cf, omega, log_beta,
-                         log_gamma, r), delta_nu, Db, lgamma_k_sum, want_disp)
+    return _velo_grads((S, U, nu, zeta, zeta_dphi, cf, omega, log_beta,
+                        log_gamma, r), delta_nu, Db, lgamma_k_sum, want_disp)
 
-
-def velo_fwd_wide(S, U, nu, zeta, zeta_dphi, cf, omega, log_beta, log_gamma,
-                  r, delta_nu=None, Db=None, lgamma_k_sum=None):
-    """`velo_fwd` on the wide body (csrc/nb_wide.cu) at any width: W = Nh +
-    Nb basis columns, the batches folded in, up to MAX_WIDTH; counted under
-    its own name.  Chain-batched as `velo_fwd`."""
-    return _velo_call(
-        "velo_fwd_wide", S, U,
-        _velo_params(nu, zeta, zeta_dphi, cf, omega, log_beta, log_gamma, r),
-        delta_nu, Db, lgamma_k_sum, wide=True)[0]
-
-
-def velo_fwdgrad_wide(S, U, nu, zeta, zeta_dphi, cf, omega, log_beta,
-                      log_gamma, r, delta_nu=None, Db=None, lgamma_k_sum=None,
-                      want_disp=True):
-    """`velo_fwdgrad` on the wide body at any width (W = Nh + Nb, the
-    batches folded in, up to MAX_WIDTH); counted under its own name.
-    Chain-batched as `velo_fwdgrad`."""
-    return _velo_grads(
-        "velo_fwdgrad_wide", (S, U, nu, zeta, zeta_dphi, cf, omega, log_beta,
-                              log_gamma, r), delta_nu, Db, lgamma_k_sum,
-        want_disp, wide=True)
 
 # ---------------------------------------------------------------------------
 # autograd bindings
@@ -1369,23 +1315,15 @@ def _chain_major(lgk_dim, dims, n_data, inputs):
             for t, d in zip(inputs, dims)]
 
 
-def _fused(kernels, plains, wide_plains, max_nb, n_data, inputs,
-           lgamma_k_sum, disp_grad):
+def _fused(kernels, plains, n_data, inputs, lgamma_k_sum, disp_grad):
     """The loss through the (loss-only, fwd+grad) kernel pair on CUDA
-    tensors (which route wide shapes to the wide body themselves) or its
-    plain pair on CPU tensors (the wide twins for the shapes the wide body
-    takes on the card): the fwd+grad one when a differentiable input needs
-    a gradient, and under `torch.func.vmap` with gradients enabled (a
-    batched input reports no ``requires_grad`` whatever it wraps); the
-    loss-only one otherwise, under `vmap` through `_FusedNBLoss` (each
-    binding's `vmap` rule makes the one chain-batched call)."""
-    if inputs[0].device.type == "cuda":
-        fwd, fwdgrad = kernels
-    else:
-        dnu = inputs[-2]
-        Nb = 0 if dnu is None else dnu.shape[-2]
-        fwd, fwdgrad = (wide_plains if _wide_shape(
-            inputs[n_data].shape[-1], Nb, max_nb) else plains)
+    tensors or its plain pair on CPU tensors: the fwd+grad one when a
+    differentiable input needs a gradient, and under `torch.func.vmap`
+    with gradients enabled (a batched input reports no ``requires_grad``
+    whatever it wraps); the loss-only one otherwise, under `vmap` through
+    `_FusedNBLoss` (each binding's `vmap` rule makes the one chain-batched
+    call)."""
+    fwd, fwdgrad = kernels if inputs[0].device.type == "cuda" else plains
     params = [t for t in inputs[n_data:] if t is not None]
     batched = any(torch._C._functorch.is_batchedtensor(t) for t in params)
     if torch.is_grad_enabled() and (
@@ -1424,15 +1362,13 @@ def nb_loglik_fused(S, nu, zeta, count_factor, dispersion,
     instantiations, wider ones on the wide body at Nh + Nb columns, the
     batches folded in (`kernel_width`), up to MAX_WIDTH = 256; beyond that
     it raises ValueError.  CPU tensors take any shape, through the plain
-    versions (the wide twins where the card takes the wide body).
+    versions.
     """
     _check_inputs([("S", S)], _phase_params(nu, zeta, count_factor,
                                             dispersion), delta_nu, Db,
                   device=False)
     return _fused(
-        (phase_fwd, phase_fwdgrad), (phase_fwd_plain, phase_fwdgrad_plain),
-        (phase_fwd_wide_plain, phase_fwdgrad_wide_plain),
-        phase_layout().max_nb, 1,
+        (phase_fwd, phase_fwdgrad), (phase_fwd_plain, phase_fwdgrad_plain), 1,
         (S, nu, zeta, count_factor, dispersion, delta_nu, Db),
         lgamma_k_sum, disp_grad,
     )
@@ -1455,9 +1391,7 @@ def nbsu_loglik_fused(S, U, nu, zeta, zeta_dphi, count_factor, omega,
                           log_beta, log_gamma, dispersion)
     _check_inputs([("S", S), ("U", U)], params, delta_nu, Db, device=False)
     return _fused(
-        (velo_fwd, velo_fwdgrad), (velo_fwd_plain, velo_fwdgrad_plain),
-        (velo_fwd_wide_plain, velo_fwdgrad_wide_plain),
-        velo_layout().max_nb, 2,
+        (velo_fwd, velo_fwdgrad), (velo_fwd_plain, velo_fwdgrad_plain), 2,
         (S, U, *params.values(), delta_nu, Db), lgamma_k_sum, disp_grad,
     )
 
@@ -1471,12 +1405,8 @@ _CHAINS = {
     phase_fwdgrad: phase_fwdgrad,
     phase_fwd_plain: phase_fwd_plain,
     phase_fwdgrad_plain: phase_fwdgrad_plain,
-    phase_fwd_wide_plain: phase_fwd_wide_plain,
-    phase_fwdgrad_wide_plain: phase_fwdgrad_wide_plain,
     velo_fwd: velo_fwd,
     velo_fwdgrad: velo_fwdgrad,
     velo_fwd_plain: _velo_plain_chains(velo_fwd_plain),
     velo_fwdgrad_plain: _velo_plain_chains(velo_fwdgrad_plain),
-    velo_fwd_wide_plain: _velo_plain_chains(velo_fwd_wide_plain),
-    velo_fwdgrad_wide_plain: _velo_plain_chains(velo_fwdgrad_wide_plain),
 }
