@@ -542,13 +542,15 @@ def _wide_symbol_note(symbol):
         m = re.search(r"wide_cell_sum_kernelILi(\d)E", symbol)
         return (f"cell sum {'phase' if m.group(1) == '0' else 'velo'}" if m
                 else symbol[:60])
+    from velocycle_tpu_torch.ops import nb_kernels as K
+
     types_ = {"s": "int16", "f": "f32"}
     stage = "phase" if m.group(1) == "0" else "velo"
     counts = types_[m.group(2)] + ("" if stage == "phase"
                                    else f"/{types_[m.group(3)]}")
-    cut = "fwdgrad" if m.group(4) == "1" else "fwd"
+    cut = K.WIDE_CUTS[int(m.group(4))]
     return (f"{stage} {cut} {counts}"
-            + (f" disp_grad={m.group(5) == '1'}" if cut == "fwdgrad" else ""))
+            + (f" disp_grad={m.group(5) == '1'}" if cut != "fwd" else ""))
 
 
 def _plan_note(torch, K, mode, want_disp, int16, Ng=NG, Nc=NC, velo=False):
@@ -3439,6 +3441,50 @@ def _wide_fold_cost(torch, seed, card):
     return out
 
 
+def wide_passes(torch, seed, card):
+    """``--wide`` (c): where the wide fwd+grad kernels' time goes, per pass,
+    at 21 columns (Nh 5 + 16 batches folded in) at full width, int16, as
+    (a) runs each stage: the loss-only cut, the timing cuts that stop after
+    pass A and the factors (`pass_a`) and after pass B (`pass_ab`), and the
+    whole fwd+grad cut, each through `_wide_launch` (uncounted, the
+    wrapper's allocations and its sum of the gene partials over tiles
+    included; the cell-sum kernel in fwdgrad only), medians of 5 x 20
+    calls in turns.  Returns {stage: {cut: ms}}."""
+    from velocycle_tpu_torch.ops import nb_kernels as K
+    from velocycle_tpu_torch.tools import kernel_profile as TP
+
+    out = {}
+    for kind in ("phase", "velo"):
+        make = make_inputs if kind == "phase" else make_velo_inputs
+        v = make(torch, NG, NC, seed, Nb=WIDE_BATCHES)
+        n_counts = 1 if kind == "phase" else 2
+        counts, params = v[:n_counts], list(v[n_counts:-2])
+        dnu, Db = v[-2:]
+        nu_w, zs, _, _ = K.widen_inputs(
+            params[0], params[1:2 if kind == "phase" else 3], dnu, Db,
+            NH + WIDE_BATCHES, True)
+        ops = ([nu_w, zs[0], None, params[2], None, None, None, params[3]]
+               if kind == "phase" else [nu_w, *zs, *params[3:]])
+        wd = kind == "phase"    # as (a) runs each stage
+        med = _median_reps(TP, {
+            cut: (lambda c=cut: K._wide_launch(kind, c, counts, ops, True,
+                                               wd, 1))
+            for cut in K.WIDE_CUTS})
+        ms = {cut: med[cut][0] for cut in K.WIDE_CUTS}
+        print(f"[timing] {kind}_fwdgrad_wide by pass at 21 columns on "
+              f"{card}: " + ", ".join(
+                  f"{c} median {ms[c]:.4f} ms of {_reps_note(med[c][1])}"
+                  for c in K.WIDE_CUTS)
+              + f"; pass A, the element and the factors beyond the "
+              f"loss-only cut {ms['pass_a'] - ms['fwd']:.4f} ms, pass B "
+              f"{ms['pass_ab'] - ms['pass_a']:.4f} ms, pass C and the cell "
+              f"sums {ms['fwdgrad'] - ms['pass_ab']:.4f} ms")
+        out[kind] = ms
+        del v, counts, params, dnu, Db, ops, nu_w, zs
+        torch.cuda.empty_cache()
+    return out
+
+
 def _batch_design(adata):
     """(a)'s batch design: an obs column of WIDE_BATCHES sections of NC /
     WIDE_BATCHES cells each, through make_design_matrix."""
@@ -3585,6 +3631,7 @@ def wide_alone(torch, seed, card):
 
     wide_parity(torch, seed)
     wide_timing(torch, seed, card)
+    wide_passes(torch, seed, card)
     torch.cuda.empty_cache()
     adata, genes, cells, angles = _make_adata(torch, seed, "cuda")
     design = _batch_design(adata)

@@ -99,7 +99,7 @@ struct Inst {
                     unit_owner(c * UC, n_units, p.grid) + 1;
       if (n > p.loss_pieces) p.loss_pieces = n;
     }
-    if (CUT == FWDGRAD) {
+    if (CUT == FWDGRAD) {   // the timing cuts write no cell pieces
       for (long long t = 0; t < static_cast<long long>(tiles) * a.cs.K; ++t) {
         const long long first = t * n_chunks;
         const int n = unit_owner(first + n_chunks - 1, n_units, p.grid) -
@@ -127,10 +127,17 @@ struct Inst {
 
 // Calls op.template go<Inst<...>>() for the instantiation the arguments
 // select: the stage; S (and U) int16 or float32; the loss-only cut, or the
-// fwd+grad cut with or without the dispersion gradient.
+// fwd+grad cut (and its timing cuts) with or without the dispersion
+// gradient.
 template <int STAGE, typename TS, typename TU, class Op>
 int pick_cut(const Args& a, const Op& op) {
   if (a.cut == FWD) return op.template go<Inst<STAGE, TS, TU, FWD, false>>();
+  if (a.cut == PASS_A)
+    return a.want_disp ? op.template go<Inst<STAGE, TS, TU, PASS_A, true>>()
+                       : op.template go<Inst<STAGE, TS, TU, PASS_A, false>>();
+  if (a.cut == PASS_AB)
+    return a.want_disp ? op.template go<Inst<STAGE, TS, TU, PASS_AB, true>>()
+                       : op.template go<Inst<STAGE, TS, TU, PASS_AB, false>>();
   if (a.want_disp) return op.template go<Inst<STAGE, TS, TU, FWDGRAD, true>>();
   return op.template go<Inst<STAGE, TS, TU, FWDGRAD, false>>();
 }
@@ -165,8 +172,9 @@ struct RunOp {
     // the caller's buffers were sized from vct_wide_plan
     if (p.grid != grid || p.pieces > pieces || p.loss_pieces != a.cs.loss_pieces ||
         p.cells_per_tile != cells_per_tile ||
+        (a.cut != FWD && a.gene_part == nullptr) ||
         (a.cut == FWDGRAD &&
-         (a.gene_part == nullptr || a.cell_piece == nullptr || a.dzeta == nullptr ||
+         (a.cell_piece == nullptr || a.dzeta == nullptr ||
           a.dcf == nullptr ||
           (a.stage == VELO && (a.dzdphi == nullptr || a.domega == nullptr)))))
       return static_cast<int>(cudaErrorInvalidValue);

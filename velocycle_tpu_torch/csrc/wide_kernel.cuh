@@ -83,8 +83,10 @@ static_assert(kMaxTile <= kThreads && kThreads % kMaxTile == 0, "threads cover t
 static_assert(kMinTile % 32 == 0, "a warp holds cells of one gene group");
 static_assert(kGenesPerThread % 4 == 0, "a thread's genes are whole float4s");
 
-// FWD: the loss alone.  FWDGRAD: the loss and every gradient.
-enum Cut : int { FWD, FWDGRAD, kNumCuts };
+// FWD: the loss alone.  FWDGRAD: the loss and every gradient.  PASS_A and
+// PASS_AB, timing cuts of FWDGRAD: stop after pass A and the factors, and
+// after pass B (nothing of the cell gradients is written).
+enum Cut : int { FWD, FWDGRAD, PASS_A, PASS_AB, kNumCuts };
 enum Stage : int { PHASE, VELO };
 
 // Values summed over a tile's cells per gene (the gene partials' last
@@ -125,7 +127,7 @@ __host__ __device__ inline Smem smem_layout(int stage, int cut, int W, int T) {
   s.gene = s.cols + kColFloats * s.G;
   s.z = s.gene + (stage == VELO ? 2 * s.G : 0);
   s.acc = s.z + (stage == VELO ? 2 : 1) * W * s.PT;
-  const bool grad = cut == FWDGRAD;
+  const bool grad = cut != FWD;
   s.fac = s.acc + (grad ? cell_rows(stage, W) * s.PT : 0);
   s.total = s.fac + (grad ? factor_rows(stage) * s.G * s.PT : 0);
   return s;
@@ -152,7 +154,9 @@ wide_kernel(const TS* __restrict__ S, const TU* __restrict__ U, const float* __r
             ChainStrides cs, double* __restrict__ loss_part, float* __restrict__ gene_part,
             float* __restrict__ cell_piece) {
   constexpr bool VEL = STAGE == VELO;
-  constexpr bool GRAD = CUT == FWDGRAD;
+  constexpr bool GRAD = CUT != FWD;
+  constexpr bool PASS_B = CUT == FWDGRAD || CUT == PASS_AB;
+  constexpr bool PASS_C = CUT == FWDGRAD;
   constexpr int GPT = kGenesPerThread;
   extern __shared__ __align__(16) float sm[];
   __shared__ double s_loss[kThreads / 32];
@@ -222,7 +226,7 @@ wide_kernel(const TS* __restrict__ S, const TU* __restrict__ U, const float* __r
     loss = 0.0;
   };
 
-  if (GRAD)
+  if (PASS_C)
     for (int j = tid; j < NR * PT; j += kThreads) s_acc[j] = 0.0f;
 
   for (long long u = u0; u < u1; ++u) {
@@ -239,7 +243,7 @@ wide_kernel(const TS* __restrict__ S, const TU* __restrict__ U, const float* __r
     // the tile's basis rows (and the previous tile's piece out) when the
     // run enters a tile; the barrier that ended the last unit freed them
     if (gt != tile) {
-      if (GRAD && tile >= 0) flush(tile);
+      if (PASS_C && tile >= 0) flush(tile);
       tile = gt;
       const int tn = min(T, Nc - c0);
       const float* zeta_c = zeta + chain * cs.zeta + static_cast<size_t>(c0) * W;
@@ -391,7 +395,7 @@ wide_kernel(const TS* __restrict__ S, const TU* __restrict__ U, const float* __r
 
       // pass B: the gene sums, one (gene, value) per thread, in cell order
       float* gp = gene_part + (static_cast<size_t>(gt) * Ng + g0) * NV;
-      for (int j = tid; j < gn * NV; j += kThreads) {
+      for (int j = tid; j < (PASS_B ? gn * NV : 0); j += kThreads) {
         const int gl = j / NV;
         const int v = j - gl * NV;
         const float* f0 = s_fac + gl * PT;
@@ -414,7 +418,7 @@ wide_kernel(const TS* __restrict__ S, const TU* __restrict__ U, const float* __r
       }
 
       // pass C: each accumulator row adds the unit's sum over its genes
-      for (int r = q; r < NR; r += n_rep) {
+      for (int r = q; r < (PASS_C ? NR : 0); r += n_rep) {
         // the factor row and the nu column (null: a plain sum) of row r
         int fr;
         const float* ncol = nullptr;
@@ -442,7 +446,7 @@ wide_kernel(const TS* __restrict__ S, const TU* __restrict__ U, const float* __r
     }
     __syncthreads();  // the unit's rows are free for the next unit
   }
-  if (GRAD && tile >= 0) flush(tile);
+  if (PASS_C && tile >= 0) flush(tile);
   flush_loss();
 }
 

@@ -73,6 +73,7 @@ __all__ = [
     "PHASE_MODES",
     "Plan",
     "VELO_CUTS",
+    "WIDE_CUTS",
     "WIDE_STAGES",
     "WideLayout",
     "WidePlan",
@@ -504,8 +505,12 @@ VELO_CUTS = ("fwd", "fwdgrad")
 _VELO_GENE_EXTRA = 3
 _LAYOUT_NAMES = ("kThreads", "kCellsPerTile", "kGeneChunk", "kStages",
                  "kMaxNb")
-# the stages of csrc/wide_kernel.cuh `Stage`; its cuts are VELO_CUTS
+# the stages and cuts of csrc/wide_kernel.cuh `Stage` and `Cut`: fwd and
+# fwdgrad are the kernels the wrappers launch; pass_a and pass_ab are timing
+# cuts of fwdgrad (chip_smoke.py [wide] (c)), which stop after pass A and
+# the factors and after pass B
 WIDE_STAGES = ("phase", "velo")
+WIDE_CUTS = ("fwd", "fwdgrad", "pass_a", "pass_ab")
 _WIDE_LAYOUT_NAMES = ("kThreads", "kGenesPerThread", "kMaxWidth",
                       "kTileBudget", "kMinTile", "kMaxTile")
 
@@ -699,11 +704,11 @@ def velo_plan(cut, s_int16, u_int16, Ng, Nc, Nh=5, Nb=0, skip_k=True,
 def wide_plan(stage, cut, s_int16, u_int16, Ng, Nc, W, want_disp=False,
               device=None, chains=1):
     """The `WidePlan` of one call of the wide body for ``stage``
-    (`WIDE_STAGES`) and ``cut`` (`VELO_CUTS`) on ``device`` (default: the
+    (`WIDE_STAGES`) and ``cut`` (`WIDE_CUTS`) on ``device`` (default: the
     current card), for int16 or float32 S (and U), at W basis columns, over
     ``chains`` parameter sets."""
     return _plan("vct_wide_plan", _device_index(device), (
-        WIDE_STAGES.index(stage), VELO_CUTS.index(cut), int(bool(s_int16)),
+        WIDE_STAGES.index(stage), WIDE_CUTS.index(cut), int(bool(s_int16)),
         int(bool(u_int16)), Ng, Nc, W, int(chains), int(bool(want_disp))))
 
 
@@ -771,13 +776,13 @@ _WIDE_OPERAND_DIMS = (2, 2, 2, 1, 1, 1, 1, 1)
 
 def _wide_launch(stage, cut, counts, ops, skip_k, want_disp, chains):
     """One launch of csrc/nb_wide.cu for ``stage`` (`WIDE_STAGES`) and
-    ``cut`` on checked CUDA tensors at W = nu's columns, no delta_nu (folded
-    in): counts [S] or [S, U]; ops [nu, zeta, zeta_dphi, cf, omega,
-    log_beta, log_gamma, r], None where the stage reads none, each with a
-    leading chain axis K = ``chains`` or shared.  Returns (loss partials
-    (K, loss_pieces) float64, gene partials summed over the cell tiles (K,
-    Ng, NV) or None, [dzeta, dzeta_dphi, dcf, domega] (K, ...) with None
-    where the stage has none, or [])."""
+    ``cut`` (`WIDE_CUTS`) on checked CUDA tensors at W = nu's columns, no
+    delta_nu (folded in): counts [S] or [S, U]; ops [nu, zeta, zeta_dphi,
+    cf, omega, log_beta, log_gamma, r], None where the stage reads none,
+    each with a leading chain axis K = ``chains`` or shared.  Returns (loss
+    partials (K, loss_pieces) float64, gene partials summed over the cell
+    tiles (K, Ng, NV) or None (fwd), [dzeta, dzeta_dphi, dcf, domega] (K,
+    ...) with None where the stage has none (fwdgrad), or [])."""
     lib = _wide_lib()
     S = counts[0]
     U = counts[1] if len(counts) > 1 else None
@@ -796,9 +801,10 @@ def _wide_launch(stage, cut, counts, ops, skip_k, want_disp, chains):
                             device=dev)
     gene_part = cell_piece = None
     cell = []
-    if cut == "fwdgrad":
+    if cut != "fwd":
         tiles = -(-Nc // plan.cells_per_tile)
         gene_part = torch.empty((K, tiles, Ng, W + (3 if velo else 1)), **f32)
+    if cut == "fwdgrad":
         cell_piece = torch.empty(
             (plan.pieces, 2 * W + 2 if velo else W + 1, K * Nc), **f32)
         cell = [torch.empty((K, Nc, W), **f32),
@@ -809,7 +815,7 @@ def _wide_launch(stage, cut, counts, ops, skip_k, want_disp, chains):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.vct_wide_run(
-            WIDE_STAGES.index(stage), VELO_CUTS.index(cut), _ptr(S), int(s16),
+            WIDE_STAGES.index(stage), WIDE_CUTS.index(cut), _ptr(S), int(s16),
             _ptr(U), int(u16), *(_ptr(t) for t in ops), Ng, Nc, W, K,
             *strides, int(skip_k), int(want_disp), plan.grid, plan.pieces,
             plan.loss_pieces, plan.cells_per_tile, loss_part.data_ptr(),
