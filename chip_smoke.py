@@ -224,19 +224,23 @@ in order; any failure exits non-zero and prints no result line:
      quality lines);
  14. [wide]: the wide body (csrc/wide_kernel.cuh through csrc/nb_wide.cu),
      which runs every shape past the narrow bodies' 16 basis columns
-     (delta_nu batches folded in) up to 256.  (b) and (c) beside the other
-     kernel timings, before the [mcmc] processes: (b) the four wide kernels
-     against their plain versions (the wide twins) at 17, 21, 33, 64, 130
-     and 256 columns (Nh alone, and Nh 5 with 12, 16 or 59 batches; 21, 64
-     and 130 at full width), int16 and float32 counts, the dispersion
-     gradient both ways, both stages, a misaligned view (phase), mixed
-     count types and a gated share (velocity); every width from 17 to 256
-     through phase_fwdgrad and velo_fwdgrad at 24 x 300 (one wide launch
-     each, none raises); the chain-batched pair at K = 64, 50 x 2,000, 21
-     columns against its plain version and 64 single launches.  (c) each
-     wide kernel at 21 and 64 columns at full width (the median of 5 x 20
-     calls) beside its plain version and its bound, float32 counts at 21,
-     the chain-batched launch's device time.  (a) inside phase 6, after
+     (delta_nu batches folded in), at any width.  (b) and (c) beside the
+     other kernel timings, before the [mcmc] processes: (b) the four wide
+     kernels against their plain versions (the wide twins) at 17, 21, 33,
+     64, 130, 256 and 257 columns (Nh alone, and Nh 5 with 12, 16, 59 or
+     252 batches; 21, 64 and 130 at full width; 130, 256 and 257 past the
+     velocity pair's shared-memory fit, 256 and 257 past the phase pair's:
+     the tile's genes swept once per chunk of columns), int16 and float32
+     counts, the dispersion gradient both ways, both stages, a misaligned
+     view (phase), mixed count types and a gated share (velocity); every
+     width from 17 to 320 through phase_fwdgrad and velo_fwdgrad at 24 x
+     300 (one wide launch each, none raises); the chain-batched pair at K =
+     64, 50 x 2,000, 21 columns and at K = 4, 40 x 300, 257 columns against
+     its plain version and single launches.  (c) each wide kernel at 21 and
+     64 columns at full width (the median of 5 x 20 calls) beside its plain
+     version and its bound, float32 counts at 21, the chain-batched
+     launch's device time (``--wide`` adds the fwd+grad pair at 257 columns
+     and the per-pass cuts at 21).  (a) inside phase 6, after
      each stage's [sharded] (a), on its preprocessed counts: the batch
      design of 16 sections of 6,400 cells (make_design_matrix on an obs
      column), delta_nu on (21 kernel columns): stage 1 PhaseFitModel, 50
@@ -524,12 +528,18 @@ def phase_build():
         for cut in K.VELO_CUTS:
             plans = [(W, K.wide_plan(stage, cut, True, True, NG, NC, W,
                                      want_disp=cut == "fwdgrad"))
-                     for W in (17, 21, 64, 130, K.MAX_WIDTH)]
+                     for W in WIDE_PLANNED]
             print(f"[build]   wide {stage} {cut} at {NG}x{NC} int16, by width: "
-                  + "; ".join(f"{W}: {p.dyn_smem} B dynamic smem, {p.cells_per_tile} "
-                              f"cells per tile, {p.blocks_per_sm} CTAs per SM"
-                              for W, p in plans))
+                  + "; ".join(f"{W}: {_wide_plan_note(p)}" for W, p in plans))
     return dt
+
+
+def _wide_plan_note(p):
+    """A `WidePlan` in words."""
+    return (f"{p.dyn_smem} B dynamic smem, {p.sweep_cols} resident columns x "
+            f"{p.sweeps} sweep{'s' if p.sweeps > 1 else ''}"
+            f"{', pass A in chunks' if p.chunked else ''}, {p.blocks_per_sm} "
+            f"CTAs per SM, grid {p.grid}")
 
 
 def _wide_symbol_note(symbol):
@@ -3185,6 +3195,7 @@ WIDE_CASES = [
     ("W64 Nh5+Nb59 full", 5, 59, NG, NC, True, True),
     ("W130 Nh130 full", 130, 0, NG, NC, True, True),
     ("W256 Nh200+Nb56 129x1001 f32", 200, 56, 129, 1001, False, True),
+    ("W257 Nh5+Nb252 257x3001", 5, 252, 257, 3001, True, True),
 ]
 # per stage, the case that also takes its count-ring variant: the phase
 # stage's a misaligned view, the velocity stage's mixed count types and a
@@ -3194,7 +3205,12 @@ WIDE_VELO_EXTRA = {"W33 Nh33 129x3001": {"u_int16": False},
                    "W17 Nh5+Nb12 f32": {"u_int16": True, "gated": True}}
 WIDE_RECORD = "W21 Nh5+Nb16 full"   # (a)'s shape: the kernels line's error
 WIDE_TIMED = {21: (5, 16), 64: (5, 59)}   # width: (Nh, Nb), full width
+WIDE_SWEPT = {257: (5, 252)}   # --wide: past both pairs' shared-memory fit
 WIDE_CHAIN = dict(Ng=50, Nc=2000, chains=64, nh=21)
+# the chain axis past both pairs' shared-memory fit (several sweeps)
+WIDE_CHAIN_SWEPT = dict(Ng=40, Nc=300, chains=4, nh=257)
+WIDE_EVERY = range(17, 321)     # (b): every width through the route
+WIDE_PLANNED = (17, 21, 64, 73, 130, 153, 257, 320)   # [build]'s plans by width
 WIDE_KERNELS = ("phase_fwd_wide", "phase_fwdgrad_wide", "velo_fwd_wide",
                 "velo_fwdgrad_wide")
 
@@ -3203,8 +3219,9 @@ def wide_parity(torch, seed):
     """[wide] (b): the four wide kernels, through the routed wrappers at
     shapes past 16 columns, against their plain versions (the wide twins)
     at WIDE_CASES, both stages, the dispersion gradient both ways; every
-    width from 17 to MAX_WIDTH through phase_fwdgrad and velo_fwdgrad at
-    24 x 300, one wide launch each; the chain-batched pair at K = 64.
+    width of WIDE_EVERY through phase_fwdgrad and velo_fwdgrad at 24 x 300,
+    one wide launch each; the chain-batched pair at K = 64 (21 columns) and
+    K = 4 (257).
     Returns ({kernel: [max abs error, loss rel error]} at WIDE_RECORD,
     {kernel: chain parity})."""
     from velocycle_tpu_torch.ops import nb_kernels as K
@@ -3230,10 +3247,10 @@ def wide_parity(torch, seed):
     launched = {k for k, v in K.LAUNCHES.items() if v}
     check(launched == set(WIDE_KERNELS),
           f"the wide cases launched {K.LAUNCHES}")
-    # every width through the route: no width up to MAX_WIDTH raises
+    # every width through the route: none raises
     K.reset_launch_counts()
     worst = 0.0
-    widths = range(K.NARROW_WIDTH + 1, K.MAX_WIDTH + 1)
+    widths = WIDE_EVERY
     for W in widths:
         S, nu, zeta, cf, r, _, _ = make_inputs(torch, 24, 300, seed + W, nh=W)
         kl = K.phase_fwdgrad(S, nu, zeta, cf, r)[0]
@@ -3253,14 +3270,16 @@ def wide_parity(torch, seed):
     check(worst < LOSS_RTOL, f"a routed width's loss is off by {worst:.2e}")
     # the chain axis at 21 columns: one launch of K = 64 against the plain
     # version over the chains and 64 single launches
-    c = WIDE_CHAIN
     chains = {}
-    for kind in ("phase", "velo"):
-        for mode, wd in (("fwdgrad", kind == "phase"), ("fwd", False)):
-            chains[f"{kind}_{mode}_wide"] = _batched_parity_case(
-                torch, f"{c['Ng']}x{c['Nc']} K={c['chains']} W{c['nh']}",
-                c["Ng"], c["Nc"], c["chains"], ("nu", "r"), seed,
-                want_disp=wd, nh=c["nh"], mode=mode, kind=kind, wide=True)
+    for c in (WIDE_CHAIN, WIDE_CHAIN_SWEPT):
+        for kind in ("phase", "velo"):
+            for mode, wd in (("fwdgrad", kind == "phase"), ("fwd", False)):
+                err = _batched_parity_case(
+                    torch, f"{c['Ng']}x{c['Nc']} K={c['chains']} W{c['nh']}",
+                    c["Ng"], c["Nc"], c["chains"], ("nu", "r"), seed,
+                    want_disp=wd, nh=c["nh"], mode=mode, kind=kind, wide=True)
+                if c is WIDE_CHAIN:
+                    chains[f"{kind}_{mode}_wide"] = err
     torch.cuda.empty_cache()
     print(f"[wide] (b) parity in {time.perf_counter() - t0:.1f} s")
     return {f"{k}_wide": v for k, v in {**res, **vres}.items()}, chains
@@ -3289,20 +3308,21 @@ def _wide_ops(kind, mode, Nh, Nb, N, lg, dg, wd):
     return (per + batches) * N + lg + (dg if grad and wd else 0)
 
 
-def wide_timing(torch, seed, card):
+def wide_timing(torch, seed, card, timed=WIDE_TIMED, full=True):
     """[wide] (c): each wide kernel at 21 and 64 columns (Nh 5 with 16 and
     59 batches) at full width, int16 counts, beside its plain version and
     its bound, as (a) runs it (the phase pair with the dispersion
     gradient, the velocity pair without); the fwd+grad kernels at 21
     columns on float32 counts (kernel only); the chain-batched fwd+grad
-    pair at K = 64 against 64 single launches.  Returns {kernel: {"w21":
-    .., "w64": .., ...}}."""
+    pair at K = 64 against 64 single launches.  ``full=False``: the
+    fwd+grad kernels alone at ``timed``'s widths (``--wide``'s 257
+    columns).  Returns {kernel: {"w21": .., "w64": .., ...}}."""
     from velocycle_tpu_torch.ops import nb_kernels as K
     from velocycle_tpu_torch.tools import kernel_profile as TP
 
     t0 = time.perf_counter()
     out = {k: {} for k in WIDE_KERNELS}
-    for W, (nh, nb) in WIDE_TIMED.items():
+    for W, (nh, nb) in timed.items():
         S, nu, zeta, cf, r, dnu, Db = make_inputs(torch, NG, NC, seed, Nb=nb,
                                                   nh=nh)
         lgk = lgamma_k_sum(torch, S)
@@ -3320,12 +3340,14 @@ def wide_timing(torch, seed, card):
             lambda: K.phase_fwdgrad_wide_plain(*a, want_disp=True),
             in_bytes + pbytes + 4,
             _wide_ops("phase", "fwdgrad", nh, nb, N, lg, dg, True), card, note)
-        out["phase_fwd_wide"][f"w{W}"] = _time_pair(
-            torch, f"phase_fwd_wide at {W} columns",
-            lambda: K.phase_fwd(*a), lambda: K.phase_fwd_wide_plain(*a),
-            in_bytes + 4, _wide_ops("phase", "fwd", nh, nb, N, lg, dg, False),
-            card, note)
-        if W == 21:
+        if full:
+            out["phase_fwd_wide"][f"w{W}"] = _time_pair(
+                torch, f"phase_fwd_wide at {W} columns",
+                lambda: K.phase_fwd(*a), lambda: K.phase_fwd_wide_plain(*a),
+                in_bytes + 4,
+                _wide_ops("phase", "fwd", nh, nb, N, lg, dg, False), card,
+                note)
+        if full and W == 21:
             Sf = S.float()
             af = (Sf, *a[1:])
             med = _median_reps(TP, {"f32": lambda: K.phase_fwdgrad(
@@ -3353,13 +3375,14 @@ def wide_timing(torch, seed, card):
             _wide_ops("velo", "fwdgrad", nh, nb, S.numel(), lg, 0,
                       False), card,
             note)
-        out["velo_fwd_wide"][f"w{W}"] = _time_pair(
-            torch, f"velo_fwd_wide at {W} columns",
-            lambda: K.velo_fwd(*a), lambda: K.velo_fwd_wide_plain(*a),
-            in_bytes + 4,
-            _wide_ops("velo", "fwd", nh, nb, S.numel(), lg, 0, False),
-            card, note)
-        if W == 21:
+        if full:
+            out["velo_fwd_wide"][f"w{W}"] = _time_pair(
+                torch, f"velo_fwd_wide at {W} columns",
+                lambda: K.velo_fwd(*a), lambda: K.velo_fwd_wide_plain(*a),
+                in_bytes + 4,
+                _wide_ops("velo", "fwd", nh, nb, S.numel(), lg, 0, False),
+                card, note)
+        if full and W == 21:
             af = (S.float(), U.float(), *a[2:])
             med = _median_reps(TP, {"f32": lambda: K.velo_fwdgrad(
                 *af, want_disp=False)})["f32"]
@@ -3369,21 +3392,20 @@ def wide_timing(torch, seed, card):
             del af
         del v, S, U, a
         torch.cuda.empty_cache()
-    out["fold"] = _wide_fold_cost(torch, seed, card)
-    c = WIDE_CHAIN
-    for kind, wd in (("phase", True), ("velo", False)):
-        out[f"{kind}_fwdgrad_wide"]["chains"] = _batched_timing(
-            torch, seed, card, c, ("nu", "r"), "fwdgrad", wd=wd, nh=c["nh"],
-            kind=kind, wide=True)
-    for k in WIDE_KERNELS:
-        for W in WIDE_TIMED:
+    if full:
+        out["fold"] = _wide_fold_cost(torch, seed, card)
+        c = WIDE_CHAIN
+        for kind, wd in (("phase", True), ("velo", False)):
+            out[f"{kind}_fwdgrad_wide"]["chains"] = _batched_timing(
+                torch, seed, card, c, ("nu", "r"), "fwdgrad", wd=wd,
+                nh=c["nh"], kind=kind, wide=True)
+    for k in WIDE_KERNELS if full else WIDE_KERNELS[1::2]:
+        for W in timed:
             p = K.wide_plan(k.split("_")[0], "fwdgrad" if "fwdgrad" in k
                             else "fwd", True, True, NG, NC, W,
                             want_disp=k == "phase_fwdgrad_wide")
             out[k][f"w{W}"]["plan"] = p._asdict()
-            print(f"[timing] {k} plan at {W} columns: {p.cells_per_tile} cells "
-                  f"per tile, grid {p.grid}, {p.blocks_per_sm} resident CTAs "
-                  f"per SM, {p.dyn_smem} B dynamic smem")
+            print(f"[timing] {k} plan at {W} columns: {_wide_plan_note(p)}")
     print(f"[wide] (c) timing in {time.perf_counter() - t0:.1f} s")
     return out
 
@@ -3631,6 +3653,7 @@ def wide_alone(torch, seed, card):
 
     wide_parity(torch, seed)
     wide_timing(torch, seed, card)
+    wide_timing(torch, seed, card, WIDE_SWEPT, full=False)
     wide_passes(torch, seed, card)
     torch.cuda.empty_cache()
     adata, genes, cells, angles = _make_adata(torch, seed, "cuda")

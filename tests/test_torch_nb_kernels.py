@@ -392,8 +392,7 @@ def test_kernel_widths_are_the_sources_instantiations():
     """KERNEL_WIDTHS and DNU_WIDTH are the widths `pick_nh` dispatches to in
     both narrow kernel sources and the delta_nu bound of
     csrc/nb_common.cuh; past NARROW_WIDTH, the widest of them, the wide
-    body (csrc/nb_wide.cu) takes a runtime width up to MAX_WIDTH, its
-    kMaxWidth."""
+    body (csrc/nb_wide.cu) takes any runtime width."""
     import re
 
     from velocycle_tpu_torch.ops import cuda_build
@@ -407,12 +406,11 @@ def test_kernel_widths_are_the_sources_instantiations():
         str(TK.DNU_WIDTH)]
     assert TK.NARROW_WIDTH == max(TK.KERNEL_WIDTHS)
     wide = (cuda_build.CSRC / "wide_kernel.cuh").read_text()
-    assert re.findall(r"constexpr int kMaxWidth = (\d+);", wide) == [
-        str(TK.MAX_WIDTH)]
-    assert "a.W > kMaxWidth" in (cuda_build.CSRC / "nb_wide.cu").read_text()
+    assert "kMaxWidth" not in wide
+    assert "a.W > " not in (cuda_build.CSRC / "nb_wide.cu").read_text()
     for Nh, Nb in ((16, 0), (12, 4), (7, 4), (8, 8)):
         assert TK.kernel_width(Nh, Nb, 4)[0] in TK.KERNEL_WIDTHS
-    for Nh, Nb in ((17, 0), (8, 9), (5, 12), (TK.MAX_WIDTH, 0)):
+    for Nh, Nb in ((17, 0), (8, 9), (5, 12), (256, 0), (1000, 24)):
         assert TK.kernel_width(Nh, Nb, 4) == (Nh + Nb, Nb > 0)
 
 
@@ -465,11 +463,10 @@ def test_kernel_width_picks_the_next_instantiation(Nh, Nb, want):
 @pytest.mark.parametrize("Nh,Nb", [(17, 0), (11, 6), (16, 1)])
 def test_kernel_width_names_its_limit(Nh, Nb):
     """One column past the widest narrow instantiation goes to the wide
-    body at Nh + Nb columns, the batches folded in; one column past the
-    wide body's ceiling raises, naming it."""
+    body at Nh + Nb columns, the batches folded in; so does 257, past
+    the wide body's former ceiling of 256: it has none."""
     assert TK.kernel_width(Nh, Nb, 4) == (Nh + Nb, Nb > 0)
-    with pytest.raises(ValueError, match="at most MAX_WIDTH = 256 basis columns"):
-        TK.kernel_width(TK.MAX_WIDTH + 1 - Nb, Nb, 4)
+    assert TK.kernel_width(257 - Nb, Nb, 4) == (257, Nb > 0)
 
 
 WIDE = [(4, 0), (9, 0), (11, 0), (5, 5), (5, 6), (9, 2)]

@@ -7,8 +7,9 @@ the wide body (csrc/wide_kernel.cuh through csrc/nb_wide.cu), whose plain
 versions, the wide twins (`phase_fwdgrad_wide_plain`,
 `velo_fwdgrad_wide_plain`, ...), are held here against the JAX package's
 fused Pallas kernels in interpret mode: the loss and every gradient, both
-stages, at Nh 21 alone, Nh 5 with 16 batches, Nh 11 with 6, and over a
-chain axis of K = 3.  On the CPU `nb_loglik_fused` and `nbsu_loglik_fused`
+stages, at Nh 21 alone, Nh 5 with 16 batches, Nh 11 with 6, past both
+stages' shared-memory fit at Nh 257 alone and Nh 5 with 252 batches, and
+over a chain axis of K = 3.  On the CPU `nb_loglik_fused` and `nbsu_loglik_fused`
 take the plain pair at those shapes, which agrees with the twins, and the
 fused ELBO of each model matches the JAX package's fused ELBO at a spline basis of n_basis 20 and
 at a Fourier basis of H 2 with 16 batches.  The kernels themselves are
@@ -48,8 +49,10 @@ from _torch_parity import (
 LOSS_RTOL = 1e-5
 GRAD_RTOL = 1e-4
 # (Nh, Nb): the basis alone past 16 columns, the Fourier basis with 16
-# batches (21 columns), the default spline's 11 columns with 6 batches
-SHAPES = [(21, 0), (5, 16), (11, 6)]
+# batches (21 columns), the default spline's 11 columns with 6 batches, and
+# 257 columns (a spline basis, and a multi-donor atlas's 252 batches), past
+# both stages' shared-memory fit on the card
+SHAPES = [(21, 0), (5, 16), (11, 6), (257, 0), (5, 252)]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -302,10 +305,34 @@ def test_fused_elbo_at_wide_bases_matches_jax_fused(stage, config):
 # the width route
 # ---------------------------------------------------------------------------
 
+def _wide_smem(stage, W, chunked, s_bytes, u_bytes, lay):
+    """One CTA's dynamic shared memory of the fwd+grad cut with W resident
+    columns, as csrc/wide_kernel.cuh `smem_layout` counts it: the tile's
+    basis rows and accumulators (a block each per basis), the factors (or
+    pass A's chunk buffer, the larger), two slots of nu and the per-gene
+    inputs, the gene columns (GeneCols, 14 floats; velocity two more), and
+    the count windows."""
+    G, T = lay.gene_chunk, lay.cells_per_tile
+    PT = T + 4
+    nb = 1 if stage == "phase" else 2
+    cw = lay.phase_chunk_cols if stage == "phase" else lay.velo_chunk_cols
+    fac = nb * G * PT
+    if chunked:
+        fac = max(fac, nb * cw * PT + G * cw)
+    floats = 2 * nb * W * PT + fac + 2 * G * (W + (1 if stage == "phase" else 3))
+    floats = -(-(floats + G * (14 + (0 if stage == "phase" else 2))) // 4) * 4
+    windows = (T * s_bytes + 16) + ((T * u_bytes + 16) if u_bytes else 0)
+    return floats * 4 + G * windows
+
+
 def test_wide_layout_is_the_kernel_sources_one_definition():
     """wide_layout() reads csrc/wide_kernel.cuh, which the library reports
-    back on the card; MAX_WIDTH is its ceiling, and every width up to it
-    fits one CTA's shared memory at the smallest tile."""
+    back on the card.  A CTA's shared memory, as smem_layout counts it, fits
+    the budget (and the card's 227 KB) with every column of 21 and 64
+    resident in both stages (int16 counts); the widest resident chunk
+    leaves room for at least one column quad whatever the count types, so
+    no width is refused; and the fits (152 phase, 72 velocity columns at
+    int16) are the ones the kernel source states."""
     import re
 
     from velocycle_tpu_torch.ops import cuda_build
@@ -314,22 +341,32 @@ def test_wide_layout_is_the_kernel_sources_one_definition():
     text = (cuda_build.CSRC / "wide_kernel.cuh").read_text()
     for name, value in zip(TK._WIDE_LAYOUT_NAMES, lay):
         assert re.findall(rf"constexpr int {name} = (\d+);", text) == [str(value)]
-    assert TK.MAX_WIDTH == lay.max_width >= 256
-    assert lay.min_tile % 32 == 0 and lay.threads % lay.max_tile == 0
-    # the velocity fwd+grad cut's shared memory at the smallest tile, as
-    # smem_layout counts it: nu^T, the gene columns (GeneCols, 14 floats)
-    # and two scalars per gene, two basis blocks, the accumulators and six
-    # factor rows
-    T, W = lay.min_tile, lay.max_width
-    G = lay.threads * lay.genes_per_thread // T
-    floats = W * G + 14 * G + 2 * G + (2 * W + 2 * W + 2) * (T + 1) + 6 * G * (T + 1)
-    assert floats * 4 <= 227 * 1024
+    assert "kMaxWidth" not in text
+    assert lay.smem_budget <= 227 * 1024
+    assert lay.threads == 256 and lay.gene_chunk == lay.threads // 32 * 4
+    assert lay.cells_per_tile == 32 * 4
+    assert lay.phase_chunk_cols % 4 == 0 and lay.velo_chunk_cols % 4 == 0
+    fits = {}
+    for stage, u in (("phase", 0), ("velo", 2)):
+        for W in (24, 64):
+            assert _wide_smem(stage, W, False, 2, u, lay) <= lay.smem_budget
+        fits[stage] = max(W for W in range(4, 1024, 4)
+                          if _wide_smem(stage, W, False, 2, u, lay)
+                          <= lay.smem_budget)
+        for sb in (2, 4):
+            assert _wide_smem(stage, 4, True, sb, sb if u else 0,
+                              lay) <= lay.smem_budget
+    assert fits == {"phase": 152, "velo": 72}
+    assert re.search(r"fit \(152 columns for the\s+//\s+phase pair, 72 for the "
+                     r"velocity pair", text)
 
 
 @pytest.mark.parametrize("Nh,Nb", [(257, 0), (200, 57), (5, 252)])
 def test_kernel_width_names_the_wide_ceiling(Nh, Nb):
-    with pytest.raises(ValueError, match="at most MAX_WIDTH = 256 basis columns"):
-        TK.kernel_width(Nh, Nb, 4)
+    """The wide body has no ceiling: 257 columns, past both stages'
+    shared-memory fit, go to it at Nh + Nb, the batches folded in."""
+    assert not hasattr(TK, "MAX_WIDTH")
+    assert TK.kernel_width(Nh, Nb, 4) == (Nh + Nb, Nb > 0)
 
 
 # ---------------------------------------------------------------------------

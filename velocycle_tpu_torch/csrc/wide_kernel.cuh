@@ -1,60 +1,75 @@
 // The wide-basis body of the fused NB kernels for Hopper (sm_90a): both
 // stages' loss-only and fwd+grad cuts at a basis width W that is a runtime
-// value, up to kMaxWidth columns.  nb_wide.cu instantiates it and exports
-// the C interface; ops/nb_kernels.py routes every shape past the narrow
-// bodies' widest instantiation (16 columns) here, with the delta_nu batches
-// folded into basis columns (`widen_inputs`).
+// value, any width.  nb_wide.cu instantiates it and exports the C
+// interface; ops/nb_kernels.py routes every shape past the narrow bodies'
+// widest instantiation (16 columns) here, with the delta_nu batches folded
+// into basis columns (`widen_inputs`).
 //
 // Why a second body.  The narrow bodies (phase_kernel.cuh, velo_kernel.cuh)
 // keep each thread's basis rows, cell gradients and gene-sum values in
 // registers sized by a template width, and reduce the gene sums with a warp
 // reduce-scatter of at most 32 values: neither holds past a few dozen
-// columns.  Here the tile's basis rows and cell-gradient accumulators live
-// in dynamic shared memory, and each sum over a tile's cells is taken by
-// one thread in cell order, for any number of values per gene.
+// columns.  Here the three basis products of a unit are tile products out
+// of shared memory.
 //
-// Layout.  The work is cut into units, as in the narrow bodies: one tile of
-// T cells by one chunk of G genes, G * T = kThreads * kGenesPerThread (one
-// element per thread and gene it carries), chain-major and tile-major over
-// a persistent grid that splits the units evenly.  T is the largest of
-// kMaxTile, kMaxTile / 2, ... kMinTile whose shared memory (`smem_layout`)
-// fits kTileBudget, chosen at the launch from W; the smallest tile is taken
-// whatever its size, up to the card's 227 KB.  Thread tid carries cell
-// tid % T of the tile and genes q * kGenesPerThread .. + kGenesPerThread - 1
-// of the chunk, q = tid / T: a warp holds 32 neighbouring cells of one
-// gene group, so its shared-memory reads of a basis row are conflict-free
-// and its genes' columns are broadcasts.  Each unit runs in three passes
-// between barriers:
-//   A. each thread's ElogS (and dEs) for its genes, summed over the W
-//      columns in order, then the NB element: the loss, and d lp / d ElogS
-//      (and the velocity stage's other per-element factors) into per-gene
-//      rows of shared memory;
-//   B. the gene sums over the tile's cells (dnu's W columns and the
-//      per-gene scalars), one output per thread in cell order, into
-//      per-tile partials (K x tiles, Ng, NV) that the caller sums over
-//      tiles;
-//   C. the cell gradients: each tile row of the accumulators (dzeta's W
-//      rows and dcf; the velocity stage also dzeta_dphi, domega) adds the
-//      unit's sum over its genes, in gene order.
-// When a CTA's run leaves a tile, it writes the tile's accumulators as one
-// piece (pieces, rows, K * Nc); `wide_cell_sum_kernel` adds a tile's pieces
-// in CTA order.  The loss goes to per-(chain, CTA) doubles, flushed when a
-// run crosses a chain boundary.  No float atomics and every sum in a fixed
-// order: repeats are bit-identical.
+// Layout.  A unit is one tile of kCellsPerTile = 128 cells by one chunk of
+// kGeneChunk = 32 genes, chain-major and tile-major over a persistent grid
+// that splits the units evenly.  Warp w carries genes 4w .. 4w + 3 of the
+// chunk and lane l cells 4l .. 4l + 3 of the tile: each thread owns a 4 x 4
+// register tile of elements, and a warp's elements at one step of the
+// element loop are all of one gene (the dispersion-gradient form and the
+// gene's columns are uniform across the warp).  Each unit, between three
+// barriers:
+//   A. ElogS (and dEs) of the thread's 16 elements, the product Nu Z^T over
+//      the basis columns in order: per column a float4 of each gene's nu
+//      row (a broadcast) and a float4 of the four cells' basis row feed 16
+//      FMAs (ElogS), or 16 rounded products and sums (dEs, formed as
+//      velo_kernel.cuh forms it, in the plain version's order).  Then the NB
+//      element: the loss; the factors (phase d lp / d ElogS; velocity g_e
+//      and g_x * omega) into shared memory; the per-gene sums over the
+//      tile's cells (ddisp; velocity also dlog_beta and sum g_x) by warp
+//      butterflies straight from registers; the per-cell sums over genes
+//      (dcf; velocity also domega) into registers kept for the tile.
+//   B. dnu = F Z over the tile's cells: a lane owns 4 genes x 4 columns over
+//      one quarter of the cells (float4s along the cells from both operands,
+//      16 FMAs per pair), the quarters then reduce-scattered over the warp
+//      in a fixed butterfly, into per-tile gene partials (K x tiles, Ng, NV)
+//      that the caller sums over tiles.
+//   C. the cell gradients dZ += F^T Nu over the unit's genes: a thread owns
+//      4 columns x 4 cells (a float4 of the factor row, a broadcast float4
+//      of nu, 16 FMAs per gene), added to the tile's accumulators in shared
+//      memory.
+// When a CTA's run leaves a tile, it writes the tile's accumulators (and the
+// per-cell sums, each warp's, added in warp order) as one piece (pieces,
+// rows, K * Nc); `wide_cell_sum_kernel` adds a tile's pieces in CTA order.
+// The loss goes to per-(chain, CTA) doubles.  No float atomics and every sum
+// in a fixed order: repeats are bit-identical.
 //
-// Counts are read straight from device memory, one element per thread and
-// gene (a warp reads 32 neighbouring cells of one row), all of a unit's
-// before pass A so that their latencies overlap the basis sums; any Nc,
-// any row alignment.  dEs and x of the velocity stage are formed as in
-// velo_kernel.cuh, one rounded product and one rounded sum per column in
-// the plain version's order.  The NB element and the integer-count special
-// functions are nb_common.cuh's, unchanged.
+// Counts reach the element through a one-stage ring of `cp.async` copies
+// (as phase_kernel.cuh's: each row the 16-byte-aligned window around its
+// segment, any Nc, any row alignment): the next unit's counts are issued as
+// soon as this unit's element has read them, and fly during passes B and C.
+// The next unit's nu rows and dispersions (velocity: log_beta, log_gamma)
+// are issued into the other of two parameter slots at the start of a unit.
 //
-// What bounds it: shared-memory traffic and the per-element arithmetic.
-// Passes A-C each cost about W fused multiply-adds per element, B and C
-// with two shared-memory reads each (no register blocking yet); the count
-// stream is 2 bytes (int16) per element and matrix.  Tensor cores for the
-// three basis products are the redesign this body leaves open.
+// Any width.  The tile's basis rows (zeta^T, velocity also zeta_dphi^T) and
+// its cell-gradient accumulators live in shared memory for the Wz columns
+// that fit kSmemBudget (`plan_shape`).  Up to that fit (152 columns for the
+// phase pair, 72 for the velocity pair, int16 counts) a tile holds every
+// column, and pass A reads them where passes B and C do.  Past it the body
+// sweeps the tile's genes once per chunk of Wz columns (the units are chain
+// x tile x sweep x gene chunk): pass A reads every column again, in chunks
+// of chunk_cols through the factors' shared memory and in the same order
+// (the same bits), the element is recomputed, and passes B and C do the
+// sweep's columns; the loss and the per-gene and per-cell sums come from the
+// first sweep.  The loss-only cut reads every column in chunks once its rows
+// do not fit.  No width is refused.
+//
+// What bounds it: the NB element's arithmetic (its transcendentals) and,
+// with width, the three products' FMAs (6 x W per element for the velocity
+// pair) fed from shared memory at about one byte per FMA in passes A and B;
+// the count stream is 2 bytes (int16) per element and matrix; the gene
+// partials add 4 x NV bytes per gene and tile.  Tensor cores are not used.
 //
 // The layout constants below are their only definition: the Python
 // wrappers read them back from the library (vct_wide_layout), and on the
@@ -71,21 +86,28 @@
 namespace vct {
 namespace wide {
 
-constexpr int kThreads = 128;
-constexpr int kGenesPerThread = 8;
-constexpr int kMaxWidth = 256;
-constexpr int kTileBudget = 112640;   // bytes (110 KB) of shared memory a tile is fitted to
-constexpr int kMinTile = 32;
-constexpr int kMaxTile = 128;
-constexpr int kElems = kThreads * kGenesPerThread;   // G * T: elements of a unit
+constexpr int kThreads = 256;
+constexpr int kGeneChunk = 32;        // genes of a unit: 4 per warp
+constexpr int kCellsPerTile = 128;    // cells of a tile: 4 per lane
+constexpr int kSmemBudget = 230400;   // bytes of dynamic shared memory a CTA takes at most
+constexpr int kPhaseChunkCols = 24;   // basis columns per chunk of pass A past the fit
+constexpr int kVeloChunkCols = 28;
+constexpr int kMinBlocksPerSm = 2;    // caps registers at 128 per thread
+constexpr int kWarps = kThreads / 32;
+constexpr int kQuad = 4;                        // the edge of a thread's register tile
+constexpr int kRowFloats = kCellsPerTile + 4;   // floats between two cell-indexed rows
 constexpr int kColFloats = static_cast<int>(sizeof(GeneCols) / sizeof(float));
-static_assert(kMaxTile <= kThreads && kThreads % kMaxTile == 0, "threads cover the tile");
-static_assert(kMinTile % 32 == 0, "a warp holds cells of one gene group");
-static_assert(kGenesPerThread % 4 == 0, "a thread's genes are whole float4s");
+static_assert(kGeneChunk == kWarps * kQuad, "a warp carries 4 genes of the chunk");
+static_assert(kCellsPerTile == 32 * kQuad, "a lane carries 4 cells of the tile");
+static_assert(kGeneChunk == 32, "pass B: a lane's genes q + 8 i, 8 lanes per cell quarter");
+static_assert(kRowFloats % 4 == 0 && (kRowFloats / 4) % 2 == 1,
+              "rows are whole float4s, an odd number of them: no bank conflict in pass B");
+static_assert(kPhaseChunkCols % 4 == 0 && kVeloChunkCols % 4 == 0, "chunks are whole quads");
 
 // FWD: the loss alone.  FWDGRAD: the loss and every gradient.  PASS_A and
-// PASS_AB, timing cuts of FWDGRAD: stop after pass A and the factors, and
-// after pass B (nothing of the cell gradients is written).
+// PASS_AB, timing cuts of FWDGRAD: stop after pass A, the element and the
+// factors (the per-gene sums written), and after pass B (nothing of the
+// cell gradients is written).
 enum Cut : int { FWD, FWDGRAD, PASS_A, PASS_AB, kNumCuts };
 enum Stage : int { PHASE, VELO };
 
@@ -99,113 +121,322 @@ __host__ __device__ constexpr int gene_values(int stage, int W) {
 __host__ __device__ constexpr int cell_rows(int stage, int W) {
   return stage == PHASE ? W + 1 : 2 * W + 2;
 }
-// per-element rows of a unit's factors (G x (T + 1) floats each): phase
-// [g_elog, g_r]; velocity [g_e, g_x * omega, g_x * dEs, g_r, -g_U, g_x]
-__host__ __device__ constexpr int factor_rows(int stage) { return stage == PHASE ? 2 : 6; }
+// cell-indexed basis blocks (zeta; velocity zeta, zeta_dphi), which are also
+// the factor rows passes B and C read (phase g_elog; velocity g_e, g_x *
+// omega) and the accumulator blocks; per-cell sums (dcf; velocity dcf,
+// domega); per-gene inputs (disp; velocity disp, log_beta, log_gamma)
+__host__ __device__ constexpr int basis_blocks(int stage) { return stage == PHASE ? 1 : 2; }
+__host__ __device__ constexpr int cell_sums(int stage) { return stage == PHASE ? 1 : 2; }
+__host__ __device__ constexpr int gene_inputs(int stage) { return stage == PHASE ? 1 : 3; }
+__host__ __device__ constexpr int chunk_cols(int stage) {
+  return stage == PHASE ? kPhaseChunkCols : kVeloChunkCols;
+}
+__host__ __device__ constexpr int round4(int n) { return (n + 3) / 4 * 4; }
+__host__ __device__ constexpr int window_bytes(int type_bytes) {
+  return kCellsPerTile * type_bytes + 16;
+}
 
-// Offsets, in floats, of one CTA's shared memory for a tile of T cells at
-// width W.  Rows over the tile's cells are T + 1 floats apart, so that
-// pass B's threads, each on another row at the same cell, meet no bank
-// conflict.
+// Offsets, in floats, of one CTA's shared memory when Wz basis columns are
+// resident (`chunked`: pass A reads its columns in chunks of chunk_cols
+// through the factor region).  s_bytes, u_bytes: the count types' sizes
+// (u_bytes 0 for the phase stage).
 struct Smem {
-  int G, PT;   // genes of a unit, floats between two cell rows
-  int nu;      // nu^T (W, G): the unit's genes' coefficients, column by column
-  int cols;    // GeneCols (G)
-  int gene;    // velocity: -log_beta, exp(log_gamma) (2 x G)
-  int z;       // zeta^T (W, PT); velocity then zeta_dphi^T
-  int acc;     // cell-gradient accumulators (cell_rows, PT)
-  int fac;     // the unit's per-element factors (factor_rows x G, PT)
-  int total;
+  int z;      // the tile's basis rows (basis_blocks, Wz, kRowFloats)
+  int acc;    // its cell-gradient accumulators, the same shape (gradient cuts)
+  int fac;    // the unit's factors (basis_blocks, kGeneChunk, kRowFloats); also pass A's
+              // chunk buffer and the scratch of a tile's per-cell sums
+  int prm;    // two slots of the unit's nu (kGeneChunk, Wz) and per-gene inputs
+  int prm_size;
+  int cols;   // GeneCols (kGeneChunk); velocity then -log_beta and exp(log_gamma)
+  int ring;   // the counts: kGeneChunk windows of S (then of U)
+  int total;  // bytes
 };
 
-__host__ __device__ inline Smem smem_layout(int stage, int cut, int W, int T) {
-  Smem s;
-  s.G = kElems / T;
-  s.PT = T + 1;
-  s.nu = 0;
-  s.cols = s.nu + W * s.G;
-  s.gene = s.cols + kColFloats * s.G;
-  s.z = s.gene + (stage == VELO ? 2 * s.G : 0);
-  s.acc = s.z + (stage == VELO ? 2 : 1) * W * s.PT;
+__host__ __device__ inline Smem smem_layout(int stage, int cut, int Wz, bool chunked, int s_bytes,
+                                            int u_bytes) {
+  Smem s{};
+  const int nb = basis_blocks(stage);
   const bool grad = cut != FWD;
-  s.fac = s.acc + (grad ? cell_rows(stage, W) * s.PT : 0);
-  s.total = s.fac + (grad ? factor_rows(stage) * s.G * s.PT : 0);
+  const int cw = chunk_cols(stage);
+  int fac = grad ? nb * kGeneChunk * kRowFloats : 0;
+  const int chunk = nb * cw * kRowFloats + kGeneChunk * cw;
+  if (chunked && chunk > fac) fac = chunk;
+  s.z = 0;
+  s.acc = s.z + nb * Wz * kRowFloats;
+  s.fac = s.acc + (grad ? nb * Wz * kRowFloats : 0);
+  s.prm = s.fac + fac;
+  s.prm_size = kGeneChunk * (Wz + gene_inputs(stage));
+  s.cols = s.prm + 2 * s.prm_size;
+  s.ring = round4(s.cols + kGeneChunk * (kColFloats + (stage == VELO ? 2 : 0)));
+  s.total = s.ring * 4 +
+            kGeneChunk * (window_bytes(s_bytes) + (u_bytes ? window_bytes(u_bytes) : 0));
   return s;
 }
 
-// The tile for width W: the largest power-of-two T in [kMinTile, kMaxTile]
-// whose shared memory fits kTileBudget, else kMinTile.
-__host__ inline int tile_cells(int stage, int cut, int W) {
-  int T = kMaxTile;
-  while (T > kMinTile && smem_layout(stage, cut, W, T).total * 4 > kTileBudget) T /= 2;
-  return T;
+// How a call at width W runs: Wz resident columns, the sweeps over them,
+// and whether pass A reads its columns in chunks.  Every column resident if
+// that fits kSmemBudget; else, for the gradient cuts, the widest multiple of
+// 4 columns that fits beside pass A's chunk buffer, balanced over the
+// sweeps it takes; for the loss-only cut, no resident column.
+struct Shape {
+  int Wz, sweeps;
+  bool chunked;
+};
+
+__host__ __device__ inline Shape plan_shape(int stage, int cut, int W, int s_bytes, int u_bytes) {
+  const int Wp = round4(W);
+  if (smem_layout(stage, cut, Wp, false, s_bytes, u_bytes).total <= kSmemBudget)
+    return Shape{Wp, 1, false};
+  if (cut == FWD) return Shape{0, 1, true};
+  int fit = Wp;
+  while (fit > 4 && smem_layout(stage, cut, fit, true, s_bytes, u_bytes).total > kSmemBudget)
+    fit -= 4;
+  const int sweeps = (Wp + fit - 1) / fit;
+  return Shape{round4((Wp + sweeps - 1) / sweeps), sweeps, true};
+}
+
+__device__ __forceinline__ void cp_async4_zfill(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+// Starts the copies of rows g0 .. g0 + gn - 1, cells c0 .. c0 + 127 of the
+// (Ng, Nc) count matrix M into `st`: each row the 16-byte-aligned window
+// around its segment (window_bytes apart), the piece below a misaligned
+// matrix start element by element, the piece past its end zero-filled.
+template <typename TK>
+__device__ __forceinline__ void copy_count_rows(unsigned char* st, const TK* M, int g0, int gn,
+                                                int c0, int Ng, int Nc, int tid) {
+  constexpr int ROW = window_bytes(sizeof(TK));
+  constexpr int QR = ROW / 16;
+  const char* begin = reinterpret_cast<const char*>(M);
+  const char* end = begin + static_cast<size_t>(Ng) * Nc * sizeof(TK);
+  const int seg = min(kCellsPerTile, Nc - c0) * static_cast<int>(sizeof(TK));
+  for (int i = tid; i < gn * QR; i += kThreads) {
+    const int r = i / QR;
+    const int q = i - r * QR;
+    const char* a = begin + (static_cast<size_t>(g0 + r) * Nc + c0) * sizeof(TK);
+    const int lead = static_cast<int>(reinterpret_cast<uintptr_t>(a) & 15u);
+    if (q * 16 >= lead + seg) continue;
+    const char* src = a - lead + 16 * q;
+    unsigned char* dst = st + r * ROW + 16 * q;
+    if (src < begin) {
+      for (const char* b = begin; b < src + 16 && b < end; b += sizeof(TK))
+        *reinterpret_cast<TK*>(dst + (b - src)) = *reinterpret_cast<const TK*>(b);
+    } else {
+      const long long left = end - src;
+      cp_async16(dst, src, left < 16 ? static_cast<int>(left) : 16);
+    }
+  }
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+
+__device__ __forceinline__ float elem(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// Pass A over `ncols` basis columns (a multiple of 4) from shared memory:
+// zt the columns' cell rows (kRowFloats apart), zdt the velocity stage's
+// zeta_dphi rows, nub the unit's nu rows (ldn apart).  Each column in order:
+// e = fma(nu, z, e); d = d + nu * zd as a rounded product and a rounded sum.
+template <bool VEL>
+__device__ __forceinline__ void pass_a(const float* zt, const float* zdt, const float* nub,
+                                       int ldn, int ncols, int warp, int lane,
+                                       float (&e)[kQuad][kQuad], float (&d)[kQuad][kQuad]) {
+  const float* nrow = nub + warp * kQuad * ldn;
+  const float* zc = zt + lane * kQuad;
+  const float* zdc = zdt + lane * kQuad;
+  for (int h = 0; h < ncols; h += 4) {
+    float4 nv[kQuad];
+#pragma unroll
+    for (int i = 0; i < kQuad; ++i) nv[i] = ld4(nrow + i * ldn + h);
+#pragma unroll
+    for (int hh = 0; hh < 4; ++hh) {
+      const float4 z = ld4(zc + (h + hh) * kRowFloats);
+      const float4 zd = VEL ? ld4(zdc + (h + hh) * kRowFloats) : z;
+#pragma unroll
+      for (int i = 0; i < kQuad; ++i) {
+        const float n = elem(nv[i], hh);
+#pragma unroll
+        for (int j = 0; j < kQuad; ++j) {
+          e[i][j] = fmaf(n, elem(z, j), e[i][j]);
+          if (VEL) d[i][j] = __fadd_rn(d[i][j], __fmul_rn(n, elem(zd, j)));
+        }
+      }
+    }
+  }
+}
+
+// Adds the 16 products of a float4 pair along the cells (c .. c + 3) of f's
+// and z's rows to o, cell by cell.
+__device__ __forceinline__ void dot4(const float4& f, const float4& z, float& o) {
+  o = fmaf(f.x, z.x, o);
+  o = fmaf(f.y, z.y, o);
+  o = fmaf(f.z, z.z, o);
+  o = fmaf(f.w, z.w, o);
 }
 
 // The one body.  STAGE picks the phase or the velocity element; U,
 // zeta_dphi, omega, log_beta and log_gamma are read by the velocity stage
-// only.  `lgk_skip` drops lgamma(k + 1) (the caller adds its sum).
+// only.  `lgk_skip` drops lgamma(k + 1) (the caller adds its sum).  Wz,
+// sweeps and chunked are the call's `plan_shape`.
 template <int STAGE, typename TS, typename TU, int CUT, bool WANT_DISP>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kMinBlocksPerSm)
 wide_kernel(const TS* __restrict__ S, const TU* __restrict__ U, const float* __restrict__ nu,
             const float* __restrict__ zeta, const float* __restrict__ zdphi,
             const float* __restrict__ cf, const float* __restrict__ omega,
             const float* __restrict__ lbeta, const float* __restrict__ lgamma,
-            const float* __restrict__ disp, int Ng, int Nc, int W, int T, int lgk_skip,
-            ChainStrides cs, double* __restrict__ loss_part, float* __restrict__ gene_part,
-            float* __restrict__ cell_piece) {
+            const float* __restrict__ disp, int Ng, int Nc, int W, int Wz, int sweeps,
+            int chunked, int lgk_skip, ChainStrides cs, double* __restrict__ loss_part,
+            float* __restrict__ gene_part, float* __restrict__ cell_piece) {
   constexpr bool VEL = STAGE == VELO;
   constexpr bool GRAD = CUT != FWD;
   constexpr bool PASS_B = CUT == FWDGRAD || CUT == PASS_AB;
   constexpr bool PASS_C = CUT == FWDGRAD;
-  constexpr int GPT = kGenesPerThread;
+  constexpr int G = kGeneChunk;
+  constexpr int T = kCellsPerTile;
+  constexpr int PT = kRowFloats;
+  constexpr int Q = kQuad;
+  constexpr int NB = basis_blocks(STAGE);
+  constexpr int NS = cell_sums(STAGE);
+  constexpr int NGS = VEL ? 3 : 1;   // per-gene sums over cells: g_r [, -g_U, g_x]
+  constexpr int CW = chunk_cols(STAGE);
+  constexpr int ROW_S = window_bytes(sizeof(TS));
+  constexpr int ROW_U = window_bytes(sizeof(TU));
   extern __shared__ __align__(16) float sm[];
-  __shared__ double s_loss[kThreads / 32];
+  __shared__ double s_loss[kWarps];
 
-  const Smem L = smem_layout(STAGE, CUT, W, T);
-  const int G = L.G, PT = L.PT;
-  float* s_nu = sm + L.nu;
-  GeneCols* s_cols = reinterpret_cast<GeneCols*>(sm + L.cols);
-  float* s_nlb = sm + L.gene;
-  float* s_gam = s_nlb + G;
+  const Smem L = smem_layout(STAGE, CUT, Wz, chunked != 0, sizeof(TS), VEL ? sizeof(TU) : 0);
   float* s_z = sm + L.z;
-  float* s_zd = s_z + W * PT;
   float* s_acc = sm + L.acc;
   float* s_fac = sm + L.fac;
-  const int NV = gene_values(STAGE, W);
-  const int NR = cell_rows(STAGE, W);
+  GeneCols* s_cols = reinterpret_cast<GeneCols*>(sm + L.cols);
+  float* s_nlb = sm + L.cols + G * kColFloats;
+  float* s_gam = s_nlb + G;
+  unsigned char* ring = reinterpret_cast<unsigned char*>(sm + L.ring);
+  unsigned char* ring_u = ring + G * ROW_S;
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int c = tid % T;          // this thread's cell of the tile
-  const int q = tid / T;          // ... and its gene group
-  const int n_rep = kThreads / T; // threads per cell
+  const int Wp = round4(W);
+  const int Wq = Wz / Q;   // resident column quads
   const int n_chunks = (Ng + G - 1) / G;
   const int tiles = (Nc + T - 1) / T;
-  const long long UC = static_cast<long long>(tiles) * n_chunks;  // units of one chain
+  const int pairs = tiles * sweeps;   // (tile, sweep) pairs of one chain
+  const long long UC = static_cast<long long>(pairs) * n_chunks;  // units of one chain
   const long long n_units = UC * cs.K;
   const long long u0 = static_cast<long long>(blockIdx.x) * n_units / gridDim.x;
   const long long u1 = static_cast<long long>(blockIdx.x + 1) * n_units / gridDim.x;
   const size_t KNc = static_cast<size_t>(cs.K) * Nc;
+  const int NV = gene_values(STAGE, W);
+  const int NR = cell_rows(STAGE, W);
+  const unsigned s_mis = static_cast<unsigned>(reinterpret_cast<uintptr_t>(S) & 15u);
+  const unsigned u_mis = VEL ? static_cast<unsigned>(reinterpret_cast<uintptr_t>(U) & 15u) : 0u;
 
-  int tile = -1;
-  bool valid = false;
-  float cfv = 0.0f, omv = 0.0f;
+  // unit u: gt = u / n_chunks counts the (chain, tile, sweep) triples
+  struct Unit {
+    int gt, chain, t, s, g0, gn;
+  };
+  auto unit_of = [&](long long u) {
+    Unit x;
+    x.gt = static_cast<int>(u / n_chunks);
+    x.chain = x.gt / pairs;
+    const int ts = x.gt - x.chain * pairs;
+    x.t = ts / sweeps;
+    x.s = ts - x.t * sweeps;
+    x.g0 = static_cast<int>(u - static_cast<long long>(x.gt) * n_chunks) * G;
+    x.gn = min(G, Ng - x.g0);
+    return x;
+  };
 
-  // this CTA's piece of a tile's cell gradients, in CTA order, and the
-  // accumulators zeroed for the next tile
+  // the copies of unit u's parameters into slot `slot`: nu's sweep columns
+  // (zeros past W and past the last gene), then the per-gene inputs, each
+  // copied by the thread that reads it
+  auto issue_prm = [&](long long u, int slot) {
+    const Unit x = unit_of(u);
+    float* prm = sm + L.prm + slot * L.prm_size;
+    const int a = x.s * Wz;
+    const float* nu_c = nu + x.chain * cs.nu + static_cast<size_t>(x.g0) * W;
+    for (int j = tid; j < G * Wz; j += kThreads) {
+      const int gl = j / Wz;
+      const int h = j - gl * Wz;
+      const bool ok = gl < x.gn && a + h < W;
+      cp_async4_zfill(prm + j, ok ? nu_c + static_cast<size_t>(gl) * W + a + h : nu, ok);
+    }
+    if (tid < G) {
+      const bool ok = tid < x.gn;
+      const int g = x.g0 + (ok ? tid : 0);
+      float* gi = prm + G * Wz;
+      cp_async4_zfill(gi + tid, disp + x.chain * cs.disp + g, ok);
+      if (VEL) {
+        cp_async4_zfill(gi + G + tid, lbeta + x.chain * cs.lbeta + g, ok);
+        cp_async4_zfill(gi + 2 * G + tid, lgamma + x.chain * cs.lgamma + g, ok);
+      }
+    }
+  };
+  auto issue_counts = [&](long long u) {
+    const Unit x = unit_of(u);
+    copy_count_rows<TS>(ring, S, x.g0, x.gn, x.t * T, Ng, Nc, tid);
+    if (VEL) copy_count_rows<TU>(ring_u, U, x.g0, x.gn, x.t * T, Ng, Nc, tid);
+  };
+
+  // this thread's cells of the current tile, their cf (and omega), and
+  // their sums over the tile's genes (dcf; velocity domega)
+  int cur = -1;
+  bool cvalid[Q];
+  float cfv[Q], omv[Q], csum[NS][Q];
+#pragma unroll
+  for (int j = 0; j < Q; ++j) {
+    cvalid[j] = false;
+    cfv[j] = omv[j] = 0.0f;
+#pragma unroll
+    for (int v = 0; v < NS; ++v) csum[v][j] = 0.0f;
+  }
+
+  // this CTA's piece of a (tile, sweep)'s cell gradients, in CTA order: the
+  // accumulators' rows of the sweep's columns and, with the first sweep,
+  // the per-cell sums (each warp's through the factor region, added in warp
+  // order); everything zeroed for the next
   auto flush = [&](int gt) {
     const int k = static_cast<int>(blockIdx.x) -
                   unit_owner(static_cast<long long>(gt) * n_chunks, n_units, gridDim.x);
-    const int ch = gt / tiles;
-    const int c0 = (gt - ch * tiles) * T;
+    const int ch = gt / pairs;
+    const int ts = gt - ch * pairs;
+    const int t = ts / sweeps;
+    const int s = ts - t * sweeps;
+    const int c0 = t * T;
     const int tn = min(T, Nc - c0);
+    const int a = s * Wz;
     float* out = cell_piece + static_cast<size_t>(k) * NR * KNc + static_cast<size_t>(ch) * Nc + c0;
-    for (int j = tid; j < NR * T; j += kThreads) {
-      const int r = j / T;
-      const int cc = j - r * T;
-      if (cc < tn) out[static_cast<size_t>(r) * KNc + cc] = s_acc[r * PT + cc];
-      s_acc[r * PT + cc] = 0.0f;
+    for (int j = tid; j < NB * Wz * T; j += kThreads) {
+      const int rr = j / T;
+      const int cc = j - rr * T;
+      const int blk = rr / Wz;
+      const int col = a + rr - blk * Wz;
+      if (col < W && cc < tn) out[static_cast<size_t>(blk * W + col) * KNc + cc] = s_acc[rr * PT + cc];
+      s_acc[rr * PT + cc] = 0.0f;
+    }
+    if (s == 0) {
+#pragma unroll
+      for (int v = 0; v < NS; ++v) {
+        *reinterpret_cast<float4*>(s_fac + (v * kWarps + warp) * T + lane * Q) =
+            make_float4(csum[v][0], csum[v][1], csum[v][2], csum[v][3]);
+#pragma unroll
+        for (int j = 0; j < Q; ++j) csum[v][j] = 0.0f;
+      }
+      __syncthreads();
+      for (int j = tid; j < NS * T; j += kThreads) {
+        const int v = j / T;
+        const int cc = j - v * T;
+        float sum = 0.0f;
+#pragma unroll
+        for (int w = 0; w < kWarps; ++w) sum += s_fac[(v * kWarps + w) * T + cc];
+        if (cc < tn) out[static_cast<size_t>(NB * W + v) * KNc + cc] = sum;
+      }
+      __syncthreads();
     }
   };
 
@@ -216,263 +447,358 @@ wide_kernel(const TS* __restrict__ S, const TU* __restrict__ U, const float* __r
     if (lane == 0) s_loss[warp] = loss;
     __syncthreads();
     if (tid == 0) {
-      double s = 0.0;
+      double sum = 0.0;
 #pragma unroll
-      for (int w = 0; w < kThreads / 32; ++w) s += s_loss[w];
+      for (int w = 0; w < kWarps; ++w) sum += s_loss[w];
       const int k = static_cast<int>(blockIdx.x) - unit_owner(chain * UC, n_units, gridDim.x);
-      loss_part[static_cast<size_t>(chain) * cs.loss_pieces + k] = s;
+      loss_part[static_cast<size_t>(chain) * cs.loss_pieces + k] = sum;
     }
     __syncthreads();
     loss = 0.0;
   };
 
   if (PASS_C)
-    for (int j = tid; j < NR * PT; j += kThreads) s_acc[j] = 0.0f;
+    for (int j = tid; j < NB * Wz * PT; j += kThreads) s_acc[j] = 0.0f;
+  if (u0 < u1) {
+    issue_prm(u0, 0);
+    issue_counts(u0);
+  }
+  cp_async_commit();
 
   for (long long u = u0; u < u1; ++u) {
     if (u / UC != chain) {  // uniform over the CTA: the next chain's units
       flush_loss();
       chain = static_cast<int>(u / UC);
     }
-    const int gt = static_cast<int>(u / n_chunks);
-    const int t = gt - chain * tiles;
-    const int c0 = t * T;
-    const int g0 = static_cast<int>(u - static_cast<long long>(gt) * n_chunks) * G;
-    const int gn = min(G, Ng - g0);
+    const int iu = static_cast<int>(u - u0);
+    const Unit x = unit_of(u);
+    const int c0 = x.t * T;
+    const int tn = min(T, Nc - c0);
+    const int a = x.s * Wz;
+    const int gtile = x.chain * tiles + x.t;
 
-    // the tile's basis rows (and the previous tile's piece out) when the
-    // run enters a tile; the barrier that ended the last unit freed them
-    if (gt != tile) {
-      if (PASS_C && tile >= 0) flush(tile);
-      tile = gt;
-      const int tn = min(T, Nc - c0);
-      const float* zeta_c = zeta + chain * cs.zeta + static_cast<size_t>(c0) * W;
-      for (int j = tid; j < T * W; j += kThreads) {
-        const int cc = j / W;
-        const int h = j - cc * W;
-        s_z[h * PT + cc] = cc < tn ? zeta_c[j] : 0.0f;
-      }
-      if (VEL) {
-        const float* zd_c = zdphi + chain * cs.zdphi + static_cast<size_t>(c0) * W;
-        for (int j = tid; j < T * W; j += kThreads) {
-          const int cc = j / W;
-          const int h = j - cc * W;
-          s_zd[h * PT + cc] = cc < tn ? zd_c[j] : 0.0f;
+    // entering a (tile, sweep): the last one's piece out, then the sweep's
+    // basis rows of the tile and this thread's cells (the barrier that ended
+    // the last unit freed the rows)
+    if (x.gt != cur) {
+      if (PASS_C && cur >= 0) flush(cur);
+      cur = x.gt;
+      for (int blk = 0; blk < NB; ++blk) {
+        const float* src = (blk == 0 ? zeta + x.chain * cs.zeta : zdphi + x.chain * cs.zdphi) +
+                           static_cast<size_t>(c0) * W;
+        float* dst = s_z + blk * Wz * PT;
+        for (int j = tid; j < T * Wz; j += kThreads) {
+          const int cc = j / Wz;
+          const int h = j - cc * Wz;
+          dst[h * PT + cc] = (cc < tn && a + h < W) ? src[static_cast<size_t>(cc) * W + a + h] : 0.0f;
         }
       }
-      valid = c < tn;
-      cfv = valid ? cf[chain * cs.cf + c0 + c] : 0.0f;
-      omv = (VEL && valid) ? omega[chain * cs.omega + c0 + c] : 0.0f;
+#pragma unroll
+      for (int j = 0; j < Q; ++j) {
+        const int c = lane * Q + j;
+        cvalid[j] = c < tn;
+        cfv[j] = cvalid[j] ? cf[x.chain * cs.cf + c0 + c] : 0.0f;
+        omv[j] = (VEL && cvalid[j]) ? omega[x.chain * cs.omega + c0 + c] : 0.0f;
+      }
     }
 
-    // the unit's genes: nu^T, the dispersion columns, -log_beta and
-    // exp(log_gamma); zeros for genes past Ng
-    const float* nu_c = nu + chain * cs.nu + static_cast<size_t>(g0) * W;
-    for (int j = tid; j < G * W; j += kThreads) {
-      const int gl = j / W;
-      const int h = j - gl * W;
-      s_nu[h * G + gl] = gl < gn ? nu_c[j] : 0.0f;
-    }
-    if (tid < gn) {
-      s_cols[tid] = gene_cols(disp[chain * cs.disp + g0 + tid]);
+    // this unit's copies (issued by the last unit) are in; its genes'
+    // columns from its parameter slot
+    cp_async_wait<0>();
+    const float* prm = sm + L.prm + (iu & 1) * L.prm_size;
+    if (tid < G) {
+      const float* gi = prm + G * Wz;
+      const bool ok = tid < x.gn;
+      s_cols[tid] = gene_cols(ok ? gi[tid] : 1.0f);
       if (VEL) {
-        s_nlb[tid] = -lbeta[chain * cs.lbeta + g0 + tid];
-        s_gam[tid] = expf(lgamma[chain * cs.lgamma + g0 + tid]);
+        s_nlb[tid] = ok ? -gi[G + tid] : 0.0f;
+        s_gam[tid] = ok ? expf(gi[2 * G + tid]) : 1.0f;
       }
     }
-    // this thread's counts, in flight while the basis sums run
-    const int gb = q * GPT;          // first gene of this thread's group
-    float kS[GPT], kU[VEL ? GPT : 1];
-#pragma unroll
-    for (int i = 0; i < GPT; ++i) {
-      const bool ok = valid && gb + i < gn;
-      const size_t at = static_cast<size_t>(g0 + gb + i) * Nc + c0 + c;
-      kS[i] = ok ? static_cast<float>(S[at]) : 0.0f;
-      if (VEL) kU[VEL ? i : 0] = ok ? static_cast<float>(U[at]) : 0.0f;
-    }
-    __syncthreads();  // the unit's genes and the tile's rows are in place
+    __syncthreads();  // the unit's rows, columns and counts are in place
+    if (u + 1 < u1) issue_prm(u + 1, (iu + 1) & 1);
+    cp_async_commit();
 
-    // pass A: ElogS (and dEs) over the columns in order, then the element
-    float acc[GPT], dE[VEL ? GPT : 1];
+    // pass A: ElogS (and dEs) of the thread's 4 x 4 elements over every
+    // basis column in order
+    float e[Q][Q], d[Q][Q];
 #pragma unroll
-    for (int i = 0; i < GPT; ++i) {
-      acc[i] = 0.0f;
-      if (VEL) dE[VEL ? i : 0] = 0.0f;
-    }
-    const float* zc = s_z + c;
-    const float* nq = s_nu + gb;
-    for (int h = 0; h < W; ++h) {
-      const float zv = zc[h * PT];
-      float n[GPT];
+    for (int i = 0; i < Q; ++i)
 #pragma unroll
-      for (int i = 0; i < GPT; i += 4) {
-        const float4 v = *reinterpret_cast<const float4*>(nq + h * G + i);
-        n[i] = v.x;
-        n[i + 1] = v.y;
-        n[i + 2] = v.z;
-        n[i + 3] = v.w;
+      for (int j = 0; j < Q; ++j) e[i][j] = d[i][j] = 0.0f;
+    if (!chunked) {
+      pass_a<VEL>(s_z, s_z + Wz * PT, prm, Wz, Wp, warp, lane, e, d);
+    } else {
+      // every column, in chunks of CW through the factor region
+      float* ch_z = s_fac;
+      float* ch_nu = s_fac + NB * CW * PT;
+      const float* nu_c = nu + x.chain * cs.nu + static_cast<size_t>(x.g0) * W;
+      for (int h0 = 0; h0 < Wp; h0 += CW) {
+        const int cn = min(CW, Wp - h0);
+        if (h0) __syncthreads();  // the last chunk is read
+        for (int blk = 0; blk < NB; ++blk) {
+          const float* src = (blk == 0 ? zeta + x.chain * cs.zeta : zdphi + x.chain * cs.zdphi) +
+                             static_cast<size_t>(c0) * W;
+          for (int j = tid; j < T * cn; j += kThreads) {
+            const int cc = j / cn;
+            const int h = j - cc * cn;
+            ch_z[(blk * CW + h) * PT + cc] =
+                (cc < tn && h0 + h < W) ? src[static_cast<size_t>(cc) * W + h0 + h] : 0.0f;
+          }
+        }
+        for (int j = tid; j < G * cn; j += kThreads) {
+          const int gl = j / cn;
+          const int h = j - gl * cn;
+          ch_nu[gl * CW + h] =
+              (gl < x.gn && h0 + h < W) ? nu_c[static_cast<size_t>(gl) * W + h0 + h] : 0.0f;
+        }
+        __syncthreads();  // the chunk is in place
+        pass_a<VEL>(ch_z, ch_z + CW * PT, ch_nu, CW, cn, warp, lane, e, d);
       }
-#pragma unroll
-      for (int i = 0; i < GPT; ++i) acc[i] += n[i] * zv;
-      if (VEL) {
-        const float zdv = s_zd[h * PT + c];
-#pragma unroll
-        for (int i = 0; i < GPT; ++i)
-          dE[VEL ? i : 0] = __fadd_rn(dE[VEL ? i : 0], __fmul_rn(n[i], zdv));
-      }
+      __syncthreads();  // the chunk buffer is free for the factors
     }
 
+    // the element, gene by gene of the thread's four (uniform over the warp)
+    const size_t rowS0 = (static_cast<size_t>(x.g0) * Nc + c0) * sizeof(TS) + s_mis;
+    const size_t rowU0 = (static_cast<size_t>(x.g0) * Nc + c0) * sizeof(TU) + u_mis;
+    const bool first = x.s == 0;
     float chunk_loss = 0.0f;
-#pragma unroll
-    for (int i = 0; i < GPT; ++i) {
-      const int gl = gb + i;
-      if (gl >= gn) break;  // uniform over a warp: one gene group
+#pragma unroll 1
+    for (int i = 0; i < Q; ++i) {
+      const int gl = warp * Q + i;
+      const bool gv = gl < x.gn;
       const GeneCols cc = s_cols[gl];
-      const float elogS = acc[i] + cfv;
-      float* fac = s_fac + gl * PT + c;   // row r of the factors: + r * G * PT
-      if constexpr (!VEL) {
-        if constexpr (!GRAD) {
-          float lp = nb_lp<true>(kS[i], -cc.log_r - elogS, cc);
-          if (!lgk_skip) lp -= lgamma_pos(kS[i] + 1.0f);
-          chunk_loss += valid ? lp : 0.0f;
-        } else {
-          float lp, g_elog, g_r;
-          nb_lp_grads<WANT_DISP, true>(kS[i], -cc.log_r - elogS, cc, lp, g_elog, g_r);
-          if (!lgk_skip) lp -= lgamma_pos(kS[i] + 1.0f);
-          if (!valid) {
-            lp = 0.0f;
-            g_elog = 0.0f;
-            g_r = 0.0f;
-          }
-          chunk_loss += lp;
-          fac[0] = g_elog;
-          fac[G * PT] = g_r;
-        }
-      } else {
-        const float kUi = kU[VEL ? i : 0];
-        const float dEi = dE[VEL ? i : 0];
-        const float x = __fadd_rn(__fmul_rn(dEi, omv), s_gam[gl]);
-        const float xr = fmaxf(x, 0.0f) + 1e-5f;
-        const float elogU = (s_nlb[gl] + logf(xr)) + elogS;
-        const float log_bS = -cc.log_r - elogS;
-        const float log_bU = -cc.log_r - elogU;
-        if constexpr (!GRAD) {
-          float lpS = nb_lp<true>(kS[i], log_bS, cc);
-          if (!lgk_skip) lpS -= lgamma_pos(kS[i] + 1.0f);
-          float lpU = nb_lp<true>(kUi, log_bU, cc);
-          if (!lgk_skip) lpU -= lgamma_pos(kUi + 1.0f);
-          chunk_loss += valid ? lpS + lpU : 0.0f;
-        } else {
-          float lpS, gS, grS, lpU, gU, grU;
-          nb_lp_grads<WANT_DISP, true>(kS[i], log_bS, cc, lpS, gS, grS);
-          if (!lgk_skip) lpS -= lgamma_pos(kS[i] + 1.0f);
-          nb_lp_grads<WANT_DISP, true>(kUi, log_bU, cc, lpU, gU, grU);
-          if (!lgk_skip) lpU -= lgamma_pos(kUi + 1.0f);
-          float lp = lpS + lpU;
-          float g_r = grS + grU;
-          if (!valid) {
-            lp = 0.0f;
-            gS = 0.0f;
-            gU = 0.0f;
-            g_r = 0.0f;
-          }
-          const float g_e = gS + gU;                             // ElogU includes ElogS
-          const float g_x = gU * (x > 0.0f ? 1.0f / xr : 0.0f);  // relu + log chain
-          chunk_loss += lp;
-          fac[0] = g_e;
-          fac[G * PT] = g_x * omv;
-          fac[2 * G * PT] = g_x * dEi;
-          fac[3 * G * PT] = g_r;
-          fac[4 * G * PT] = -gU;
-          fac[5 * G * PT] = g_x;
-        }
+      const unsigned char* rs =
+          ring + gl * ROW_S + ((rowS0 + static_cast<size_t>(gl) * Nc * sizeof(TS)) & 15u);
+      const unsigned char* ru =
+          ring_u + gl * ROW_U + ((rowU0 + static_cast<size_t>(gl) * Nc * sizeof(TU)) & 15u);
+      float ev[Q], dv[Q], f0[Q], f1[Q], gs[NGS];
+#pragma unroll
+      for (int j = 0; j < Q; ++j) {
+        ev[j] = i == 0 ? e[0][j] : i == 1 ? e[1][j] : i == 2 ? e[2][j] : e[3][j];
+        dv[j] = i == 0 ? d[0][j] : i == 1 ? d[1][j] : i == 2 ? d[2][j] : d[3][j];
+        f0[j] = f1[j] = 0.0f;
       }
-    }
-    loss += static_cast<double>(chunk_loss);
-
-    if constexpr (GRAD) {
-      __syncthreads();  // the unit's factors are complete
-
-      // pass B: the gene sums, one (gene, value) per thread, in cell order
-      float* gp = gene_part + (static_cast<size_t>(gt) * Ng + g0) * NV;
-      for (int j = tid; j < (PASS_B ? gn * NV : 0); j += kThreads) {
-        const int gl = j / NV;
-        const int v = j - gl * NV;
-        const float* f0 = s_fac + gl * PT;
-        float s = 0.0f;
-        if (v < W) {
-          const float* zr = s_z + v * PT;
-          if constexpr (!VEL) {
-            for (int cc = 0; cc < T; ++cc) s += f0[cc] * zr[cc];
+#pragma unroll
+      for (int v = 0; v < NGS; ++v) gs[v] = 0.0f;
+#pragma unroll
+      for (int j = 0; j < Q; ++j) {
+        const int c = lane * Q + j;
+        const bool valid = gv && cvalid[j];
+        const float kS = static_cast<float>(*reinterpret_cast<const TS*>(rs + c * sizeof(TS)));
+        const float elogS = ev[j] + cfv[j];
+        if constexpr (!VEL) {
+          if constexpr (!GRAD) {
+            float lp = nb_lp<true>(kS, -cc.log_r - elogS, cc);
+            if (!lgk_skip) lp -= lgamma_pos(kS + 1.0f);
+            chunk_loss += valid ? lp : 0.0f;
           } else {
-            const float* f1 = f0 + G * PT;
-            const float* zdr = s_zd + v * PT;
-            for (int cc = 0; cc < T; ++cc) s += f0[cc] * zr[cc] + f1[cc] * zdr[cc];
+            float lp, g_elog, g_r;
+            nb_lp_grads<WANT_DISP, true>(kS, -cc.log_r - elogS, cc, lp, g_elog, g_r);
+            if (!lgk_skip) lp -= lgamma_pos(kS + 1.0f);
+            if (!valid) {
+              lp = 0.0f;
+              g_elog = 0.0f;
+              g_r = 0.0f;
+            }
+            chunk_loss += lp;
+            f0[j] = g_elog;
+            gs[0] += g_r;
+            if (first) csum[0][j] += g_elog;
           }
         } else {
-          // phase: g_r; velocity: g_r, -g_U, g_x (factor rows 3, 4, 5)
-          const float* fr = f0 + (VEL ? 3 + (v - W) : 1) * G * PT;
-          for (int cc = 0; cc < T; ++cc) s += fr[cc];
+          const float kU = static_cast<float>(*reinterpret_cast<const TU*>(ru + c * sizeof(TU)));
+          const float dEi = dv[j];
+          const float xg = __fadd_rn(__fmul_rn(dEi, omv[j]), s_gam[gl]);
+          const float xr = fmaxf(xg, 0.0f) + 1e-5f;
+          const float elogU = (s_nlb[gl] + logf(xr)) + elogS;
+          const float log_bS = -cc.log_r - elogS;
+          const float log_bU = -cc.log_r - elogU;
+          if constexpr (!GRAD) {
+            float lpS = nb_lp<true>(kS, log_bS, cc);
+            if (!lgk_skip) lpS -= lgamma_pos(kS + 1.0f);
+            float lpU = nb_lp<true>(kU, log_bU, cc);
+            if (!lgk_skip) lpU -= lgamma_pos(kU + 1.0f);
+            chunk_loss += valid ? lpS + lpU : 0.0f;
+          } else {
+            float lpS, gS, grS, lpU, gU, grU;
+            nb_lp_grads<WANT_DISP, true>(kS, log_bS, cc, lpS, gS, grS);
+            if (!lgk_skip) lpS -= lgamma_pos(kS + 1.0f);
+            nb_lp_grads<WANT_DISP, true>(kU, log_bU, cc, lpU, gU, grU);
+            if (!lgk_skip) lpU -= lgamma_pos(kU + 1.0f);
+            float lp = lpS + lpU;
+            float g_r = grS + grU;
+            if (!valid) {
+              lp = 0.0f;
+              gS = 0.0f;
+              gU = 0.0f;
+              g_r = 0.0f;
+            }
+            const float g_e = gS + gU;                              // ElogU includes ElogS
+            const float g_x = gU * (xg > 0.0f ? 1.0f / xr : 0.0f);  // relu + log chain
+            chunk_loss += lp;
+            f0[j] = g_e;
+            f1[j] = g_x * omv[j];
+            gs[0] += g_r;
+            gs[NGS - 2] += -gU;
+            gs[NGS - 1] += g_x;
+            if (first) {
+              csum[0][j] += g_e;
+              csum[NS - 1][j] += g_x * dEi;
+            }
+          }
         }
-        gp[j] = s;
       }
-
-      // pass C: each accumulator row adds the unit's sum over its genes
-      for (int r = q; r < (PASS_C ? NR : 0); r += n_rep) {
-        // the factor row and the nu column (null: a plain sum) of row r
-        int fr;
-        const float* ncol = nullptr;
-        if (!VEL) {
-          fr = 0;
-          if (r < W) ncol = s_nu + r * G;
-        } else if (r < W) {
-          fr = 0;
-          ncol = s_nu + r * G;
-        } else if (r < 2 * W) {
-          fr = 1;
-          ncol = s_nu + (r - W) * G;
-        } else {
-          fr = r == 2 * W ? 0 : 2;
+      if constexpr (GRAD) {
+        *reinterpret_cast<float4*>(s_fac + gl * PT + lane * Q) = make_float4(f0[0], f0[1], f0[2], f0[3]);
+        if (VEL)
+          *reinterpret_cast<float4*>(s_fac + (G + gl) * PT + lane * Q) =
+              make_float4(f1[0], f1[1], f1[2], f1[3]);
+        // the gene's sums over the tile's cells: the warp holds every cell
+        if (first) {
+          float* gp = gene_part + (static_cast<size_t>(gtile) * Ng + x.g0 + gl) * NV + W;
+#pragma unroll
+          for (int v = 0; v < NGS; ++v) {
+            const float sum = warp_sum(gs[v]);
+            if (lane == 0 && gv) gp[v] = sum;
+          }
         }
-        const float* f = s_fac + fr * G * PT + c;
-        float s = 0.0f;
-        if (ncol != nullptr) {
-          for (int gl = 0; gl < gn; ++gl) s += f[gl * PT] * ncol[gl];
-        } else {
-          for (int gl = 0; gl < gn; ++gl) s += f[gl * PT];
-        }
-        s_acc[r * PT + c] += s;
       }
     }
-    __syncthreads();  // the unit's rows are free for the next unit
+    if (first) loss += static_cast<double>(chunk_loss);
+    __syncthreads();  // the counts are read; the factors are complete
+    if (u + 1 < u1) issue_counts(u + 1);
+    cp_async_commit();
+
+    if constexpr (PASS_B) {
+      // pass B: dnu of the sweep's columns; a lane's 4 genes (q + 8 i) x 4
+      // columns over one quarter of the cells, then the quarters reduced
+      const int q = lane & 7;
+      const int ks = lane >> 3;
+      for (int hq = warp; hq < Wq; hq += kWarps) {
+        float o[Q * Q];
+#pragma unroll
+        for (int v = 0; v < Q * Q; ++v) o[v] = 0.0f;
+        const float* zr = s_z + hq * Q * PT;
+        for (int c = ks * (T / 4); c < (ks + 1) * (T / 4); c += 4) {
+          float4 f[Q];
+#pragma unroll
+          for (int i = 0; i < Q; ++i) f[i] = ld4(s_fac + (q + 8 * i) * PT + c);
+#pragma unroll
+          for (int jj = 0; jj < Q; ++jj) {
+            const float4 z = ld4(zr + jj * PT + c);
+#pragma unroll
+            for (int i = 0; i < Q; ++i) dot4(f[i], z, o[i * Q + jj]);
+          }
+          if (VEL) {
+#pragma unroll
+            for (int i = 0; i < Q; ++i) f[i] = ld4(s_fac + (G + q + 8 * i) * PT + c);
+#pragma unroll
+            for (int jj = 0; jj < Q; ++jj) {
+              const float4 z = ld4(zr + (Wz + jj) * PT + c);
+#pragma unroll
+              for (int i = 0; i < Q; ++i) dot4(f[i], z, o[i * Q + jj]);
+            }
+          }
+        }
+        // reduce-scatter over the quarters (lane bits 3 and 4): afterwards
+        // the lane holds gene q + 8 (2 b3 + b4), its 4 columns
+        const bool up3 = (lane & 8) != 0;
+#pragma unroll
+        for (int v = 0; v < 8; ++v) {
+          const float send = up3 ? o[v] : o[v + 8];
+          const float keep = up3 ? o[v + 8] : o[v];
+          o[v] = keep + __shfl_xor_sync(0xffffffffu, send, 8);
+        }
+        const bool up4 = (lane & 16) != 0;
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {
+          const float send = up4 ? o[v] : o[v + 4];
+          const float keep = up4 ? o[v + 4] : o[v];
+          o[v] = keep + __shfl_xor_sync(0xffffffffu, send, 16);
+        }
+        const int gl = q + 8 * (2 * static_cast<int>(up3) + static_cast<int>(up4));
+        if (gl < x.gn) {
+          float* gp = gene_part + (static_cast<size_t>(gtile) * Ng + x.g0 + gl) * NV + a + hq * Q;
+#pragma unroll
+          for (int jj = 0; jj < Q; ++jj)
+            if (a + hq * Q + jj < W) gp[jj] = o[jj];
+        }
+      }
+    }
+
+    if constexpr (PASS_C) {
+      // pass C: the sweep's cell gradients, a thread's 4 columns x 4 cells
+      // summed over the unit's genes in order, added to the accumulators
+      for (int m = tid; m < 32 * Wq; m += kThreads) {
+        const int hq = m >> 5;
+        const int cq = m & 31;
+        float o[Q][Q], o2[Q][Q];
+#pragma unroll
+        for (int hh = 0; hh < Q; ++hh)
+#pragma unroll
+          for (int jj = 0; jj < Q; ++jj) o[hh][jj] = o2[hh][jj] = 0.0f;
+        const float* fr = s_fac + cq * Q;
+        const float* nr = prm + hq * Q;
+#pragma unroll 4
+        for (int g = 0; g < G; ++g) {
+          const float4 f = ld4(fr + g * PT);
+          const float4 f2 = VEL ? ld4(fr + (G + g) * PT) : f;
+          const float4 n = ld4(nr + g * Wz);
+#pragma unroll
+          for (int hh = 0; hh < Q; ++hh)
+#pragma unroll
+            for (int jj = 0; jj < Q; ++jj) {
+              o[hh][jj] = fmaf(elem(f, jj), elem(n, hh), o[hh][jj]);
+              if (VEL) o2[hh][jj] = fmaf(elem(f2, jj), elem(n, hh), o2[hh][jj]);
+            }
+        }
+#pragma unroll
+        for (int blk = 0; blk < NB; ++blk)
+#pragma unroll
+          for (int hh = 0; hh < Q; ++hh) {
+            float4* p = reinterpret_cast<float4*>(s_acc + (blk * Wz + hq * Q + hh) * PT + cq * Q);
+            float4 v = *p;
+            v.x += blk == 0 ? o[hh][0] : o2[hh][0];
+            v.y += blk == 0 ? o[hh][1] : o2[hh][1];
+            v.z += blk == 0 ? o[hh][2] : o2[hh][2];
+            v.w += blk == 0 ? o[hh][3] : o2[hh][3];
+            *p = v;
+          }
+      }
+    }
+    if (PASS_B) __syncthreads();  // the unit's factors, rows and nu are free
   }
-  if (PASS_C && tile >= 0) flush(tile);
+  if (PASS_C && cur >= 0) flush(cur);
+  cp_async_wait<0>();
   flush_loss();
 }
 
 // The cell gradients (K, Nc, W) per basis block and (K, Nc) per scalar row
-// from the pieces (pieces, rows, K * Nc): each tile's pieces added in the
-// order of the CTAs that wrote them.  Phase rows [dzeta, dcf]; velocity
-// [dzeta, dzeta_dphi, dcf, domega].
+// from the pieces (pieces, rows, K * Nc): each row's pieces (those of its
+// column's sweep; the scalar rows the first sweep's) added in the order of
+// the CTAs that wrote them.  Phase rows [dzeta, dcf]; velocity [dzeta,
+// dzeta_dphi, dcf, domega].
 template <int STAGE>
 __global__ void wide_cell_sum_kernel(const float* __restrict__ cell_piece, int Ng, int Nc, int K,
-                                     int W, int T, int grid, float* __restrict__ dzeta,
-                                     float* __restrict__ dzdphi, float* __restrict__ dcf,
-                                     float* __restrict__ domega) {
+                                     int W, int Wz, int sweeps, int grid,
+                                     float* __restrict__ dzeta, float* __restrict__ dzdphi,
+                                     float* __restrict__ dcf, float* __restrict__ domega) {
   const long long KNc = static_cast<long long>(K) * Nc;
   const long long v = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (v >= KNc) return;
   const int NR = cell_rows(STAGE, W);
-  const int G = kElems / T;
   const int ch = static_cast<int>(v / Nc);
   const int c = static_cast<int>(v - static_cast<long long>(ch) * Nc);
-  const int n_chunks = (Ng + G - 1) / G;
-  const int tiles = (Nc + T - 1) / T;
-  const long long n_units = static_cast<long long>(K) * tiles * n_chunks;
-  const long long first = (static_cast<long long>(ch) * tiles + c / T) * n_chunks;
-  const int n = unit_owner(first + n_chunks - 1, n_units, grid) -
-                unit_owner(first, n_units, grid) + 1;
+  const int n_chunks = (Ng + kGeneChunk - 1) / kGeneChunk;
+  const int tiles = (Nc + kCellsPerTile - 1) / kCellsPerTile;
+  const long long n_units = static_cast<long long>(K) * tiles * sweeps * n_chunks;
+  const long long gt0 = (static_cast<long long>(ch) * tiles + c / kCellsPerTile) * sweeps;
   for (int r = 0; r < NR; ++r) {
+    const int col = r < W ? r : (STAGE == VELO && r < 2 * W) ? r - W : 0;
+    const long long first = (gt0 + col / Wz) * n_chunks;
+    const int n = unit_owner(first + n_chunks - 1, n_units, grid) -
+                  unit_owner(first, n_units, grid) + 1;
     float s = cell_piece[static_cast<size_t>(r) * KNc + v];
     for (int k = 1; k < n; ++k) s += cell_piece[(static_cast<size_t>(k) * NR + r) * KNc + v];
     if (r < W) dzeta[static_cast<size_t>(v) * W + r] = s;

@@ -29,9 +29,10 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-# per source: nb_velo.cu instantiates its body for every (S, U) count-type
-# pair, so its compiler optimizations run on all of the machine's cores
-SOURCE_FLAGS = {"nb_velo": ["-split-compile=0"]}
+# per source: nb_velo.cu and nb_wide.cu instantiate their bodies for every
+# (S, U) count-type pair, so their compiler optimizations run on all of the
+# machine's cores
+SOURCE_FLAGS = {"nb_velo": ["-split-compile=0"], "nb_wide": ["-split-compile=0"]}
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -23,9 +23,9 @@ widths: the narrow bodies are instantiated for Nh in (3, 5, 7) with up to
 four delta_nu batches, and 11 and 16 without; `kernel_width` sends any
 other shape of at most NARROW_WIDTH = 16 basis columns to the next width,
 with zero columns and the batches folded into basis columns
-(`widen_inputs`, `narrow_grads`).  Past that, up to MAX_WIDTH = 256
-columns, the same four wrappers launch the wide body (`csrc/nb_wide.cu`
-over `csrc/wide_kernel.cuh`, the basis width a runtime value) at Nh + Nb
+(`widen_inputs`, `narrow_grads`).  Past that, at any width, the same four
+wrappers launch the wide body (`csrc/nb_wide.cu` over
+`csrc/wide_kernel.cuh`, the basis width a runtime value) at Nh + Nb
 columns, the batches folded in, and count those launches under
 ``phase_fwd_wide`` / ``phase_fwdgrad_wide`` / ``velo_fwd_wide`` /
 ``velo_fwdgrad_wide``.  Its plain versions, the ``*_wide_plain`` twins,
@@ -68,7 +68,6 @@ __all__ = [
     "LAUNCH_CHAINS",
     "LAUNCH_WIDTHS",
     "Layout",
-    "MAX_WIDTH",
     "NARROW_WIDTH",
     "PHASE_MODES",
     "Plan",
@@ -397,11 +396,9 @@ def velo_fwdgrad_wide_plain(S, U, nu, zeta, zeta_dphi, cf, omega, log_beta,
 # the basis widths the narrow bodies are instantiated for (csrc/nb_phase.cu
 # and csrc/nb_velo.cu, `pick_nh`); up to DNU_WIDTH also with delta_nu
 # batches as such (csrc/nb_common.cuh kMaxDnuWidth).  Past NARROW_WIDTH
-# columns the wide body runs any width up to MAX_WIDTH (csrc/wide_kernel.cuh
-# kMaxWidth)
+# columns the wide body (csrc/wide_kernel.cuh) runs any width
 KERNEL_WIDTHS = (3, 5, 7, 11, 16)
 NARROW_WIDTH = KERNEL_WIDTHS[-1]
-MAX_WIDTH = 256
 DNU_WIDTH = 7
 
 
@@ -413,8 +410,7 @@ def kernel_width(Nh, Nb, max_nb):
     Nh <= DNU_WIDTH with Nb <= max_nb runs at the next width of (3, 5, 7)
     with delta_nu as such.  Otherwise the batches become Nb extra columns
     (`widen_inputs`) and Nh + Nb runs at the next of KERNEL_WIDTHS, or past
-    NARROW_WIDTH on the wide body at Nh + Nb itself.  Beyond MAX_WIDTH
-    basis columns: ValueError."""
+    NARROW_WIDTH on the wide body at Nh + Nb itself, whatever the width."""
     if Nb <= max_nb:
         for w in KERNEL_WIDTHS:
             if Nh <= w <= DNU_WIDTH:
@@ -423,13 +419,7 @@ def kernel_width(Nh, Nb, max_nb):
     for w in KERNEL_WIDTHS:
         if n <= w:
             return w, Nb > 0
-    if n <= MAX_WIDTH:
-        return n, Nb > 0
-    raise ValueError(
-        f"the NB kernels take at most MAX_WIDTH = {MAX_WIDTH} basis columns, "
-        f"the Nh = {Nh} basis columns plus, beyond Nh <= {DNU_WIDTH} with "
-        f"<= {max_nb} batches, one column per delta_nu batch (Nb = {Nb})"
-    )
+    return n, Nb > 0
 
 
 def widen_inputs(nu, zetas, delta_nu, Db, width, fold):
@@ -511,8 +501,8 @@ _LAYOUT_NAMES = ("kThreads", "kCellsPerTile", "kGeneChunk", "kStages",
 # the factors and after pass B
 WIDE_STAGES = ("phase", "velo")
 WIDE_CUTS = ("fwd", "fwdgrad", "pass_a", "pass_ab")
-_WIDE_LAYOUT_NAMES = ("kThreads", "kGenesPerThread", "kMaxWidth",
-                      "kTileBudget", "kMinTile", "kMaxTile")
+_WIDE_LAYOUT_NAMES = ("kThreads", "kGeneChunk", "kCellsPerTile",
+                      "kSmemBudget", "kPhaseChunkCols", "kVeloChunkCols")
 
 
 class Layout(NamedTuple):
@@ -538,11 +528,11 @@ class Plan(NamedTuple):
 class WideLayout(NamedTuple):
     """The wide body's layout constants (csrc/wide_kernel.cuh)."""
     threads: int
-    genes_per_thread: int   # genes a thread carries per unit: G * T / threads
-    max_width: int          # most basis columns
-    tile_budget: int        # shared memory a tile is fitted to, bytes
-    min_tile: int           # fewest cells per tile
-    max_tile: int           # most cells per tile
+    gene_chunk: int         # genes of a unit
+    cells_per_tile: int     # cells of a tile: the gene partials' tiles
+    smem_budget: int        # dynamic shared memory a CTA takes at most, bytes
+    phase_chunk_cols: int   # basis columns per chunk of pass A past the fit
+    velo_chunk_cols: int
 
 
 class WidePlan(NamedTuple):
@@ -553,7 +543,9 @@ class WidePlan(NamedTuple):
     blocks_per_sm: int
     dyn_smem: int
     loss_pieces: int
-    cells_per_tile: int     # T: the gene partials' tiles are ceil(Nc / T)
+    sweep_cols: int         # basis columns resident per sweep of a tile
+    sweeps: int             # sweeps of a tile's genes: 1 up to the fit
+    chunked: int            # 1: pass A reads the columns in chunks
 
 
 def _read_layout(header, names=_LAYOUT_NAMES, kind=Layout):
@@ -654,11 +646,10 @@ def _wide_lib():
         # stage, cut, S, S int16, U, U int16, nu, zeta, zeta_dphi, cf,
         # omega, log_beta, log_gamma, disp, Ng, Nc, W, K, the strides of
         # nu, zeta, zeta_dphi, cf, omega, log_beta, log_gamma, disp,
-        # skip_k, want_disp, grid, pieces, loss_pieces, cells_per_tile,
-        # loss_part, gene_part, cell_piece, dzeta, dzeta_dphi, dcf, domega,
-        # stream
+        # skip_k, want_disp, grid, pieces, loss_pieces, loss_part,
+        # gene_part, cell_piece, dzeta, dzeta_dphi, dcf, domega, stream
         "vct_wide_run": ([_I, _I, _P, _I, _P, _I] + [_P] * 8 + [_I] * 4
-                         + [_L] * 8 + [_I] * 6 + [_P] * 8),
+                         + [_L] * 8 + [_I] * 5 + [_P] * 8),
     })
 
 
@@ -802,7 +793,7 @@ def _wide_launch(stage, cut, counts, ops, skip_k, want_disp, chains):
     gene_part = cell_piece = None
     cell = []
     if cut != "fwd":
-        tiles = -(-Nc // plan.cells_per_tile)
+        tiles = -(-Nc // lib.layout.cells_per_tile)
         gene_part = torch.empty((K, tiles, Ng, W + (3 if velo else 1)), **f32)
     if cut == "fwdgrad":
         cell_piece = torch.empty(
@@ -818,7 +809,7 @@ def _wide_launch(stage, cut, counts, ops, skip_k, want_disp, chains):
             WIDE_STAGES.index(stage), WIDE_CUTS.index(cut), _ptr(S), int(s16),
             _ptr(U), int(u16), *(_ptr(t) for t in ops), Ng, Nc, W, K,
             *strides, int(skip_k), int(want_disp), plan.grid, plan.pieces,
-            plan.loss_pieces, plan.cells_per_tile, loss_part.data_ptr(),
+            plan.loss_pieces, loss_part.data_ptr(),
             _ptr(gene_part), _ptr(cell_piece),
             *(None if t is None else t.data_ptr()
               for t in (cell or [None] * 4)),
@@ -841,16 +832,14 @@ _CHAIN_OPERANDS = ("nu", "zeta", "zeta_dphi", "count_factor", "omega",
                    "log_beta", "log_gamma", "dispersion", "delta_nu")
 
 
-def _check_inputs(counts, params, delta_nu, Db, max_nb=None, chains=False,
-                  device=True):
-    """Shapes always; device, dtype, contiguity and the basis width for the
-    kernels (``device=False``: shapes only).
+def _check_inputs(counts, params, delta_nu, Db, chains=False, device=True):
+    """Shapes always; device, dtype and contiguity for the kernels
+    (``device=False``: shapes only).
 
     counts: [(name, (Ng, Nc) tensor)], or empty for a kernel that reads no
     count matrix (Ng and Nc then come from nu and zeta), each int16 or
     float32 on its own; params: {name: tensor}, names from `_SHAPES`;
-    max_nb: the most delta_nu batches the kernels take as such, for the
-    width check of `kernel_width` (None: no width check); ``chains``: the
+    ``chains``: the
     `_CHAIN_OPERANDS` may each carry a leading chain axis K.  Returns K, or
     None when no operand carries one."""
     if counts:
@@ -895,8 +884,6 @@ def _check_inputs(counts, params, delta_nu, Db, max_nb=None, chains=False,
     for name, t in counts:
         if t.dtype not in (torch.int16, torch.float32):
             raise TypeError(f"{name} must be int16 or float32, got {t.dtype}")
-    if max_nb is not None:
-        kernel_width(Nh, Nb, max_nb)
     if Ng < 1 or Nc < 1:
         raise ValueError(f"empty count matrix {(Ng, Nc)}")
     for name, t in [*counts, *got.items()]:
@@ -922,7 +909,7 @@ def _on_card(name, counts, params, delta_nu, Db, max_nb):
     """Check a kernel call and choose its width: (width, fold) of
     `kernel_width` and the chain count of `_check_inputs` (every parameter
     may carry a leading chain axis); raises for CPU tensors."""
-    K = _check_inputs(counts, params, delta_nu, Db, max_nb, chains=True)
+    K = _check_inputs(counts, params, delta_nu, Db, chains=True)
     ref = counts[0][1]
     if ref.device.type != "cuda":
         raise ValueError(f"{name} launches a CUDA kernel; got CPU tensors")
@@ -1365,10 +1352,9 @@ def nb_loglik_fused(S, nu, zeta, count_factor, dispersion,
 
     On the card, shapes of at most NARROW_WIDTH = 16 basis columns (Nh <=
     7 with Nb <= 4 batches, else Nh + Nb) run on the narrow body's
-    instantiations, wider ones on the wide body at Nh + Nb columns, the
-    batches folded in (`kernel_width`), up to MAX_WIDTH = 256; beyond that
-    it raises ValueError.  CPU tensors take any shape, through the plain
-    versions.
+    instantiations, wider ones, at any width, on the wide body at Nh + Nb
+    columns, the batches folded in (`kernel_width`).  CPU tensors take any
+    shape, through the plain versions.
     """
     _check_inputs([("S", S)], _phase_params(nu, zeta, count_factor,
                                             dispersion), delta_nu, Db,
