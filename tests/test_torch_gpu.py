@@ -378,11 +378,11 @@ def test_cuda_wrappers_refuse_what_the_kernels_cannot_take():
 def test_cuda_wrappers_run_wide_shapes_on_the_wide_body(stage, Nh, Nb):
     """One column past the widest narrow instantiation: the routed wrappers
     launch the wide body (csrc/nb_wide.cu) once per call, counted under its
-    own name, and agree with the wide twins; past MAX_WIDTH they raise,
-    naming it, and launch nothing."""
+    own name, and agree with the wide twins; so they do one column past the
+    shared-memory fit of the tile's accumulators and at 257 columns, where
+    the body sweeps the tile's genes once per chunk of columns."""
     dev = _cuda_or_skip()
     make = _inputs if stage == "phase" else _velo_inputs
-    t = [torch.as_tensor(a, device=dev) for a in make(40, 300, Nh=Nh, Nb=Nb)]
     name = "phase" if stage == "phase" else "velo"
     fwd, fwdgrad = getattr(K, f"{name}_fwd"), getattr(K, f"{name}_fwdgrad")
     fwd_p = getattr(K, f"{name}_fwd_wide_plain")
@@ -390,33 +390,59 @@ def test_cuda_wrappers_run_wide_shapes_on_the_wide_body(stage, Nh, Nb):
     names = (("dnu", "dzeta", "dcf", "ddisp", "ddnu") if stage == "phase"
              else VELO_GRADS)
     rtol = 1e-4 if stage == "phase" else 5e-4
-    for want_disp in (True, False):
+    # the first width whose tile does not fit shared memory at once (these
+    # counts are float32)
+    u16 = False if stage == "velo" else True
+    swept = next(W for W in range(17, 4096)
+                 if K.wide_plan(stage, "fwdgrad", False, u16, 40, 300, W,
+                                want_disp=True).sweeps > 1)
+    for W in (Nh + Nb, swept, 257):
+        t = [torch.as_tensor(a, device=dev)
+             for a in make(40, 300, Nh=W - Nb, Nb=Nb)]
+        assert (K.wide_plan(stage, "fwdgrad", False, u16, 40, 300, W,
+                            want_disp=True).sweeps > 1) == (W != Nh + Nb)
+        for want_disp in (True, False):
+            K.reset_launch_counts()
+            kl, kg = fwdgrad(*t, want_disp=want_disp)
+            assert {k: v for k, v in K.LAUNCHES.items() if v} == {
+                f"{name}_fwdgrad_wide": 1}
+            assert K.LAUNCH_WIDTHS[f"{name}_fwdgrad_wide"] == {W: 1}
+            pl, pg = fwdgrad_p(*t, want_disp=want_disp)
+            assert abs(float(kl) - float(pl)) / max(abs(float(pl)), 1.0) < 1e-5
+            for gname, a, b in zip(names, kg, pg):
+                if b is None:
+                    assert a is None
+                elif not want_disp and gname == "ddisp":
+                    assert float(a.abs().max()) == 0.0
+                else:
+                    assert _max_rel(a, b) < rtol, (W, gname)
         K.reset_launch_counts()
-        kl, kg = fwdgrad(*t, want_disp=want_disp)
+        kf = float(fwd(*t))
         assert {k: v for k, v in K.LAUNCHES.items() if v} == {
-            f"{name}_fwdgrad_wide": 1}
-        assert K.LAUNCH_WIDTHS[f"{name}_fwdgrad_wide"] == {Nh + Nb: 1}
-        pl, pg = fwdgrad_p(*t, want_disp=want_disp)
-        assert abs(float(kl) - float(pl)) / max(abs(float(pl)), 1.0) < 1e-5
-        for gname, a, b in zip(names, kg, pg):
-            if b is None:
-                assert a is None
-            elif not want_disp and gname == "ddisp":
-                assert float(a.abs().max()) == 0.0
-            else:
-                assert _max_rel(a, b) < rtol, gname
-    K.reset_launch_counts()
-    kf = float(fwd(*t))
-    assert {k: v for k, v in K.LAUNCHES.items() if v} == {f"{name}_fwd_wide": 1}
-    assert abs(kf - float(fwd_p(*t))) / max(abs(kf), 1.0) < 1e-5
-    # past the wide body's ceiling
-    wide = [torch.as_tensor(a, device=dev)
-            for a in make(8, 16, Nh=K.MAX_WIDTH + 1 - Nb, Nb=Nb)]
-    K.reset_launch_counts()
-    for fn in (fwd, fwdgrad):
-        with pytest.raises(ValueError, match="at most MAX_WIDTH = 256 basis"):
-            fn(*wide)
-    assert sum(K.LAUNCHES.values()) == 0
+            f"{name}_fwd_wide": 1}
+        assert abs(kf - float(fwd_p(*t))) / max(abs(kf), 1.0) < 1e-5
+
+
+@pytest.mark.parametrize("stage", ["phase", "velo"])
+def test_wide_kernels_repeat_bit_identically(stage):
+    """Two calls of each wide kernel on the same inputs give the same bits,
+    at 21 columns (every column resident) and at 257 (the tile's genes swept
+    once per chunk of columns): every sum in a fixed order, no atomics."""
+    dev = _cuda_or_skip()
+    make = _inputs if stage == "phase" else _velo_inputs
+    fwd, fwdgrad = getattr(K, f"{stage}_fwd"), getattr(K, f"{stage}_fwdgrad")
+    for Nh, Nb in ((5, 16), (5, 252)):
+        t = [torch.as_tensor(a, device=dev) for a in make(70, 700, Nh=Nh, Nb=Nb)]
+        t[0] = t[0].to(torch.int16)
+        K.reset_launch_counts()
+        runs = [fwdgrad(*t, want_disp=True) for _ in range(2)]
+        losses = [float(fwd(*t)) for _ in range(2)]
+        assert K.LAUNCHES[f"{stage}_fwdgrad_wide"] == 2
+        assert K.LAUNCHES[f"{stage}_fwd_wide"] == 2
+        (l1, g1), (l2, g2) = runs
+        assert torch.equal(l1, l2) and losses[0] == losses[1]
+        for a, b in zip(g1, g2):
+            assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("stage", ["phase", "velo"])

@@ -23,8 +23,13 @@
 //   A. ElogS (and dEs) of the thread's 16 elements, the product Nu Z^T over
 //      the basis columns in order: per column a float4 of each gene's nu
 //      row (a broadcast) and a float4 of the four cells' basis row feed 16
-//      FMAs (ElogS), or 16 rounded products and sums (dEs, formed as
-//      velo_kernel.cuh forms it, in the plain version's order).  Then the NB
+//      FMAs (ElogS); dEs takes each column quad's rounded products summed
+//      pairwise into a compensated (Kahan) running sum, in the plain
+//      version's order and arithmetic, so that x and the relu gate agree
+//      with it bit for bit.  The compensation keeps dEs within about an ulp
+//      at any width, where a plain running sum drifts with the column count
+//      and the gate's 1 / xr magnifies the drift (the narrow bodies keep the
+//      plain sum: at most 16 columns).  Then the NB
 //      element: the loss; the factors (phase d lp / d ElogS; velocity g_e
 //      and g_x * omega) into shared memory; the per-gene sums over the
 //      tile's cells (ddisp; velocity also dlog_beta and sum g_x) by warp
@@ -240,11 +245,16 @@ __device__ __forceinline__ float elem(const float4& v, int i) {
 // Pass A over `ncols` basis columns (a multiple of 4) from shared memory:
 // zt the columns' cell rows (kRowFloats apart), zdt the velocity stage's
 // zeta_dphi rows, nub the unit's nu rows (ldn apart).  Each column in order:
-// e = fma(nu, z, e); d = d + nu * zd as a rounded product and a rounded sum.
+// e = fma(nu, z, e).  dEs by column quads in order: the quad's four rounded
+// products nu * zd summed pairwise, (p0 + p1) + (p2 + p3), then added to the
+// running sum d with its compensation k (Kahan), each step rounded as
+// written (no contraction).  A zero padding column adds an exact zero to
+// its quad's sum.
 template <bool VEL>
 __device__ __forceinline__ void pass_a(const float* zt, const float* zdt, const float* nub,
                                        int ldn, int ncols, int warp, int lane,
-                                       float (&e)[kQuad][kQuad], float (&d)[kQuad][kQuad]) {
+                                       float (&e)[kQuad][kQuad], float (&d)[kQuad][kQuad],
+                                       float (&k)[kQuad][kQuad]) {
   const float* nrow = nub + warp * kQuad * ldn;
   const float* zc = zt + lane * kQuad;
   const float* zdc = zdt + lane * kQuad;
@@ -255,16 +265,28 @@ __device__ __forceinline__ void pass_a(const float* zt, const float* zdt, const 
 #pragma unroll
     for (int hh = 0; hh < 4; ++hh) {
       const float4 z = ld4(zc + (h + hh) * kRowFloats);
-      const float4 zd = VEL ? ld4(zdc + (h + hh) * kRowFloats) : z;
 #pragma unroll
-      for (int i = 0; i < kQuad; ++i) {
-        const float n = elem(nv[i], hh);
+      for (int i = 0; i < kQuad; ++i)
+#pragma unroll
+        for (int j = 0; j < kQuad; ++j) e[i][j] = fmaf(elem(nv[i], hh), elem(z, j), e[i][j]);
+    }
+    if (VEL) {
+      float4 zd[4];
+#pragma unroll
+      for (int hh = 0; hh < 4; ++hh) zd[hh] = ld4(zdc + (h + hh) * kRowFloats);
+#pragma unroll
+      for (int i = 0; i < kQuad; ++i)
 #pragma unroll
         for (int j = 0; j < kQuad; ++j) {
-          e[i][j] = fmaf(n, elem(z, j), e[i][j]);
-          if (VEL) d[i][j] = __fadd_rn(d[i][j], __fmul_rn(n, elem(zd, j)));
+          const float p01 = __fadd_rn(__fmul_rn(nv[i].x, elem(zd[0], j)),
+                                      __fmul_rn(nv[i].y, elem(zd[1], j)));
+          const float p23 = __fadd_rn(__fmul_rn(nv[i].z, elem(zd[2], j)),
+                                      __fmul_rn(nv[i].w, elem(zd[3], j)));
+          const float y = __fsub_rn(__fadd_rn(p01, p23), k[i][j]);
+          const float t = __fadd_rn(d[i][j], y);
+          k[i][j] = __fsub_rn(__fsub_rn(t, d[i][j]), y);
+          d[i][j] = t;
         }
-      }
     }
   }
 }
@@ -521,13 +543,13 @@ wide_kernel(const TS* __restrict__ S, const TU* __restrict__ U, const float* __r
 
     // pass A: ElogS (and dEs) of the thread's 4 x 4 elements over every
     // basis column in order
-    float e[Q][Q], d[Q][Q];
+    float e[Q][Q], d[Q][Q], kd[Q][Q];
 #pragma unroll
     for (int i = 0; i < Q; ++i)
 #pragma unroll
-      for (int j = 0; j < Q; ++j) e[i][j] = d[i][j] = 0.0f;
+      for (int j = 0; j < Q; ++j) e[i][j] = d[i][j] = kd[i][j] = 0.0f;
     if (!chunked) {
-      pass_a<VEL>(s_z, s_z + Wz * PT, prm, Wz, Wp, warp, lane, e, d);
+      pass_a<VEL>(s_z, s_z + Wz * PT, prm, Wz, Wp, warp, lane, e, d, kd);
     } else {
       // every column, in chunks of CW through the factor region
       float* ch_z = s_fac;
@@ -553,7 +575,7 @@ wide_kernel(const TS* __restrict__ S, const TU* __restrict__ U, const float* __r
               (gl < x.gn && h0 + h < W) ? nu_c[static_cast<size_t>(gl) * W + h0 + h] : 0.0f;
         }
         __syncthreads();  // the chunk is in place
-        pass_a<VEL>(ch_z, ch_z + CW * PT, ch_nu, CW, cn, warp, lane, e, d);
+        pass_a<VEL>(ch_z, ch_z + CW * PT, ch_nu, CW, cn, warp, lane, e, d, kd);
       }
       __syncthreads();  // the chunk buffer is free for the factors
     }

@@ -164,7 +164,7 @@ def _phase_elog(nu, zeta, cf, delta_nu, Db):
 
 
 def _velo_elogs(nu, zeta, zeta_dphi, cf, omega, log_beta, log_gamma,
-                delta_nu, Db):
+                delta_nu, Db, compensated=False):
     """(ElogS, ElogU, dEs, gamma, x, xr) in the kernels' operation order;
     x is the pre-relu argument and xr = relu(x) + 1e-5.
 
@@ -172,11 +172,31 @@ def _velo_elogs(nu, zeta, zeta_dphi, cf, omega, log_beta, log_gamma,
     one rounded sum at a time, exactly as `csrc/nb_velo.cu` forms it: the
     gradients carry 1/xr, up to 1e5 just above the relu, so x must agree
     bit for bit between the kernel and this version (a matmul's summation
-    order would not)."""
+    order would not).  ``compensated``: as the wide body
+    (`csrc/wide_kernel.cuh`) forms it, by column quads (zero columns up to a
+    multiple of 4), each quad's rounded products summed pairwise and added
+    to a compensated (Kahan) running sum: the plain sum's rounding drifts
+    with the column count."""
     elogS = _phase_elog(nu, zeta, cf, delta_nu, Db)
-    dEs = nu[:, :1] * zeta_dphi[:, 0][None, :]
-    for h in range(1, nu.shape[1]):
-        dEs = dEs + nu[:, h:h + 1] * zeta_dphi[:, h][None, :]
+    if compensated:
+        dEs = comp = torch.zeros(nu.shape[0], zeta_dphi.shape[0],
+                                 dtype=nu.dtype, device=nu.device)
+        W = nu.shape[1]
+        pad = -W % 4
+        nu_p = torch.cat([nu, nu.new_zeros(nu.shape[0], pad)], 1)
+        zd_p = torch.cat([zeta_dphi, zeta_dphi.new_zeros(zeta_dphi.shape[0],
+                                                         pad)], 1)
+        for h in range(0, W + pad, 4):
+            p = [nu_p[:, c:c + 1] * zd_p[:, c][None, :]
+                 for c in range(h, h + 4)]
+            y = ((p[0] + p[1]) + (p[2] + p[3])) - comp
+            t = dEs + y
+            comp = (t - dEs) - y
+            dEs = t
+    else:
+        dEs = nu[:, :1] * zeta_dphi[:, 0][None, :]
+        for h in range(1, nu.shape[1]):
+            dEs = dEs + nu[:, h:h + 1] * zeta_dphi[:, h][None, :]
     gamma = torch.exp(log_gamma)
     x = dEs * omega[None, :] + gamma[:, None]
     xr = torch.clamp(x, min=0.0) + 1e-5
@@ -282,10 +302,12 @@ def phase_fwdgrad_plain(S, nu, zeta, cf, r, delta_nu=None, Db=None,
 
 
 def velo_fwd_plain(S, U, nu, zeta, zeta_dphi, cf, omega, log_beta,
-                   log_gamma, r, delta_nu=None, Db=None, lgamma_k_sum=None):
-    """Plain version of ``velo_fwd``: the loss."""
+                   log_gamma, r, delta_nu=None, Db=None, lgamma_k_sum=None,
+                   compensated=False):
+    """Plain version of ``velo_fwd``: the loss (``compensated``: dEs as
+    the wide body forms it, `_velo_elogs`)."""
     elogS, elogU, *_ = _velo_elogs(nu, zeta, zeta_dphi, cf, omega, log_beta,
-                                   log_gamma, delta_nu, Db)
+                                   log_gamma, delta_nu, Db, compensated)
     a = 1.0 / r[:, None]
     log_r = torch.log(r)[:, None]
     skip = lgamma_k_sum is not None
@@ -296,13 +318,15 @@ def velo_fwd_plain(S, U, nu, zeta, zeta_dphi, cf, omega, log_beta,
 
 def velo_fwdgrad_plain(S, U, nu, zeta, zeta_dphi, cf, omega, log_beta,
                        log_gamma, r, delta_nu=None, Db=None,
-                       lgamma_k_sum=None, want_disp=True):
+                       lgamma_k_sum=None, want_disp=True, compensated=False):
     """Plain version of ``velo_fwdgrad``: (loss, (dnu, dzeta, dzeta_dphi,
     dcf, domega, dlog_beta, dlog_gamma, ddisp, ddelta_nu)); ddisp is
     exactly zero when ``want_disp`` is False and ddelta_nu is None without
-    delta_nu.  The relu gate passes gradient where x > 0 (strictly)."""
+    delta_nu.  The relu gate passes gradient where x > 0 (strictly).
+    ``compensated``: dEs as the wide body forms it (`_velo_elogs`)."""
     elogS, elogU, dEs, gamma, x, xr = _velo_elogs(
-        nu, zeta, zeta_dphi, cf, omega, log_beta, log_gamma, delta_nu, Db
+        nu, zeta, zeta_dphi, cf, omega, log_beta, log_gamma, delta_nu, Db,
+        compensated
     )
     a = 1.0 / r[:, None]
     log_r = torch.log(r)[:, None]
@@ -367,10 +391,12 @@ def velo_fwd_wide_plain(S, U, nu, zeta, zeta_dphi, cf, omega, log_beta,
                         log_gamma, r, delta_nu=None, Db=None,
                         lgamma_k_sum=None):
     """Plain version of `velo_fwd` on the wide body: the loss, as
-    `velo_fwd_plain` with the batches folded into basis columns."""
+    `velo_fwd_plain` with the batches folded into basis columns and dEs
+    compensated as the wide body forms it."""
     nu_w, (z_w, zd_w), *_ = _fold(nu, [zeta, zeta_dphi], delta_nu, Db)
     return velo_fwd_plain(S, U, nu_w, z_w, zd_w, cf, omega, log_beta,
-                          log_gamma, r, None, None, lgamma_k_sum)
+                          log_gamma, r, None, None, lgamma_k_sum,
+                          compensated=True)
 
 
 def velo_fwdgrad_wide_plain(S, U, nu, zeta, zeta_dphi, cf, omega, log_beta,
@@ -378,12 +404,13 @@ def velo_fwdgrad_wide_plain(S, U, nu, zeta, zeta_dphi, cf, omega, log_beta,
                             lgamma_k_sum=None, want_disp=True):
     """Plain version of `velo_fwdgrad` on the wide body: the loss and
     every gradient as `velo_fwdgrad_plain`, the batches folded into basis
-    columns (whose zeta_dphi columns are zero: dEs keeps its bits)."""
+    columns (whose zeta_dphi columns are zero) and dEs compensated as the
+    wide body forms it."""
     nu_w, (z_w, zd_w), Nh, Nb, fold = _fold(nu, [zeta, zeta_dphi], delta_nu,
                                             Db)
     loss, g = velo_fwdgrad_plain(S, U, nu_w, z_w, zd_w, cf, omega, log_beta,
                                  log_gamma, r, None, None, lgamma_k_sum,
-                                 want_disp)
+                                 want_disp, compensated=True)
     dnu, (dzeta, dzdphi), ddnu = narrow_grads(g[0], [g[1], g[2]], None, Nh,
                                               Nb, fold)
     return loss, (dnu, dzeta, dzdphi, *g[3:8], ddnu)
