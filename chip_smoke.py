@@ -3145,35 +3145,49 @@ def profile_steps(torch, svi, state, data, tag, n=5):
 def kernel_digest(torch, seed):
     """sha256 of phase_fwdgrad's, phase_fwd's, velo_fwdgrad's and
     velo_fwd's outputs on the main path's full-width inputs (the
-    dispersion gradient on): equal digests from two checkouts mean
+    dispersion gradient on), and of the four wide kernels' at 21 columns
+    (Nh 5 + WIDE_BATCHES batches), each wide one computed twice and the two
+    required bit-identical: equal digests from two checkouts mean
     bit-identical results.  Uses only the public kernel functions, whose
     signatures every version of the port shares."""
     import hashlib
 
     from velocycle_tpu_torch.ops import nb_kernels as K
 
-    S, nu, zeta, cf, r, _, _ = make_inputs(torch, NG, NC, seed)
-    lgk = lgamma_k_sum(torch, S)
-    loss, grads = K.phase_fwdgrad(S, nu, zeta, cf, r, None, None, lgk,
-                                  want_disp=True)
-    outs = {"phase_fwdgrad": [loss, *(g for g in grads if g is not None)],
-            "phase_fwd": [K.phase_fwd(S, nu, zeta, cf, r, None, None, lgk)]}
-    del S, nu, zeta, cf, r, loss, grads
-    args = make_velo_inputs(torch, NG, NC, seed)[:10]
-    lgk = lgamma_k_sum(torch, *args[:2])
-    loss, grads = K.velo_fwdgrad(*args, None, None, lgk, want_disp=True)
-    outs["velo_fwdgrad"] = [loss, *(g for g in grads if g is not None)]
-    outs["velo_fwd"] = [K.velo_fwd(*args, None, None, lgk)]
-    for name, tensors in outs.items():
-        h = hashlib.sha256()
-        for t in tensors:
-            h.update(t.detach().contiguous().cpu().numpy().tobytes())
-        what = ("loss and gradients, disp_grad on" if len(tensors) > 1
-                else "loss")
-        print(f"[digest] {name} @ {NG}x{NC} int16 ({what}): "
-              f"sha256 {h.hexdigest()}")
-    del args, outs
-    torch.cuda.empty_cache()
+    def flat(out):
+        loss, grads = out if isinstance(out, tuple) else (out, ())
+        return [loss, *(g for g in grads if g is not None)]
+
+    for Nb, tag in ((0, ""), (WIDE_BATCHES, "_wide")):
+        S, nu, zeta, cf, r, dnu, Db = make_inputs(torch, NG, NC, seed, Nb=Nb)
+        a = (S, nu, zeta, cf, r, dnu, Db, lgamma_k_sum(torch, S))
+        calls = {"phase_fwdgrad": lambda: K.phase_fwdgrad(*a, want_disp=True),
+                 "phase_fwd": lambda: K.phase_fwd(*a)}
+        outs = {}
+        for name, fn in calls.items():
+            outs[name] = flat(fn())
+        del S, nu, zeta, cf, r, dnu, Db
+        v = make_velo_inputs(torch, NG, NC, seed, Nb=Nb)
+        va = (*v, lgamma_k_sum(torch, *v[:2]))
+        vcalls = {"velo_fwdgrad": lambda: K.velo_fwdgrad(*va, want_disp=True),
+                  "velo_fwd": lambda: K.velo_fwd(*va)}
+        for name, fn in vcalls.items():
+            outs[name] = flat(fn())
+        for name, tensors in outs.items():
+            if tag:
+                again = flat({**calls, **vcalls}[name]())
+                check(all(torch.equal(x, y) for x, y in zip(tensors, again)),
+                      f"{name}{tag}: a repeat differs in its bits")
+            h = hashlib.sha256()
+            for t in tensors:
+                h.update(t.detach().contiguous().cpu().numpy().tobytes())
+            what = ("loss and gradients, disp_grad on" if len(tensors) > 1
+                    else "loss")
+            cols = f", {NH + Nb} columns, repeat bit-identical" if tag else ""
+            print(f"[digest] {name}{tag} @ {NG}x{NC} int16 ({what}{cols}): "
+                  f"sha256 {h.hexdigest()}")
+        del v, va, a, outs
+        torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
