@@ -405,18 +405,14 @@ wide_kernel(const TS* __restrict__ S, const TU* __restrict__ U, const float* __r
     if (VEL) copy_count_rows<TU>(ring_u, U, x.g0, x.gn, x.t * T, Ng, Nc, tid);
   };
 
-  // this thread's cells of the current tile, their cf (and omega), and
-  // their sums over the tile's genes (dcf; velocity domega)
+  // this thread's cells' sums over the current tile's genes (dcf;
+  // velocity domega)
   int cur = -1;
-  bool cvalid[Q];
-  float cfv[Q], omv[Q], csum[NS][Q];
+  float csum[NS][Q];
 #pragma unroll
-  for (int j = 0; j < Q; ++j) {
-    cvalid[j] = false;
-    cfv[j] = omv[j] = 0.0f;
+  for (int j = 0; j < Q; ++j)
 #pragma unroll
     for (int v = 0; v < NS; ++v) csum[v][j] = 0.0f;
-  }
 
   // this CTA's piece of a (tile, sweep)'s cell gradients, in CTA order: the
   // accumulators' rows of the sweep's columns and, with the first sweep,
@@ -500,8 +496,8 @@ wide_kernel(const TS* __restrict__ S, const TU* __restrict__ U, const float* __r
     const int gtile = x.chain * tiles + x.t;
 
     // entering a (tile, sweep): the last one's piece out, then the sweep's
-    // basis rows of the tile and this thread's cells (the barrier that ended
-    // the last unit freed the rows)
+    // basis rows of the tile (the barrier that ended the last unit freed
+    // the rows)
     if (x.gt != cur) {
       if (PASS_C && cur >= 0) flush(cur);
       cur = x.gt;
@@ -514,13 +510,6 @@ wide_kernel(const TS* __restrict__ S, const TU* __restrict__ U, const float* __r
           const int h = j - cc * Wz;
           dst[h * PT + cc] = (cc < tn && a + h < W) ? src[static_cast<size_t>(cc) * W + a + h] : 0.0f;
         }
-      }
-#pragma unroll
-      for (int j = 0; j < Q; ++j) {
-        const int c = lane * Q + j;
-        cvalid[j] = c < tn;
-        cfv[j] = cvalid[j] ? cf[x.chain * cs.cf + c0 + c] : 0.0f;
-        omv[j] = (VEL && cvalid[j]) ? omega[x.chain * cs.omega + c0 + c] : 0.0f;
       }
     }
 
@@ -580,7 +569,18 @@ wide_kernel(const TS* __restrict__ S, const TU* __restrict__ U, const float* __r
       __syncthreads();  // the chunk buffer is free for the factors
     }
 
-    // the element, gene by gene of the thread's four (uniform over the warp)
+    // the element, gene by gene of the thread's four (uniform over the
+    // warp); this thread's cells' cf and omega read here, not held across
+    // the passes
+    bool cvalid[Q];
+    float cfv[Q], omv[Q];
+#pragma unroll
+    for (int j = 0; j < Q; ++j) {
+      const int c = lane * Q + j;
+      cvalid[j] = c < tn;
+      cfv[j] = cvalid[j] ? cf[x.chain * cs.cf + c0 + c] : 0.0f;
+      omv[j] = (VEL && cvalid[j]) ? omega[x.chain * cs.omega + c0 + c] : 0.0f;
+    }
     const size_t rowS0 = (static_cast<size_t>(x.g0) * Nc + c0) * sizeof(TS) + s_mis;
     const size_t rowU0 = (static_cast<size_t>(x.g0) * Nc + c0) * sizeof(TU) + u_mis;
     const bool first = x.s == 0;
@@ -751,42 +751,38 @@ wide_kernel(const TS* __restrict__ S, const TU* __restrict__ U, const float* __r
 
     if constexpr (PASS_C) {
       // pass C: the sweep's cell gradients, a thread's 4 columns x 4 cells
-      // summed over the unit's genes in order, added to the accumulators
-      for (int m = tid; m < 32 * Wq; m += kThreads) {
-        const int hq = m >> 5;
+      // of one basis block summed over the unit's genes in order, added to
+      // the accumulators
+      for (int m = tid; m < 32 * Wq * NB; m += kThreads) {
+        const int blk = m / (32 * Wq);
+        const int hq = (m >> 5) - blk * Wq;
         const int cq = m & 31;
-        float o[Q][Q], o2[Q][Q];
+        float o[Q][Q];
 #pragma unroll
         for (int hh = 0; hh < Q; ++hh)
 #pragma unroll
-          for (int jj = 0; jj < Q; ++jj) o[hh][jj] = o2[hh][jj] = 0.0f;
-        const float* fr = s_fac + cq * Q;
+          for (int jj = 0; jj < Q; ++jj) o[hh][jj] = 0.0f;
+        const float* fr = s_fac + blk * G * PT + cq * Q;
         const float* nr = prm + hq * Q;
 #pragma unroll 4
         for (int g = 0; g < G; ++g) {
           const float4 f = ld4(fr + g * PT);
-          const float4 f2 = VEL ? ld4(fr + (G + g) * PT) : f;
           const float4 n = ld4(nr + g * Wz);
 #pragma unroll
           for (int hh = 0; hh < Q; ++hh)
 #pragma unroll
-            for (int jj = 0; jj < Q; ++jj) {
-              o[hh][jj] = fmaf(elem(f, jj), elem(n, hh), o[hh][jj]);
-              if (VEL) o2[hh][jj] = fmaf(elem(f2, jj), elem(n, hh), o2[hh][jj]);
-            }
+            for (int jj = 0; jj < Q; ++jj) o[hh][jj] = fmaf(elem(f, jj), elem(n, hh), o[hh][jj]);
         }
 #pragma unroll
-        for (int blk = 0; blk < NB; ++blk)
-#pragma unroll
-          for (int hh = 0; hh < Q; ++hh) {
-            float4* p = reinterpret_cast<float4*>(s_acc + (blk * Wz + hq * Q + hh) * PT + cq * Q);
-            float4 v = *p;
-            v.x += blk == 0 ? o[hh][0] : o2[hh][0];
-            v.y += blk == 0 ? o[hh][1] : o2[hh][1];
-            v.z += blk == 0 ? o[hh][2] : o2[hh][2];
-            v.w += blk == 0 ? o[hh][3] : o2[hh][3];
-            *p = v;
-          }
+        for (int hh = 0; hh < Q; ++hh) {
+          float4* p = reinterpret_cast<float4*>(s_acc + (blk * Wz + hq * Q + hh) * PT + cq * Q);
+          float4 v = *p;
+          v.x += o[hh][0];
+          v.y += o[hh][1];
+          v.z += o[hh][2];
+          v.w += o[hh][3];
+          *p = v;
+        }
       }
     }
     if (PASS_B) __syncthreads();  // the unit's factors, rows and nu are free
