@@ -41,9 +41,12 @@
 //      in a fixed butterfly, into per-tile gene partials (K x tiles, Ng, NV)
 //      that the caller sums over tiles.
 //   C. the cell gradients dZ += F^T Nu over the unit's genes: a thread owns
-//      4 columns x 4 cells (a float4 of the factor row, a broadcast float4
-//      of nu, 16 FMAs per gene), added to the tile's accumulators in shared
-//      memory.
+//      4 columns x 4 cells of one basis block (a float4 of the factor row, a
+//      broadcast float4 of nu, 16 FMAs per gene; the velocity stage's two
+//      blocks are separate items, which keeps 16 accumulators live, not
+//      32), added to the tile's accumulators in shared memory.  A thread's
+//      cf and omega are read where the element needs them, not held in
+//      registers across the passes.
 // When a CTA's run leaves a tile, it writes the tile's accumulators (and the
 // per-cell sums, each warp's, added in warp order) as one piece (pieces,
 // rows, K * Nc); `wide_cell_sum_kernel` adds a tile's pieces in CTA order.
@@ -291,7 +294,7 @@ __device__ __forceinline__ void pass_a(const float* zt, const float* zdt, const 
   }
 }
 
-// Adds the 16 products of a float4 pair along the cells (c .. c + 3) of f's
+// Adds the 4 products of a float4 pair along the cells (c .. c + 3) of f's
 // and z's rows to o, cell by cell.
 __device__ __forceinline__ void dot4(const float4& f, const float4& z, float& o) {
   o = fmaf(f.x, z.x, o);
