@@ -463,8 +463,8 @@ def test_kernel_width_picks_the_next_instantiation(Nh, Nb, want):
 @pytest.mark.parametrize("Nh,Nb", [(17, 0), (11, 6), (16, 1)])
 def test_kernel_width_names_its_limit(Nh, Nb):
     """One column past the widest narrow instantiation goes to the wide
-    body at Nh + Nb columns, the batches folded in; so does 257, past
-    the wide body's former ceiling of 256: it has none."""
+    body at Nh + Nb columns, the batches folded in; so does 257: the wide
+    body takes any width."""
     assert TK.kernel_width(Nh, Nb, 4) == (Nh + Nb, Nb > 0)
     assert TK.kernel_width(257 - Nb, Nb, 4) == (257, Nb > 0)
 
