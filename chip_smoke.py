@@ -3142,14 +3142,15 @@ def profile_steps(torch, svi, state, data, tag, n=5):
                     tag, n, "step")
 
 
-def kernel_digest(torch, seed):
+def kernel_digest(torch, seed, narrow=True, wide=False):
     """sha256 of phase_fwdgrad's, phase_fwd's, velo_fwdgrad's and
     velo_fwd's outputs on the main path's full-width inputs (the
-    dispersion gradient on), and of the four wide kernels' at 21 columns
-    (Nh 5 + WIDE_BATCHES batches), each wide one computed twice and the two
-    required bit-identical: equal digests from two checkouts mean
-    bit-identical results.  Uses only the public kernel functions, whose
-    signatures every version of the port shares."""
+    dispersion gradient on) and, with ``wide`` (``--digest``, ``--wide``),
+    of the four wide kernels' at 21 columns (Nh 5 + WIDE_BATCHES batches),
+    each wide one computed twice and the two required bit-identical: equal
+    digests from two checkouts mean bit-identical results.  Uses only the
+    public kernel functions, whose signatures every version of the port
+    shares."""
     import hashlib
 
     from velocycle_tpu_torch.ops import nb_kernels as K
@@ -3158,7 +3159,7 @@ def kernel_digest(torch, seed):
         loss, grads = out if isinstance(out, tuple) else (out, ())
         return [loss, *(g for g in grads if g is not None)]
 
-    for Nb, tag in ((0, ""), (WIDE_BATCHES, "_wide")):
+    for Nb, tag in [(0, "")] * narrow + [(WIDE_BATCHES, "_wide")] * wide:
         S, nu, zeta, cf, r, dnu, Db = make_inputs(torch, NG, NC, seed, Nb=Nb)
         a = (S, nu, zeta, cf, r, dnu, Db, lgamma_k_sum(torch, S))
         calls = {"phase_fwdgrad": lambda: K.phase_fwdgrad(*a, want_disp=True),
@@ -3665,6 +3666,7 @@ def wide_alone(torch, seed, card):
         preprocess_for_velocity_estimation,
     )
 
+    kernel_digest(torch, seed, narrow=False, wide=True)
     wide_parity(torch, seed)
     wide_timing(torch, seed, card)
     wide_timing(torch, seed, card, WIDE_SWEPT, full=False)
@@ -4993,7 +4995,7 @@ def main(argv=None):
 
     name, count, smi = phase_device(torch)
     if args.digest:
-        kernel_digest(torch, args.seed)
+        kernel_digest(torch, args.seed, wide=True)
         return 0
     alone = (args.kernels or args.mcmc or args.smc or args.minibatch
              or args.velo2d or args.examples or args.sharded or args.wide)
