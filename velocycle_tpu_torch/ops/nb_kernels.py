@@ -296,8 +296,13 @@ def phase_fwdgrad_plain(S, nu, zeta, cf, r, delta_nu=None, Db=None,
     dcf = g_elog.sum(-2)
     ddisp = g_r.sum(-1) if want_disp else torch.zeros(
         g_elog.shape[:-1], dtype=r.dtype, device=r.device)
-    ddnu = ((g_elog @ Db.T).transpose(-1, -2) if delta_nu is not None
-            else None)
+    ddnu = None
+    if delta_nu is not None:
+        # chain by chain, as a single call rounds it (and as each chain of
+        # a chain-batched launch does): one matmul over the chain batch
+        # rounds otherwise at a narrow design (Nb = 2)
+        ddnu = (torch.stack([g @ Db.T for g in g_elog]) if g_elog.dim() == 3
+                else g_elog @ Db.T).transpose(-1, -2)
     return loss, (dnu, dzeta, dcf, ddisp, ddnu)
 
 
