@@ -103,3 +103,41 @@ def assert_elbo_and_grads_close(jl, jg, tl, tg, grad_rtol=GRAD_RTOL,
         assert np.isfinite(tg[k]).all(), k
         err = np.abs(tg[k] - jg[k]).max() / (np.abs(jg[k]).max() + 1e-9)
         assert err < grad_rtol, (k, err)
+
+
+def jax_elbo(jmodel, jguide, jdata, eps, cond=None, seed=0):
+    """(fixed params as numpy, the JAX loss, {param: JAX gradient}) at the
+    JAX guide's init perturbed by seeded noise, the guide's draws from
+    ``eps`` (tests/_torch_parity.py's `elbo_and_grads`, JAX half)."""
+    if cond:
+        jmodel = jh.condition(jmodel, data={k: jnp.asarray(v)
+                                            for k, v in cond.items()})
+        jguide = jh.block(jguide, hide=list(cond))
+    rng = np.random.default_rng(seed)
+    params, jcons = j_init_params(jguide, jax.random.PRNGKey(0), jdata)
+    params = {k: np.asarray(v) + rng.normal(0, 0.1, np.shape(v)).astype(
+        np.float32) for k, v in params.items()}
+    jeps = {k: (tuple(jnp.asarray(x, jnp.float32) for x in v)
+                if isinstance(v, tuple) else jnp.asarray(v, jnp.float32))
+            for k, v in eps.items()}
+    jsvi = JSVI(jmodel, JNoise(jguide, jeps), None, JELBO())
+    jsvi.constraints = jcons
+    jl, jg = jax.value_and_grad(jsvi.loss_fn)(
+        {k: jnp.asarray(v) for k, v in params.items()},
+        jax.random.PRNGKey(1), jdata)
+    return params, float(jl), {k: np.asarray(v) for k, v in jg.items()}
+
+
+def first_trace_at(pkg_handlers, model, values):
+    """``model`` whose FIRST call has its latent sites substituted by
+    ``values``: the reference draw of `init_tempered_model` in either
+    package; later calls are the model's own."""
+    calls = []
+
+    def wrapped(*args, **kwargs):
+        if not calls:
+            calls.append(1)
+            return pkg_handlers.substitute(model, data=values)(*args, **kwargs)
+        return model(*args, **kwargs)
+
+    return wrapped

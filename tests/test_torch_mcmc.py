@@ -504,6 +504,57 @@ def test_fused_velocity_nuts_samples_a_chain_batch():
     assert bool(torch.isfinite(draws).all()) and bool(torch.isfinite(acc).all())
 
 
+# the (beta, gamma, omega) scale ridge: log_beta + t, log_gamma + t and
+# nu_omega e^t leave ElogU as it is but for the relu gate's 1e-5 floor
+RIDGE_T = np.linspace(-2.0, 2.0, 9)
+VELO_GRAD_RTOL = 5e-4    # the velocity pair's gradient gate, as on the card
+
+
+def _ridge(u, site_meta):
+    """RIDGE_T's points of the scale ridge through the flat point u."""
+    out = np.repeat(np.asarray(u, np.float32)[None], len(RIDGE_T), 0)
+    i, seen = 0, set()
+    for name, (_, size, c) in site_meta.items():
+        if name in ("log_beta", "log_gamma", "nu_omega"):
+            assert c.name == "real"
+            seen.add(name)
+            if name == "nu_omega":
+                out[:, i:i + size] *= np.exp(RIDGE_T)[:, None]
+            else:
+                out[:, i:i + size] += RIDGE_T[:, None]
+        i += size
+    assert seen == {"log_beta", "log_gamma", "nu_omega"}
+    return out.astype(np.float32)
+
+
+def test_velocity_potential_along_the_scale_ridge_fused_plain_and_jax():
+    """[mcmc] (c)'s mixing is slow along the scale ridge.  Walked from
+    `_velocity_case`'s init point at 9 points of t in [-2, 2], as one chain
+    batch: the fused potential (less its baseline constant) within rel 1e-5
+    of the plain path's and its gradient within 5e-4 (max|a-b|/max|a|, the
+    velocity pair's gate); the plain path against the JAX package's at the
+    tolerances of `test_init_model_potential_and_gradient_match_jax`."""
+    jmodel, jd, tmodel, td_plain, init = _velocity_case(False)
+    td_fused = _velocity_case(True)[3]
+    jinfo = JM.init_model(jmodel, jd, init_values=init)
+    pinfo = TM.init_model(tmodel, td_plain, init_values=init)
+    finfo = TM.init_model(tmodel, td_fused, init_values=init)
+    q = _ridge(pinfo.init_u.numpy(), pinfo.site_meta)
+    vp, gp = TM._batched_value_and_grad(pinfo.potential_fn)(torch.as_tensor(q))
+    vf, gf = TM._batched_value_and_grad(finfo.potential_fn)(torch.as_tensor(q))
+    for k, u in enumerate(q):
+        p_joint = float(vp[k]) - pinfo.log_offset
+        f_joint = float(vf[k]) - finfo.log_offset
+        assert abs(f_joint - p_joint) < POT_RTOL * abs(p_joint), (k, f_joint,
+                                                                  p_joint)
+        assert _rel(gf[k].numpy(), gp[k].numpy()) < VELO_GRAD_RTOL, k
+        jv, jg = _jax_vg(jinfo, u)
+        j_joint = jv - jinfo.log_offset
+        assert abs(p_joint - j_joint) < POT_RTOL * abs(j_joint), (k, p_joint,
+                                                                  j_joint)
+        assert _rel(gp[k].numpy(), jg) < GRAD_RTOL, k
+
+
 def _small_phase_info(fused, par="xy"):
     _, _, tmodel, td, init = _phase_case(par, fused, Nc=20, Ng=6)
     return TM.init_model(tmodel, td, init_values=init)

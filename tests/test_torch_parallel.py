@@ -20,12 +20,8 @@ across the ranks.
 import numpy as np
 import pytest
 import jax
-import jax.numpy as jnp
 
 import velocycle_tpu as V
-from velocycle_tpu.core import handlers as jh
-from velocycle_tpu.infer import SVI as JSVI, Trace_ELBO as JELBO
-from velocycle_tpu.infer.svi import init_params as j_init_params
 from velocycle_tpu.models import phase as jphase
 from velocycle_tpu.models import velocity as jvel
 from velocycle_tpu.parallel import distributed as jdist
@@ -34,7 +30,7 @@ from velocycle_tpu_torch.convert import phase_data_from_jax, velocity_data_from_
 from velocycle_tpu_torch.parallel import distributed, sharding
 
 from _torch_parallel_ranks import spawn
-from _torch_parity import JNoise
+from _torch_parity import jax_elbo
 
 LOSS_RTOL, GRAD_RTOL, TRAJ_RTOL = 1e-5, 1e-4, 2e-4
 STEPS = 20
@@ -67,29 +63,6 @@ def _lrmn_jmp(Nc=64, Ng=12, seed=17):
         with_delta_nu=False, model_type="lrmn", use_fused_nb=True)
 
 
-def _jax_elbo(jmodel, jguide, jdata, eps, cond=None, seed=0):
-    """(fixed params as numpy, the JAX loss, {param: JAX gradient}) at the
-    JAX guide's init perturbed by seeded noise, the guide's draws from
-    ``eps`` (tests/_torch_parity.py's `elbo_and_grads`, JAX half)."""
-    if cond:
-        jmodel = jh.condition(jmodel, data={k: jnp.asarray(v)
-                                            for k, v in cond.items()})
-        jguide = jh.block(jguide, hide=list(cond))
-    rng = np.random.default_rng(seed)
-    params, jcons = j_init_params(jguide, jax.random.PRNGKey(0), jdata)
-    params = {k: np.asarray(v) + rng.normal(0, 0.1, np.shape(v)).astype(
-        np.float32) for k, v in params.items()}
-    jeps = {k: (tuple(jnp.asarray(x, jnp.float32) for x in v)
-                if isinstance(v, tuple) else jnp.asarray(v, jnp.float32))
-            for k, v in eps.items()}
-    jsvi = JSVI(jmodel, JNoise(jguide, jeps), None, JELBO())
-    jsvi.constraints = jcons
-    jl, jg = jax.value_and_grad(jsvi.loss_fn)(
-        {k: jnp.asarray(v) for k, v in params.items()},
-        jax.random.PRNGKey(1), jdata)
-    return params, float(jl), {k: np.asarray(v) for k, v in jg.items()}
-
-
 def _f32(tree):
     if isinstance(tree, dict):
         return {k: _f32(v) for k, v in tree.items()}
@@ -110,7 +83,7 @@ def cases():
         jdata = jmp.data.replace(use_fused_nb=False)
         eps = {"nu": rng.normal(size=jdata.mu_nu.shape),
                "phi_xy": rng.normal(size=jdata.phixy_prior.shape)}
-        params, jl, jg = _jax_elbo(jphase.phase_model, jphase.phase_guide,
+        params, jl, jg = jax_elbo(jphase.phase_model, jphase.phase_guide,
                                    jdata, eps)
         out["phase_fused" if fused else "phase"] = (
             "phase", phase_data_from_jax(jmp.data, device="cpu"), params,
@@ -124,7 +97,7 @@ def cases():
     eps = {"log_beta": rng.normal(size=Ng),
            "_lrmn_draw": (rng.normal(size=jdata.rho_rank),
                           rng.normal(size=Ng + Nx * Nhw))}
-    params, jl, jg = _jax_elbo(jvel.velocity_model, jvel.velocity_guide_lrmn,
+    params, jl, jg = jax_elbo(jvel.velocity_model, jvel.velocity_guide_lrmn,
                                jdata, eps, cond)
     tdata = velocity_data_from_jax(jmp.data, device="cpu").replace(
         disp_grad=False)

@@ -42,6 +42,8 @@ from velocycle_tpu_torch.models.phase import phase_model
 from velocycle_tpu_torch.models.velocity import velocity_model
 from velocycle_tpu_torch.ops import nb_kernels as K
 
+from _torch_parity import first_trace_at
+
 VAL_RTOL, VAL_ATOL = 1e-5, 1e-6
 GRAD_RTOL = 1e-4
 
@@ -57,21 +59,6 @@ def _few_threads():
 def _rel(a, b):
     a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
     return float(np.abs(a - b).max() / (np.abs(b).max() + 1e-12))
-
-
-def _first_trace_at(pkg_handlers, model, values):
-    """``model`` whose FIRST call has its latent sites substituted by
-    ``values``: the reference draw of `init_tempered_model` in either
-    package; later calls are the model's own."""
-    calls = []
-
-    def wrapped(*args, **kwargs):
-        if not calls:
-            calls.append(1)
-            return pkg_handlers.substitute(model, data=values)(*args, **kwargs)
-        return model(*args, **kwargs)
-
-    return wrapped
 
 
 def _phase_case(fused, Nc=30, Ng=10, seed=5):
@@ -104,10 +91,10 @@ def test_init_tempered_model_matches_jax(fused):
     if fused:   # the reference: the JAX package's plain path (docstring)
         jmodel, jd = _phase_case(False)[:2]
     jtm = JS.init_tempered_model(
-        _first_trace_at(jh, jmodel, {k: jnp.asarray(v) for k, v in ref.items()}),
+        first_trace_at(jh, jmodel, {k: jnp.asarray(v) for k, v in ref.items()}),
         jd, key=jax.random.PRNGKey(1))
     ttm = TS.init_tempered_model(
-        _first_trace_at(th, tmodel, {k: torch.as_tensor(v)
+        first_trace_at(th, tmodel, {k: torch.as_tensor(v)
                                      for k, v in ref.items()}),
         td, seed=1)
     assert ttm.dim == jtm.dim == 10 * 3 + 10
