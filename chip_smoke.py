@@ -123,24 +123,34 @@ in order; any failure exits non-zero and prints no result line:
      (spawned after phase 6, whose stages run alone; stopped in every
      case) beside phases 7-8, their output printed when they end; so the
      runs' rates and phases 7-8's are not taken alone (``--mcmc``: build,
-     then this phase alone, the runs in turn in one process).  (a)
+     then this phase alone, the runs in turn in one process, (c) with its
+     ridge check and its plain run).  (a)
      `nuts_phi_wrapped`: 2,000 cells x 50 genes, an 800-step phase fit, then
      MCMCFitModel on the wrapped phases with the genes conditioned (400-step
      SVI warm start, the Hessian diagonal through the plain path), 64
-     chains x (400 warmup + 150 draws), max_depth 6; gates: phi in [-pi,
+     chains x (400 warmup + 150 draws; 200 + 100 in the default run),
+     max_depth 6; gates: phi in [-pi,
      pi), accept > 0.6, circular correlation with the SVI phases > 0.95,
      max split R-hat < 1.05.  (b) `nuts`: 500 x 50, phases conditioned, a
      500-step SVI warm start, nu and shape_inv sampled in the whitened
      coordinates of the Fisher blocks and the Hessian diagonal, 256 chains
-     x (400 + 100), max_depth 6; gates: accept > 0.3, finite draws,
+     x (400 + 100; 200 + 100 in the default run), max_depth 6; gates:
+     accept > 0.3, finite draws,
      posterior-mean nu against the SVI locs corr > 0.95, max split R-hat
      < 1.05.  (c) velocity NUTS on fused int16 counts (50 x 500, the
      Fourier model, Nh = 3, phi_xy and shape_inv conditioned so that
      velo_fwdgrad runs without the dispersion gradient; MCMCFitModel with
      a 500-step SVI warm start, 64 chains x (200 + 100), max_depth 5; in a
      third process); gates: finite draws, accept > 0.5, exactly one K = 64
-     velo_fwdgrad per batched evaluation (R-hat printed, no gate: the
-     kinetic scale ridge).  Before the runs, [velo chains]: the
+     velo_fwdgrad per batched evaluation (R-hat and ESS printed by site,
+     no gate: the kinetic scale ridge).  ``--mcmc`` then holds (c)'s fused
+     potential and gradient against the plain path's at 9 points of the
+     (beta, gamma, omega) scale ridge (log_beta + t, log_gamma + t,
+     nu_omega e^t, t in [-2, 2]) through a prior draw and through (c)'s
+     last draw, one chain batch each (loss rel 1e-5, gradient 5e-4), and
+     runs (c) again on the plain path with the same seeds, chains, warmup
+     and depth, its R-hat and ESS by site printed beside the fused run's.
+     Before the runs, [velo chains]: the
      chain-batched velo_fwdgrad and velo_fwd held against their plain
      versions mapped over the chains and K single launches (K = 1, 4, 64,
      256, the dispersion gradient both ways, full width at K = 4, 11
@@ -247,10 +257,31 @@ in order; any failure exits non-zero and prints no result line:
      steps; stage 2 VelocityFitModel (LRMN) conditioned on (a)'s stage 1,
      50 steps; exactly one wide fwd+grad launch per step and one wide
      loss-only launch per evaluation, falling losses, the ELBO at step 0
-     fused against plain (rel 1e-5), steps/s, busy share, peak memory
-     (``--wide``: build, (b), (c), then (a) on its own preprocessing);
- 15. print the kernel table as one JSON line, the nvidia-smi line, and
-     last {"ok": true, "device": {...}}.
+     fused against plain (rel 1e-5), steps/s, busy share, peak memory.
+     ``--wide``: build, (b), (c), then (a) on its own preprocessing through
+     the front door (the batch design given to both preprocessing entry
+     points, their Db, Nb, sd_dnu and mu_dnu compared with the default
+     run's swap), then the batch-corrected paths on the wide body: (f)
+     [minibatch]'s phase on (a)'s stage 1 data (8 blocks of 12,800 cells,
+     Db cut per block; block objective rel 1e-5, streamed equal to
+     resident, launches under phase_fwdgrad_wide); (g) the sharded step in
+     both stages at 21 columns, one rank over NCCL bit-equal to
+     SVI.update and two ranks over gloo with Db split by cells within rel
+     2e-6 after 20 steps (correctness only); (d) phase NUTS at 50 x 2,000,
+     16 batches of 125 cells, H = 2 (21 columns), nu, delta_nu and
+     shape_inv sampled, 64 chains x (200 + 100), max_depth 5, a 500-step
+     SVI warm start (finite draws, accept > 0.5, one K = 64
+     phase_fwdgrad_wide launch per batched evaluation, no narrow launch,
+     8 drawn states fused against plain; R-hat and ESS by site printed);
+     (e) phase and velocity prior-tempering SMC at 20 x 200, 256
+     particles, 20 batches of 10 cells (23 columns: one K = 256 *_fwd_wide
+     per stage; the final particles' log-likelihood against the plain
+     path's; each run against the same run on the plain path for 4 seeds,
+     the mean of fused - plain log Z within 2 nats);
+     one JSON line of the runs' launches by kernel and chain count;
+ 15. print each phase's seconds on one line ([phases]), the kernel table
+     as one JSON line, the nvidia-smi line, and last {"ok": true,
+     "device": {...}}.
 
 The configuration is the repository's Stereo-seq-class fit (bench.py
 "phase_scale" and "velo_scale_svi"): NB likelihood, fused kernels, int16
@@ -1786,6 +1817,11 @@ MCMC_A = dict(Nc=2000, Ng=50, sim_seed=17, chains=64, warmup=400, samples=150,
 MCMC_B = dict(Nc=500, Ng=50, sim_seed=13, chains=256, warmup=400, samples=100,
               svi_fit=500, max_depth=6, init_jitter=2.0)
 MCMC_NH = 3
+# the default run's depth of (a) and (b): fewer warmup steps and draws, the
+# same chains and gates (R-hat < 1.05 holds at this depth); ``--mcmc`` runs
+# the design points above
+MCMC_DEFAULT = {"a": dict(MCMC_A, warmup=200, samples=100),
+                "b": dict(MCMC_B, warmup=200, samples=100)}
 
 # the fused velocity samplers' shapes: [mcmc] (c) (bench.py's `nuts` draw,
 # 50 x 500, 64 chains) and [smc] (c) (20 x 200, 256 particles), Nh = 3
@@ -2285,10 +2321,11 @@ def mcmc_wrapped(torch, seed, card, cfg=MCMC_A, device="cuda", mesh=None):
     return {**res, "busy": busy}
 
 
-def _velo_sim(torch, cfg, seed, device):
+def _velo_sim(torch, cfg, seed, device, fused=True):
     """bench.py's `_sim` draw of ``cfg``'s size, preprocessed for the fused
-    velocity kernels: the Fourier model, one harmonic (Nh = 3) and one for
-    the angular speed, int16 S and U."""
+    velocity kernels (``fused=False``: the plain path, float32 counts): the
+    Fourier model, one harmonic (Nh = 3) and one for the angular speed,
+    int16 S and U."""
     from velocycle_tpu_torch import (
         AngularSpeed, preprocess_for_velocity_estimation,
     )
@@ -2298,14 +2335,109 @@ def _velo_sim(torch, cfg, seed, device):
                                        stds=0.5)
     mp = preprocess_for_velocity_estimation(
         adata, cycle, phases, speed, n_harmonics=1, omega_n_harmonics=1,
-        with_delta_nu=False, model_type="fourier", use_fused_nb=True,
+        with_delta_nu=False, model_type="fourier", use_fused_nb=fused,
         device=device)
-    check(mp.data.S.dtype == torch.int16 and mp.data.U.dtype == torch.int16,
+    check(not fused or (mp.data.S.dtype == torch.int16
+                        and mp.data.U.dtype == torch.int16),
           "velocity counts not int16")
     return adata, mp
 
 
-def mcmc_velocity(torch, seed, card, cfg=VELO_MCMC, device="cuda"):
+# the (beta, gamma, omega) scale ridge of the velocity model: log_beta + t,
+# log_gamma + t and nu_omega e^t leave ElogU as it is but for the relu
+# gate's 1e-5 floor, so the likelihood is flat along it and only the
+# priors bound it (tests/test_torch_mcmc.py walks the same points)
+RIDGE_T = tuple(-2.0 + 0.5 * i for i in range(9))
+
+
+def _flat_states(torch, info, values):
+    """The flat unconstrained points (K, dim) of ``info``'s sites at the
+    constrained ``values`` {site: (K, ...)}."""
+    dev = info.init_u.device
+    return torch.cat([
+        c.inverse(torch.as_tensor(values[n], dtype=torch.float32, device=dev)
+                  .reshape((-1,) + tuple(shape))).reshape(-1, size)
+        for n, (shape, size, c) in info.site_meta.items()], -1)
+
+
+def _ridge(torch, info, u):
+    """RIDGE_T's points of the scale ridge through the flat point u (dim,):
+    (len(RIDGE_T), dim)."""
+    t = torch.tensor(RIDGE_T, device=u.device)[:, None]
+    parts, i = [], 0
+    for name, (_, size, _) in info.site_meta.items():
+        x = u[i:i + size].expand(len(RIDGE_T), size)
+        if name in ("log_beta", "log_gamma"):
+            x = x + t
+        elif name == "nu_omega":
+            x = x * torch.exp(t)
+        parts.append(x)
+        i += size
+    return torch.cat(parts, -1)
+
+
+def _potential_parity(torch, tag, fused_info, plain_info, q, grad_rtol):
+    """The fused path's potential and gradient over the chain batch q (ONE
+    chain-batched launch) against the plain path's: each potential less its
+    own baseline constant (minus the log joint), rel per point (gate
+    LOSS_RTOL), and the gradient max|a-b|/max|a| per point (gate
+    ``grad_rtol``).  Returns (loss rel, gradient rel), the worst points'."""
+    from velocycle_tpu_torch.infer import mcmc as TM
+
+    check(list(fused_info.site_meta) == list(plain_info.site_meta),
+          f"{tag}: the paths' sites differ")
+    vf, gf = TM._batched_value_and_grad(fused_info.potential_fn)(q)
+    vp, gp = TM._batched_value_and_grad(plain_info.potential_fn)(q)
+    jf = vf.double() - fused_info.log_offset
+    jp = vp.double() - plain_info.log_offset
+    loss_rel = float(((jf - jp).abs() / jp.abs()).max())
+    grad_rel = max(_rel(gf[k], gp[k]) for k in range(q.shape[0]))
+    ok = (bool(torch.isfinite(vf).all() and torch.isfinite(gf).all())
+          and loss_rel < LOSS_RTOL and grad_rel < grad_rtol)
+    print(f"{tag}: fused against plain at {q.shape[0]} points in one chain "
+          f"batch: minus log joint rel {loss_rel:.2e} (gate {LOSS_RTOL:g}), "
+          f"gradient {grad_rel:.2e} (gate {grad_rtol:g})")
+    check(ok, f"{tag}: fused vs plain potential rel {loss_rel}, gradient "
+          f"{grad_rel}")
+    return loss_rel, grad_rel
+
+
+def velo_ridge(torch, seed, card, fm, cfg=VELO_MCMC, device="cuda"):
+    """[mcmc] (c)'s fused velocity potential and gradient held against the
+    plain path's along the scale ridge, at (c)'s shape (its counts, float32
+    on the plain side): through a prior draw (tests/test_torch_mcmc.py's
+    point) and through the last draw of (c)'s first chain (``fm``, the
+    fused run), RIDGE_T's 9 points each in one chain batch."""
+    from velocycle_tpu_torch.core import handlers
+    from velocycle_tpu_torch.infer import mcmc as TM
+
+    _, pmp = _velo_sim(torch, cfg, seed, device, fused=False)
+    plain_model = handlers.condition(pmp.model_fn, data=fm.condition)
+    draws = fm.mcmc.get_samples(group_by_chain=True)
+    out = {}
+    for point, init in (
+            ("prior draw", None),
+            ("(c)'s last draw", {k: v[0, -1] for k, v in draws.items()})):
+        finfo = TM.init_model(fm.model, fm.metaparams.data, seed=seed + 13,
+                              init_values=init)
+        pinfo = TM.init_model(plain_model, pmp.data,
+                              init_values=finfo.unflatten(finfo.init_u))
+        out[point] = _potential_parity(
+            torch, f"[mcmc] (c) ridge through the {point}", finfo, pinfo,
+            _ridge(torch, finfo, finfo.init_u), VELO_GRAD_RTOL)
+    return out
+
+
+def _rhat_by_site(summ):
+    """{site: (max split R-hat, min ESS)} of a sampler's summary."""
+    import numpy as np
+
+    return {k: (float(np.nanmax(v["rhat"])), float(np.nanmin(v["ess"])))
+            for k, v in summ.items()}
+
+
+def mcmc_velocity(torch, seed, card, cfg=VELO_MCMC, device="cuda",
+                  fused=True, ridge=False):
     """(c) velocity NUTS on fused int16 counts: bench.py's `nuts` draw (50
     x 500), phi_xy and shape_inv conditioned (the simulated dispersions),
     so velo_fwdgrad runs without the dispersion gradient; MCMCFitModel with
@@ -2313,15 +2445,19 @@ def mcmc_velocity(torch, seed, card, cfg=VELO_MCMC, device="cuda"):
     max_depth 5.  Gates: finite draws, accept > 0.5, exactly one K = 64
     velo_fwdgrad per batched potential evaluation besides the single
     launches of the warm start and the baselines.  Split R-hat and ESS are
-    printed without a gate: the (beta, gamma, omega) scale ridge is bounded
-    by the priors alone."""
+    printed by site without a gate: the (beta, gamma, omega) scale ridge is
+    bounded by the priors alone.  ``fused=False``: the same run on the
+    plain path (float32 counts, the same seeds; no launch at all), to read
+    its R-hat beside the fused run's; ``ridge``: `velo_ridge` after the
+    fused run."""
     import numpy as np
 
     from velocycle_tpu_torch import MCMCFitModel
     from velocycle_tpu_torch.ops import nb_kernels as K_
 
+    path = "fused" if fused else "plain"
     t0 = time.perf_counter()
-    adata, mp = _velo_sim(torch, cfg, seed, device)
+    adata, mp = _velo_sim(torch, cfg, seed, device, fused=fused)
     cond = {"phi_xy": mp.data.phixy_prior,
             "shape_inv": np.asarray(adata.var["simulated_shape_inv"],
                                     np.float32)}
@@ -2329,8 +2465,9 @@ def mcmc_velocity(torch, seed, card, cfg=VELO_MCMC, device="cuda"):
                       num_warmup=cfg["warmup"], num_samples=cfg["samples"],
                       svi_steps=cfg["svi_fit"], max_depth=cfg["max_depth"],
                       init_jitter=cfg["init_jitter"])
-    check(not fm.metaparams.data.disp_grad, "(c): the dispersion gradient on")
-    print(f"[mcmc] (c) set-up: simulate, preprocess: "
+    check(not (fused and fm.metaparams.data.disp_grad),
+          "(c): the dispersion gradient on")
+    print(f"[mcmc] (c) {path} set-up: simulate, preprocess: "
           f"{time.perf_counter() - t0:.1f} s on {card}")
     torch.cuda.reset_peak_memory_stats()
     K_.reset_launch_counts()
@@ -2341,25 +2478,43 @@ def mcmc_velocity(torch, seed, card, cfg=VELO_MCMC, device="cuda"):
         dt = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     iters = cfg["warmup"] + cfg["samples"]
-    by_k = _mcmc_report("(c) velocity nuts", K_, counter, iters, dt,
-                        cfg["chains"], cfg["samples"], card, kind="velo")
-    check(set(by_k) <= {1, cfg["chains"]}
-          and by_k.get(1, 0) >= cfg["svi_fit"],
-          f"(c): launches by chain count {by_k}")
-    check(K_.LAUNCH_CHAINS["phase_fwdgrad"] == {}, "(c): a phase launch")
+    if fused:
+        by_k = _mcmc_report("(c) velocity nuts", K_, counter, iters, dt,
+                            cfg["chains"], cfg["samples"], card, kind="velo")
+        check(set(by_k) <= {1, cfg["chains"]}
+              and by_k.get(1, 0) >= cfg["svi_fit"],
+              f"(c): launches by chain count {by_k}")
+        check(K_.LAUNCH_CHAINS["phase_fwdgrad"] == {}, "(c): a phase launch")
+    else:
+        by_k = {}
+        print(f"[mcmc] (c) plain velocity nuts: {counter.calls} batched "
+              f"potential evaluations over {iters} iterations "
+              f"({counter.calls / iters:.1f} per iteration); wall {dt:.1f} s, "
+              f"{cfg['chains'] * cfg['samples'] / dt:.1f} samples/s on {card}")
+        check(not any(K_.LAUNCHES.values()),
+              f"(c) plain: a kernel launch {K_.LAUNCHES}")
     d = fm.diagnostics
-    summ = fm.summary
-    print("[mcmc] (c): max split R-hat by site (no gate) "
-          + ", ".join(f"{k} {np.nanmax(v['rhat']):.4f} (median "
-                      f"{np.nanmedian(v['rhat']):.4f})" for k, v in summ.items()))
+    by_site = _rhat_by_site(fm.summary)
+    print(f"[mcmc] (c) {path}: max split R-hat (min ESS) by site (no gate) "
+          + ", ".join(f"{k} {r:.4f} ({e:.1f})" for k, (r, e) in by_site.items()))
     draws = fm.mcmc.get_samples()
-    print(f"[mcmc] (c): accept {d['accept_rate']:.4f}, max split R-hat "
+    print(f"[mcmc] (c) {path}: accept {d['accept_rate']:.4f}, max split R-hat "
           f"{d['max_split_rhat']:.4f}, min ESS {d['min_ess']:.1f}, median ESS "
           f"{d['median_ess']:.1f} of {cfg['chains'] * cfg['samples']} draws; "
           f"peak device memory {peak / 2**30:.3f} GiB on {card}")
     check(all(np.isfinite(v).all() for v in draws.values()),
-          "(c): non-finite draws")
-    check(d["accept_rate"] > 0.5, f"(c): accept rate {d['accept_rate']}")
+          f"(c) {path}: non-finite draws")
+    check(d["accept_rate"] > 0.5, f"(c) {path}: accept rate {d['accept_rate']}")
+    res = {"launches": by_k, "evals": counter.calls, "iters": iters,
+           "wall_s": dt, "samples_per_s": cfg["chains"] * cfg["samples"] / dt,
+           "accept": d["accept_rate"], "max_split_rhat": d["max_split_rhat"],
+           "min_ess": d["min_ess"], "median_ess": d["median_ess"],
+           "peak_gib": peak / 2**30}
+    if not fused:
+        return {**res, "by_site": by_site}
+    if ridge:
+        res["ridge"] = velo_ridge(torch, seed, card, fm, cfg, device)
+        res["by_site"] = by_site
     info = fm.mcmc.model_info
     q = fm.mcmc._samples_u[:, -1].contiguous()
     busy = _device_profile(torch, lambda: _nuts_transitions(info, q, cfg),
@@ -2368,12 +2523,28 @@ def mcmc_velocity(torch, seed, card, cfg=VELO_MCMC, device="cuda"):
     print(f"[mcmc] (c): per leapfrog {dt / counter.calls * 1e3:.2f} ms of "
           f"wall (run incl. warm start), of it {ev:.2f} ms one batched "
           f"evaluation alone (host clock) on {card}")
-    return {"launches": by_k, "evals": counter.calls, "iters": iters,
-            "wall_s": dt, "samples_per_s": cfg["chains"] * cfg["samples"] / dt,
-            "accept": d["accept_rate"], "max_split_rhat": d["max_split_rhat"],
-            "min_ess": d["min_ess"], "median_ess": d["median_ess"],
-            "peak_gib": peak / 2**30, "busy": busy,
-            "leapfrog_ms": dt / counter.calls * 1e3, "eval_ms": ev}
+    return {**res, "busy": busy, "leapfrog_ms": dt / counter.calls * 1e3,
+            "eval_ms": ev}
+
+
+def velo_plain_vs_fused(torch, seed, card, fused_run, device="cuda"):
+    """``--mcmc``: (c) again on the plain path with the same seeds, chains,
+    warmup and depth, its R-hat and ESS by site printed beside the fused
+    run's (``fused_run``: `mcmc_velocity`'s with ``ridge``)."""
+    plain = mcmc_velocity(torch, seed, card, device=device, fused=False)
+    f, p = fused_run["by_site"], plain["by_site"]
+    print("[mcmc] (c) max split R-hat by site, fused / plain: "
+          + ", ".join(f"{k} {f[k][0]:.4f} / {p[k][0]:.4f}" for k in f))
+    print("[mcmc] (c) min ESS by site, fused / plain: "
+          + ", ".join(f"{k} {f[k][1]:.1f} / {p[k][1]:.1f}" for k in f))
+    worst = {tag: max(d, key=lambda k: d[k][0]) for tag, d in
+             (("fused", f), ("plain", p))}
+    print(f"[mcmc] (c) fused: max R-hat {fused_run['max_split_rhat']:.4f}, "
+          f"min ESS {fused_run['min_ess']:.1f}, worst site {worst['fused']}; "
+          f"plain: max R-hat {plain['max_split_rhat']:.4f}, min ESS "
+          f"{plain['min_ess']:.1f}, worst site {worst['plain']}; accept "
+          f"{fused_run['accept']:.4f} / {plain['accept']:.4f}")
+    return plain
 
 
 def _nuts_transitions(info, q, cfg):
@@ -2740,9 +2911,11 @@ def _smc_data(torch, cfg, seed, device):
 
 
 def smc_run(torch, seed, card, tag, cfg, mp, svi_steps, max_stages,
-            target_ess, run_seed, device="cuda", kind="phase", mesh=None):
+            target_ess, run_seed, device="cuda", kind="phase", mesh=None,
+            wide=""):
     """One SMCFitModel run on ``mp`` (phases conditioned), its launches
-    counted: exactly one chain-batched ``kind``_fwd per stage (its
+    counted (``wide="_wide"``: under the wide body's names): exactly one
+    chain-batched ``kind``_fwd per stage (its
     log-likelihood or log ratio over the particles), one chain-batched
     ``kind``_fwdgrad per batched potential evaluation (1 + num_moves x
     leapfrog per stage) and, in prior tempering, one single ``kind``_fwd in
@@ -2771,12 +2944,13 @@ def smc_run(torch, seed, card, tag, cfg, mp, svi_steps, max_stages,
     peak = torch.cuda.max_memory_allocated()
     sched = fm.temperature_schedule
     stages = len(sched)
-    fwd_k = dict(K_.LAUNCH_CHAINS[f"{kind}_fwd"])
-    grad_k = dict(K_.LAUNCH_CHAINS[f"{kind}_fwdgrad"])
+    fwd_k = dict(K_.LAUNCH_CHAINS[f"{kind}_fwd{wide}"])
+    grad_k = dict(K_.LAUNCH_CHAINS[f"{kind}_fwdgrad{wide}"])
     per_stage = 1 + moves * SMC_LEAPFROG
     print(f"[smc] {tag}: {stages} stages, beta {', '.join(f'{b:.4g}' for b in sched)}; "
-          f"logZ {fm.log_evidence:.3f}; {kind}_fwd launches by chain count "
-          f"{fwd_k}, {kind}_fwdgrad {grad_k}, {counter.calls} batched "
+          f"logZ {fm.log_evidence:.3f}; {kind}_fwd{wide} launches by chain "
+          f"count {fwd_k}, {kind}_fwdgrad{wide} {grad_k}, {counter.calls} "
+          f"batched "
           f"potential evaluations; wall {dt:.2f} s, "
           f"{n * stages * moves / dt:.1f} particle-moves/s, peak device "
           f"memory {peak / 2**30:.3f} GiB on {card}")
@@ -2800,7 +2974,8 @@ def smc_run(torch, seed, card, tag, cfg, mp, svi_steps, max_stages,
     return fm, {"stages": stages, "log_evidence": fm.log_evidence,
                 "wall_s": dt, "particle_moves_per_s": n * stages * moves / dt,
                 "evals": counter.calls,
-                "launches": {f"{kind}_fwd": fwd_k, f"{kind}_fwdgrad": grad_k},
+                "launches": {f"{kind}_fwd{wide}": fwd_k,
+                             f"{kind}_fwdgrad{wide}": grad_k},
                 "peak_gib": peak / 2**30}
 
 
@@ -3540,7 +3715,11 @@ def _batch_design(adata):
 
 def _with_batches(torch, mp, design):
     """A stage's metaparams on the same preprocessed counts with the batch
-    design and delta_nu on (the stage's sd_dnu for every batch)."""
+    design and delta_nu on (the stage's sd_dnu for every batch): the
+    default run's (a) on [main]'s containers, which spares it a second host
+    preprocessing of each stage (~60 s); ``--wide`` preprocesses through
+    the front door and holds these fields against it
+    (`_front_door_vs_patch`)."""
     import dataclasses
 
     import numpy as np
@@ -3657,10 +3836,51 @@ def _wide_cond(params):
             "shape_inv": params["shape_inv_locs"]}
 
 
+# --wide's batch-corrected runs past (a): (d) phase NUTS at WIDE_CHAIN's
+# shape, 16 batches of 125 cells, H = 2 (5 + 16 = 21 columns), nu, delta_nu
+# and shape_inv sampled, phases conditioned, as [mcmc] (b); (e) phase and
+# velocity SMC at VELO_SMC's shape with 20 batches of 10 cells, H = 1 (3 +
+# 20 = 23 columns); (g) the sharded step's steps
+WIDE_NUTS = dict(Ng=WIDE_CHAIN["Ng"], Nc=WIDE_CHAIN["Nc"], sim_seed=17,
+                 batches=16, H=2, chains=WIDE_CHAIN["chains"], warmup=200,
+                 samples=100, svi_fit=500, max_depth=5, init_jitter=1.0)
+WIDE_NUTS_CHECKED = 8   # drawn states held against the plain path
+WIDE_SMC = dict(VELO_SMC, batches=20, H=1)
+WIDE_SMC_SEEDS = 4
+WIDE_SHARDED_STEPS = 20
+WIDE_SHARDED_GATES = ((WIDE_SHARDED_STEPS, 2e-6),)
+WIDE_SHARDED_KERNEL = {"phase": "phase_fwdgrad_wide",
+                       "velocity": "velo_fwdgrad_wide"}
+
+
+def _front_door_vs_patch(torch, mp, design, stage):
+    """(a)'s container from the front door (the batch design given to the
+    preprocessing) against the default run's swap of the same design into
+    [main]'s container (`_with_batches`): Db, Nb, sd_dnu and mu_dnu.  A
+    difference is printed; the front door's container is the one used."""
+    d, patched = mp.data, _with_batches(torch, mp, design).data
+    same = {f: bool(torch.equal(getattr(d, f), getattr(patched, f)))
+            for f in ("Db", "sd_dnu", "mu_dnu")}
+    same["Nb"] = d.Nb == patched.Nb
+    print(f"[wide] (a) stage {stage} through the front door: Db "
+          f"{tuple(d.Db.shape)}, Nb {d.Nb}, sd_dnu "
+          f"{sorted(set(d.sd_dnu.reshape(-1).tolist()))}, mu_dnu "
+          f"{float(d.mu_dnu)}; equal to the default run's swap: {same}"
+          + ("" if all(same.values()) else " (they differ: the front door's "
+             "container is used)"))
+    check(d.with_delta_nu and d.Nb == WIDE_BATCHES
+          and tuple(d.Db.shape) == (WIDE_BATCHES, NC),
+          f"[wide] (a) stage {stage}: the front door's batch fields")
+
+
 def wide_alone(torch, seed, card):
     """``--wide``: [wide] (b) and (c), then (a) on its own preprocessing of
-    the [main] draw (stage 2 preprocessed, as [velo] is, from (a)'s stage 1
-    fit)."""
+    the [main] draw through the front door (the batch design given to
+    preprocess_for_phase_estimation and preprocess_for_velocity_estimation;
+    stage 2 preprocessed from (a)'s stage 1 fit), each stage followed by
+    (g)'s one rank on its data and stage 1 by (f); then (g)'s two ranks,
+    (d) and (e).  Prints one JSON line of the runs' launches by kernel and
+    chain count ((f)'s are its own: launches per block step)."""
     from velocycle_tpu_torch import (
         AngularSpeed, Cycle, Phases, preprocess_for_phase_estimation,
         preprocess_for_velocity_estimation,
@@ -3672,22 +3892,343 @@ def wide_alone(torch, seed, card):
     wide_timing(torch, seed, card, WIDE_SWEPT, full=False)
     wide_passes(torch, seed, card)
     torch.cuda.empty_cache()
+    one_rank = dict(steps=WIDE_SHARDED_STEPS, tag="[wide] (g)")
+    t0 = time.perf_counter()
     adata, genes, cells, angles = _make_adata(torch, seed, "cuda")
     design = _batch_design(adata)
     mp = preprocess_for_phase_estimation(
         adata, Cycle.trivial_prior(genes, harmonics=H),
         Phases.from_angles(angles, concentration=1.0, cell_names=cells),
-        n_harmonics=H, with_delta_nu=False, use_fused_nb=True, device="cuda")
-    _, s1 = wide_stage(torch, seed, card, _with_batches(torch, mp, design), 1)
+        design_mtx=design, n_harmonics=H, with_delta_nu=True,
+        use_fused_nb=True, device="cuda")
+    print(f"[wide] (a) stage 1 preprocessing with the batch design: "
+          f"{time.perf_counter() - t0:.1f} s (host)")
+    _front_door_vs_patch(torch, mp, design, 1)
+    runs = {}
+    runs["a_phase"], s1 = wide_stage(torch, seed, card, mp, 1)
+    torch.cuda.empty_cache()
+    runs["f"] = minibatch_phase_stage(torch, seed, card, mp, tag="[wide] (f)",
+                                      wide="_wide")
+    torch.cuda.empty_cache()
+    ref = sharded_stage_refs(torch, seed, card, "phase", mp.data,
+                             kernel=WIDE_SHARDED_KERNEL["phase"], **one_rank)
     del mp
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
     vmp = preprocess_for_velocity_estimation(
         adata, s1.cycle_fit, s1.phase_fit,
         AngularSpeed.trivial_prior(["c0"], harmonics=1, means=0.2, stds=0.5),
-        n_harmonics=H, omega_n_harmonics=1, with_delta_nu=False,
-        model_type="lrmn", use_fused_nb=True, device="cuda")
-    wide_stage(torch, seed, card, _with_batches(torch, vmp, design), 2,
-               cond=_wide_cond(s1.params))
+        batch_design_mtx=design, n_harmonics=H, omega_n_harmonics=1,
+        with_delta_nu=True, model_type="lrmn", use_fused_nb=True,
+        device="cuda")
+    print(f"[wide] (a) stage 2 preprocessing with the batch design: "
+          f"{time.perf_counter() - t0:.1f} s (host)")
+    _front_door_vs_patch(torch, vmp, design, 2)
+    cond = _wide_cond(s1.params)
+    runs["a_velo"], _ = wide_stage(torch, seed, card, vmp, 2, cond=cond)
+    torch.cuda.empty_cache()
+    sharded_stage_refs(torch, seed, card, "velocity", vmp.data, cond, ref,
+                       kernel=WIDE_SHARDED_KERNEL["velocity"], **one_rank)
+    del vmp, adata, s1
+    torch.cuda.empty_cache()
+    runs["g"] = wide_sharded(torch, seed, card, ref)
+    torch.cuda.empty_cache()
+    runs["d"] = wide_nuts(torch, seed, card)
+    torch.cuda.empty_cache()
+    runs["e"] = wide_smc(torch, seed, card)
+    # the runs' launches of each wide kernel by chain count
+    by_kernel = {k: {} for k in WIDE_KERNELS}
+    for stage, kind in (("a_phase", "phase"), ("a_velo", "velo")):
+        for k, n in {**runs[stage]["launches"],
+                     **runs[stage]["eval_launches"]}.items():
+            _add_launches(by_kernel[k], {1: n})
+    for stage, kernel in WIDE_SHARDED_KERNEL.items():
+        _add_launches(by_kernel[kernel], {1: 2 * WIDE_SHARDED_STEPS})
+        for r in runs["g"]["b"][stage]["ranks"]:
+            _add_launches(by_kernel[kernel], {1: r["launches"]})
+    _add_launches(by_kernel["phase_fwdgrad_wide"], runs["d"]["launches"])
+    for kind in ("phase", "velo"):
+        for k, by_k in runs["e"][kind]["launches"].items():
+            _add_launches(by_kernel[k], by_k)
+    print(json.dumps({"wide_runs": {
+        "launches_by_chains": by_kernel,
+        "d": {k: v for k, v in runs["d"].items() if k != "launches"},
+        "e": {kind: {k: v for k, v in runs["e"][kind].items()
+                     if k != "launches"} for kind in ("phase", "velo")},
+        "f": {k: v for k, v in runs["f"].items()},
+        "g": runs["g"]}}, default=float))
+
+
+def wide_sharded(torch, seed, card, ref):
+    """[wide] (g)'s two ranks sharing the card over gloo, each drawing the
+    [main] counts and keeping its cells (``Db`` split by cells with them)
+    around the host templates of (a)'s front-door data, WIDE_SHARDED_STEPS
+    steps of each stage on the wide body, the losses against the one rank
+    (bit-equal to `SVI.update`) within rel 2e-6.  Correctness only: two
+    ranks on one card measure contention."""
+    from velocycle_tpu_torch.parallel import run_ranks
+
+    t0 = time.perf_counter()
+    payload = {k: ref[k] for k in ("tmpl1", "tmpl2", "cond", "sums")}
+    payload.update(seed=seed, steps=WIDE_SHARDED_STEPS, Ng=ref["tmpl1"].Ng,
+                   Nc=ref["tmpl1"].Nc, kernels=WIDE_SHARDED_KERNEL)
+    ranks = run_ranks(_sharded_rank, SHARDED_WORLD, backend="gloo",
+                      device="cuda", timeout=900, args=(payload,))
+    out = {"a": ref["a"], "b": _gate_b(ranks, ref, card, WIDE_SHARDED_KERNEL,
+                                       WIDE_SHARDED_GATES, "[wide] (g)")}
+    print(f"[wide] (g) two ranks in all, {SHARDED_WORLD} ranks spawned: "
+          f"{time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def _batched_sim(torch, cfg, seed, harmonics):
+    """bench.py's `_sim` draw of ``cfg``'s size with an obs column of
+    cfg["batches"] batches of equal size (consecutive cells) and its design
+    through make_design_matrix; a trivial Cycle prior of ``harmonics``."""
+    import numpy as np
+
+    from velocycle_tpu_torch import (
+        Cycle, Phases, make_design_matrix, simulate_data,
+    )
+
+    nb = cfg["batches"]
+    adata = simulate_data(Nc=cfg["Nc"], Ng=cfg["Ng"], omegas_to_test=(0.4,),
+                          seed=cfg["sim_seed"] + seed)
+    adata.obs["batch"] = np.repeat([f"b{b:02d}" for b in range(nb)],
+                                   cfg["Nc"] // nb)
+    design = make_design_matrix(adata, "batch")
+    cycle = Cycle.trivial_prior(list(adata.var.index), harmonics=harmonics)
+    phases = Phases.from_angles(np.asarray(adata.obs["simulated_phis"].values),
+                                cell_names=list(adata.obs.index))
+    return adata, cycle, phases, design
+
+
+def _no_narrow_launch(K_, tag):
+    narrow = {k: n for k, n in K_.LAUNCHES.items()
+              if n and not k.endswith("_wide")}
+    check(not narrow, f"{tag}: narrow launches {narrow}")
+
+
+def wide_nuts(torch, seed, card, cfg=WIDE_NUTS, device="cuda"):
+    """[wide] (d): phase NUTS on the wide body, 21 columns: MCMCFitModel on
+    the front door's batch-corrected data, phases conditioned, nu,
+    delta_nu and shape_inv sampled, a 500-step SVI warm start, 64 chains x
+    (200 + 100), max_depth 5.  Gates: finite draws, accept > 0.5, every
+    batched evaluation exactly one K = 64 phase_fwdgrad_wide launch, no
+    narrow launch, and at WIDE_NUTS_CHECKED drawn states (one chain batch)
+    the fused potential and gradient against the plain path's.  R-hat and
+    ESS printed by site."""
+    import numpy as np
+
+    from velocycle_tpu_torch import MCMCFitModel, preprocess_for_phase_estimation
+    from velocycle_tpu_torch.core import handlers
+    from velocycle_tpu_torch.infer import mcmc as TM
+    from velocycle_tpu_torch.ops import nb_kernels as K_
+
+    tag = "[wide] (d)"
+    t0 = time.perf_counter()
+    adata, cycle, phases, design = _batched_sim(torch, cfg, seed, cfg["H"])
+    kw = dict(design_mtx=design, n_harmonics=cfg["H"], with_delta_nu=True,
+              device=device)
+    mp = preprocess_for_phase_estimation(adata, cycle, phases,
+                                         use_fused_nb=True, **kw)
+    plain = preprocess_for_phase_estimation(adata, cycle, phases,
+                                            use_fused_nb=False, **kw)
+    W = mp.data.mu_nu.shape[1] + mp.data.Nb
+    check(W == WIDE_CHAIN["nh"] and mp.data.S.dtype == torch.int16,
+          f"{tag}: {W} columns, counts {mp.data.S.dtype}")
+    fm = MCMCFitModel(mp, condition_on={"phi_xy": mp.data.phixy_prior},
+                      num_chains=cfg["chains"], num_warmup=cfg["warmup"],
+                      num_samples=cfg["samples"], svi_steps=cfg["svi_fit"],
+                      max_depth=cfg["max_depth"],
+                      init_jitter=cfg["init_jitter"])
+    print(f"{tag} set-up: simulate, preprocess x2 ({cfg['Ng']} x "
+          f"{cfg['Nc']}, {mp.data.Nb} batches of {cfg['Nc'] // mp.data.Nb} "
+          f"cells, {W} columns): {time.perf_counter() - t0:.1f} s on {card}")
+    torch.cuda.reset_peak_memory_stats()
+    K_.reset_launch_counts()
+    with _EvalCounter() as counter:
+        t0 = time.perf_counter()
+        fm.run(seed + 19)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    iters = cfg["warmup"] + cfg["samples"]
+    by_k = dict(K_.LAUNCH_CHAINS["phase_fwdgrad_wide"])
+    print(f"{tag} wide phase nuts: phase_fwdgrad_wide launches by chain "
+          f"count {by_k}, phase_fwd_wide {K_.LAUNCHES['phase_fwd_wide']}; "
+          f"{counter.calls} batched potential evaluations over {iters} "
+          f"iterations ({counter.calls / iters:.1f} per iteration); wall "
+          f"{dt:.1f} s, {cfg['chains'] * cfg['samples'] / dt:.1f} samples/s, "
+          f"peak device memory {peak / 2**30:.3f} GiB on {card}")
+    check(by_k.get(cfg["chains"], 0) == counter.calls > 0
+          and set(by_k) <= {1, cfg["chains"]},
+          f"{tag}: {by_k} for {counter.calls} batched evaluations")
+    _no_narrow_launch(K_, tag)
+    d = fm.diagnostics
+    by_site = _rhat_by_site(fm.summary)
+    print(f"{tag}: max split R-hat (min ESS) by site "
+          + ", ".join(f"{k} {r:.4f} ({e:.1f})" for k, (r, e) in by_site.items()))
+    print(f"{tag}: accept {d['accept_rate']:.4f}, max split R-hat "
+          f"{d['max_split_rhat']:.4f}, min ESS {d['min_ess']:.1f}, median ESS "
+          f"{d['median_ess']:.1f} of {cfg['chains'] * cfg['samples']} draws")
+    draws = fm.mcmc.get_samples()
+    check(all(np.isfinite(v).all() for v in draws.values()),
+          f"{tag}: non-finite draws")
+    check(d["accept_rate"] > 0.5, f"{tag}: accept rate {d['accept_rate']}")
+    info = fm.mcmc.model_info
+    q = fm.mcmc._samples_u[:, -1].contiguous()
+    busy = _device_profile(torch, lambda: _nuts_transitions(info, q, cfg),
+                           "wide", 4, "NUTS transition")
+    print(f"{tag}: device busy "
+          f"{'not measured' if busy is None else f'{busy:.1%}'} over four "
+          f"NUTS transitions, {dt / counter.calls * 1e3:.2f} ms of wall per "
+          f"batched evaluation (run incl. warm start) on {card}")
+    # drawn states: the fused wide potential against the plain path's
+    n = next(iter(draws.values())).shape[0]
+    idx = np.linspace(0, n - 1, WIDE_NUTS_CHECKED).astype(int)
+    values = {k: v[idx] for k, v in draws.items()}
+    first = {k: v[0] for k, v in values.items()}
+    finfo = TM.init_model(fm.model, fm.metaparams.data, init_values=first)
+    pinfo = TM.init_model(handlers.condition(plain.model_fn,
+                                             data=fm.condition),
+                          plain.data, init_values=first)
+    K_.reset_launch_counts()
+    rels = _potential_parity(torch, f"{tag} drawn states", finfo, pinfo,
+                             _flat_states(torch, finfo, values),
+                             VELO_GRAD_RTOL)
+    check(dict(K_.LAUNCH_CHAINS["phase_fwdgrad_wide"])
+          == {WIDE_NUTS_CHECKED: 1},
+          f"{tag}: the drawn states' evaluation launched "
+          f"{K_.LAUNCH_CHAINS['phase_fwdgrad_wide']}")
+    return {"launches": by_k, "evals": counter.calls, "iters": iters,
+            "wall_s": dt, "samples_per_s": cfg["chains"] * cfg["samples"] / dt,
+            "accept": d["accept_rate"], "max_split_rhat": d["max_split_rhat"],
+            "min_ess": d["min_ess"], "median_ess": d["median_ess"],
+            "by_site": by_site, "peak_gib": peak / 2**30, "busy": busy,
+            "drawn_states_rel": rels, "columns": W}
+
+
+def _smc_loglik(torch, smc, q):
+    """The absolute log-likelihood of the particles q (one chain batch,
+    gradients off: one loss-only launch on fused data), float64."""
+    with torch.no_grad():
+        ll = torch.func.vmap(
+            lambda u: smc.tempered.log_parts(u, prior=False)[1])(q)
+    return ll.double() + smc.tempered.log_lik_offset
+
+
+def wide_smc(torch, seed, card, cfg=WIDE_SMC, device="cuda"):
+    """[wide] (e): phase and velocity prior tempering on the wide body at
+    VELO_SMC's shape with 20 batches of 10 cells (H = 1: 23 columns),
+    phases conditioned, SMCFitModel on the front door's batch-corrected
+    data; each against the same run on the plain path (the same seed), for
+    WIDE_SMC_SEEDS seeds.  Gates (`smc_run`'s): the schedule reaches 1,
+    finite log Z, one K = 256 ``*_fwd_wide`` launch per stage and one K =
+    256 ``*_fwdgrad_wide`` per batched evaluation; no narrow launch; the
+    final particles' log-likelihood in one K = 256 loss-only launch against
+    the plain path's at the same particles (rel LOSS_RTOL); log Z: the mean
+    over the seeds of fused - plain within 2 nats ([smc]'s band; one
+    pair's difference carries two runs' Monte Carlo noise, printed with
+    each run's log Z and the spread)."""
+    import numpy as np
+
+    from velocycle_tpu_torch import (
+        AngularSpeed, SMCFitModel, preprocess_for_phase_estimation,
+        preprocess_for_velocity_estimation,
+    )
+    from velocycle_tpu_torch.ops import nb_kernels as K_
+
+    adata, cycle, phases, design = _batched_sim(torch, cfg, seed, cfg["H"])
+    speed = AngularSpeed.trivial_prior(["c0"], harmonics=1, means=0.2,
+                                       stds=0.5)
+    out = {}
+    for kind in ("phase", "velo"):
+        t0 = time.perf_counter()
+        tag = f"[wide] (e) {kind}"
+        mps = {}
+        for fused in (True, False):
+            if kind == "phase":
+                mps[fused] = preprocess_for_phase_estimation(
+                    adata, cycle, phases, design_mtx=design,
+                    n_harmonics=cfg["H"], with_delta_nu=True,
+                    use_fused_nb=fused, device=device)
+            else:
+                mps[fused] = preprocess_for_velocity_estimation(
+                    adata, cycle, phases, speed, batch_design_mtx=design,
+                    n_harmonics=cfg["H"], omega_n_harmonics=1,
+                    with_delta_nu=True, model_type="fourier",
+                    use_fused_nb=fused, device=device)
+        W = mps[True].data.mu_nu.shape[1] + mps[True].data.Nb
+        check(W == 2 * cfg["H"] + 1 + cfg["batches"],
+              f"{tag}: {W} columns")
+        runs = []
+        for i in range(WIDE_SMC_SEEDS):
+            run_seed = seed + 5 + i
+            fm, res = smc_run(torch, seed, card, f"{tag} smc, {W} columns, "
+                              f"seed {run_seed}", cfg, mps[True],
+                              cfg["svi_steps"], cfg["max_stages"],
+                              cfg["target_ess"], run_seed, device, kind=kind,
+                              wide="_wide")
+            _no_narrow_launch(K_, tag)
+            plain = SMCFitModel(
+                mps[False], condition_on={"phi_xy": mps[False].data.phixy_prior},
+                num_particles=cfg["chains"], num_moves=cfg["num_moves"],
+                target_ess=cfg["target_ess"], max_stages=cfg["max_stages"],
+                svi_steps=cfg["svi_steps"])
+            K_.reset_launch_counts()
+            t1 = time.perf_counter()
+            plain.run(run_seed)
+            torch.cuda.synchronize()
+            plain_s = time.perf_counter() - t1
+            check(not any(K_.LAUNCHES.values()),
+                  f"{tag}: the plain run launched {K_.LAUNCHES}")
+            if i == 0:
+                # the quantity log Z sums, at the fused run's final particles
+                q = fm.smc.particles
+                ll_f = _smc_loglik(torch, fm.smc, q)
+                launched = dict(K_.LAUNCH_CHAINS[f"{kind}_fwd_wide"])
+                ll_p = _smc_loglik(torch, plain.smc, q)
+                ll_rel = float(((ll_f - ll_p).abs() / ll_p.abs()).max())
+                print(f"{tag}: the final particles' log-likelihood, fused "
+                      f"({launched} {kind}_fwd_wide launches by chain count) "
+                      f"against plain: rel {ll_rel:.2e} (gate {LOSS_RTOL:g})")
+                check(ll_rel < LOSS_RTOL and launched == {cfg["chains"]: 1},
+                      f"{tag}: particles' log-likelihood rel {ll_rel}, "
+                      f"launches {launched}")
+                res["particle_loglik_rel"] = ll_rel
+                res.update(_smc_host_and_device(torch, fm, tag, card))
+            dz = fm.log_evidence - plain.log_evidence
+            print(f"{tag} seed {run_seed}: log Z {fm.log_evidence:.3f} fused "
+                  f"({res['stages']} stages) against {plain.log_evidence:.3f} "
+                  f"plain ({len(plain.temperature_schedule)} stages, "
+                  f"{plain_s:.2f} s): {dz:+.3f} nats")
+            runs.append({**res, "plain_log_evidence": plain.log_evidence,
+                         "dlogZ": dz})
+            del fm, plain
+            torch.cuda.empty_cache()
+        dz = np.array([r["dlogZ"] for r in runs])
+        zf = np.array([r["log_evidence"] for r in runs])
+        zp = np.array([r["plain_log_evidence"] for r in runs])
+        print(f"{tag}: over {WIDE_SMC_SEEDS} seeds log Z fused "
+              f"{zf.mean():.3f} (sd {zf.std(ddof=1):.3f}), plain "
+              f"{zp.mean():.3f} (sd {zp.std(ddof=1):.3f}); fused - plain "
+              f"mean {dz.mean():+.3f} nats (gate 2), by seed "
+              f"{', '.join(f'{d:+.3f}' for d in dz)}; in all, data included "
+              f"{time.perf_counter() - t0:.1f} s on {card}")
+        check(abs(dz.mean()) < 2.0,
+              f"{tag}: mean log Z fused - plain = {dz.mean()}")
+        launches = {}
+        for r in runs:
+            for k, by_k in r["launches"].items():
+                _add_launches(launches.setdefault(k, {}), by_k)
+        out[kind] = {**{k: v for k, v in runs[0].items() if k != "launches"},
+                     "launches": launches, "dlogZ_by_seed": dz.tolist(),
+                     "dlogZ_mean": float(dz.mean()),
+                     "log_evidence_sd": float(zf.std(ddof=1)),
+                     "plain_log_evidence_sd": float(zp.std(ddof=1)),
+                     "columns": W}
+    return out
 
 
 def _stages(torch, seed, card):
@@ -3911,11 +4452,12 @@ MB_EPOCHS = 2
 MB_FULL_STEPS = 5       # the full-batch SVI steps whose peak memory is the reference
 
 
-def _block_objective(torch, seed, mp, stage):
+def _block_objective(torch, seed, mp, stage, tag="[minibatch]", wide=""):
     """At the guide's draws on the full data, substituted into model and
     guide: the mean of the num_blocks scaled block losses against the
     full-batch loss, on the fused kernels (loss-only launches).  Returns
-    the relative difference (gate 1e-5)."""
+    the relative difference (gate 1e-5).  ``wide="_wide"``: the launches
+    counted under the wide body's names."""
     from velocycle_tpu_torch.core import handlers
     from velocycle_tpu_torch.infer import Trace_ELBO
     from velocycle_tpu_torch.infer.minibatch import LOCAL_SITES, split_cells
@@ -3944,18 +4486,18 @@ def _block_objective(torch, seed, mp, stage):
 
             total += float(Trace_ELBO().loss(0, scaled(mp.model_fn),
                                              scaled(mp.guide_fn), blk))
-        fwd = "phase_fwd" if stage == "phase" else "velo_fwd"
+        fwd = ("phase_fwd" if stage == "phase" else "velo_fwd") + wide
         launched = K_.LAUNCHES[fwd]
     del blocks
     torch.cuda.empty_cache()
     mean = total / MB_BLOCKS
     rel = abs(mean - full) / abs(full)
-    print(f"[minibatch] {stage} block objective: mean of {MB_BLOCKS} scaled "
+    print(f"{tag} {stage} block objective: mean of {MB_BLOCKS} scaled "
           f"block losses {mean:.9g} vs full batch {full:.9g}, rel {rel:.2e} "
           f"(gate 1e-5), {launched} {fwd} launches ({MB_BLOCKS} blocks of "
           f"{B} cells and the full batch)")
-    check(rel < 1e-5, f"[minibatch] {stage} block objective rel {rel}")
-    check(launched == MB_BLOCKS + 1, f"[minibatch] {launched} {fwd} launches")
+    check(rel < 1e-5, f"{tag} {stage} block objective rel {rel}")
+    check(launched == MB_BLOCKS + 1, f"{tag} {launched} {fwd} launches")
     return rel
 
 
@@ -3995,7 +4537,8 @@ def _copy_overlap(torch, fn):
             len(copies), busy)
 
 
-def minibatch_phase_stage(torch, seed, card, mp, device="cuda"):
+def minibatch_phase_stage(torch, seed, card, mp, device="cuda",
+                          tag="[minibatch]", wide=""):
     """[minibatch] on stage 1's preprocessed full-width data: the block
     objective (gate rel 1e-5); the on-device `fit`, MB_EPOCHS epochs of
     MB_BLOCKS blocks (falling epoch-mean losses, exactly one phase_fwdgrad
@@ -4004,7 +4547,9 @@ def minibatch_phase_stage(torch, seed, card, mp, device="cuda"):
     epoch (losses and params rtol 1e-6), the device memory it needs (its
     peak above what was resident before it) below what full-batch SVI
     steps need (the data on the card and their peak above it); steps/s, launches per step, the device busy share
-    and the copies' overlap with compute under torch.profiler."""
+    and the copies' overlap with compute under torch.profiler.  ``tag``
+    heads its lines; ``wide="_wide"``: its launches on the wide body (the
+    batch-corrected data of [wide] (f))."""
     import numpy as np
 
     from velocycle_tpu_torch.infer import (
@@ -4016,7 +4561,8 @@ def minibatch_phase_stage(torch, seed, card, mp, device="cuda"):
     t0 = time.perf_counter()
     data = mp.data
     out = {"phase_block_objective_rel": _block_objective(torch, seed, mp,
-                                                         "phase")}
+                                                         "phase", tag, wide)}
+    grad, fwd = f"phase_fwdgrad{wide}", f"phase_fwd{wide}"
     B = data.Nc // MB_BLOCKS
     steps = MB_EPOCHS * MB_BLOCKS
 
@@ -4036,7 +4582,7 @@ def minibatch_phase_stage(torch, seed, card, mp, device="cuda"):
                      for t in (getattr(data, f) for f in PHASE_TENSOR_FIELDS)
                      if isinstance(t, torch.Tensor) and t.is_cuda)
     full_need = data_bytes + full_peak
-    print(f"[minibatch] full-batch SVI, {MB_FULL_STEPS} steps incl. init: "
+    print(f"{tag} full-batch SVI, {MB_FULL_STEPS} steps incl. init: "
           f"peak device memory above the resident data "
           f"{full_peak / 2**30:.3f} GiB; with the data it needs resident "
           f"({data_bytes / 2**30:.3f} GiB) {full_need / 2**30:.3f} GiB")
@@ -4052,17 +4598,17 @@ def minibatch_phase_stage(torch, seed, card, mp, device="cuda"):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t1
     fit_peak = torch.cuda.max_memory_allocated() - base
-    launched = dict(K_.LAUNCH_CHAINS["phase_fwdgrad"])
+    launched = dict(K_.LAUNCH_CHAINS[grad])
     means = losses.reshape(MB_EPOCHS, MB_BLOCKS).mean(1)
-    print(f"[minibatch] fit: {steps} steps ({MB_EPOCHS} epochs of "
+    print(f"{tag} fit: {steps} steps ({MB_EPOCHS} epochs of "
           f"{MB_BLOCKS} blocks of {B} cells) in {dt:.2f} s incl. init and the "
           f"split, epoch-mean losses {', '.join(f'{m:.6g}' for m in means)}; "
-          f"phase_fwdgrad launches by chain count {launched}; peak device "
+          f"{grad} launches by chain count {launched}; peak device "
           f"memory above the resident data {fit_peak / 2**30:.3f} GiB")
     check(np.isfinite(losses).all() and bool((np.diff(means) < 0).all()),
-          f"[minibatch] epoch-mean losses {means}")
-    check(launched == {1: steps} and K_.LAUNCHES["phase_fwd"] == 0,
-          f"[minibatch] {launched} phase_fwdgrad launches in {steps} steps")
+          f"{tag} epoch-mean losses {means}")
+    check(launched == {1: steps} and K_.LAUNCHES[fwd] == 0,
+          f"{tag} {launched} {grad} launches in {steps} steps")
     # steady state: one epoch of block steps (host clock), then its profile
     blocks = split_cells(data, MB_BLOCKS)
 
@@ -4080,10 +4626,10 @@ def minibatch_phase_stage(torch, seed, card, mp, device="cuda"):
     K_.reset_launch_counts()
     busy = _device_profile(torch, lambda: epoch().cpu(), "minibatch",
                            MB_BLOCKS, "step")
-    per_step = K_.LAUNCHES["phase_fwdgrad"] / MB_BLOCKS
-    print(f"[minibatch] steady state: {1e3 / ms:.2f} steps/s ({ms:.2f} ms "
+    per_step = K_.LAUNCHES[grad] / MB_BLOCKS
+    print(f"{tag} steady state: {1e3 / ms:.2f} steps/s ({ms:.2f} ms "
           f"per step, host clock, {MB_BLOCKS} steps), {per_step:.0f} "
-          f"phase_fwdgrad per step, on {card}")
+          f"{grad} per step, on {card}")
     del blocks, state, mb
     torch.cuda.empty_cache()
 
@@ -4105,7 +4651,7 @@ def minibatch_phase_stage(torch, seed, card, mp, device="cuda"):
     first = next(iter(factory()))[1]
     tmpl = init_template(first, data.Nc, pp, count_factor=cf, Db=Db)
     check(tmpl.S.untyped_storage().nbytes() <= 4,
-          "[minibatch] the template holds counts")
+          f"{tag} the template holds counts")
     st = MinibatchSVI(mp.model_fn, mp.guide_fn, num_blocks=MB_BLOCKS)
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
@@ -4120,12 +4666,12 @@ def minibatch_phase_stage(torch, seed, card, mp, device="cuda"):
     pr, ps = ref.get_params(s_ref), st.get_params(s_st)
     p_rel = max(float(((pr[k] - ps[k]).abs() / (pr[k].abs() + 1e-30)).max())
                 for k in pr)
-    print(f"[minibatch] fit_streamed, 1 epoch from pinned host int16 blocks "
+    print(f"{tag} fit_streamed, 1 epoch from pinned host int16 blocks "
           f"({S.nbytes / MB_BLOCKS / 2**20:.1f} MiB of counts each), under "
           f"torch.profiler: {dts:.2f} s incl. init and the host blocks ({prep_ms:.1f} ms each to slice "
           f"and sum lgamma in float64, scipy); against fit(shuffle=False): "
           f"losses rel {l_rel:.2e}, params rel {p_rel:.2e} (gate 1e-6); "
-          f"{K_.LAUNCHES['phase_fwdgrad']} phase_fwdgrad launches; peak "
+          f"{K_.LAUNCHES[grad]} {grad} launches; peak "
           f"device memory above the resident data {st_peak / 2**30:.3f} GiB, "
           f"all it needs (full-batch SVI steps need {full_need / 2**30:.3f} "
           f"GiB: the data {data_bytes / 2**30:.3f} and "
@@ -4133,12 +4679,12 @@ def minibatch_phase_stage(torch, seed, card, mp, device="cuda"):
           f"the data and {fit_peak / 2**30:.3f} above it, the split's copy "
           f"of every cell field included)")
     check(l_rel < 1e-6 and p_rel < 1e-6,
-          f"[minibatch] streamed vs on-device: losses {l_rel}, params {p_rel}")
-    check(K_.LAUNCHES["phase_fwdgrad"] == MB_BLOCKS,
-          "[minibatch] streamed launches")
-    check(st_peak < full_need, f"[minibatch] streamed peak {st_peak} >= "
+          f"{tag} streamed vs on-device: losses {l_rel}, params {p_rel}")
+    check(K_.LAUNCHES[grad] == MB_BLOCKS,
+          f"{tag} streamed launches")
+    check(st_peak < full_need, f"{tag} streamed peak {st_peak} >= "
           f"full-batch SVI steps' need {full_need}")
-    print(f"[minibatch] the streamed epoch's trace: {n_copies} "
+    print(f"{tag} the streamed epoch's trace: {n_copies} "
           f"host-to-device copies, {copy_ms / MB_BLOCKS:.3f} ms of copy per "
           f"block, "
           + ("overlap not measured (no copy in the trace)" if overlap is None
@@ -4146,7 +4692,7 @@ def minibatch_phase_stage(torch, seed, card, mp, device="cuda"):
           + f"; kernels busy {sbusy:.1%} of the wall, on {card}")
     del S, s_ref, s_st, ref, st, tmpl
     torch.cuda.empty_cache()
-    print(f"[minibatch] in all: {time.perf_counter() - t0:.1f} s")
+    print(f"{tag} in all: {time.perf_counter() - t0:.1f} s")
     out.update(steps_per_s=1e3 / ms, ms_per_step=ms,
                launches_per_step=per_step, busy=busy,
                fit_peak_gib=fit_peak / 2**30,
@@ -4312,14 +4858,16 @@ def _digest(torch, tensors):
     return h.hexdigest()[:16]
 
 
-def sharded_one_rank(torch, seed, card, data, stage, cond=None):
+def sharded_one_rank(torch, seed, card, data, stage, cond=None,
+                     kernel=None, steps=SHARDED_STEPS, tag="[sharded] (a)"):
     """[sharded] (a) on this process's full-width data of ``stage``: one
     rank over NCCL (a world of one over an in-memory store, destroyed
     before this returns, so that no later phase runs beside it).  50
     `SVI.update` steps, then 50 sharded steps of `SVI.init_sharded`'s
     state from the same seed: the losses, every param and both Adam
     moments bit for bit, exactly 50 launches of the stage's kernel and no
-    other.
+    other.  ``kernel``: the stage's kernel name (its narrow one by
+    default), ``steps`` each run's steps, ``tag`` what heads its line.
     Returns the sharded losses ((b)'s reference) and the numbers."""
     import numpy as np
     import torch.distributed as dist
@@ -4331,7 +4879,7 @@ def sharded_one_rank(torch, seed, card, data, stage, cond=None):
     )
 
     t0 = time.perf_counter()
-    kernel = SHARDED_KERNEL[stage]
+    kernel = kernel or SHARDED_KERNEL[stage]
     if stage == "velocity":
         data = data.replace(disp_grad=False)    # shape_inv conditioned
         cond = {k: torch.as_tensor(v, dtype=torch.float32, device=data.device)
@@ -4354,7 +4902,7 @@ def sharded_one_rank(torch, seed, card, data, stage, cond=None):
             torch.cuda.synchronize()
             t1 = time.perf_counter()
             state, losses = svi.update_chunk(
-                state, SHARDED_STEPS, data if mode == "update" else sdata)
+                state, steps, data if mode == "update" else sdata)
             losses = losses.cpu()
             dt = time.perf_counter() - t1
             runs[mode] = (state, losses, dict(K.LAUNCHES), dt)
@@ -4362,26 +4910,26 @@ def sharded_one_rank(torch, seed, card, data, stage, cond=None):
         dist.destroy_process_group()
     ref, ref_l, ref_k, ref_dt = runs["update"]
     st, l, k, dt = runs["sharded"]
-    check(k[kernel] == SHARDED_STEPS and sum(k.values()) == SHARDED_STEPS,
-          f"(a) {stage}: launches {k} in {SHARDED_STEPS} sharded steps")
-    check(ref_k == k, f"(a) {stage}: launches {ref_k} unsharded, {k} sharded")
+    check(k[kernel] == steps and sum(k.values()) == steps,
+          f"{tag} {stage}: launches {k} in {steps} sharded steps")
+    check(ref_k == k, f"{tag} {stage}: launches {ref_k} unsharded, {k} sharded")
     same = torch.equal(l, ref_l) and all(
         torch.equal(st.params[n], ref.params[n])
         and torch.equal(st.opt_state["m"][n], ref.opt_state["m"][n])
         and torch.equal(st.opt_state["v"][n], ref.opt_state["v"][n])
         for n in ref.params)
-    print(f"[sharded] (a) {stage}: one rank over NCCL, {SHARDED_STEPS} "
+    print(f"{tag} {stage}: one rank over NCCL, {steps} "
           f"sharded steps bit-equal to SVI.update's: {same} (losses "
           f"{float(l[0]):.8g} -> {float(l[-1]):.8g}); {k[kernel]} {kernel} "
-          f"launches; {SHARDED_STEPS / dt:.2f} steps/s sharded, "
-          f"{SHARDED_STEPS / ref_dt:.2f} unsharded (host clock, one chunk); "
+          f"launches; {steps / dt:.2f} steps/s sharded, "
+          f"{steps / ref_dt:.2f} unsharded (host clock, one chunk); "
           f"{time.perf_counter() - t0:.1f} s on {card}")
-    check(same, f"(a) {stage}: the sharded step is not SVI.update's bits")
+    check(same, f"{tag} {stage}: the sharded step is not SVI.update's bits")
     check(np.isfinite(l.numpy()).all() and float(l[-10:].mean()) < float(l[0]),
-          f"(a) {stage}: losses {l}")
+          f"{tag} {stage}: losses {l}")
     return l.numpy(), {"launches": k[kernel], "bit_equal": same,
-                       "steps_per_s": SHARDED_STEPS / dt,
-                       "unsharded_steps_per_s": SHARDED_STEPS / ref_dt}
+                       "steps_per_s": steps / dt,
+                       "unsharded_steps_per_s": steps / ref_dt}
 
 
 def _rank_profile(torch, fn, n):
@@ -4503,7 +5051,8 @@ def _sharded_rank(p):
         state = svi.init_sharded(p["seed"], mesh, data)
         prep = time.perf_counter() - t0
         out[stage] = _rank_stage(torch, svi, state, data,
-                                 SHARDED_KERNEL[stage], p["steps"],
+                                 p.get("kernels", SHARDED_KERNEL)[stage],
+                                 p["steps"],
                                  f"rank {rank} cells [{data.shard.lo}, "
                                  f"{data.shard.hi})")
         out[stage]["prep_s"] = prep
@@ -4592,52 +5141,53 @@ def _finish_example_05(proc, start, timeout=600):
     return proc.returncode, out, err[-3000:], time.perf_counter() - start
 
 
-def _gate_b(ranks, ref, card):
+def _gate_b(ranks, ref, card, kernels=SHARDED_KERNEL, gates=SHARDED_GATES,
+            tag="[sharded] (b)"):
     """[sharded] (b)'s gates on the ranks' results: the losses against
-    (a)'s within the JAX package's two gates, every rank's losses,
-    replicated params and Adam moments bit-identical, exactly one launch of
-    the stage's kernel per rank per step; prints per rank steps/s, busy
-    share, peak memory and the ms per step in collectives."""
+    (a)'s within the JAX package's two gates (``gates``: (steps, rtol)
+    pairs), every rank's losses, replicated params and Adam moments
+    bit-identical, exactly one launch of the stage's kernel (``kernels``)
+    per rank per step; prints per rank steps/s, busy share, peak memory
+    and the ms per step in collectives."""
     import numpy as np
 
     out = {}
     for stage in ("phase", "velocity"):
-        kernel = SHARDED_KERNEL[stage]
+        kernel = kernels[stage]
         one = ref["losses"][stage]
+        steps = len(one)
         r0 = ranks[0][stage]
         rel = np.abs(r0["losses"] - one) / np.abs(one)
         for r in ranks:
             x = r[stage]
             busy = "not measured" if x["busy"] is None else f"{x['busy']:.1%}"
-            print(f"[sharded] (b) {stage} {x['tag']}: {x['steps_per_s']:.2f} "
+            print(f"{tag} {stage} {x['tag']}: {x['steps_per_s']:.2f} "
                   f"steps/s (host clock, two ranks on one card), busy {busy}, "
                   f"{x['coll_ms']:.3f} ms per step in all-reduce (profiler, "
                   f"{x['profiled_ms_per_step']:.2f} ms per profiled step), "
                   f"peak {x['peak_gib']:.2f} GiB, {x['launches']} {kernel} "
                   f"launches, shard built in {x['prep_s']:.1f} s on {card}")
-            check(x["launches"] == SHARDED_STEPS and x["other_launches"] == 0,
-                  f"(b) {stage} {x['tag']}: {x['launches']} {kernel} and "
-                  f"{x['other_launches']} other launches in {SHARDED_STEPS} "
-                  "steps")
+            check(x["launches"] == steps and x["other_launches"] == 0,
+                  f"{tag} {stage} {x['tag']}: {x['launches']} {kernel} and "
+                  f"{x['other_launches']} other launches in {steps} steps")
             check(np.array_equal(x["losses"], r0["losses"])
                   and x["replicated"] == r0["replicated"]
                   and x["moments"] == r0["moments"],
-                  f"(b) {stage}: the ranks' losses or replicated params "
+                  f"{tag} {stage}: the ranks' losses or replicated params "
                   "differ")
-        print(f"[sharded] (b) {stage}: losses {r0['losses'][0]:.8g} -> "
+        print(f"{tag} {stage}: losses {r0['losses'][0]:.8g} -> "
               f"{r0['losses'][-1]:.8g}, against one rank max rel "
-              f"{rel[:20].max():.3g} (steps 1-20, gate 2e-4), "
-              f"{rel.max():.3g} (all {SHARDED_STEPS}, gate 2e-3); replicated "
-              f"params {r0['replicated']}, moments {r0['moments']} on both "
-              "ranks")
-        for n, rtol in SHARDED_GATES:
-            check(rel[:n].max() < rtol, f"(b) {stage}: rel {rel[:n].max()} "
-                  f"over steps 1-{n} (gate {rtol})")
-        out[stage] = {"max_rel_20": float(rel[:20].max()),
-                      "max_rel_50": float(rel.max()),
-                      "ranks": [{k: v for k, v in r[stage].items()
-                                 if k not in ("losses", "tag")}
-                                for r in ranks]}
+              + ", ".join(f"{rel[:n].max():.3g} (steps 1-{n}, gate {rtol:g})"
+                          for n, rtol in gates)
+              + f"; replicated params {r0['replicated']}, moments "
+              f"{r0['moments']} on both ranks")
+        for n, rtol in gates:
+            check(rel[:n].max() < rtol, f"{tag} {stage}: rel "
+                  f"{rel[:n].max()} over steps 1-{n} (gate {rtol})")
+        out[stage] = {f"max_rel_{n}": float(rel[:n].max()) for n, _ in gates}
+        out[stage].update({
+            "ranks": [{k: v for k, v in r[stage].items()
+                       if k not in ("losses", "tag")} for r in ranks]})
     return out
 
 
@@ -4701,11 +5251,14 @@ def _gate_cd(torch, ranks, example, seed, card, smc_refs):
             **smc, "example_05_s": dt_ex}
 
 
-def sharded_stage_refs(torch, seed, card, stage, data, cond=None, ref=None):
+def sharded_stage_refs(torch, seed, card, stage, data, cond=None, ref=None,
+                       **one_rank):
     """(a) for ``stage`` inside [main]'s stages, and what (b) takes from it:
-    the host template, the count sums, the losses; ``ref`` collects them."""
+    the host template, the count sums, the losses; ``ref`` collects them.
+    ``one_rank``: `sharded_one_rank`'s kernel, steps and tag."""
     ref = ref if ref is not None else {"losses": {}, "sums": {}, "a": {}}
-    losses, nums = sharded_one_rank(torch, seed, card, data, stage, cond)
+    losses, nums = sharded_one_rank(torch, seed, card, data, stage, cond,
+                                    **one_rank)
     ref["losses"][stage] = losses
     ref["a"][stage] = nums
     ref["sums"][stage] = _count_sums(torch, data)
@@ -4925,12 +5478,20 @@ def _finish_example(name, run, card):
 def mcmc_in_turn(torch, seed, card, device="cuda"):
     """``--mcmc``: [mcmc]'s runs one after the other in this process, with
     nothing else on the host or the card (the runs' own numbers)."""
+    runs = {}
     for tag, (fn, cfg) in MCMC_RUNS.items():
         t0 = time.perf_counter()
-        globals()[fn](torch, seed, card, cfg=cfg, device=device)
+        kw = {"ridge": True} if tag == "c" else {}
+        runs[tag] = globals()[fn](torch, seed, card, cfg=cfg, device=device,
+                                  **kw)
         print(f"[mcmc] run ({tag}) in all: {time.perf_counter() - t0:.1f} s "
               f"(alone, in turn)")
         torch.cuda.empty_cache()
+    # (c) on the plain path: its R-hat beside the fused run's
+    t0 = time.perf_counter()
+    velo_plain_vs_fused(torch, seed, card, runs["c"], device)
+    print(f"[mcmc] run (c) plain in all: {time.perf_counter() - t0:.1f} s "
+          f"(alone, in turn)")
 
 
 def main(argv=None):
@@ -5010,9 +5571,27 @@ def main(argv=None):
         KL.stop(pending)
 
 
+class _Spans:
+    """Each phase's seconds of the default run, on the host clock, from
+    the end of the one before it (the first from the script's start)."""
+
+    def __init__(self, t0):
+        self.t, self.rows = t0, []
+
+    def mark(self, name):
+        now = time.perf_counter()
+        self.rows.append((name, now - self.t))
+        self.t = now
+
+    def line(self):
+        return "[phases] " + ", ".join(f"{n} {s:.1f} s" for n, s in self.rows)
+
+
 def _run(torch, args, name, count, smi, t_start, tiles, pending):
     """main's phases from the build on."""
+    spans = _Spans(t_start)
     phase_build()
+    spans.mark("build")
     if args.tiles:
         phase_tiles(torch, smi, tiles, pending)
         return 0
@@ -5049,48 +5628,59 @@ def _run(torch, args, name, count, smi, t_start, tiles, pending):
     timing = phase_timing(torch, args.seed, smi)
     timing.update(velo_timing(torch, args.seed, smi))
     torch.cuda.empty_cache()
+    spans.mark("digest, parity, timing")
     ladder_errs, ladder_timing, ladder_launches = phase_ladder(
         torch, args.seed, smi)
     torch.cuda.empty_cache()
+    spans.mark("[ladder]")
     # every kernel timing before the [mcmc] processes share the card
     variant_errs, variant_timing = _variant_kernels(torch, args.seed, smi)
     mcmc_parity, mcmc_timing = mcmc_kernels(torch, args.seed, smi)
     smc_parity, smc_timing = smc_kernels(torch, args.seed, smi)
     chain_kernels = velo_chain_kernels(torch, args.seed, smi)
     torch.cuda.empty_cache()
+    spans.mark("[variants], [mcmc], [smc], [velo chains] kernels")
     # [wide] (b) and (c): the wide body past 16 columns
     wide_errs, wide_chains = wide_parity(torch, args.seed)
     wide_timings = wide_timing(torch, args.seed, smi)
     torch.cuda.empty_cache()
+    spans.mark("[wide] (b), (c)")
     # the layouts, alone on the card before the [mcmc] processes
     layouts = phase_tiles(torch, smi, tiles, pending)
     torch.cuda.empty_cache()
+    spans.mark("[tiles]")
     launches, rates, minibatch, support, sharded_ref, wide = _stages(
         torch, args.seed, smi)
+    spans.mark("stages")
     # the [mcmc] runs, host-bound, beside [quickstart] and [variants]
-    pool, pending = start_mcmc_runs(args.seed, smi)
+    pool, pending = start_mcmc_runs(args.seed, smi, cfgs=MCMC_DEFAULT)
     try:
         phase_quickstart(torch, args.seed, smi)
         torch.cuda.empty_cache()
         variant_launches = phase_variants(torch, args.seed, smi)
+        spans.mark("[quickstart], [variants]")
         mcmc_runs = finish_mcmc_runs(pool, pending)
         mcmc = mcmc_row(mcmc_parity, mcmc_timing, mcmc_runs)
     finally:
         pool.terminate()
         pool.join()
     torch.cuda.empty_cache()
+    spans.mark("[mcmc] runs after them")
     # [smc] alone on the host and the card, after the [mcmc] processes
     smc_runs = phase_smc(torch, args.seed, smi)
     smc = smc_row(smc_parity, smc_timing, smc_runs)
     velo = velo_rows(chain_kernels, mcmc_runs["c"], smc_runs["c"])
     torch.cuda.empty_cache()
+    spans.mark("[smc]")
     # [sharded] (b) alone after [smc]
     sharded = phase_sharded(torch, args.seed, smi, sharded_ref)
     del sharded_ref
     torch.cuda.empty_cache()
+    spans.mark("[sharded] (b)")
     # [velo2d] alone after [smc]: the 2-D extension, no kernel of its own
     phase_velo2d(torch, args.seed, smi)
     torch.cuda.empty_cache()
+    spans.mark("[velo2d]")
     # [examples] last: five processes of their own at once, beside
     # [sharded] (c) and (d), host-bound too; [smc] (a) and (c) are (c)'s
     # one-rank references
@@ -5103,6 +5693,7 @@ def _run(torch, args, name, count, smi, t_start, tiles, pending):
     sharded.update(finish_sharded_samplers(
         torch, pending, args.seed, smi,
         {tag: smc_runs[tag]["log_evidence"] for tag in ("a", "c")}))
+    spans.mark("[examples], [sharded] (c), (d)")
     steps_per_s, peak, vsteps_per_s, vpeak = rates
 
     print("kernels: " + ", ".join(f"{k} ({v} launches)" for k, v in sorted(launches.items())))
@@ -5186,6 +5777,7 @@ def _run(torch, args, name, count, smi, t_start, tiles, pending):
             "max_abs_err": ladder_errs[rung][0],
             "loss_rel_err": ladder_errs[rung][1], **ladder_timing[rung],
         })
+    print(spans.line())
     print(f"[done] {time.perf_counter() - t_start:.1f} s; stage 1 "
           f"{steps_per_s:.3f} steps/s, peak {peak / 2**30:.2f} GiB; stage 2 "
           f"{vsteps_per_s:.3f} steps/s, peak {vpeak / 2**30:.2f} GiB")
