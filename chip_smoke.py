@@ -272,12 +272,16 @@ in order; any failure exits non-zero and prints no result line:
      shape_inv sampled, 64 chains x (200 + 100), max_depth 5, a 500-step
      SVI warm start (finite draws, accept > 0.5, one K = 64
      phase_fwdgrad_wide launch per batched evaluation, no narrow launch,
-     8 drawn states fused against plain; R-hat and ESS by site printed);
-     (e) phase and velocity prior-tempering SMC at 20 x 200, 256
-     particles, 20 batches of 10 cells (23 columns: one K = 256 *_fwd_wide
-     per stage; the final particles' log-likelihood against the plain
-     path's; each run against the same run on the plain path for 4 seeds,
-     the mean of fused - plain log Z within 2 nats);
+     8 drawn states fused against plain; R-hat and ESS printed by site
+     and for what the likelihood identifies: each gene's level in the
+     mean batch, its offsets about it, nu's harmonics); (e) phase and
+     velocity prior-tempering SMC at 20 x 200, 256 particles, 20 batches
+     of 10 cells (23 columns: one K = 256 *_fwd_wide per stage; the final
+     particles' log-likelihood against the plain path's; for each of 4
+     seeds the run's log Z against the same run on the plain path, the
+     plain log-likelihood at its stages' particles and betas, within
+     LOSS_RTOL x |log Z|; independent plain runs, and each path run again
+     from the first seed, printed beside it);
      one JSON line of the runs' launches by kernel and chain count;
  15. print each phase's seconds on one line ([phases]), the kernel table
      as one JSON line, the nvidia-smi line, and last {"ok": true,
@@ -2910,16 +2914,32 @@ def _smc_data(torch, cfg, seed, device):
     return mp
 
 
+def _kernel_name(data, grad=True):
+    """The launch-count key of the fused kernel that ``data`` (a PhaseData
+    or VelocityData, or a host template of one) runs on: ``phase_fwd``,
+    ``velo_fwdgrad``, ..., with ``_wide`` where `kernel_width` routes its
+    basis and batch columns past the narrow bodies."""
+    from velocycle_tpu_torch.models.metapars import VelocityData
+    from velocycle_tpu_torch.ops import nb_kernels as K_
+
+    velo = isinstance(data, VelocityData)
+    layout = K_.velo_layout() if velo else K_.phase_layout()
+    width, _ = K_.kernel_width(data.mu_nu.shape[1],
+                               data.Nb if data.with_delta_nu else 0,
+                               layout.max_nb)
+    return K_._counted(("velo" if velo else "phase")
+                       + ("_fwdgrad" if grad else "_fwd"), width)
+
+
 def smc_run(torch, seed, card, tag, cfg, mp, svi_steps, max_stages,
-            target_ess, run_seed, device="cuda", kind="phase", mesh=None,
-            wide=""):
+            target_ess, run_seed, device="cuda", mesh=None):
     """One SMCFitModel run on ``mp`` (phases conditioned), its launches
-    counted (``wide="_wide"``: under the wide body's names): exactly one
-    chain-batched ``kind``_fwd per stage (its
-    log-likelihood or log ratio over the particles), one chain-batched
-    ``kind``_fwdgrad per batched potential evaluation (1 + num_moves x
-    leapfrog per stage) and, in prior tempering, one single ``kind``_fwd in
-    all (the prior draws compute no likelihood).  With ``mesh`` (a
+    counted under the kernels its data routes to (`_kernel_name`): exactly
+    one chain-batched loss-only launch per stage (its log-likelihood or log
+    ratio over the particles), one chain-batched fwd+grad launch per
+    batched potential evaluation (1 + num_moves x leapfrog per stage) and,
+    in prior tempering, one single loss-only launch in all (the prior draws
+    compute no likelihood).  With ``mesh`` (a
     ("particles",) mesh) the launches are of this rank's share of the
     particles.  Returns its numbers and the fit."""
     import numpy as np
@@ -2944,28 +2964,29 @@ def smc_run(torch, seed, card, tag, cfg, mp, svi_steps, max_stages,
     peak = torch.cuda.max_memory_allocated()
     sched = fm.temperature_schedule
     stages = len(sched)
-    fwd_k = dict(K_.LAUNCH_CHAINS[f"{kind}_fwd{wide}"])
-    grad_k = dict(K_.LAUNCH_CHAINS[f"{kind}_fwdgrad{wide}"])
+    fwd, grad = _kernel_name(mp.data, grad=False), _kernel_name(mp.data)
+    fwd_k = dict(K_.LAUNCH_CHAINS[fwd])
+    grad_k = dict(K_.LAUNCH_CHAINS[grad])
     per_stage = 1 + moves * SMC_LEAPFROG
     print(f"[smc] {tag}: {stages} stages, beta {', '.join(f'{b:.4g}' for b in sched)}; "
-          f"logZ {fm.log_evidence:.3f}; {kind}_fwd{wide} launches by chain "
-          f"count {fwd_k}, {kind}_fwdgrad{wide} {grad_k}, {counter.calls} "
+          f"logZ {fm.log_evidence:.3f}; {fwd} launches by chain "
+          f"count {fwd_k}, {grad} {grad_k}, {counter.calls} "
           f"batched "
           f"potential evaluations; wall {dt:.2f} s, "
           f"{n * stages * moves / dt:.1f} particle-moves/s, peak device "
           f"memory {peak / 2**30:.3f} GiB on {card}")
     check(fwd_k.get(n, 0) == stages,
-          f"{tag}: {fwd_k.get(n, 0)} {kind}_fwd launches of {n} chains for "
+          f"{tag}: {fwd_k.get(n, 0)} {fwd} launches of {n} chains for "
           f"{stages} stages")
     check(grad_k.get(n, 0) == counter.calls == stages * per_stage,
-          f"{tag}: {grad_k.get(n, 0)} {kind}_fwdgrad launches of {n} chains "
+          f"{tag}: {grad_k.get(n, 0)} {grad} launches of {n} chains "
           f"for {counter.calls} batched evaluations ({per_stage} per stage)")
     check(set(fwd_k) <= {1, n} and set(grad_k) <= {1, n},
           f"{tag}: launches by chain count {fwd_k}, {grad_k}")
     # prior tempering: the one single launch is init_model's first trace;
     # the prior draws stop short of the likelihood
     check(svi_steps or fwd_k.get(1, 0) == 1,
-          f"{tag}: {fwd_k.get(1, 0)} single {kind}_fwd launches, not 1")
+          f"{tag}: {fwd_k.get(1, 0)} single {fwd} launches, not 1")
     check(sched[-1] == 1.0 and bool((np.diff(sched) > 0).all()),
           f"{tag}: temperature schedule {sched}")
     check(np.isfinite(fm.log_evidence), f"{tag}: log evidence {fm.log_evidence}")
@@ -2974,8 +2995,7 @@ def smc_run(torch, seed, card, tag, cfg, mp, svi_steps, max_stages,
     return fm, {"stages": stages, "log_evidence": fm.log_evidence,
                 "wall_s": dt, "particle_moves_per_s": n * stages * moves / dt,
                 "evals": counter.calls,
-                "launches": {f"{kind}_fwd{wide}": fwd_k,
-                             f"{kind}_fwdgrad{wide}": grad_k},
+                "launches": {fwd: fwd_k, grad: grad_k},
                 "peak_gib": peak / 2**30}
 
 
@@ -3061,7 +3081,7 @@ def smc_velocity(torch, seed, card, device="cuda"):
     check(mp.data.disp_grad, "(c): the dispersion gradient off")
     fm, res = smc_run(torch, seed, card, "(c) velocity smc", cfg, mp,
                       cfg["svi_steps"], cfg["max_stages"], cfg["target_ess"],
-                      seed + 5, device, kind="velo")
+                      seed + 5, device)
     res.update(_smc_host_and_device(torch, fm, "(c)", card))
     print(f"[smc] (c) in all, data included: {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
@@ -3717,9 +3737,11 @@ def _with_batches(torch, mp, design):
     """A stage's metaparams on the same preprocessed counts with the batch
     design and delta_nu on (the stage's sd_dnu for every batch): the
     default run's (a) on [main]'s containers, which spares it a second host
-    preprocessing of each stage (~60 s); ``--wide`` preprocesses through
-    the front door and holds these fields against it
-    (`_front_door_vs_patch`)."""
+    preprocessing of each stage (19.7 + 34.5 s through the front door in
+    ``--wide`` on an H100 host, enough to carry the default run past its
+    850-s aim);
+    ``--wide`` preprocesses through the front door and holds these fields
+    against it (`_front_door_vs_patch`), the only other use."""
     import dataclasses
 
     import numpy as np
@@ -3849,8 +3871,6 @@ WIDE_SMC = dict(VELO_SMC, batches=20, H=1)
 WIDE_SMC_SEEDS = 4
 WIDE_SHARDED_STEPS = 20
 WIDE_SHARDED_GATES = ((WIDE_SHARDED_STEPS, 2e-6),)
-WIDE_SHARDED_KERNEL = {"phase": "phase_fwdgrad_wide",
-                       "velocity": "velo_fwdgrad_wide"}
 
 
 def _front_door_vs_patch(torch, mp, design, stage):
@@ -3907,11 +3927,9 @@ def wide_alone(torch, seed, card):
     runs = {}
     runs["a_phase"], s1 = wide_stage(torch, seed, card, mp, 1)
     torch.cuda.empty_cache()
-    runs["f"] = minibatch_phase_stage(torch, seed, card, mp, tag="[wide] (f)",
-                                      wide="_wide")
+    runs["f"] = minibatch_phase_stage(torch, seed, card, mp, tag="[wide] (f)")
     torch.cuda.empty_cache()
-    ref = sharded_stage_refs(torch, seed, card, "phase", mp.data,
-                             kernel=WIDE_SHARDED_KERNEL["phase"], **one_rank)
+    ref = sharded_stage_refs(torch, seed, card, "phase", mp.data, **one_rank)
     del mp
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -3928,7 +3946,7 @@ def wide_alone(torch, seed, card):
     runs["a_velo"], _ = wide_stage(torch, seed, card, vmp, 2, cond=cond)
     torch.cuda.empty_cache()
     sharded_stage_refs(torch, seed, card, "velocity", vmp.data, cond, ref,
-                       kernel=WIDE_SHARDED_KERNEL["velocity"], **one_rank)
+                       **one_rank)
     del vmp, adata, s1
     torch.cuda.empty_cache()
     runs["g"] = wide_sharded(torch, seed, card, ref)
@@ -3942,10 +3960,10 @@ def wide_alone(torch, seed, card):
         for k, n in {**runs[stage]["launches"],
                      **runs[stage]["eval_launches"]}.items():
             _add_launches(by_kernel[k], {1: n})
-    for stage, kernel in WIDE_SHARDED_KERNEL.items():
-        _add_launches(by_kernel[kernel], {1: 2 * WIDE_SHARDED_STEPS})
+    for stage, one in runs["g"]["a"].items():
+        _add_launches(by_kernel[one["kernel"]], {1: 2 * one["launches"]})
         for r in runs["g"]["b"][stage]["ranks"]:
-            _add_launches(by_kernel[kernel], {1: r["launches"]})
+            _add_launches(by_kernel[r["kernel"]], {1: r["launches"]})
     _add_launches(by_kernel["phase_fwdgrad_wide"], runs["d"]["launches"])
     for kind in ("phase", "velo"):
         for k, by_k in runs["e"][kind]["launches"].items():
@@ -3971,11 +3989,11 @@ def wide_sharded(torch, seed, card, ref):
     t0 = time.perf_counter()
     payload = {k: ref[k] for k in ("tmpl1", "tmpl2", "cond", "sums")}
     payload.update(seed=seed, steps=WIDE_SHARDED_STEPS, Ng=ref["tmpl1"].Ng,
-                   Nc=ref["tmpl1"].Nc, kernels=WIDE_SHARDED_KERNEL)
+                   Nc=ref["tmpl1"].Nc)
     ranks = run_ranks(_sharded_rank, SHARDED_WORLD, backend="gloo",
                       device="cuda", timeout=900, args=(payload,))
-    out = {"a": ref["a"], "b": _gate_b(ranks, ref, card, WIDE_SHARDED_KERNEL,
-                                       WIDE_SHARDED_GATES, "[wide] (g)")}
+    out = {"a": ref["a"], "b": _gate_b(ranks, ref, card, WIDE_SHARDED_GATES,
+                                       "[wide] (g)")}
     print(f"[wide] (g) two ranks in all, {SHARDED_WORLD} ranks spawned: "
           f"{time.perf_counter() - t0:.1f} s")
     return out
@@ -4072,6 +4090,11 @@ def wide_nuts(torch, seed, card, cfg=WIDE_NUTS, device="cuda"):
     print(f"{tag}: accept {d['accept_rate']:.4f}, max split R-hat "
           f"{d['max_split_rhat']:.4f}, min ESS {d['min_ess']:.1f}, median ESS "
           f"{d['median_ess']:.1f} of {cfg['chains'] * cfg['samples']} draws")
+    ident = _identified_mixing(fm.mcmc.get_samples(group_by_chain=True),
+                               mp.data.Nb, cfg["Ng"])
+    print(f"{tag}: max split R-hat (min ESS) of what the likelihood "
+          f"identifies (every cell in one batch): "
+          + ", ".join(f"{k} {r:.4f} ({e:.1f})" for k, (r, e) in ident.items()))
     draws = fm.mcmc.get_samples()
     check(all(np.isfinite(v).all() for v in draws.values()),
           f"{tag}: non-finite draws")
@@ -4095,8 +4118,7 @@ def wide_nuts(torch, seed, card, cfg=WIDE_NUTS, device="cuda"):
                           plain.data, init_values=first)
     K_.reset_launch_counts()
     rels = _potential_parity(torch, f"{tag} drawn states", finfo, pinfo,
-                             _flat_states(torch, finfo, values),
-                             VELO_GRAD_RTOL)
+                             _flat_states(torch, finfo, values), GRAD_RTOL)
     check(dict(K_.LAUNCH_CHAINS["phase_fwdgrad_wide"])
           == {WIDE_NUTS_CHECKED: 1},
           f"{tag}: the drawn states' evaluation launched "
@@ -4105,8 +4127,31 @@ def wide_nuts(torch, seed, card, cfg=WIDE_NUTS, device="cuda"):
             "wall_s": dt, "samples_per_s": cfg["chains"] * cfg["samples"] / dt,
             "accept": d["accept_rate"], "max_split_rhat": d["max_split_rhat"],
             "min_ess": d["min_ess"], "median_ess": d["median_ess"],
-            "by_site": by_site, "peak_gib": peak / 2**30, "busy": busy,
-            "drawn_states_rel": rels, "columns": W}
+            "by_site": by_site, "identified": ident, "peak_gib": peak / 2**30,
+            "busy": busy, "drawn_states_rel": rels, "columns": W}
+
+
+def _identified_mixing(by_chain, Nb, Ng):
+    """{quantity: (max split R-hat, min ESS)} of the phase model's draws
+    (grouped by chain) in the combinations the likelihood identifies when
+    every cell is in one batch: each gene's level in the mean batch, nu's
+    constant column plus the mean of its delta_nu over the batches; its
+    batch offsets about that mean; nu's harmonic columns.  Along the rest,
+    nu[:, 0] - c with delta_nu + c, only the priors bound the posterior."""
+    from velocycle_tpu_torch.infer import mcmc as TM
+
+    nu = by_chain["nu"]
+    C, S = nu.shape[:2]
+    dnu = by_chain["delta_nu"].reshape(C, S, Nb, Ng)
+    parts = {"nu[:, 0] + mean delta_nu": nu[..., 0] + dnu.mean(2),
+             "delta_nu - its batch mean": dnu - dnu.mean(2, keepdims=True),
+             "nu[:, 1:]": nu[..., 1:]}
+    out = {}
+    for name, x in parts.items():
+        x = x.reshape(C, S, -1)
+        out[name] = (float(TM._split_rhat(x).max()),
+                     float(TM.effective_sample_size(x).min()))
+    return out
 
 
 def _smc_loglik(torch, smc, q):
@@ -4118,25 +4163,87 @@ def _smc_loglik(torch, smc, q):
     return ll.double() + smc.tempered.log_lik_offset
 
 
+class _StagesRecorded:
+    """Records, while entered, each stage an `infer.smc.SMC` runs: its
+    particles before the reweighting, its beta and the next one."""
+
+    def __init__(self, module):
+        self.module, self.stages = module, []
+
+    def __enter__(self):
+        cls = self.module.SMC
+        self.orig = orig = cls.stage
+        stages = self.stages
+
+        def stage(smc, particles, beta, *args, **kwargs):
+            out = orig(smc, particles, beta, *args, **kwargs)
+            stages.append((particles.detach().clone(), beta, out[1]))
+            return out
+
+        cls.stage = stage
+        return self
+
+    def __exit__(self, *exc):
+        self.module.SMC.stage = self.orig
+
+
+def _log_z_along(torch, tempered, stages):
+    """log Z of the recorded ``stages`` (`_StagesRecorded`) with
+    ``tempered``'s log-likelihood: each stage's increment as `SMC.stage`
+    forms it (the float32 log weights at its particles, scaled by its step
+    in beta) and the likelihood's offset added back, as
+    `SMC.log_evidence`."""
+    f32 = torch.float32
+    log_z = 0.0
+    for q, beta, new_beta in stages:
+        with torch.no_grad():
+            lw = torch.func.vmap(
+                lambda u: tempered.log_parts(u, prior=False)[1])(q).float()
+        log_w = (torch.tensor(new_beta, dtype=f32)
+                 - torch.tensor(beta, dtype=f32)) * lw.cpu()
+        log_z += float(torch.logsumexp(log_w, 0)) - math.log(q.shape[0])
+    return log_z + tempered.log_lik_offset
+
+
+def _smc_fit(mp, cfg):
+    """SMCFitModel on ``mp`` with ``cfg``'s particles, moves, target ESS,
+    stages and warm start, phases conditioned."""
+    from velocycle_tpu_torch import SMCFitModel
+
+    return SMCFitModel(mp, condition_on={"phi_xy": mp.data.phixy_prior},
+                       num_particles=cfg["chains"],
+                       num_moves=cfg["num_moves"],
+                       target_ess=cfg["target_ess"],
+                       max_stages=cfg["max_stages"],
+                       svi_steps=cfg["svi_steps"])
+
+
 def wide_smc(torch, seed, card, cfg=WIDE_SMC, device="cuda"):
     """[wide] (e): phase and velocity prior tempering on the wide body at
     VELO_SMC's shape with 20 batches of 10 cells (H = 1: 23 columns),
     phases conditioned, SMCFitModel on the front door's batch-corrected
-    data; each against the same run on the plain path (the same seed), for
-    WIDE_SMC_SEEDS seeds.  Gates (`smc_run`'s): the schedule reaches 1,
-    finite log Z, one K = 256 ``*_fwd_wide`` launch per stage and one K =
-    256 ``*_fwdgrad_wide`` per batched evaluation; no narrow launch; the
-    final particles' log-likelihood in one K = 256 loss-only launch against
-    the plain path's at the same particles (rel LOSS_RTOL); log Z: the mean
-    over the seeds of fused - plain within 2 nats ([smc]'s band; one
-    pair's difference carries two runs' Monte Carlo noise, printed with
-    each run's log Z and the spread)."""
+    data, for WIDE_SMC_SEEDS seeds.  Gates (`smc_run`'s): the schedule
+    reaches 1, finite log Z, one K = 256 ``*_fwd_wide`` launch per stage and
+    one K = 256 ``*_fwdgrad_wide`` per batched evaluation; no narrow launch;
+    the final particles' log-likelihood in one K = 256 loss-only launch
+    against the plain path's at the same particles (rel LOSS_RTOL); and
+    each run's log Z against the same run on the plain path: the plain
+    path's log-likelihood at every stage's particles and betas of the fused
+    run, summed as the run sums them, within LOSS_RTOL x |log Z| (the
+    fused run's own sum recomputed from the record first, which must
+    reproduce its log Z).  Then an independent plain run from each seed:
+    its log Z and stages are printed beside the fused run's with the means,
+    spreads and the standard error of their difference, ungated (once the
+    two runs' trajectories part, each is a draw of the estimator's Monte
+    Carlo noise); from the first seed each path is run again, and whether
+    it repeats its own log Z printed."""
     import numpy as np
 
     from velocycle_tpu_torch import (
-        AngularSpeed, SMCFitModel, preprocess_for_phase_estimation,
+        AngularSpeed, preprocess_for_phase_estimation,
         preprocess_for_velocity_estimation,
     )
+    from velocycle_tpu_torch.infer import smc as TS
     from velocycle_tpu_torch.ops import nb_kernels as K_
 
     adata, cycle, phases, design = _batched_sim(torch, cfg, seed, cfg["H"])
@@ -4165,17 +4272,13 @@ def wide_smc(torch, seed, card, cfg=WIDE_SMC, device="cuda"):
         runs = []
         for i in range(WIDE_SMC_SEEDS):
             run_seed = seed + 5 + i
-            fm, res = smc_run(torch, seed, card, f"{tag} smc, {W} columns, "
-                              f"seed {run_seed}", cfg, mps[True],
-                              cfg["svi_steps"], cfg["max_stages"],
-                              cfg["target_ess"], run_seed, device, kind=kind,
-                              wide="_wide")
+            with _StagesRecorded(TS) as rec:
+                fm, res = smc_run(torch, seed, card, f"{tag} smc, {W} "
+                                  f"columns, seed {run_seed}", cfg, mps[True],
+                                  cfg["svi_steps"], cfg["max_stages"],
+                                  cfg["target_ess"], run_seed, device)
             _no_narrow_launch(K_, tag)
-            plain = SMCFitModel(
-                mps[False], condition_on={"phi_xy": mps[False].data.phixy_prior},
-                num_particles=cfg["chains"], num_moves=cfg["num_moves"],
-                target_ess=cfg["target_ess"], max_stages=cfg["max_stages"],
-                svi_steps=cfg["svi_steps"])
+            plain = _smc_fit(mps[False], cfg)
             K_.reset_launch_counts()
             t1 = time.perf_counter()
             plain.run(run_seed)
@@ -4187,47 +4290,82 @@ def wide_smc(torch, seed, card, cfg=WIDE_SMC, device="cuda"):
                 # the quantity log Z sums, at the fused run's final particles
                 q = fm.smc.particles
                 ll_f = _smc_loglik(torch, fm.smc, q)
-                launched = dict(K_.LAUNCH_CHAINS[f"{kind}_fwd_wide"])
+                fwd = _kernel_name(mps[True].data, grad=False)
+                launched = dict(K_.LAUNCH_CHAINS[fwd])
                 ll_p = _smc_loglik(torch, plain.smc, q)
                 ll_rel = float(((ll_f - ll_p).abs() / ll_p.abs()).max())
                 print(f"{tag}: the final particles' log-likelihood, fused "
-                      f"({launched} {kind}_fwd_wide launches by chain count) "
+                      f"({launched} {fwd} launches by chain count) "
                       f"against plain: rel {ll_rel:.2e} (gate {LOSS_RTOL:g})")
                 check(ll_rel < LOSS_RTOL and launched == {cfg["chains"]: 1},
                       f"{tag}: particles' log-likelihood rel {ll_rel}, "
                       f"launches {launched}")
                 res["particle_loglik_rel"] = ll_rel
                 res.update(_smc_host_and_device(torch, fm, tag, card))
-            dz = fm.log_evidence - plain.log_evidence
-            print(f"{tag} seed {run_seed}: log Z {fm.log_evidence:.3f} fused "
-                  f"({res['stages']} stages) against {plain.log_evidence:.3f} "
-                  f"plain ({len(plain.temperature_schedule)} stages, "
-                  f"{plain_s:.2f} s): {dz:+.3f} nats")
-            runs.append({**res, "plain_log_evidence": plain.log_evidence,
-                         "dlogZ": dz})
-            del fm, plain
+                # each path run again from the seed: does it repeat itself?
+                for name, m, first in (("fused", mps[True], fm),
+                                       ("plain", mps[False], plain)):
+                    again = _smc_fit(m, cfg)
+                    again.run(run_seed)
+                    res[f"{name}_repeats"] = (again.log_evidence
+                                              == first.log_evidence)
+                    print(f"{tag} seed {run_seed}: the {name} path run again: "
+                          f"log Z {again.log_evidence:.6f} against "
+                          f"{first.log_evidence:.6f}, "
+                          f"{len(again.temperature_schedule)} stages "
+                          f"(repeats: {res[name + '_repeats']})")
+                    del again
+            # the same run on the plain path: its particles and betas
+            z_f = fm.log_evidence
+            z_again = _log_z_along(torch, fm.smc.tempered, rec.stages)
+            z_p = _log_z_along(torch, plain.smc.tempered, rec.stages)
+            dz = z_f - z_p
+            gate = LOSS_RTOL * abs(z_f)
+            print(f"{tag} seed {run_seed}: log Z {z_f:.3f} fused "
+                  f"({res['stages']} stages; from its record {z_again:.3f}), "
+                  f"the plain path along the same stages {z_p:.3f}: "
+                  f"{dz:+.2e} nats (gate {gate:.3f}); an independent plain "
+                  f"run {plain.log_evidence:.3f} "
+                  f"({len(plain.temperature_schedule)} stages, "
+                  f"{plain_s:.2f} s; first betas fused "
+                  f"{fm.temperature_schedule[:3].tolist()}, plain "
+                  f"{plain.temperature_schedule[:3].tolist()})")
+            check(abs(z_again - z_f) <= 1e-6 * abs(z_f),
+                  f"{tag}: the record gives log Z {z_again}, the run {z_f}")
+            check(abs(dz) < gate, f"{tag}: log Z fused {z_f}, plain along "
+                  f"the same stages {z_p}")
+            runs.append({**res, "paired_dlogZ": dz,
+                         "plain_log_evidence": plain.log_evidence,
+                         "plain_stages": len(plain.temperature_schedule)})
+            del fm, plain, rec
             torch.cuda.empty_cache()
-        dz = np.array([r["dlogZ"] for r in runs])
         zf = np.array([r["log_evidence"] for r in runs])
         zp = np.array([r["plain_log_evidence"] for r in runs])
-        print(f"{tag}: over {WIDE_SMC_SEEDS} seeds log Z fused "
-              f"{zf.mean():.3f} (sd {zf.std(ddof=1):.3f}), plain "
-              f"{zp.mean():.3f} (sd {zp.std(ddof=1):.3f}); fused - plain "
-              f"mean {dz.mean():+.3f} nats (gate 2), by seed "
-              f"{', '.join(f'{d:+.3f}' for d in dz)}; in all, data included "
-              f"{time.perf_counter() - t0:.1f} s on {card}")
-        check(abs(dz.mean()) < 2.0,
-              f"{tag}: mean log Z fused - plain = {dz.mean()}")
+        sf, sp = zf.std(ddof=1), zp.std(ddof=1)
+        se = math.sqrt((sf ** 2 + sp ** 2) / len(runs))
+        stages_f = [r["stages"] for r in runs]
+        stages_p = [r["plain_stages"] for r in runs]
+        print(f"{tag}: over {len(runs)} seeds, independent runs: log Z "
+              f"fused mean {zf.mean():.3f} (sd {sf:.3f}), plain "
+              f"{zp.mean():.3f} (sd {sp:.3f}); difference of the means "
+              f"{zf.mean() - zp.mean():+.3f} nats, standard error {se:.3f} "
+              f"(ungated); stages fused {stages_f}, plain {stages_p}; paired "
+              f"max |dlogZ| {max(abs(r['paired_dlogZ']) for r in runs):.2e} "
+              f"nats; in all, data included {time.perf_counter() - t0:.1f} "
+              f"s on {card}")
         launches = {}
         for r in runs:
             for k, by_k in r["launches"].items():
                 _add_launches(launches.setdefault(k, {}), by_k)
         out[kind] = {**{k: v for k, v in runs[0].items() if k != "launches"},
-                     "launches": launches, "dlogZ_by_seed": dz.tolist(),
-                     "dlogZ_mean": float(dz.mean()),
-                     "log_evidence_sd": float(zf.std(ddof=1)),
-                     "plain_log_evidence_sd": float(zp.std(ddof=1)),
-                     "columns": W}
+                     "launches": launches,
+                     "paired_dlogZ_by_seed": [r["paired_dlogZ"] for r in runs],
+                     "log_evidence_by_seed": zf.tolist(),
+                     "plain_log_evidence_by_seed": zp.tolist(),
+                     "stages_by_seed": stages_f,
+                     "plain_stages_by_seed": stages_p,
+                     "mean_difference": float(zf.mean() - zp.mean()),
+                     "mean_difference_se": se, "columns": W}
     return out
 
 
@@ -4452,12 +4590,11 @@ MB_EPOCHS = 2
 MB_FULL_STEPS = 5       # the full-batch SVI steps whose peak memory is the reference
 
 
-def _block_objective(torch, seed, mp, stage, tag="[minibatch]", wide=""):
+def _block_objective(torch, seed, mp, stage, tag="[minibatch]"):
     """At the guide's draws on the full data, substituted into model and
     guide: the mean of the num_blocks scaled block losses against the
     full-batch loss, on the fused kernels (loss-only launches).  Returns
-    the relative difference (gate 1e-5).  ``wide="_wide"``: the launches
-    counted under the wide body's names."""
+    the relative difference (gate 1e-5)."""
     from velocycle_tpu_torch.core import handlers
     from velocycle_tpu_torch.infer import Trace_ELBO
     from velocycle_tpu_torch.infer.minibatch import LOCAL_SITES, split_cells
@@ -4486,7 +4623,7 @@ def _block_objective(torch, seed, mp, stage, tag="[minibatch]", wide=""):
 
             total += float(Trace_ELBO().loss(0, scaled(mp.model_fn),
                                              scaled(mp.guide_fn), blk))
-        fwd = ("phase_fwd" if stage == "phase" else "velo_fwd") + wide
+        fwd = _kernel_name(data, grad=False)
         launched = K_.LAUNCHES[fwd]
     del blocks
     torch.cuda.empty_cache()
@@ -4538,7 +4675,7 @@ def _copy_overlap(torch, fn):
 
 
 def minibatch_phase_stage(torch, seed, card, mp, device="cuda",
-                          tag="[minibatch]", wide=""):
+                          tag="[minibatch]"):
     """[minibatch] on stage 1's preprocessed full-width data: the block
     objective (gate rel 1e-5); the on-device `fit`, MB_EPOCHS epochs of
     MB_BLOCKS blocks (falling epoch-mean losses, exactly one phase_fwdgrad
@@ -4547,9 +4684,10 @@ def minibatch_phase_stage(torch, seed, card, mp, device="cuda",
     epoch (losses and params rtol 1e-6), the device memory it needs (its
     peak above what was resident before it) below what full-batch SVI
     steps need (the data on the card and their peak above it); steps/s, launches per step, the device busy share
-    and the copies' overlap with compute under torch.profiler.  ``tag``
-    heads its lines; ``wide="_wide"``: its launches on the wide body (the
-    batch-corrected data of [wide] (f))."""
+    and the copies' overlap with compute under torch.profiler, each launch
+    counted under the kernel its data routes to (`_kernel_name`: on the wide
+    body for [wide] (f)'s batch-corrected data).  ``tag`` heads its
+    lines."""
     import numpy as np
 
     from velocycle_tpu_torch.infer import (
@@ -4561,8 +4699,8 @@ def minibatch_phase_stage(torch, seed, card, mp, device="cuda",
     t0 = time.perf_counter()
     data = mp.data
     out = {"phase_block_objective_rel": _block_objective(torch, seed, mp,
-                                                         "phase", tag, wide)}
-    grad, fwd = f"phase_fwdgrad{wide}", f"phase_fwd{wide}"
+                                                         "phase", tag)}
+    grad, fwd = _kernel_name(data), _kernel_name(data, grad=False)
     B = data.Nc // MB_BLOCKS
     steps = MB_EPOCHS * MB_BLOCKS
 
@@ -4803,7 +4941,6 @@ SHARDED_GATES = ((20, 2e-4), (SHARDED_STEPS, 2e-3))
 SHARDED_WORLD = 2       # ranks sharing the one card, over gloo
 # (c): [mcmc] (a)'s and [smc] (a)'s shapes at two ranks, NUTS cut in draws
 SHARDED_MCMC = dict(MCMC_A, warmup=100, samples=80)
-SHARDED_KERNEL = {"phase": "phase_fwdgrad", "velocity": "velo_fwdgrad"}
 
 
 def _stage_pair(stage, cond=None):
@@ -4859,15 +4996,15 @@ def _digest(torch, tensors):
 
 
 def sharded_one_rank(torch, seed, card, data, stage, cond=None,
-                     kernel=None, steps=SHARDED_STEPS, tag="[sharded] (a)"):
+                     steps=SHARDED_STEPS, tag="[sharded] (a)"):
     """[sharded] (a) on this process's full-width data of ``stage``: one
     rank over NCCL (a world of one over an in-memory store, destroyed
     before this returns, so that no later phase runs beside it).  50
     `SVI.update` steps, then 50 sharded steps of `SVI.init_sharded`'s
     state from the same seed: the losses, every param and both Adam
-    moments bit for bit, exactly 50 launches of the stage's kernel and no
-    other.  ``kernel``: the stage's kernel name (its narrow one by
-    default), ``steps`` each run's steps, ``tag`` what heads its line.
+    moments bit for bit, exactly 50 launches of the kernel the data routes
+    to (`_kernel_name`) and no other.  ``steps``: each run's steps; ``tag``
+    heads its line.
     Returns the sharded losses ((b)'s reference) and the numbers."""
     import numpy as np
     import torch.distributed as dist
@@ -4879,7 +5016,7 @@ def sharded_one_rank(torch, seed, card, data, stage, cond=None,
     )
 
     t0 = time.perf_counter()
-    kernel = kernel or SHARDED_KERNEL[stage]
+    kernel = _kernel_name(data)
     if stage == "velocity":
         data = data.replace(disp_grad=False)    # shape_inv conditioned
         cond = {k: torch.as_tensor(v, dtype=torch.float32, device=data.device)
@@ -4927,7 +5064,8 @@ def sharded_one_rank(torch, seed, card, data, stage, cond=None,
     check(same, f"{tag} {stage}: the sharded step is not SVI.update's bits")
     check(np.isfinite(l.numpy()).all() and float(l[-10:].mean()) < float(l[0]),
           f"{tag} {stage}: losses {l}")
-    return l.numpy(), {"launches": k[kernel], "bit_equal": same,
+    return l.numpy(), {"kernel": kernel, "launches": k[kernel],
+                       "bit_equal": same,
                        "steps_per_s": steps / dt,
                        "unsharded_steps_per_s": steps / ref_dt}
 
@@ -4982,7 +5120,7 @@ def _rank_stage(torch, svi, state, data, kernel, steps, tag):
         holder[0], _ = svi.update_chunk(holder[0], 5, data)
 
     wall, busy, coll = _rank_profile(torch, more, 5)
-    return {"losses": losses, "launches": launches[kernel],
+    return {"losses": losses, "kernel": kernel, "launches": launches[kernel],
             "other_launches": sum(launches.values()) - launches[kernel],
             "steps_per_s": steps / dt, "busy": busy, "coll_ms": coll,
             "profiled_ms_per_step": wall / 5 * 1e3,
@@ -5050,8 +5188,7 @@ def _sharded_rank(p):
         svi = SVI(model, guide, clipped_adam(), Trace_ELBO())
         state = svi.init_sharded(p["seed"], mesh, data)
         prep = time.perf_counter() - t0
-        out[stage] = _rank_stage(torch, svi, state, data,
-                                 p.get("kernels", SHARDED_KERNEL)[stage],
+        out[stage] = _rank_stage(torch, svi, state, data, _kernel_name(data),
                                  p["steps"],
                                  f"rank {rank} cells [{data.shard.lo}, "
                                  f"{data.shard.hi})")
@@ -5096,7 +5233,7 @@ def _sharded_samplers_rank(p):
             out["smc_velo"] = smc_run(
                 torch, p["seed"], p["card"], "(c) velocity smc", VELO_SMC,
                 vmp, VELO_SMC["svi_steps"], VELO_SMC["max_stages"],
-                VELO_SMC["target_ess"], p["seed"] + 5, kind="velo",
+                VELO_SMC["target_ess"], p["seed"] + 5,
                 mesh=make_mesh(("particles",)))[1]
             out["smc_velo"]["run_s"] = time.perf_counter() - t0
     except BaseException:
@@ -5141,19 +5278,17 @@ def _finish_example_05(proc, start, timeout=600):
     return proc.returncode, out, err[-3000:], time.perf_counter() - start
 
 
-def _gate_b(ranks, ref, card, kernels=SHARDED_KERNEL, gates=SHARDED_GATES,
-            tag="[sharded] (b)"):
+def _gate_b(ranks, ref, card, gates=SHARDED_GATES, tag="[sharded] (b)"):
     """[sharded] (b)'s gates on the ranks' results: the losses against
     (a)'s within the JAX package's two gates (``gates``: (steps, rtol)
     pairs), every rank's losses, replicated params and Adam moments
-    bit-identical, exactly one launch of the stage's kernel (``kernels``)
-    per rank per step; prints per rank steps/s, busy share, peak memory
+    bit-identical, exactly one launch of the stage's kernel (the one its
+    data routes to) per rank per step; prints per rank steps/s, busy share, peak memory
     and the ms per step in collectives."""
     import numpy as np
 
     out = {}
     for stage in ("phase", "velocity"):
-        kernel = kernels[stage]
         one = ref["losses"][stage]
         steps = len(one)
         r0 = ranks[0][stage]
@@ -5165,10 +5300,10 @@ def _gate_b(ranks, ref, card, kernels=SHARDED_KERNEL, gates=SHARDED_GATES,
                   f"steps/s (host clock, two ranks on one card), busy {busy}, "
                   f"{x['coll_ms']:.3f} ms per step in all-reduce (profiler, "
                   f"{x['profiled_ms_per_step']:.2f} ms per profiled step), "
-                  f"peak {x['peak_gib']:.2f} GiB, {x['launches']} {kernel} "
+                  f"peak {x['peak_gib']:.2f} GiB, {x['launches']} {x['kernel']} "
                   f"launches, shard built in {x['prep_s']:.1f} s on {card}")
             check(x["launches"] == steps and x["other_launches"] == 0,
-                  f"{tag} {stage} {x['tag']}: {x['launches']} {kernel} and "
+                  f"{tag} {stage} {x['tag']}: {x['launches']} {x['kernel']} and "
                   f"{x['other_launches']} other launches in {steps} steps")
             check(np.array_equal(x["losses"], r0["losses"])
                   and x["replicated"] == r0["replicated"]
@@ -5223,8 +5358,8 @@ def _gate_cd(torch, ranks, example, seed, card, smc_refs):
                   else _velo_sim(torch, cfg, seed, "cuda")[1])
             refs[tag] = smc_run(torch, seed, card, f"({tag}) one rank", cfg,
                                 mp, cfg["svi_steps"], cfg["max_stages"],
-                                cfg["target_ess"], run_seed,
-                                kind=kind)[1]["log_evidence"]
+                                cfg["target_ess"],
+                                run_seed)[1]["log_evidence"]
         dz = s0["log_evidence"] - refs[tag]
         print(f"[sharded] (c) [smc] ({tag}) at two ranks ({kind} model, "
               f"{cfg['chains']} particles): {s0['stages']} stages, log Z "
@@ -5255,7 +5390,7 @@ def sharded_stage_refs(torch, seed, card, stage, data, cond=None, ref=None,
                        **one_rank):
     """(a) for ``stage`` inside [main]'s stages, and what (b) takes from it:
     the host template, the count sums, the losses; ``ref`` collects them.
-    ``one_rank``: `sharded_one_rank`'s kernel, steps and tag."""
+    ``one_rank``: `sharded_one_rank`'s steps and tag."""
     ref = ref if ref is not None else {"losses": {}, "sums": {}, "a": {}}
     losses, nums = sharded_one_rank(torch, seed, card, data, stage, cond,
                                     **one_rank)

@@ -30,7 +30,10 @@ most batches.
     gradients at fixed particles against the JAX package's (values 1e-5 of
     the part's magnitude plus 1e-6, gradients 1e-4, as
     tests/test_torch_smc.py); a short phase SMC reaches beta = 1 with a
-    finite log Z.
+    finite log Z, and its log Z summed again over its recorded stages
+    equals the run's (rel 1e-9) and, with the plain path's likelihood at
+    the same particles and betas, is within LOSS_RTOL x |log Z| of it
+    (chip_smoke.py [wide] (e)'s gate).
   * MinibatchSVI: the mean of the scaled block losses, ``Db`` cut per
     block, equals the JAX package's full-batch loss at its guide's draws
     (rel 1e-5); `iter_host_blocks(Db=)` and `init_template(Db=)` build the
@@ -353,6 +356,33 @@ def test_short_phase_smc_reaches_beta_one(nb):
     assert np.isfinite(fm.log_evidence)
     assert fm.posterior["delta_nu"].shape == (32, nb, NG)
     assert all(np.isfinite(v).all() for v in fm.posterior.values())
+
+
+@pytest.mark.parametrize("nb", NBS)
+def test_smc_log_z_along_its_stages_matches_the_plain_path(nb):
+    """chip_smoke.py [wide] (e)'s gate at a small size: a fused phase SMC
+    run's stages recorded (their particles before the reweighting and
+    their betas), the increments summed again with the fused likelihood
+    give the run's log Z to rel 1e-9, and with the plain path's likelihood
+    at the same particles and betas within LOSS_RTOL x |log Z| (the loss
+    gate of the kernels carried to the sum)."""
+    import chip_smoke as C
+
+    cfg = dict(chains=32, num_moves=1, target_ess=0.5, max_stages=200,
+               svi_steps=0)
+    mp, plain = _mp("torch", "phase", nb, True), _mp("torch", "phase", nb,
+                                                      False)
+    with C._StagesRecorded(TS) as rec:
+        fm = C._smc_fit(mp, cfg)
+        fm.run(0)
+    assert len(rec.stages) == len(fm.temperature_schedule)
+    z = fm.log_evidence
+    again = C._log_z_along(torch, fm.smc.tempered, rec.stages)
+    assert abs(again - z) <= 1e-9 * abs(z), (again, z)
+    pmodel = C._smc_fit(plain, cfg).smc.model
+    ptm = TS.init_tempered_model(pmodel, plain.data, seed=th.fold_in(0, 0))
+    zp = C._log_z_along(torch, ptm, rec.stages)
+    assert abs(zp - z) < C.LOSS_RTOL * abs(z), (zp, z)
 
 
 # ---------------------------------------------------------------------------

@@ -822,3 +822,23 @@ def test_nb_noise_tool_measures_the_fused_rounding_by_decade():
     assert all(np.isfinite(v).all() for v in res.values())
     sd, _, g_median, _ = res[nb_noise.DECADES[0]]
     assert sd < 0.01 and g_median < 5e-3, res[nb_noise.DECADES[0]]
+
+
+def test_nb_noise_tool_holds_both_elements_against_float64():
+    """tools/nb_noise.py's dispersion gradients against float64 on the CPU
+    (the source of ROADMAP's note on the plain element): one entry per
+    shape_inv, finite, the fused element within 1e-6 of its largest
+    gradient at every shape_inv (measured <= 1.3e-7); the plain path's
+    element, the models' NegativeBinomial log-prob differentiated by
+    autograd, cancels in float32 as shape_inv falls (median error over the
+    genes 9.1e-2 at 1e-6 against 1.0e-5 at 1e-2, measured); the JAX
+    package's plain path has the same form."""
+    from velocycle_tpu_torch.tools import nb_noise
+
+    fused = nb_noise.disp_grad_error("cpu")
+    plain = nb_noise.disp_grad_error("cpu", plain=True)
+    for res in (fused, plain):
+        assert list(res) == list(nb_noise.SHAPE_INVS)
+        assert all(np.isfinite(v).all() for v in res.values())
+    assert max(v[0] for v in fused.values()) < 1e-6, fused
+    assert plain[1e-6][1] > 100 * fused[1e-6][1], (plain, fused)

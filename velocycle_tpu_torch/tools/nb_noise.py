@@ -15,7 +15,9 @@ fused gradient along the line.  Then the fused likelihood's dispersion
 gradient against float64 (`nb_loglik_reference` on the same values) at
 every gene's shape_inv spread by a factor 1.8 around each of 1e-6 .. 1e-2:
 its largest error over the genes relative to the largest gradient, and the
-median of the genes' relative errors.  With ``--nuts``, `MCMCFitModel` samples
+median of the genes' relative errors; and the same for the plain path's
+element (the models' ``NegativeBinomial`` log-prob in float32, its
+gradient by autograd) with its loss error in nats.  With ``--nuts``, `MCMCFitModel` samples
 nu and shape_inv at (b)'s chain count, warmup, draws and depth on both
 paths (the warm start's curvature through the plain path) and prints
 split R-hat by site.  Runs on the card by default, on the CPU with
@@ -83,10 +85,13 @@ def line_noise(device, gene=0, n=400):
     return res
 
 
-def disp_grad_error(device, seed=0):
+def disp_grad_error(device, seed=0, plain=False):
     """{shape_inv: (max error / max |gradient|, median relative error over
-    the genes)} of the fused likelihood's dispersion gradient against
-    float64, nu drawn around the prior mean, the phases at their prior."""
+    the genes, loss error in nats)} of the fused likelihood's dispersion
+    gradient (``plain``: the plain path's NB element, the models'
+    ``NegativeBinomial`` log-prob summed, in float32) against float64, nu
+    drawn around the prior mean, the phases at their prior."""
+    from velocycle_tpu_torch.core import distributions as dist
     from velocycle_tpu_torch.models.basis import expression_basis
     from velocycle_tpu_torch.ops import nb_kernels as K
 
@@ -102,8 +107,14 @@ def disp_grad_error(device, seed=0):
         r = si * torch.exp(torch.linspace(-0.3, 0.3, d.S.shape[0],
                                           device=device))
         r32 = r.clone().requires_grad_(True)
-        loss = K.nb_loglik_fused(d.S, nu, zeta, cf, r32,
-                                 lgamma_k_sum=d.lgamma_k_sum)
+        if plain:
+            elog = nu @ zeta.T + cf
+            loss = dist.NegativeBinomial(
+                mean=torch.exp(elog), dispersion=r32[:, None]
+            ).log_prob(d.S.float()).sum()
+        else:
+            loss = K.nb_loglik_fused(d.S, nu, zeta, cf, r32,
+                                     lgamma_k_sum=d.lgamma_k_sum)
         (g32,) = torch.autograd.grad(loss, r32)
         r64 = r.double().requires_grad_(True)
         ref = K.nb_loglik_reference(d.S.double(), nu.double(), zeta.double(),
@@ -111,7 +122,8 @@ def disp_grad_error(device, seed=0):
         (g64,) = torch.autograd.grad(ref, r64)
         err = (g32.double() - g64).abs()
         out[si] = (float(err.max() / g64.abs().max()),
-                   float((err / g64.abs()).median()))
+                   float((err / g64.abs()).median()),
+                   float(loss.detach()) - float(ref.detach()))
     return out
 
 
@@ -152,10 +164,13 @@ def main(argv=None):
               f"potential noise std {sd:.4f} max {mx:.4f} nats; fused "
               f"gradient rel error median {gmed:.2e} max {gmax:.2e} ({where})")
     errs = disp_grad_error(args.device)
-    for si, (mx, med) in errs.items():
-        print(f"[nb_noise] dispersion gradient at shape_inv {si:g}: error "
-              f"against float64 {mx:.2e} of the largest, median over genes "
-              f"{med:.2e} ({where})")
+    for path, res in (("fused", errs),
+                      ("plain", disp_grad_error(args.device, plain=True))):
+        for si, (mx, med, dl) in res.items():
+            print(f"[nb_noise] {path} dispersion gradient at shape_inv "
+                  f"{si:g}: error against float64 {mx:.2e} of the largest, "
+                  f"median over genes {med:.2e}; loss {dl:+.2e} nats "
+                  f"({where})")
     print(f"[nb_noise] dispersion gradient error at shape_inv 1e-5 / 1e-3: "
           f"{errs[1e-5][0] / errs[1e-3][0]:.2f}x (largest), "
           f"{errs[1e-5][1] / errs[1e-3][1]:.2f}x (median) ({where})")
