@@ -1655,3 +1655,37 @@ def test_sharded_svi_on_the_card(Ng, Nc):
     np.testing.assert_array_equal(two[1]["losses"], two[0]["losses"])
     assert two[1]["replicated"] == two[0]["replicated"]
     assert two[1]["moments"] == two[0]["moments"]
+
+
+# ---------------------------------------------------------------------------
+# the plain NB element on the card (ops/likelihoods.py NBLogPmf)
+# ---------------------------------------------------------------------------
+
+def test_plain_element_dispersion_gradient_against_float64_on_the_card():
+    """The models' ``NegativeBinomial`` log-prob on cuda tensors, [mcmc]
+    (b)'s data (tools/nb_noise.py) at shape_inv 1e-6 spread 1.8x over the
+    genes: the dispersion gradient within 1e-6 of the largest and 1e-4
+    (median over the genes) of float64 autograd of the direct form, as on
+    the CPU (tests/test_torch_nb_element.py)."""
+    _cuda_or_skip()
+    from velocycle_tpu_torch.tools import nb_noise
+
+    d = nb_noise._data(False, "cuda").data
+    res = nb_noise.disp_grad_error("cuda", plain=True, data=d)
+    mx, med = res[1e-6][:2]
+    assert mx < 1e-6 and med <= 1e-4, res
+
+
+def test_plain_phase_model_hvp_on_the_card():
+    """The NUTS warm start's probes on the plain path on the card
+    (`tools.nb_noise.fixed_point_curvature`: `torch.func.jvp` of `grad`
+    under `vmap`) at shape_inv 1e-6: the Hessian diagonal in shape_inv
+    finite and within 1e-3 (median over the genes) of float64 double
+    backward of the direct form."""
+    _cuda_or_skip()
+    from velocycle_tpu_torch.tools import nb_noise
+
+    hd, ref = nb_noise.fixed_point_curvature("cuda", 1e-6)
+    assert np.isfinite(hd).all()
+    rel = np.abs(hd - ref) / np.abs(ref)
+    assert np.median(rel) <= 1e-3, (np.median(rel), rel.max())

@@ -827,12 +827,13 @@ def test_nb_noise_tool_measures_the_fused_rounding_by_decade():
 def test_nb_noise_tool_holds_both_elements_against_float64():
     """tools/nb_noise.py's dispersion gradients against float64 on the CPU
     (the source of ROADMAP's note on the plain element): one entry per
-    shape_inv, finite, the fused element within 1e-6 of its largest
-    gradient at every shape_inv (measured <= 1.3e-7); the plain path's
-    element, the models' NegativeBinomial log-prob differentiated by
-    autograd, cancels in float32 as shape_inv falls (median error over the
-    genes 9.1e-2 at 1e-6 against 1.0e-5 at 1e-2, measured); the JAX
-    package's plain path has the same form."""
+    shape_inv, finite, both elements within 1e-6 of their largest gradient
+    at every shape_inv (the fused measured <= 1.3e-7) and their median
+    error over the genes at most 1e-4.  The plain path's element, the
+    models' NegativeBinomial log-prob, takes the fused element's gradient
+    form (ops.likelihoods.NBLogPmf); differentiated by autograd, as in the
+    JAX package's plain path, it cancelled in float32 as shape_inv fell
+    (median error 9.1e-2 at 1e-6)."""
     from velocycle_tpu_torch.tools import nb_noise
 
     fused = nb_noise.disp_grad_error("cpu")
@@ -840,5 +841,5 @@ def test_nb_noise_tool_holds_both_elements_against_float64():
     for res in (fused, plain):
         assert list(res) == list(nb_noise.SHAPE_INVS)
         assert all(np.isfinite(v).all() for v in res.values())
-    assert max(v[0] for v in fused.values()) < 1e-6, fused
-    assert plain[1e-6][1] > 100 * fused[1e-6][1], (plain, fused)
+        assert max(v[0] for v in res.values()) < 1e-6, res
+        assert max(v[1] for v in res.values()) <= 1e-4, res

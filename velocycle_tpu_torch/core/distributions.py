@@ -18,7 +18,7 @@ import math
 
 import torch
 
-from ..ops.likelihoods import lgamma_diff
+from ..ops.likelihoods import NBLogPmf, gamma_poisson_logpmf
 
 __all__ = [
     "Distribution",
@@ -28,6 +28,7 @@ __all__ = [
     "Gamma",
     "Poisson",
     "GammaPoisson",
+    "NBMeanDispersion",
     "NegativeBinomial",
     "Delta",
     "LowRankMultivariateNormal",
@@ -241,20 +242,34 @@ class GammaPoisson(Distribution):
     def log_prob(self, value):
         """Cancellation-free form (see the JAX package's derivation): the
         lgamma difference through `ops.likelihoods.lgamma_diff`."""
-        a, b = self.concentration, self.rate
-        value = value.to(a.dtype)
-        return (
-            lgamma_diff(value, a)
-            - torch.lgamma(value + 1.0)
-            - a * torch.log1p(1.0 / b)
-            - value * torch.log1p(b)
-        )
+        return gamma_poisson_logpmf(value, self.concentration, self.rate)
+
+
+class NBMeanDispersion(GammaPoisson):
+    """``GammaPoisson(1/r, 1/(r*mu))`` that remembers ``mean`` and ``r``:
+    the same draws and log-prob values, the log-prob differentiated in
+    (log mean, r) by `ops.likelihoods.NBLogPmf`, whose dispersion gradient
+    does not cancel in float32 as r falls (autograd through concentration
+    and rate would)."""
+
+    def __init__(self, mean, dispersion):
+        r = dispersion
+        with torch.no_grad():   # they carry the value only (`NBLogPmf`)
+            super().__init__(1.0 / r, 1.0 / (r * mean))
+        self.mean, self.dispersion = (
+            x if isinstance(x, torch.Tensor) else torch.as_tensor(
+                x, dtype=torch.float32, device=self.concentration.device)
+            for x in (mean, r))
+
+    def log_prob(self, value):
+        return NBLogPmf.apply(value, torch.log(self.mean), self.dispersion,
+                              self.concentration, self.rate)
 
 
 def NegativeBinomial(mean, dispersion):
-    """NB in (mean, dispersion) form: ``GammaPoisson(1/r, 1/(r*mu))``."""
-    r = dispersion
-    return GammaPoisson(1.0 / r, 1.0 / (r * mean))
+    """NB in (mean, dispersion) form: ``GammaPoisson(1/r, 1/(r*mu))``, as
+    `NBMeanDispersion`."""
+    return NBMeanDispersion(mean, dispersion)
 
 
 class Delta(Distribution):

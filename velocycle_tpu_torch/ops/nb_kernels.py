@@ -57,7 +57,7 @@ from typing import NamedTuple
 import torch
 
 from . import cuda_build
-from .likelihoods import nb_logpmf
+from .likelihoods import nb_logpmf_direct
 from .special import (EXCESS_FROM, SERIES_BELOW, lgamma_digamma_excess,
                       lgamma_pos, lgamma_ratio2, log1m_excess,
                       softplus_log_sigmoid)
@@ -136,22 +136,25 @@ def _count_launch(name, width, chains):
 def nb_loglik_reference(S, nu, zeta, count_factor, dispersion,
                         delta_nu=None, Db=None):
     """sum of NB log-pmfs with ElogS = nu @ zeta^T [+ Db-routed batch
-    offsets] + count_factor, through `ops.likelihoods.nb_logpmf`."""
+    offsets] + count_factor, through `ops.likelihoods.nb_logpmf_direct`:
+    its gradients are autograd's of the direct form (the float64 yardstick
+    of every repaired gradient, independent of them)."""
     elog = _phase_elog(nu, zeta, count_factor, delta_nu, Db)
-    return nb_logpmf(S, elog, dispersion[:, None]).sum()
+    return nb_logpmf_direct(S, elog, dispersion[:, None]).sum()
 
 
 def nbsu_loglik_reference(S, U, nu, zeta, zeta_dphi, count_factor, omega,
                           log_beta, log_gamma, dispersion,
                           delta_nu=None, Db=None):
     """Velocity-stage joint NB log-likelihood of S and U through
-    `ops.likelihoods.nb_logpmf`, with ElogS as in `nb_loglik_reference` and
-    ElogU = -log_beta + log(relu(dEs * omega + exp(log_gamma)) + 1e-5)
-    + ElogS."""
+    `ops.likelihoods.nb_logpmf_direct` (as `nb_loglik_reference`), with
+    ElogS as there and ElogU = -log_beta + log(relu(dEs * omega +
+    exp(log_gamma)) + 1e-5) + ElogS."""
     elogS, elogU, *_ = _velo_elogs(nu, zeta, zeta_dphi, count_factor, omega,
                                    log_beta, log_gamma, delta_nu, Db)
     r = dispersion[:, None]
-    return (nb_logpmf(S, elogS, r) + nb_logpmf(U, elogU, r)).sum()
+    return (nb_logpmf_direct(S, elogS, r)
+            + nb_logpmf_direct(U, elogU, r)).sum()
 
 
 def _phase_elog(nu, zeta, cf, delta_nu, Db):
