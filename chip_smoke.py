@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py [--seed 0] [--digest | --kernels | --mcmc | --smc |
                            --minibatch | --velo2d | --examples | --tiles |
-                           --sharded | --wide | --plain [PARTS]]
+                           --sharded | --wide | --plain [PARTS] |
+                           --fwdgrad-times | --turns ROOT] [--package ROOT]
 
 Run from the root of a checkout, on a machine with one CUDA card.  Phases,
 in order; any failure exits non-zero and prints no result line:
@@ -292,12 +293,15 @@ element in (a) and (c)): the plain NB element (ops/likelihoods.py
 NBLogPmf), the path of every use_fused_nb=False fit, on [main]'s counts
 preprocessed with default metaparams.  (a) the plain and the fused
 elements' dispersion gradients against float64 at full width, gene
-dispersions spread 1.8x around each of shape_inv 1e-6 .. 1e-2 (plain:
-largest error below 1e-6 of the largest gradient; fused: the same over
-the genes whose y = a + 2 is exact in float32, ROADMAP's open item on the
-excess form's shifted y; both: median over the genes at most 1e-4), each
-worst gene named, and for the fused element the kernel on that gene's
-row against its plain version on the same row; (b) PhaseFitModel, then
+dispersions spread 1.8x around each of shape_inv 1e-6 .. 1e-2 (both:
+largest error below 1e-6 of the largest gradient over every gene, median
+over the genes at most 1e-4), each worst gene named with its a = 1/r and
+y - a - 2, and for the fused element the kernel on that gene's row
+against its plain version on the same row; then every gene's a drawn
+where y = a + 2 rounds in float32 (a < 2 and [2^n - 2, 2^n), n = 2..13;
+no float32 r gives one from n = 14 on): the four fwd+grad kernels
+(narrow at 5 columns, wide at 21) and the plain element, each within
+1e-6 of float64's largest gradient; (b) PhaseFitModel, then
 LRMN VelocityFitModel conditioned on it, and the LBA PhaseFitModel, 20
 steps each at full width (no kernel launch, finite and falling losses, the step-0 loss equal to the
 parent tree's at seed 0 bit for bit; steps/s, busy share, peak memory,
@@ -319,8 +323,10 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -3368,7 +3374,9 @@ def kernel_digest(torch, seed, narrow=True, wide=False):
     each wide one computed twice and the two required bit-identical: equal
     digests from two checkouts mean bit-identical results.  Uses only the
     public kernel functions, whose signatures every version of the port
-    shares."""
+    shares.  Each kernel's combined line is followed by one line per
+    output (the loss, then each gradient in the wrapper's order), so that
+    a change shows which output it moved."""
     import hashlib
 
     from velocycle_tpu_torch.ops import nb_kernels as K
@@ -3377,9 +3385,25 @@ def kernel_digest(torch, seed, narrow=True, wide=False):
         loss, grads = out if isinstance(out, tuple) else (out, ())
         return [loss, *(g for g in grads if g is not None)]
 
+    names = {"phase_fwdgrad": ("loss", "dnu", "dzeta", "dcf", "ddisp",
+                               "ddelta_nu"),
+             "velo_fwdgrad": ("loss", "dnu", "dzeta", "dzeta_dphi", "dcf",
+                              "domega", "dlog_beta", "dlog_gamma", "ddisp",
+                              "ddelta_nu")}
+
+    def sha(t):
+        return hashlib.sha256(
+            t.detach().contiguous().cpu().numpy().tobytes()).hexdigest()
+
     for Nb, tag in [(0, "")] * narrow + [(WIDE_BATCHES, "_wide")] * wide:
         S, nu, zeta, cf, r, dnu, Db = make_inputs(torch, NG, NC, seed, Nb=Nb)
         a = (S, nu, zeta, cf, r, dnu, Db, lgamma_k_sum(torch, S))
+        # the genes whose y = a + 2 rounds in float32 (ops.special.y_shift,
+        # written out: an older package has none); the velocity inputs
+        # share r
+        inv = 1.0 / r
+        rounded = ((inv + 2.0) - torch.clamp(inv, min=2.0)
+                   - torch.clamp(inv, max=2.0)) != 0.0
         calls = {"phase_fwdgrad": lambda: K.phase_fwdgrad(*a, want_disp=True),
                  "phase_fwd": lambda: K.phase_fwd(*a)}
         outs = {}
@@ -3405,6 +3429,15 @@ def kernel_digest(torch, seed, narrow=True, wide=False):
             cols = f", {NH + Nb} columns, repeat bit-identical" if tag else ""
             print(f"[digest] {name}{tag} @ {NG}x{NC} int16 ({what}{cols}): "
                   f"sha256 {h.hexdigest()}")
+            outs_named = [n for n in names.get(name, ("loss",))
+                          if n != "ddelta_nu" or Nb]
+            for out, t in zip(outs_named, tensors):
+                print(f"[digest]   {name}{tag} {out}: sha256 {sha(t)}")
+                if out == "ddisp":
+                    for m, what in ((~rounded, "y exact"),
+                                    (rounded, "y rounded")):
+                        print(f"[digest]   {name}{tag} ddisp, {what} "
+                              f"({int(m.sum())} genes): sha256 {sha(t[m])}")
         del v, va, a, outs
         torch.cuda.empty_cache()
 
@@ -3641,6 +3674,94 @@ def wide_timing(torch, seed, card, timed=WIDE_TIMED, full=True):
             print(f"[timing] {k} plan at {W} columns: {_wide_plan_note(p)}")
     print(f"[wide] (c) timing in {time.perf_counter() - t0:.1f} s")
     return out
+
+
+def fwdgrad_times(torch, seed, card):
+    """``--fwdgrad-times``: phase_fwdgrad and velo_fwdgrad with the
+    dispersion gradient on, narrow (Nh 5) and wide (Nh 5 + WIDE_BATCHES
+    batches, 21 columns), at full width on int16 counts: each kernel's
+    median ms (`_median_reps`, the four in turns) beside its bound.  Uses
+    only the public kernel functions, so it times any checkout's package
+    (``--package``).  Returns {kernel: (median ms, bound ms)}."""
+    from velocycle_tpu_torch.ops import nb_kernels as K
+    from velocycle_tpu_torch.tools import kernel_profile as TP
+
+    fns, bounds = {}, {}
+    for Nb, tag in ((0, ""), (WIDE_BATCHES, "_wide")):
+        S, nu, zeta, cf, r, dnu, Db = make_inputs(torch, NG, NC, seed, Nb=Nb)
+        a = (S, nu, zeta, cf, r, dnu, Db, lgamma_k_sum(torch, S))
+        lg, _ = _ratio_ops(torch, [S])
+        dg = _disp_ops(torch, "phase", [S], [nu, zeta, cf, r], dnu, Db)
+        pb = 4 * sum(t.numel() for t in a[1:6] if t is not None)
+        db = 4 * Db.numel() if Nb else 0
+        bounds[f"phase_fwdgrad{tag}"] = TP.bound_ms(
+            S.numel() * S.element_size() + 2 * pb + db + 4,
+            _wide_ops("phase", "fwdgrad", NH, Nb, S.numel(), lg, dg, True))[0]
+        fns[f"phase_fwdgrad{tag}"] = functools.partial(
+            K.phase_fwdgrad, *a, want_disp=True)
+        v = make_velo_inputs(torch, NG, NC, seed, Nb=Nb)
+        va = (*v, lgamma_k_sum(torch, *v[:2]))
+        lg, _ = _ratio_ops(torch, list(v[:2]))
+        dg = _disp_ops(torch, "velo", list(v[:2]), list(v[2:10]), v[10],
+                       v[11])
+        pb = 4 * sum(t.numel() for t in v[2:11] if t is not None)
+        bounds[f"velo_fwdgrad{tag}"] = TP.bound_ms(
+            2 * v[0].numel() * v[0].element_size() + 2 * pb + db + 4,
+            _wide_ops("velo", "fwdgrad", NH, Nb, v[0].numel(), lg, dg, True))[0]
+        fns[f"velo_fwdgrad{tag}"] = functools.partial(
+            K.velo_fwdgrad, *va, want_disp=True)
+    K.reset_launch_counts()
+    med = _median_reps(TP, fns)
+    check(all(K.LAUNCHES[n] > 0 for n in fns),
+          f"--fwdgrad-times: a kernel not launched ({K.LAUNCHES})")
+    out = {}
+    for name, (ms, reps) in med.items():
+        out[name] = (ms, bounds[name])
+        print(f"[fwdgrad times] {name} @ {NG}x{NC} int16, disp_grad on, "
+              f"{NH + (WIDE_BATCHES if 'wide' in name else 0)} columns: "
+              f"median {ms:.4f} ms of {_reps_note(reps)}, bound "
+              f"{bounds[name]:.4f} ms ({card})")
+    return out
+
+
+def turns(torch, seed, card, root, rounds=2):
+    """``--turns ROOT``: `fwdgrad_times` of ROOT's package (another commit
+    unpacked by ``git archive``) and of this checkout's, each in a process
+    of its own, in turns ROOT, this, this, ROOT (``rounds`` times), after
+    both packages are built (ROOT's nvcc beside this one's).  Prints each
+    kernel's medians by tree and the ratio of their means."""
+    import os
+    import statistics
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.abspath(root)
+    build = subprocess.Popen(
+        [sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]); "
+         "from velocycle_tpu_torch.ops import cuda_build; "
+         "cuda_build.build_all()", root], cwd=root)
+    phase_build()
+    check(build.wait() == 0, f"--turns: {root}'s package did not build")
+    res = {root: [], here: []}
+    for tree in [root, here, here, root] * rounds:
+        run = subprocess.run(
+            [sys.executable, os.path.join(here, "chip_smoke.py"), "--package",
+             tree, "--fwdgrad-times", "--seed", str(seed)],
+            capture_output=True, text=True, timeout=900)
+        lines = run.stdout.strip().splitlines()
+        for line in lines[:-1]:
+            print(f"[turns] {'parent' if tree == root else 'this'} | {line}")
+        check(run.returncode == 0 and lines and lines[-1].startswith("{"),
+              f"--turns: {tree} exited {run.returncode}: "
+              f"{run.stderr[-2000:]}")
+        res[tree].append(json.loads(lines[-1])["fwdgrad_times"])
+    for name in res[here][0]:
+        a = [r[name][0] for r in res[root]]
+        b = [r[name][0] for r in res[here]]
+        print(f"[turns] {name}: parent {_reps_note(a)} ms, this "
+              f"{_reps_note(b)} ms; this / parent "
+              f"{statistics.mean(b) / statistics.mean(a):.4f}; bound parent "
+              f"{res[root][0][name][1]:.4f}, this {res[here][0][name][1]:.4f} "
+              f"ms ({card})")
 
 
 def _wide_fold_cost(torch, seed, card):
@@ -5639,6 +5760,7 @@ PLAIN_MAX_REL = 1e-6    # (a): max error / max |gradient|, both elements
 PLAIN_MEDIAN_REL = 1e-4  # (a): median of the genes' relative errors
 PLAIN_HDIAG_REL = 1e-3  # (c): median relative error of the Hessian diagonal
 PLAIN_FIXED_SI = (1e-6, 1e-5, 1e-4)  # (c): fixed shape_inv of the curvature
+PLAIN_WINDOWS = range(1, 17)  # (a): a in [2^n - 2, 2^n) (n = 1: a < 2)
 PLAIN_NUTS = True       # (c): NUTS on both paths after the curvature
 # (b): the plain step-0 losses of the parent tree (before NBLogPmf) at seed
 # 0 on the NVIDIA H100 80GB HBM3, read with this script's --plain b
@@ -5650,14 +5772,14 @@ def plain_element(torch, card, data, device="cuda"):
     """--plain (a): the plain and the fused NB elements' dispersion
     gradients against float64 (`tools.nb_noise.disp_grad_error`) at full
     width on ``data``'s counts, gene dispersions spread by 1.8x around each
-    of shape_inv 1e-6 .. 1e-2: the largest error below PLAIN_MAX_REL of the
-    largest gradient (the fused element's over the genes whose y = a + 2 is
-    exact in float32), both elements' median over the genes at most
-    PLAIN_MEDIAN_REL.  Each worst gene is named with its a = 1/r and y - a
-    - 2; for the fused element, the kernel and its plain version on that
-    gene's row alone (`tools.nb_noise.gene_grad_error`)."""
-    import numpy as np
-
+    of shape_inv 1e-6 .. 1e-2: the largest error over every gene below
+    PLAIN_MAX_REL of the largest gradient, the median over the genes at
+    most PLAIN_MEDIAN_REL (the largest over the genes whose y = a + 2 is
+    exact in float32 printed beside it).  Each worst gene is named with its
+    a = 1/r and y - a - 2 (`ops.special.y_shift`); for the fused element,
+    the kernel and its plain version on that gene's row alone
+    (`tools.nb_noise.gene_grad_error`)."""
+    from velocycle_tpu_torch.ops.special import y_shift
     from velocycle_tpu_torch.tools import nb_noise
 
     for path in ("plain", "fused"):
@@ -5665,8 +5787,8 @@ def plain_element(torch, card, data, device="cuda"):
         res = nb_noise.disp_grad_error(device, plain=path == "plain",
                                        data=data, chunk=PLAIN_CHUNK)
         for si, (mx, med, dl, j, a, mx_exact) in res.items():
-            a32 = np.float32(a)
-            shift = float((a32 + np.float32(2.0)) - a32 - np.float32(2.0))
+            a32 = torch.tensor([a], dtype=torch.float32)
+            shift = float(y_shift(a32, a32 + 2.0)[0])
             print(f"[plain] (a) {path} element at shape_inv {si:g}, "
                   f"{data.Ng} x {data.Nc}: dispersion gradient against "
                   f"float64 {mx:.3e} of the largest (gene {j}, a {a:.7g}, "
@@ -5679,15 +5801,121 @@ def plain_element(torch, card, data, device="cuda"):
                 print(f"[plain] (a)   gene {j} alone against float64: the "
                       f"kernel {kern:.3e}, its plain version on the same "
                       f"tensors {twin:.3e}, the plain element {plain:.3e}")
-            # the fused element (the kernels', unchanged here) misses the
-            # gate where y = a + 2 rounds in float32: ROADMAP 3's open item
-            # (the excess form's shifted y), held apart until it is repaired
-            worst = mx if path == "plain" else mx_exact
             check(math.isfinite(mx) and med <= PLAIN_MEDIAN_REL
-                  and worst < PLAIN_MAX_REL,
+                  and mx < PLAIN_MAX_REL,
                   f"[plain] (a) {path} element at shape_inv {si:g}: "
-                  f"{worst:.3e} / {med:.3e} against float64")
+                  f"{mx:.3e} / {med:.3e} against float64")
         print(f"[plain] (a) {path}: {time.perf_counter() - t0:.1f} s")
+
+
+def _disp_grad64(torch, ref, counts, params, r, dnu, Db, chunk):
+    """Each gene's dispersion gradient of ``ref`` (nb_loglik_reference or
+    nbsu_loglik_reference) in float64, ``chunk`` genes a pass; ``params``
+    in the reference's order after the counts, the gene-indexed ones
+    (first dimension NG) cut with the genes."""
+    out = []
+    for i in range(0, r.shape[0], chunk):
+        p = slice(i, i + chunk)
+        cut = [x[p] if x.shape[0] == NG else x for x in params]
+        r64 = r[p].double().requires_grad_(True)
+        extra = () if dnu is None else (dnu[:, p].double(), Db.double())
+        loss = ref(*[c[p].double() for c in counts],
+                   *[x.double() for x in cut], r64, *extra)
+        out.append(torch.autograd.grad(loss, r64)[0])
+    return torch.cat(out)
+
+
+def plain_windows(torch, card, seed, device="cuda"):
+    """--plain (a), the rounded y = a + 2 (csrc/nb_common.cuh y_shift) at
+    full width on [main]'s counts (make_inputs, make_velo_inputs): every
+    gene's a = 1/r drawn where y = a + 2 rounds in float32, an equal share
+    in each window of PLAIN_WINDOWS ([2^n - 2, 2^n); n = 1: a < 2; a window
+    where no float32 r gives one is named and skipped).  The dispersion
+    gradients of phase_fwdgrad and velo_fwdgrad, narrow (Nh 5) and wide (Nh
+    5 + WIDE_BATCHES batches), and of the plain element (the models'
+    NegativeBinomial log-prob, [main]'s phase log-means), each against
+    float64 (`_disp_grad64`): the largest error below PLAIN_MAX_REL of the
+    largest gradient, the worst gene named with its a and delta."""
+    import numpy as np
+
+    from velocycle_tpu_torch.core import distributions as dist
+    from velocycle_tpu_torch.ops import nb_kernels as K
+    from velocycle_tpu_torch.ops.special import y_shift
+    from velocycle_tpu_torch.tools import nb_noise
+
+    t0 = time.perf_counter()
+    windows = []
+    for n in PLAIN_WINDOWS:
+        try:
+            nb_noise.window_a([n], 1, True)
+            windows.append(n)
+        except ValueError:
+            print(f"[plain] (a) window n = {n}: no float32 r gives an a = 1/r "
+                  f"in [{2.0 ** n - 2:g}, {2.0 ** n:g}) whose y = a + 2 "
+                  f"rounds (those a lie on even multiples of a's spacing)")
+    per = -(-NG // len(windows))
+    rows = dict(zip(windows, nb_noise.window_a(windows, per, True, seed)))
+    # the windows interleaved along the genes, so each chunk holds them all
+    a = np.stack(list(rows.values()), 1).ravel()[:NG]
+    a_t = torch.as_tensor(a, device=device)
+    r = 1.0 / a_t
+    delta = y_shift(1.0 / r, 1.0 / r + 2.0)
+    check(bool((delta != 0.0).all()) and torch.equal(1.0 / r, a_t),
+          "[plain] (a) windows: every gene's y = a + 2 rounds")
+    print(f"[plain] (a) windows: {NG} genes, a in windows {windows} (n = 1: "
+          f"a < 2), up to {per} each, every y = a + 2 rounded "
+          f"(|y - a - 2| {float(delta.abs().min()):.3e} .. "
+          f"{float(delta.abs().max()):.3e})")
+
+    def gate(tag, g, g64):
+        err = (g.double() - g64).abs()
+        j = int(err.argmax())
+        rel = float(err.max() / g64.abs().max())
+        by_window = {n: float(err[torch.as_tensor(
+            (a >= (0.0 if n == 1 else 2.0 ** n - 2)) & (a < 2.0 ** n),
+            device=device)].max() / g64.abs().max()) for n in rows}
+        print(f"[plain] (a) windows, {tag} @ {NG}x{NC}: dispersion gradient "
+              f"against float64 {rel:.3e} of the largest (gene {j}, a "
+              f"{a[j]:.7g}, y - a - 2 = {float(delta[j]):.3e}); by window "
+              + ", ".join(f"{n}: {v:.2e}" for n, v in by_window.items())
+              + f" ({card})")
+        check(math.isfinite(rel) and rel < PLAIN_MAX_REL,
+              f"[plain] (a) windows, {tag}: {rel:.3e} against float64")
+
+    for Nb, tag in ((0, "narrow, 5 columns"),
+                    (WIDE_BATCHES, f"wide, {NH + WIDE_BATCHES} columns")):
+        S, nu, zeta, cf, _, dnu, Db = make_inputs(torch, NG, NC, seed, Nb=Nb,
+                                                  device=device)
+        lgk = lgamma_k_sum(torch, S)
+        g = K.phase_fwdgrad(S, nu, zeta, cf, r, dnu, Db, lgk,
+                            want_disp=True)[1][3]
+        g64 = _disp_grad64(torch, K.nb_loglik_reference, [S],
+                           [nu, zeta, cf], r, dnu, Db, PLAIN_CHUNK)
+        gate(f"phase_fwdgrad {tag}", g, g64)
+        if not Nb:      # the plain element on the same log-means
+            gp = []
+            for i in range(0, NG, PLAIN_CHUNK):
+                p = slice(i, i + PLAIN_CHUNK)
+                rp = r[p].clone().requires_grad_(True)
+                elog = nu[p] @ zeta.T + cf
+                lp = dist.NegativeBinomial(
+                    mean=torch.exp(elog), dispersion=rp[:, None]).log_prob(
+                        S[p].float()).sum()
+                gp.append(torch.autograd.grad(lp, rp)[0])
+            gate("the plain element", torch.cat(gp), g64)
+        del S, nu, zeta, cf, dnu, Db, g, g64
+        v = make_velo_inputs(torch, NG, NC, seed, Nb=Nb, device=device)
+        (S, U, nu, zeta, zdphi, cf, omega, lb, lg, _, dnu, Db) = v
+        lgk = lgamma_k_sum(torch, S, U)
+        g = K.velo_fwdgrad(S, U, nu, zeta, zdphi, cf, omega, lb, lg, r, dnu,
+                           Db, lgk, want_disp=True)[1][7]
+        g64 = _disp_grad64(torch, K.nbsu_loglik_reference, [S, U],
+                           [nu, zeta, zdphi, cf, omega, lb, lg], r, dnu, Db,
+                           PLAIN_CHUNK)
+        gate(f"velo_fwdgrad {tag}", g, g64)
+        del v, S, U, nu, zeta, zdphi, cf, omega, lb, lg, dnu, Db, g, g64
+        torch.cuda.empty_cache()
+    print(f"[plain] (a) windows: {time.perf_counter() - t0:.1f} s")
 
 
 def _step0(torch, fit, data, seed, tag):
@@ -5879,6 +6107,8 @@ def plain_alone(torch, seed, card, parts, device="cuda"):
         if "a" in parts:
             plain_element(torch, card, mp.data, device)
             torch.cuda.empty_cache()
+            plain_windows(torch, card, seed, device)
+            torch.cuda.empty_cache()
         if "b" in parts:
             plain_fits(torch, seed, card, adata, angles, mp, device)
         del mp
@@ -5955,6 +6185,18 @@ def main(argv=None):
                          "default-metaparams fits at full width, (c) [mcmc] "
                          "(b)'s warm-start curvature and NUTS on both paths; "
                          "PARTS picks some of a, b, c (no result line)")
+    ap.add_argument("--package", metavar="ROOT", default=None,
+                    help="import velocycle_tpu_torch from the checkout at "
+                         "ROOT (a git archive of another commit) in place "
+                         "of this one's: with --digest or --fwdgrad-times")
+    ap.add_argument("--fwdgrad-times", action="store_true",
+                    help="build, then time the four fwd+grad kernels with "
+                         "the dispersion gradient on (narrow at 5 columns, "
+                         "wide at 21) and print one JSON line")
+    ap.add_argument("--turns", metavar="ROOT", default=None,
+                    help="build this checkout's and ROOT's packages, then "
+                         "--fwdgrad-times of each in turns: ROOT, this, "
+                         "this, ROOT, twice (no result line)")
     ap.add_argument("--tiles", action="store_true",
                     help="build, then [tiles] alone: the layout ladder's "
                          "sweep, three layouts of each family at int16 and "
@@ -5967,6 +6209,8 @@ def main(argv=None):
         print("FAIL: no CUDA device: chip_smoke.py runs on the card only",
               file=sys.stderr)
         return 2
+    if args.package is not None:
+        sys.path.insert(0, os.path.abspath(args.package))
     try:
         import velocycle_tpu_torch  # noqa: F401
     except ImportError as e:
@@ -5978,8 +6222,22 @@ def main(argv=None):
     t_start = time.perf_counter()
 
     name, count, smi = phase_device(torch)
+    if args.package is not None:
+        where = os.path.dirname(os.path.dirname(
+            os.path.abspath(velocycle_tpu_torch.__file__)))
+        check(where == os.path.abspath(args.package),
+              f"--package {args.package}: imported from {where}")
+        print(f"[package] velocycle_tpu_torch from {where}")
     if args.digest:
         kernel_digest(torch, args.seed, wide=True)
+        return 0
+    if args.fwdgrad_times:
+        phase_build()
+        out = fwdgrad_times(torch, args.seed, smi)
+        print(json.dumps({"fwdgrad_times": out}))
+        return 0
+    if args.turns is not None:
+        turns(torch, args.seed, smi, args.turns)
         return 0
     if args.plain is not None:
         check(set(args.plain) <= set("abc"), f"--plain {args.plain}: parts "

@@ -1689,3 +1689,63 @@ def test_plain_phase_model_hvp_on_the_card():
     assert np.isfinite(hd).all()
     rel = np.abs(hd - ref) / np.abs(ref)
     assert np.median(rel) <= 1e-3, (np.median(rel), rel.max())
+
+
+@pytest.mark.parametrize("width", ["narrow", "wide"])
+@pytest.mark.parametrize("stage", ["phase", "velo"])
+def test_fwdgrad_kernels_at_a_rounded_y_against_float64(stage, width):
+    """The NB element's y = a + 2 rounded in float32 (csrc/nb_common.cuh
+    `y_shift`): phase_fwdgrad and velo_fwdgrad, narrow (Nh 5) and wide (Nh
+    5 + 16 batches, 21 columns), on 52 genes of 20,000 cells whose a = 1/r
+    lie in the windows [2^n - 2, 2^n), n = 1..13 (n = 1: a < 2; from n = 14
+    on no float32 r gives a rounded y), 4 each, every y rounded: the
+    dispersion gradient within 1e-6 of float64's largest (the reference in
+    float64, autograd of the direct form), and the kernel within the parity
+    gates of its plain version (loss rel 1e-5; gradients max|a-b|/max|a|
+    1e-4 phase, 5e-4 velocity)."""
+    dev = _cuda_or_skip()
+    from velocycle_tpu_torch.ops.special import y_shift
+    from velocycle_tpu_torch.tools import nb_noise
+
+    a = nb_noise.window_a(range(1, 14), 4, True, seed=7).T.ravel()
+    Ng, Nc, Nb = a.size, 20_000, 16 if width == "wide" else 0
+    name = f"{stage}_fwdgrad" + ("_wide" if Nb else "")
+    if stage == "phase":
+        args = _inputs(Ng, Nc, seed=31, Nb=Nb)
+        args[4] = (np.float32(1.0) / a).astype(np.float32)
+        ref, names, rtol, i_r = K.nb_loglik_reference, (
+            "dnu", "dzeta", "dcf", "ddisp", "ddnu"), 1e-4, 4
+    else:
+        args = _velo_inputs(Ng, Nc, seed=31, Nb=Nb)
+        args[9] = (np.float32(1.0) / a).astype(np.float32)
+        ref, names, rtol, i_r = K.nbsu_loglik_reference, VELO_GRADS, 5e-4, 9
+    n_counts = 1 if stage == "phase" else 2
+    t = [torch.as_tensor(x, device=dev) for x in args]
+    for i in range(n_counts):
+        t[i] = t[i].to(torch.int16)
+    if not Nb:
+        t += [None, None]
+    r = t[i_r]
+    assert bool((y_shift(1.0 / r, 1.0 / r + 2.0) != 0.0).all())
+    lgk = np.float32(sum(sps.gammaln(x.astype(np.float64) + 1.0).sum()
+                         for x in args[:n_counts]))
+    K.reset_launch_counts()
+    kl, kg = getattr(K, f"{stage}_fwdgrad")(*t, lgk, want_disp=True)
+    assert {k: v for k, v in K.LAUNCHES.items() if v} == {name: 1}
+    plain = getattr(K, f"{stage}_fwdgrad" + ("_wide_plain" if Nb
+                                             else "_plain"))
+    pl, pg = plain(*t, lgk, want_disp=True)
+    assert abs(float(kl) - float(pl)) / max(abs(float(pl)), 1.0) < 1e-5
+    for gname, x, y in zip(names, kg, pg):
+        if y is None:
+            assert x is None
+        else:
+            assert _max_rel(x, y) < rtol, gname
+    r64 = r.double().requires_grad_(True)
+    params = [x.double() for x in t[n_counts:i_r]]
+    extra = [] if not Nb else [x.double() for x in t[i_r + 1:]]
+    (g64,) = torch.autograd.grad(ref(*[x.double() for x in t[:n_counts]],
+                                     *params, r64, *extra), r64)
+    g = kg[names.index("ddisp")].double()
+    assert _max_rel(g, g64) < 1e-6, (
+        _max_rel(g, g64), a[int((g - g64).abs().argmax())])

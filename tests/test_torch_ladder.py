@@ -223,12 +223,12 @@ def _g_r_ops_by_element(k, log_b, a):
     """The dispersion gradient's operations, element by element, on the
     branch each gene and element take (csrc/nb_common.cuh nb_lp_grads)."""
     if a < 64.0:
-        return 5 + (10 if k >= 2 else 3) + 1
+        return 5 + (15 if k >= 2 else 3) + 1
     e = np.exp(-abs(log_b))
     sig_c = e / (1 + e) if log_b >= 0 else 1 / (1 + e)
     ops = 5 + (16 if log_b >= 0 and sig_c < 0.125 else 2) + 3 + 1
     if k >= 2:
-        ops += 26 + 2 + (16 if (k - 2) / (a + 2) < 0.125 else 1)
+        ops += 29 + 2 + (16 if (k - 2) / (a + 2) < 0.125 else 1)
     return ops
 
 
@@ -247,7 +247,7 @@ def test_ladder_work_counts_bytes_and_operations():
     Sn = S.numpy()
     dg = sum(_g_r_ops_by_element(float(Sn[g, c]), float(log_b[g, c]), float(a[g]))
              for g in range(8) for c in range(600))
-    assert dg > 16 * N      # past the ratio branch's most: the excess branch counts
+    assert dg > 21 * N      # past the ratio branch's most: the excess branch counts
     nbytes, ops = TP.work("v_full", S, nu, zeta, cf, r)
     assert ops == 56 * N + lg + dg
     assert nbytes == (2 * N + 4 * (8 * 5 + 600 * 5 + 600 + 8) + 4

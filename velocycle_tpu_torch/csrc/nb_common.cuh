@@ -41,14 +41,25 @@ struct GeneCols {
   float l0, l1;   // log(a), log(a + 1)
   float i0, i1;   // 1 / a, 1 / (a + 1)
   float full_l;   // l0 + l1
-  float full_d;   // i0 + i1
-  float y;        // a + 2
+  // y - a - 2 (y_shift), the rounding of y, where the sum i0 + i1 was kept:
+  // the element adds i0 + i1 itself (the same bits), and the struct's size,
+  // which sets the wide body's shared memory, stays
+  float delta;
+  float y;        // a + 2 rounded: a + 2 + delta
   float ym;       // y - 0.5
   float inv_y;    // 1 / y
   float log_y;    // log y
   float rc_y;     // lgamma Stirling correction at y
   float tail_y;   // digamma asymptotic tail at y
 };
+
+// y - a - 2, exactly: the rounding of y = fl(a + 2).  Fast2Sum with the
+// larger operand first, (y - a) - 2 for a >= 2 and (y - 2) - a below, is
+// exact under round-to-nearest.  It is not 0 wherever y has a larger
+// exponent than a: every a < 2 and a in [2^n - 2, 2^n) for n >= 2.
+__device__ __forceinline__ float y_shift(float a, float y) {
+  return (y - fmaxf(a, 2.0f)) - fminf(a, 2.0f);
+}
 
 __device__ __forceinline__ GeneCols gene_cols(float r) {
   GeneCols c;
@@ -59,8 +70,8 @@ __device__ __forceinline__ GeneCols gene_cols(float r) {
   c.i0 = 1.0f / c.a;
   c.i1 = 1.0f / (c.a + 1.0f);
   c.full_l = c.l0 + c.l1;
-  c.full_d = c.i0 + c.i1;
   const float y = c.a + 2.0f;
+  c.delta = y_shift(c.a, y);
   c.y = y;
   c.ym = y - 0.5f;
   c.inv_y = 1.0f / y;
@@ -101,7 +112,7 @@ __device__ __forceinline__ float log1m_excess(float s) {
 
 // The Stirling branch's arguments for a count k >= 0 (used where k >= 2):
 // x = k - 2 (clamped at 0), t = x / y, log1p(t) and 1 / (y + x) and its
-// square, with y = a + 2.
+// square, with y = a + 2 rounded (GeneCols).
 struct Stirling {
   float x, t, l1p, inv, inv2;
   bool lt;  // k < 2: the ratios are exact sums of at most two terms
@@ -127,21 +138,25 @@ __device__ __forceinline__ float lgamma_ratio(float k, const Stirling& s, const 
   return s.lt ? small_l : c.full_l + stir_l;
 }
 
-// digamma(k + a) - digamma(a).
+// digamma(k + a) - digamma(a).  The Stirling difference digamma(y + x) -
+// digamma(y) is taken at the rounded y; its derivative in y is about 1/(y +
+// x) - 1/y = d1, so at the true a + 2 = y - delta it is less delta d1.
 __device__ __forceinline__ float digamma_ratio(float k, const Stirling& s, const GeneCols& c) {
   const float tail_ka = -0.5f * s.inv - s.inv2 * ((1.0f / 12.0f) -
                         s.inv2 * ((1.0f / 120.0f) - s.inv2 / 252.0f));
-  const float stir_d = s.l1p + tail_ka - c.tail_y;
+  const float d1 = -s.x * s.inv * c.inv_y;  // 1/ka - 1/y
+  const float stir_d = s.l1p + tail_ka - c.tail_y - c.delta * d1;
   const float small_d = (k > 0.0f ? c.i0 : 0.0f) + (k > 1.0f ? c.i1 : 0.0f);
-  return s.lt ? small_d : c.full_d + stir_d;
+  return s.lt ? small_d : (c.i0 + c.i1) + stir_d;
 }
 
 // k - a (digamma(k + a) - digamma(a)) = sum_{j<k} j / (a + j): 0 for k < 2;
 // for k >= 2 the Stirling branch's 1/(a+1) + (x - a log1p(t)) - a
 // (tail(ka) - tail(y)) with ka = y + x, taken as y (t - log1p t) + (y - a)
-// log1p t (y - a is exact) and through 1/ka - 1/y = -x / (ka y): no
-// difference of two O(k) or two O(1/a) numbers, which cancel when a = 1/r
-// is large.
+// log1p t (y - a is exact, 2 + delta) and through 1/ka - 1/y = -x / (ka
+// y): no difference of two O(k) or two O(1/a) numbers, which cancel when a
+// = 1/r is large.  The Stirling difference is taken at the rounded y, as in
+// digamma_ratio: + a delta d1 moves it to a + 2.
 __device__ __forceinline__ float digamma_excess(const Stirling& s, const GeneCols& c) {
   const float d1 = -s.x * s.inv * c.inv_y;  // 1/ka - 1/y
   const float iy2 = c.inv_y * c.inv_y;
@@ -149,7 +164,7 @@ __device__ __forceinline__ float digamma_excess(const Stirling& s, const GeneCol
   const float td = -0.5f * d1 - d2 * ((1.0f / 12.0f) - (s.inv2 + iy2) * (1.0f / 120.0f) +
                    (s.inv2 * s.inv2 + s.inv2 * iy2 + iy2 * iy2) * (1.0f / 252.0f));
   const float stir_k = c.i1 + c.y * log1p_excess(s.t, s.l1p) + (c.y - c.a) * s.l1p - c.a * td;
-  return s.lt ? 0.0f : stir_k;
+  return s.lt ? 0.0f : stir_k + c.a * c.delta * d1;
 }
 
 // log Gamma(x) for x > 0: Lanczos, g = 7, n = 9.

@@ -20,6 +20,8 @@ and the kernels' on-card comparisons hold one arithmetic.
     digamma(a))`` = sum_{j<k} j / (a+j) from the same Stirling branch, the
     last with no difference of two O(k) or two O(1/a) numbers (the NB
     element's dispersion gradient from a = 1/r = EXCESS_FROM on).
+  * `y_shift`: y - a - 2 for y = a + 2 rounded, exactly; both digamma
+    forms take their Stirling difference at y and move it back to a + 2.
   * `log1p_excess`, `log1m_excess`: t - log1p(t) and -log1p(-s) - s, by
     their series below 1/8.
 
@@ -40,7 +42,8 @@ __all__ = [
     "lgamma_pos", "softplus", "softplus_sigmoid", "softplus_log_sigmoid",
     "lgamma_ratio2",
     "lgamma_digamma_ratio", "lgamma_digamma_excess", "log1p_excess",
-    "log1m_excess", "digamma_pos", "lgamma_ratio", "digamma_ratio",
+    "log1m_excess", "y_shift", "digamma_pos", "lgamma_ratio",
+    "digamma_ratio",
 ]
 
 # below this argument `log1p_excess` and `log1m_excess` take their series
@@ -138,10 +141,23 @@ def log1m_excess(s):
         1.0 / 6.0 + s * (1.0 / 7.0 + s * (0.125 + s / 9.0)))))))
 
 
+def y_shift(a, y):
+    """y - a - 2 for y = a + 2 rounded in ``a``'s type, exactly
+    (csrc/nb_common.cuh `y_shift`, a gene column there: `GeneCols.delta`;
+    here per gene too, a broadcast along the cells): Fast2Sum with the
+    larger operand first,
+    (y - a) - 2 for a >= 2 and (y - 2) - a below, is exact under
+    round-to-nearest.  Not 0 wherever y has a larger exponent than a: every
+    a < 2 and a in [2^n - 2, 2^n) for n >= 2."""
+    return (y - torch.clamp(a, min=2.0)) - torch.clamp(a, max=2.0)
+
+
 def _ratio_parts(k, a):
     """The per-gene columns and Stirling pieces shared by the lgamma ratio,
     the digamma ratio and the digamma excess (csrc/nb_common.cuh
-    `GeneCols`, `lgamma_digamma_ratio`), in the kernels' operation order."""
+    `GeneCols`, `lgamma_digamma_ratio`), in the kernels' operation order.
+    y = a + 2 rounds (`y_shift`); the lgamma ratio takes its Stirling
+    difference at y as it is."""
     zero = torch.zeros((), dtype=a.dtype, device=a.device)
     masks = [k > j for j in range(2)]
     logs = [torch.log(a + j) for j in range(2)]    # per-gene columns
@@ -168,9 +184,9 @@ def _ratio_parts(k, a):
     stir_l = (y - 0.5 + x) * l1p + x * log_y - x + rc_ka - rc_y
     lt = k < 2
     lgr = torch.where(lt, small_l, sum(logs) + stir_l)
-    return dict(zero=zero, masks=masks, invs=invs, y=y, x=x, t=t, l1p=l1p,
-                inv=inv, inv2=inv2, inv_y=inv_y, inv2_y=inv2_y, lt=lt,
-                lgr=lgr)
+    return dict(zero=zero, masks=masks, invs=invs, a=a, y=y, x=x, t=t,
+                l1p=l1p, inv=inv, inv2=inv2, inv_y=inv_y, inv2_y=inv2_y,
+                lt=lt, lgr=lgr)
 
 
 def lgamma_ratio2(k, a):
@@ -181,6 +197,9 @@ def lgamma_ratio2(k, a):
 
 
 def _digamma_ratio(p):
+    """digamma(k+a) - digamma(a); the Stirling difference at the rounded
+    y less delta d1 (delta = `y_shift`, d1 = 1/ka - 1/y, about its
+    derivative in y): at a + 2."""
     invs, inv, inv2 = p["invs"], p["inv"], p["inv2"]
     inv_y, inv2_y = p["inv_y"], p["inv2_y"]
     small_d = sum(torch.where(p["masks"][j], invs[j], p["zero"])
@@ -191,7 +210,8 @@ def _digamma_ratio(p):
     tail_y = -0.5 * inv_y - inv2_y * (
         1.0 / 12.0 - inv2_y * (1.0 / 120.0 - inv2_y / 252.0)
     )
-    stir_d = p["l1p"] + tail_ka - tail_y
+    d1 = -p["x"] * inv * inv_y             # 1/ka - 1/y
+    stir_d = p["l1p"] + tail_ka - tail_y - y_shift(p["a"], p["y"]) * d1
     return torch.where(p["lt"], small_d, sum(invs) + stir_d)
 
 
@@ -206,7 +226,8 @@ def _digamma_excess(p, a):
                            * (1.0 / 252.0))
     stir_k = (p["invs"][1] + y * log1p_excess(p["t"], l1p) + (y - a) * l1p
               - a * td)
-    return torch.where(p["lt"], p["zero"], stir_k)
+    return torch.where(p["lt"], p["zero"],
+                       stir_k + a * y_shift(a, y) * d1)
 
 
 def lgamma_digamma_ratio(k, a):
@@ -222,9 +243,10 @@ def lgamma_digamma_excess(k, a):
     0 for k < 2, and for k >= 2 the Stirling branch of the ratios taken as
     1/(a+1) + (x - a log1p(t)) - a (tail(a+k) - tail(y)) with y = a+2, x =
     k-2, t = x/y: the middle term as y (t - log1p t) + (y - a) log1p t
-    (`log1p_excess`; y - a is exact) and the tail difference through 1/ka
-    - 1/y = -x / (ka y), so that no two terms of size k, or of size 1/a,
-    cancel when a is large."""
+    (`log1p_excess`; y - a is exact, 2 + `y_shift`) and the tail
+    difference through 1/ka - 1/y = -x / (ka y), so that no two terms of
+    size k, or of size 1/a, cancel when a is large; + a delta (1/ka - 1/y)
+    moves its Stirling difference from the rounded y to a + 2."""
     p = _ratio_parts(k, a)
     return p["lgr"], _digamma_ratio(p), _digamma_excess(p, a)
 

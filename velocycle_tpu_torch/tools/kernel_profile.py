@@ -60,17 +60,20 @@ ELEMENT_OPS = {"stream": 2, "matmul": 13, "logpmf": 24, "fwdgrad": 43,
 LGAMMA_OPS = (22, 5, 2)
 # the dispersion gradient g_r of one element (csrc/nb_common.cuh
 # nb_lp_grads), counted on the branch its gene and its inputs take:
-#   a < EXCESS_FROM: dlp_da + g_r 5; the digamma ratio: Stirling 10 where
-#     k >= 2, small-k sum 3 where k < 2, select 1
+#   a < EXCESS_FROM: dlp_da + g_r 5; the digamma ratio: Stirling 10,
+#     1/a + 1/(a + 1) 1 and the move from the rounded y = a + 2 to a + 2,
+#     1/ka - 1/y 2 and - delta (1/ka - 1/y) 2 (delta a gene column,
+#     GeneCols), where k >= 2 (15); small-k sum 3 where k < 2, select 1
 #   a >= EXCESS_FROM: ((k - a dgr) - k sig_c + a q) a 5; q = -(log sig +
 #     sig_c) by series 16 where log_b >= 0 and sig_c < 1/8, else directly
 #     2, the test 3; the digamma excess k - a dgr where k >= 2: 1/ka - 1/y
-#     3, its square 3, the tail difference 13, the sum 7, and t - log1p t
+#     3, its square 3, the tail difference 13, the sum 7, the move from the
+#     rounded y, + a delta (1/ka - 1/y) 3 (29), and t - log1p t
 #     by series 16 where t = (k - 2) / (a + 2) < 1/8, else directly 1, the
 #     test 2; 0 where k < 2; select 1
-DISP_OPS = {"ratio": 5, "dg_stir": 10, "dg_small": 3, "dg_sel": 1,
+DISP_OPS = {"ratio": 5, "dg_stir": 15, "dg_small": 3, "dg_sel": 1,
             "excess": 5, "q_series": 16, "q_direct": 2, "q_test": 3,
-            "kad_stir": 26, "t_series": 16, "t_direct": 1, "t_test": 2,
+            "kad_stir": 29, "t_series": 16, "t_direct": 1, "t_test": 2,
             "kad_sel": 1}
 DISP_RUNGS = ("v_full", "v_nocell")
 

@@ -19,8 +19,9 @@ the largest gradient, and the median of the genes' relative errors; and
 the same for the plain path's element (the models' ``NegativeBinomial``
 log-prob in float32, `ops.likelihoods.NBLogPmf`, whose derivatives are the
 fused element's form) with its loss error in nats, each with its worst
-gene.  Then the excess form's shifted y (`excess_y_shift`: the fused
-element's error at a = 1/r where a + 2 rounds in float32).  Then the
+gene.  Then the rounded y = a + 2 (`excess_y_shift`: the kernels' plain
+element's error at a = 1/r where a + 2 rounds in float32, beside the
+element's before its repair, `parent_element`).  Then the
 Hessian diagonal in shape_inv through the plain path (the NUTS warm
 start's probes) against float64's double backward of the direct form: at
 the warm start of `MCMCFitModel` (500 SVI steps) and at fixed values at
@@ -44,8 +45,9 @@ import numpy as np
 import torch
 
 __all__ = ["direct_element", "disp_grad_error", "element_costs",
-           "excess_y_shift", "fixed_point_curvature", "gene_grad_error",
-           "line_noise", "nuts_by_path", "warm_start_curvature"]
+           "excess_y_shift", "fixed_point_curvature", "gene_errors",
+           "gene_grad_error", "gene_rows", "line_noise", "nuts_by_path",
+           "parent_element", "warm_start_curvature", "window_a"]
 
 DECADES = ((1e-4, 1e-3), (1e-3, 1e-2), (1e-2, 1e-1), (1e-1, 1.0))
 SHAPE_INVS = (1e-2, 1e-3, 1e-4, 1e-5, 1e-6)
@@ -102,7 +104,8 @@ def disp_grad_error(device, seed=0, plain=False, data=None, chunk=None):
     """{shape_inv: (max error / max |gradient|, median relative error over
     the genes, loss error in nats, the worst gene's index, its a = 1/r,
     max error over the genes whose y = a + 2 is exact in float32 / max
-    |gradient| (`excess_y_shift`))} of the fused likelihood's dispersion
+    |gradient|, a figure to print beside the first since the y repair
+    (`excess_y_shift`))} of the fused likelihood's dispersion
     gradient (``plain``: the plain path's NB element, the models'
     ``NegativeBinomial`` log-prob summed, in float32) against float64, nu
     drawn around the prior mean, the phases at their prior.  ``data``: a
@@ -111,6 +114,7 @@ def disp_grad_error(device, seed=0, plain=False, data=None, chunk=None):
     from velocycle_tpu_torch.core import distributions as dist
     from velocycle_tpu_torch.models.basis import expression_basis
     from velocycle_tpu_torch.ops import nb_kernels as K
+    from velocycle_tpu_torch.ops.special import y_shift
 
     d = _data(True, device).data if data is None else data
     zeta = expression_basis(d, torch.atan2(d.phixy_prior[:, 1],
@@ -147,7 +151,7 @@ def disp_grad_error(device, seed=0, plain=False, data=None, chunk=None):
         err = (g32 - g64).abs()
         j = int(err.argmax())
         a = 1.0 / r
-        exact = (a + 2.0) - a == 2.0
+        exact = y_shift(a, a + 2.0) == 0.0
         out[si] = (float(err.max() / g64.abs().max()),
                    float((err / g64.abs()).median()), dl, j, float(a[j]),
                    float(err[exact].max() / g64.abs().max()))
@@ -189,44 +193,161 @@ def gene_grad_error(device, data, si, j, seed=0):
                  for g in (fused, twin, plain))
 
 
-def excess_y_shift(device, a_values, Nc=102_400, seed=0):
-    """{a: (y - a - 2 in float32 with y = a + 2 rounded, the fused
-    element's plain version's dispersion gradient against float64 relative
-    to it, the same with the shift's first-order term taken out)} for one
-    gene at each a = 1/r on counts drawn as chip_smoke.py's (floor exp
-    N(1, 0.8^2)), mu about 3.  The excess form's Stirling pieces
-    (`ops.special.lgamma_digamma_excess`, csrc/nb_common.cuh
-    `digamma_excess`) are taken at y = a + 2 in float32, which is not a + 2
-    where a + 2 reaches the next power of two and a's last bit is set
-    (a in [126, 128), [1022, 1024), ...): k - a dgr then moves by about
-    delta a x / (y (y + x)), delta = y - a - 2, x = k - 2, of one sign over
-    the gene's cells."""
+def _parent_stirling(k, a):
+    """(lgr, dgr, kad) as the element took them before its y repair: the
+    threshold-2 Stirling branch at y = a + 2 rounded, with y - a taken as 2
+    (frozen; the element's other pieces are the live ones, which the repair
+    does not touch)."""
+    from velocycle_tpu_torch.ops.special import log1p_excess
+
+    zero = torch.zeros((), dtype=a.dtype, device=a.device)
+    masks = [k > j for j in range(2)]
+    logs = [torch.log(a + j) for j in range(2)]
+    invs = [1.0 / (a + j) for j in range(2)]
+    small_l = sum(torch.where(masks[j], logs[j], zero) for j in range(2))
+    y = a + 2.0
+    x = torch.clamp(k - 2.0, min=0.0)
+    inv_y = 1.0 / y
+    inv2_y = inv_y * inv_y
+    t = x * inv_y
+    l1p = torch.log1p(t)
+    inv = 1.0 / (y + x)
+    inv2 = inv * inv
+    rc_ka = inv * (1.0 / 12.0 - inv2 * (
+        1.0 / 360.0 - inv2 * (1.0 / 1260.0 - inv2 * (1.0 / 1680.0))))
+    rc_y = inv_y * (1.0 / 12.0 - inv2_y * (
+        1.0 / 360.0 - inv2_y * (1.0 / 1260.0 - inv2_y * (1.0 / 1680.0))))
+    stir_l = (y - 0.5 + x) * l1p + x * torch.log(y) - x + rc_ka - rc_y
+    lt = k < 2
+    lgr = torch.where(lt, small_l, sum(logs) + stir_l)
+    small_d = sum(torch.where(masks[j], invs[j], zero) for j in range(2))
+    tail_ka = -0.5 * inv - inv2 * (1.0 / 12.0 - inv2 * (
+        1.0 / 120.0 - inv2 / 252.0))
+    tail_y = -0.5 * inv_y - inv2_y * (1.0 / 12.0 - inv2_y * (
+        1.0 / 120.0 - inv2_y / 252.0))
+    dgr = torch.where(lt, small_d, sum(invs) + (l1p + tail_ka - tail_y))
+    d1 = -x * inv * inv_y
+    d2 = d1 * (inv + inv_y)
+    td = -0.5 * d1 - d2 * (1.0 / 12.0 - (inv2 + inv2_y) * (1.0 / 120.0)
+                           + (inv2 * inv2 + inv2 * inv2_y + inv2_y * inv2_y)
+                           * (1.0 / 252.0))
+    kad = torch.where(lt, zero, invs[1] + y * log1p_excess(t, l1p)
+                      + (y - a) * l1p - a * td)
+    return lgr, dgr, kad
+
+
+def parent_element(k, a, log_r, elog, skip_k=True):
+    """(log-pmf, d lp/d elog, d lp/d r) of the kernels' NB element as its
+    plain version (`ops.nb_kernels._nb_lp_and_grads`) computed them before
+    the y repair: its Stirling pieces frozen (`_parent_stirling`), so that
+    the dispersion gradient's digamma differences sit at the rounded y =
+    a + 2.  The yardstick the repair is held against."""
+    from velocycle_tpu_torch.ops.special import (
+        EXCESS_FROM, SERIES_BELOW, lgamma_pos, log1m_excess,
+        softplus_log_sigmoid)
+
+    log_b = -log_r - elog
+    sp, log_sig, sig, sig_c = softplus_log_sigmoid(log_b)
+    lgr, dgr, kad = _parent_stirling(k, a)
+    lp = lgr + a * log_sig - k * sp
+    if not skip_k:
+        lp = lp - lgamma_pos(k + 1.0)
+    g_elog = k * sig - a * sig_c
+    g_r_ratio = ((dgr + log_sig) * (-a) + g_elog) * a
+    q = torch.where((log_b >= 0.0) & (sig_c < SERIES_BELOW),
+                    log1m_excess(sig_c), -(log_sig + sig_c))
+    g_r_excess = ((kad - k * sig_c) + a * q) * a
+    return lp, g_elog, torch.where(a < EXCESS_FROM, g_r_ratio, g_r_excess)
+
+
+def window_a(windows, per_window, shifted=True, seed=0):
+    """float32 a = 1/r, (len(windows), per_window): in each window n of
+    ``windows`` a drawn uniformly in [2^n - 2, 2^n) ([0.05, 2) for n = 1),
+    keeping those whose y = a + 2 rounds in float32 (``shifted``) or those
+    whose y is exact; each a as the element forms it, 1 / fl(1 / a), and
+    1 / fl(1 / a) again (r = 1 / a gives it back).  From
+    n = 14 on no float32 r gives a shifted a = 1/r (those a lie 2^-9 apart,
+    twice a's spacing, on even multiples of it): ValueError."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for n in windows:
+        lo, hi = (0.05, 2.0) if n == 1 else (2.0 ** n - 2.0, 2.0 ** n)
+        got = np.zeros(0, np.float32)
+        for _ in range(64):
+            if got.size >= per_window:
+                break
+            a = rng.uniform(lo, hi, 4 * per_window).astype(np.float32)
+            a = np.float32(1.0) / (np.float32(1.0) / a)
+            y = a + np.float32(2.0)
+            delta = (y - np.maximum(a, np.float32(2.0))) - np.minimum(
+                a, np.float32(2.0))
+            keep = (((delta != 0.0) == shifted) & (a >= lo) & (a < hi)
+                    & (np.float32(1.0) / (np.float32(1.0) / a) == a))
+            got = np.concatenate([got, a[keep]])
+        if got.size < per_window:
+            raise ValueError(f"window {n}: no a = 1/r with y = a + 2 "
+                             f"{'rounded' if shifted else 'exact'}")
+        out.append(got[:per_window])
+    return np.stack(out)
+
+
+def gene_rows(a_values, Nc, seed=0, device="cpu"):
+    """(k, elog, r) for one gene per a = 1/r in ``a_values``, each on
+    counts drawn as chip_smoke.py's (floor exp N(1, 0.8^2)) at log-means
+    about log 3 (sd 0.3)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    n = len(a_values)
+    k = torch.floor(torch.exp(torch.randn((n, Nc), generator=g,
+                                          device=device) * 0.8 + 1.0))
+    elog = torch.log(torch.full((n, Nc), 3.0, device=device)) + 0.3 * (
+        torch.randn((n, Nc), generator=g, device=device))
+    a = torch.as_tensor(np.asarray(a_values, np.float32), device=device)
+    return k, elog, 1.0 / a
+
+
+def gene_errors(k, elog, r, element=None):
+    """Each gene's (row's) summed dispersion gradient against float64
+    autograd of the direct form, |sum error| / |sum gradient|, and the same
+    for its log-pmf: two numpy arrays.  ``element``: `parent_element` or
+    the kernels' plain element (`ops.nb_kernels._nb_lp_and_grads`, the
+    default)."""
     from velocycle_tpu_torch.ops import nb_kernels as K
     from velocycle_tpu_torch.ops.likelihoods import nb_logpmf_direct
 
-    g = torch.Generator(device=device).manual_seed(seed)
-    k = torch.floor(torch.exp(torch.randn((1, Nc), generator=g,
-                                          device=device) * 0.8 + 1.0))
-    elog = torch.log(torch.full((1, Nc), 3.0, device=device)) + 0.3 * (
-        torch.randn((1, Nc), generator=g, device=device))
-    out = {}
-    for a_val in a_values:
-        r = torch.full((1,), 1.0 / a_val, device=device)
-        a = 1.0 / r[:, None]
-        r64 = r.double()[:, None].expand(1, Nc).clone().requires_grad_(True)
-        (g64,) = torch.autograd.grad(nb_logpmf_direct(
-            k.double(), elog.double(), r64).sum(), r64)
-        g64 = g64.sum()
-        _, _, g32 = K._nb_lp_and_grads(k, a, torch.log(r)[:, None], elog,
-                                       True)
-        y = a + 2.0
-        delta = (y - a) - 2.0
-        x = torch.clamp(k - 2.0, min=0.0)
-        shift = torch.where(k < 2.0, 0.0, delta * a * x / (y * (y + x)))
-        errs = [float((gr.double().sum() - g64).abs() / g64.abs())
-                for gr in (g32, g32 - a * shift)]
-        out[a_val] = (float(delta[0, 0]), *errs)
-    return out
+    r64 = r.double()[:, None].expand(k.shape).clone().requires_grad_(True)
+    lp64 = nb_logpmf_direct(k.double(), elog.double(), r64)
+    (g64,) = torch.autograd.grad(lp64.sum(), r64)
+    a = 1.0 / r[:, None]
+    lp, _, g_r = (element or K._nb_lp_and_grads)(
+        k, a, torch.log(r)[:, None], elog, False)
+    lp64 = lp64.detach().sum(1)
+    g64 = g64.sum(1)
+
+    def rel(got, want):
+        return ((got.double().sum(1) - want).abs() / want.abs()).cpu().numpy()
+
+    return rel(g_r, g64), rel(lp, lp64)
+
+
+def excess_y_shift(device, a_values, Nc=102_400, seed=0):
+    """{a: (delta = y - a - 2 with y = a + 2 rounded in float32
+    (`ops.special.y_shift`), the kernels' plain element's dispersion
+    gradient against float64 relative to it, the same for the element
+    before the y repair (`parent_element`))} for one gene at each a = 1/r
+    on counts drawn as chip_smoke.py's (`gene_rows`), mu about 3.  Before
+    the repair the Stirling pieces sat at the rounded y, and where delta
+    != 0 (a in [126, 128), [1022, 1024), ...) k - a dgr moved by about
+    delta a x / (y (y + x)), x = k - 2, of one sign over the gene's
+    cells."""
+    from velocycle_tpu_torch.ops.special import y_shift
+
+    k, elog, r = gene_rows(a_values, Nc, seed, device)
+    a = 1.0 / r
+    delta = y_shift(a, a + 2.0)
+    fixed = gene_errors(k, elog, r)[0]
+    parent = gene_errors(k, elog, r, parent_element)[0]
+    return {a_val: (float(delta[i]), float(fixed[i]), float(parent[i]))
+            for i, a_val in enumerate(a_values)}
 
 
 @contextlib.contextmanager
@@ -446,11 +567,11 @@ def main(argv=None):
                   f"(gene {j}, a {a:.6g}; {mx_exact:.2e} where y = a + 2 "
                   f"is exact), median over genes {med:.2e}; loss {dl:+.2e} "
                   f"nats ({where})")
-    for a, (delta, err, fixed) in excess_y_shift(
+    for a, (delta, err, parent) in excess_y_shift(
             args.device, (1000.0, 1022.6, 126.1, 127.9)).items():
         print(f"[nb_noise] excess form at a {a:g}: y - a - 2 = {delta:.3e}; "
               f"kernels' plain version against float64 {err:.2e}, the "
-              f"shift's first-order term taken out {fixed:.2e} ({where})")
+              f"element before the y repair {parent:.2e} ({where})")
     print(f"[nb_noise] dispersion gradient error at shape_inv 1e-5 / 1e-3: "
           f"{errs[1e-5][0] / errs[1e-3][0]:.2f}x (largest), "
           f"{errs[1e-5][1] / errs[1e-3][1]:.2f}x (median) ({where})")
