@@ -1,0 +1,9 @@
+"""Device milliseconds per traced step of the operations launched inside
+the program's span ``svi.backward``: the autograd engine's passes, launched
+from its device thread while the step waits in the span (`attribution`).
+Moves ``svi_steps_per_s``."""
+from ..attribution import device_ms
+
+
+def read(run):
+    return device_ms(run, "svi.backward")

@@ -1,0 +1,8 @@
+"""Device milliseconds per traced step of the operations launched inside
+the program's span ``svi.optim``: ClippedAdam (`attribution`).  Moves
+``svi_steps_per_s``."""
+from ..attribution import device_ms
+
+
+def read(run):
+    return device_ms(run, "svi.optim")

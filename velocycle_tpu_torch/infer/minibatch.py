@@ -154,7 +154,7 @@ def iter_host_blocks(S, count_factor, phixy_prior, template, num_blocks,
                 fields[name] = a[:, sl] if ax == 1 else a[sl]
         if want_lgamma:
             counts = (fields["S"], fields["U"]) if is_velo else (fields["S"],)
-            fields["lgamma_k_sum"] = torch.as_tensor(_lgamma_k_sum(True, *counts))
+            fields["lgamma_k_sum"] = torch.as_tensor(_lgamma_k_sum(*counts))
         yield i, template.replace(**fields)
 
 

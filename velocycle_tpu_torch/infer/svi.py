@@ -37,6 +37,7 @@ import torch
 
 from ..core import handlers
 from ..core.distributions import Distribution
+from ..profiling import span
 from .elbo import Trace_ELBO
 
 __all__ = ["SVI", "SVIState", "init_params", "constrain"]
@@ -232,16 +233,18 @@ class SVI:
                 return handlers.scale(fn, scale_factor=0.0,
                                       site_filter=lambda n: n not in LOCAL_SITES)
             guide, model = once(guide), once(model)
-        with _global_cell_draws(shard, LOCAL_SITES):
+        with span("svi.elbo"), _global_cell_draws(shard, LOCAL_SITES):
             loss = self.loss.loss(key, model, guide, *args, **kwargs)
-        names = list(params)
-        grads = dict(zip(names, torch.autograd.grad(
-            loss, [params[n] for n in names], allow_unused=True)))
-        rep = [n for n in names if n not in PARAM_CELL_AXES]
-        flat = torch.cat(
-            [(torch.zeros_like(params[n]) if grads[n] is None else grads[n]
-              ).reshape(-1) for n in rep] + [loss.detach().reshape(1)])
-        torch.distributed.all_reduce(flat, group=shard.group)
+        with span("svi.backward"):
+            names = list(params)
+            grads = dict(zip(names, torch.autograd.grad(
+                loss, [params[n] for n in names], allow_unused=True)))
+            rep = [n for n in names if n not in PARAM_CELL_AXES]
+            flat = torch.cat(
+                [(torch.zeros_like(params[n]) if grads[n] is None
+                  else grads[n]).reshape(-1) for n in rep]
+                + [loss.detach().reshape(1)])
+            torch.distributed.all_reduce(flat, group=shard.group)
         parts = flat.split([params[n].numel() for n in rep] + [1])
         for n, g in zip(rep, parts):
             grads[n] = g.view_as(params[n])
@@ -250,23 +253,27 @@ class SVI:
     def update(self, state, *args, **kwargs):
         """One SVI step; returns (state, loss as a 0-d device tensor).  On
         a state from `init_sharded`, the sharded step: the loss is the
-        global one, on every rank."""
-        key, sub = handlers.fold_in(state.key, 0), handlers.fold_in(state.key, 1)
-        if state.shard is not None:
-            loss, grads = self._sharded_value_and_grad(
-                state.params, sub, state.shard, *args, **kwargs)
-            self.optim.update(grads, state.opt_state, state.params)
-            return SVIState(state.step + 1, state.params, state.opt_state, key,
-                            state.shard), loss
-        names = list(state.params)
-        loss = self.loss_fn(state.params, sub, *args, **kwargs)
-        grads = torch.autograd.grad(
-            loss, [state.params[n] for n in names], allow_unused=True
-        )
-        self.optim.update(dict(zip(names, grads)), state.opt_state,
-                          state.params)
-        state = SVIState(state.step + 1, state.params, state.opt_state, key)
-        return state, loss.detach()
+        global one, on every rank.  The step is the span ``svi.step``, with
+        ``svi.elbo``, ``svi.backward`` and ``svi.optim`` inside it
+        (`profiling.span`)."""
+        with span("svi.step"):
+            key = handlers.fold_in(state.key, 0)
+            sub = handlers.fold_in(state.key, 1)
+            if state.shard is not None:
+                loss, grads = self._sharded_value_and_grad(
+                    state.params, sub, state.shard, *args, **kwargs)
+            else:
+                names = list(state.params)
+                with span("svi.elbo"):
+                    loss = self.loss_fn(state.params, sub, *args, **kwargs)
+                with span("svi.backward"):
+                    grads = dict(zip(names, torch.autograd.grad(
+                        loss, [state.params[n] for n in names],
+                        allow_unused=True)))
+            with span("svi.optim"):
+                self.optim.update(grads, state.opt_state, state.params)
+            return SVIState(state.step + 1, state.params, state.opt_state,
+                            key, state.shard), loss.detach()
 
     def update_chunk(self, state, num_steps, *args, **kwargs):
         """``num_steps`` updates; the losses come back as one device tensor

@@ -7,8 +7,16 @@ size factors, the int16 count compaction and the f64 ``sum(lgamma(K+1))``
 constant) is numpy and produces the same arrays as the JAX package; the
 result is one `PhaseData` or `VelocityData` whose tensors sit on
 ``device`` (the card unless ``device="cpu"``).
+
+Each front door is the span ``preprocess`` (`profiling.span`), its passes
+the spans ``preprocess.dense`` (dense float32 counts), ``.logs`` (the log
+layers), ``.compact`` and ``.lgamma`` (the fused path's int16 counts and
+``sum(lgamma(K+1))``) and ``.upload`` (the transposed copies and the
+copies to ``device``).
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -16,6 +24,7 @@ import torch
 from .containers import AngularSpeed, Cycle, Phases, reorder
 from .device import resolve_device
 from .models.metapars import Metapars, PhaseData, VelocityData
+from .profiling import span
 
 __all__ = [
     "filter_shared_genes",
@@ -157,12 +166,11 @@ def _extract_counts(adata, normalize):
     )
 
 
-def _compact_counts(use_fused_nb, K):
+def _compact_counts(K):
     """Integer-valued counts as int16 for the fused kernels (half the count
     stream); float32 when values are fractional or exceed int16 range."""
     if (
-        use_fused_nb
-        and np.all(K == np.floor(K))
+        np.all(K == np.floor(K))
         and K.min() >= 0
         and K.max() < np.iinfo(np.int16).max
     ):
@@ -170,10 +178,8 @@ def _compact_counts(use_fused_nb, K):
     return K
 
 
-def _lgamma_k_sum(use_fused_nb, *counts):
+def _lgamma_k_sum(*counts):
     """Dataset constant ``sum(lgamma(K+1))``, in float64 on the host."""
-    if not use_fused_nb:
-        return None
     from scipy.special import gammaln
 
     total = 0.0
@@ -182,12 +188,32 @@ def _lgamma_k_sum(use_fused_nb, *counts):
     return np.float32(total)
 
 
+def _fused_counts(*counts):
+    """The fused path's passes, each a span: ([each count matrix transposed
+    to (Ng, Nc), int16 where `_compact_counts` takes it],
+    ``sum(lgamma(K+1))``)."""
+    with span("preprocess.compact"):
+        compact = [_compact_counts(K.T) for K in counts]
+    with span("preprocess.lgamma"):
+        return compact, _lgamma_k_sum(*counts)
+
+
 def _to_device(value, device):
     if value is None:
         return None
     return torch.as_tensor(np.require(value, requirements="CW"), device=device)
 
 
+def _front_door(fn):
+    """``fn`` in the span ``preprocess``."""
+    @functools.wraps(fn)
+    def in_span(*args, **kwargs):
+        with span("preprocess"):
+            return fn(*args, **kwargs)
+    return in_span
+
+
+@_front_door
 def preprocess_for_phase_estimation(
     adata,
     cycle_obj: Cycle,
@@ -230,12 +256,14 @@ def preprocess_for_phase_estimation(
     )
 
     dev = resolve_device(device)
-    S, U = _extract_counts(adata, normalize)
-    s_umi = _dense(adata.layers["spliced"]).sum(1).astype(np.float32)
-    count_factor = np.log(s_umi / s_umi.mean())
+    with span("preprocess.dense"):
+        S, U = _extract_counts(adata, normalize)
+        s_umi = _dense(adata.layers["spliced"]).sum(1).astype(np.float32)
+        count_factor = np.log(s_umi / s_umi.mean())
 
-    adata.layers["logS"] = np.log(S + 1 + 1e-16)
-    adata.layers["logU"] = np.log(U + 1 + 1e-16)
+    with span("preprocess.logs"):
+        adata.layers["logS"] = np.log(S + 1 + 1e-16)
+        adata.layers["logU"] = np.log(U + 1 + 1e-16)
 
     if design_mtx is None:
         design_mtx = np.ones((adata.shape[0], 1), dtype=np.int64)
@@ -257,8 +285,11 @@ def preprocess_for_phase_estimation(
     basis_cfg = _basis_config(basis_kind, cycle_obj, phase_obj, n_harmonics,
                               spline_degree, spline_domain)
     phi_prior = basis_cfg.pop("phi_prior", None)
+    S_k, lgamma_k_sum = S.T, None
+    if use_fused_nb:
+        (S_k,), lgamma_k_sum = _fused_counts(S)
     arrays = dict(
-        S=_compact_counts(use_fused_nb, S.T),
+        S=S_k,
         logS=np.asarray(adata.layers["logS"], np.float32).T,
         count_factor=count_factor,
         mu_nu=cycle_obj.means_array,
@@ -272,11 +303,13 @@ def preprocess_for_phase_estimation(
         sigma_gc=np.float32(0.5),
         beta0=np.float32(beta0),
         beta1=np.float32(beta1),
-        lgamma_k_sum=_lgamma_k_sum(use_fused_nb, S),
+        lgamma_k_sum=lgamma_k_sum,
         phi_prior=phi_prior,
     )
+    with span("preprocess.upload"):
+        arrays = {k: _to_device(v, dev) for k, v in arrays.items()}
     data = PhaseData(
-        **{k: _to_device(v, dev) for k, v in arrays.items()},
+        **arrays,
         Ng=Ng,
         Nc=Nc,
         Nb=Nb,
@@ -299,6 +332,7 @@ def preprocess_for_phase_estimation(
     )
 
 
+@_front_door
 def preprocess_for_velocity_estimation(
     adata,
     cycle_obj: Cycle,
@@ -378,9 +412,11 @@ def preprocess_for_velocity_estimation(
     cycle_obj, adata = filter_shared_genes(
         cycle_obj, adata, filter_type=behavior
     )
-    S, U = _extract_counts(adata, normalize)
-    adata.layers["logS"] = np.log(S + 1 + 1e-16)
-    adata.layers["logU"] = np.log(U + 1 + 1e-16)
+    with span("preprocess.dense"):
+        S, U = _extract_counts(adata, normalize)
+    with span("preprocess.logs"):
+        adata.layers["logS"] = np.log(S + 1 + 1e-16)
+        adata.layers["logU"] = np.log(U + 1 + 1e-16)
 
     Nc = len(phase_obj)
     if condition_design_mtx is None:
@@ -396,9 +432,12 @@ def preprocess_for_velocity_estimation(
     sd_dnu_arr = np.broadcast_to(
         np.asarray(sd_dnu, np.float32), (Nb,)
     ).reshape(Nb, 1)
+    S_k, U_k, lgamma_k_sum = S.T, U.T, None
+    if use_fused_nb:
+        (S_k, U_k), lgamma_k_sum = _fused_counts(S, U)
     arrays = dict(
-        S=_compact_counts(use_fused_nb, S.T),
-        U=_compact_counts(use_fused_nb, U.T),
+        S=S_k,
+        U=U_k,
         logS=np.asarray(adata.layers["logS"], np.float32).T,
         logU=np.asarray(adata.layers["logU"], np.float32).T,
         count_factor=np.broadcast_to(
@@ -424,11 +463,13 @@ def preprocess_for_velocity_estimation(
         rho_mean=np.float32(rho_mean),
         rho_std=np.float32(rho_std),
         rho_scale=np.float32(rho_scale),
-        lgamma_k_sum=_lgamma_k_sum(use_fused_nb, S, U),
+        lgamma_k_sum=lgamma_k_sum,
         phi_prior=phi_prior,
     )
+    with span("preprocess.upload"):
+        arrays = {k: _to_device(v, dev) for k, v in arrays.items()}
     data = VelocityData(
-        **{k: _to_device(v, dev) for k, v in arrays.items()},
+        **arrays,
         Ng=Ng,
         Nc=Nc,
         Nb=Nb,

@@ -4,8 +4,16 @@
     CPU and (with a card) CUDA activities, written into ``logdir`` as a
     Chrome trace (``*.pt.trace.json``; open it in Perfetto, chrome://tracing
     or TensorBoard).
-  * `annotate(name)`: a `torch.profiler.record_function` region, so named
-    regions show up in the trace.
+  * `span(name)`, also named `annotate(name)`: a named region; the
+    program's spans are `SVI.update`'s ``svi.step`` and its ``svi.elbo``,
+    ``svi.backward``, ``svi.optim``, and the front doors' ``preprocess``
+    and its ``preprocess.<pass>``.  Off, it is one shared no-op; under an
+    active profiler it is a `record_function` range on the trace's clock
+    beside the card's operations; under `recording` its calls and
+    host-clock seconds are added to the recording.  One step's spans are
+    tied together by nesting inside that step's ``svi.step``.
+  * `recording()`: yields ``{span name: [calls, host seconds]}``, filled
+    by every span closed while it is open.
   * `StepTimer`: wall-clock step timing that keeps the first step apart:
     on the card that step pays the kernel build and the CUDA context.
   * `device_memory_stats()`: `torch.cuda.memory_stats` of each card.
@@ -13,6 +21,7 @@
 from __future__ import annotations
 
 import contextlib
+import contextvars
 import time
 
 import numpy as np
@@ -20,7 +29,13 @@ import torch
 
 from .device import resolve_device
 
-__all__ = ["trace", "annotate", "StepTimer", "device_memory_stats"]
+__all__ = ["trace", "annotate", "span", "recording", "StepTimer",
+           "device_memory_stats"]
+
+# True inside a `torch.profiler.profile` session
+_profiler_enabled = torch._C._autograd._profiler_enabled
+_recording = contextvars.ContextVar("velocycle_span_recording", default=None)
+_OFF = contextlib.nullcontext()
 
 
 @contextlib.contextmanager
@@ -37,9 +52,41 @@ def trace(logdir):
         yield prof
 
 
-def annotate(name):
-    """Named region for profiler timelines."""
-    return torch.profiler.record_function(name)
+def span(name):
+    """The span ``name``: a shared no-op context unless a profiler is
+    active or a `recording` is open (module docstring)."""
+    rec = _recording.get()
+    if rec is None and not _profiler_enabled():
+        return _OFF
+    return _span(name, rec)
+
+
+@contextlib.contextmanager
+def _span(name, rec):
+    t0 = time.perf_counter()
+    with (torch.profiler.record_function(name) if _profiler_enabled()
+          else _OFF):
+        yield
+    if rec is not None:
+        entry = rec.setdefault(name, [0, 0.0])
+        entry[0] += 1
+        entry[1] += time.perf_counter() - t0
+
+
+annotate = span
+
+
+@contextlib.contextmanager
+def recording():
+    """Record the program's spans while open: yields ``{name: [calls,
+    host-clock seconds]}``.  Where recordings nest, a span is added to the
+    innermost one open when it started."""
+    rec = {}
+    token = _recording.set(rec)
+    try:
+        yield rec
+    finally:
+        _recording.reset(token)
 
 
 class StepTimer:
